@@ -12,18 +12,30 @@ exits non-zero on failure:
 2. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the main path's shapes, with its stated tolerance; then its time
    beside its plain version's, a PyTorch library call's (a yardstick the
-   port never calls) and its bound at the H100's 3.35 TB/s and 67 TFLOP/s
-   float32 (NVIDIA data sheet, SXM).
+   port never calls) and its bound at the H100's 3.35 TB/s and its peak
+   rate for the work's type (NVIDIA data sheet, SXM): 67 TFLOP/s float32
+   on the CUDA cores for decode attention and the mel; 989 TFLOP/s bf16 and
+   1979 TOP/s int8 on the tensor cores for the int8 products (W8A16 and
+   W8A8), which the tensor cores can run. The int8 kernels are checked at
+   nano's decode shapes (B 1 and 4: qkv, o, gate_up, down), prefill rows
+   (B 419: qkv, down) and encoder rows (B 1536: fc1, fc2), x in float32
+   and bf16; then the bench tool's per-step projection sweep at B 1 and 8.
 3. main path: build_runtime("nano-random") in bf16 at full width, then the
    file-transcription path of POST /transcribe/file (decode_audio +
    transcribe_file_stream) on three 16 kHz WAVs made from a seed: ~3 s,
    ~12 s and ~35 s with silences (VAD splits it, one span is cut long).
    The launch counters are set to 0 before each request and read after:
    the mel kernel must have run once per segment and decode attention once
-   per layer per decode step.
+   per layer per decode step. Then, in each int8 mode (int8, int8-decoder,
+   int8-decoder-a8), a runtime of its own serves the ~12 s request: the
+   stacked W8A16 kernel (W8A8 in -a8) runs 4 times per layer per decode
+   step, the flat W8A16 kernel 4 times per layer per segment in prefill
+   (plus 6 per encoder layer in full int8). Each runtime's peak memory is
+   read over its request, and a short profiled request splits its time
+   between host and card, as for the native runtime.
 4. reference: tiny() in float32 gives the same tokens on the card as on
-   the CPU (where the tests hold it against the JAX package), and nano's
-   prefill logits are finite.
+   the CPU (where the tests hold it against the JAX package), natively and
+   in each int8 mode, and nano's prefill logits are finite.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no result.
@@ -32,6 +44,7 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import asyncio
+import gc
 import json
 import subprocess
 import sys
@@ -42,8 +55,14 @@ import numpy as np
 SR = 16000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # H100 SXM, bf16 tensor cores, dense
+INT8_OPS_PER_S = 1979e12  # H100 SXM, int8 tensor cores, dense
 ATTN_TOL = 2e-5  # same inputs, float32 sums in another order
 MEL_TOL = 1e-3  # normalized log-mel; float32 DFT sums in another order
+# W8A16: float32 sums in another order, at most this share of max|want|;
+# in bf16 one more bf16 ulp of want for the final rounding. W8A8: equal.
+INT8_F32_TOL = 1e-5
+INT8_MODES = ("int8", "int8-decoder", "int8-decoder-a8")
 SEED = 0
 
 
@@ -107,8 +126,8 @@ class Timer:
         return float(np.median([s.elapsed_time(e) for s, e in pairs]))
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+def bound_ms(n_bytes: float, flops: float, peak: float = F32_FLOPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -233,16 +252,190 @@ def kernel_phase(torch, timer):
     return attn_err, attn_rows[0], mel_err, mel_rows[0]
 
 
+def int8_kernel_phase(torch, timer):
+    """The three int8 entries against their plain versions at nano's
+    shapes, then their times; -> ({entry: max abs err}, {entry: row})."""
+    from sonicscribe_tpu_torch.engine.transcriber import MAX_SUFFIX_TOKENS
+    from sonicscribe_tpu_torch.models.config import nano
+    from sonicscribe_tpu_torch.models.tokenizer import ByteTokenizer, build_prompt
+    from sonicscribe_tpu_torch.ops import int8_matmul as im
+    from sonicscribe_tpu_torch.ops.quant import dequantize_tensor, quantize_tensor
+
+    cfg = nano()
+    dec, enc = cfg.decoder, cfg.encoder
+    shapes = {  # (K, N)
+        "qkv": (dec.d_model, (dec.n_heads + 2 * dec.n_kv_heads) * dec.head_dim),
+        "o": (dec.n_heads * dec.head_dim, dec.d_model),
+        "gate_up": (dec.d_model, 2 * dec.ffn_hidden),
+        "down": (dec.ffn_hidden, dec.d_model),
+        "enc_fc1": (enc.d_model, enc.ffn_mult * enc.d_model),
+        "enc_fc2": (enc.ffn_mult * enc.d_model, enc.d_model),
+    }
+    # prompt rows of the ~12 s request (bucket 2048) and encoder rows at bucket 3072
+    prefix = len(build_prompt(ByteTokenizer(cfg), cfg).prefix_ids)
+    prefill_rows = prefix + 2048 // cfg.frames_per_audio_token + MAX_SUFFIX_TOKENS
+    encoder_rows = 3072 // 2
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 5)
+    # two-layer stacks: layer 1 is read by offset from the whole stack
+    stacks = {p: quantize_tensor(torch.randn((2, K, N), generator=gen, device="cuda") * 0.02)
+              for p, (K, N) in shapes.items()}
+
+    def x_of(B, K, dtype):
+        return torch.randn((B, K), generator=gen, device="cuda").to(dtype)
+
+    errs = {"int8_matmul": 0.0, "int8_matmul_stacked": 0.0, "int8_matmul_w8a8": 0.0}
+
+    def check_w8a16(name, got, want, case):
+        want32 = want.float()
+        err = (got.float() - want32).abs()
+        tol = INT8_F32_TOL * want32.abs().max()
+        if want.dtype == torch.bfloat16:  # one bf16 ulp of want for the rounding
+            tol = tol + torch.exp2(torch.floor(torch.log2(want32.abs().clamp(min=2.0**-126))) - 7)
+        check(got.dtype == want.dtype and bool(torch.isfinite(got).all())
+              and bool((err <= tol).all()), f"{name} {case}: max err {err.max().item()} "
+              f"beyond its tolerance")
+        errs[name] = max(errs[name], err.max().item())
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for B in (1, 4):
+            for p in ("qkv", "o", "gate_up", "down"):
+                K, _ = shapes[p]
+                q, sc = stacks[p]["q"], stacks[p]["scale"]
+                x = x_of(B, K, dtype)
+                case = f"{p} B={B} {dtype}"
+                check_w8a16("int8_matmul", im.int8_matmul_cuda(x, q[1], sc[1]),
+                            im.int8_matmul_plain(x, q[1], sc[1]), case)
+                check_w8a16("int8_matmul_stacked", im.int8_matmul_stacked_cuda(x, q, sc, 1),
+                            im.int8_matmul_stacked_plain(x, q, sc, 1), case)
+                got = im.int8_matmul_w8a8_cuda(x, q, sc, 1)
+                want = im.int8_matmul_w8a8_plain(x, q, sc, 1)
+                check(torch.equal(got, want), f"int8_matmul_w8a8 {case}: max err "
+                      f"{(got.float() - want.float()).abs().max().item()}, want equal")
+        for B, p in ((prefill_rows, "qkv"), (prefill_rows, "down"),
+                     (encoder_rows, "enc_fc1"), (encoder_rows, "enc_fc2")):
+            q, sc = stacks[p]["q"][1], stacks[p]["scale"][1]
+            x = x_of(B, shapes[p][0], dtype)
+            check_w8a16("int8_matmul", im.int8_matmul_cuda(x, q, sc),
+                        im.int8_matmul_plain(x, q, sc), f"{p} B={B} {dtype}")
+    torch.cuda.synchronize()
+    log(f"int8 kernels vs plain: max abs err W8A16 flat {errs['int8_matmul']:.3g}, stacked "
+        f"{errs['int8_matmul_stacked']:.3g} (tolerance {INT8_F32_TOL} x max|want|, + one "
+        f"bf16 ulp in bf16); W8A8 equal (decode B 1,4 at qkv/o/gate_up/down; flat also "
+        f"B={prefill_rows} qkv/down, B={encoder_rows} enc fc1/fc2; f32 and bf16)")
+
+    # ---- times at the main path's shapes, bf16 ----
+    def time_row(label, name, fn, plain, lib, B, K, N, peak, lib_label):
+        ms, plain_ms = timer.ms(fn), timer.ms(plain)
+        lib_ms = timer.ms(lib) if lib is not None else None
+        b_ms, b_by = bound_ms(K * N + 4 * N + 2 * B * (K + N), 2 * B * K * N, peak)
+        lib_txt = f"{lib_label} {lib_ms:.4f} ms" if lib_ms is not None else f"{lib_label} n/a"
+        log(f"{name} {label} B={B} K={K} N={N} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, {lib_txt}, bound {b_ms:.5f} ms ({b_by})")
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+    rows = {}
+    for p in ("qkv", "o", "gate_up", "down"):
+        K, N = shapes[p]
+        q, sc = stacks[p]["q"], stacks[p]["scale"]
+        x = x_of(1, K, torch.bfloat16)
+        w = dequantize_tensor({"q": q[1], "scale": sc[1]}, torch.bfloat16)
+        r = time_row(p, "int8_matmul_stacked", lambda: im.int8_matmul_stacked_cuda(x, q, sc, 1),
+                     lambda: im.int8_matmul_stacked_plain(x, q, sc, 1), lambda: torch.mm(x, w),
+                     1, K, N, BF16_FLOPS_PER_S, "bf16 dense mm (2x the bytes)")
+        if p == "gate_up":
+            rows["int8_matmul_stacked"] = r
+        # torch._int_mm takes only B > 16: no yardstick at decode rows
+        r = time_row(p, "int8_matmul_w8a8", lambda: im.int8_matmul_w8a8_cuda(x, q, sc, 1),
+                     lambda: im.int8_matmul_w8a8_plain(x, q, sc, 1), None,
+                     1, K, N, INT8_OPS_PER_S, "torch._int_mm")
+        quant_ms = timer.ms(lambda: im.quantize_activations(x))
+        log(f"  of which the plain per-row activation quantisation: {quant_ms:.4f} ms")
+        if p == "gate_up":
+            rows["int8_matmul_w8a8"] = r
+    for B, p in ((prefill_rows, "qkv"), (prefill_rows, "down"),
+                 (encoder_rows, "enc_fc1"), (encoder_rows, "enc_fc2")):
+        K, N = shapes[p]
+        q, sc = stacks[p]["q"][1], stacks[p]["scale"][1]
+        x = x_of(B, K, torch.bfloat16)
+        w = dequantize_tensor({"q": q, "scale": sc}, torch.bfloat16)
+        r = time_row(p, "int8_matmul", lambda: im.int8_matmul_cuda(x, q, sc),
+                     lambda: im.int8_matmul_plain(x, q, sc), lambda: torch.mm(x, w),
+                     B, K, N, BF16_FLOPS_PER_S, "bf16 dense mm (2x the weight bytes)")
+        if (B, p) == (prefill_rows, "qkv"):
+            rows["int8_matmul"] = r
+    return errs, rows
+
+
+def bench_phase():
+    """The bench tool's per-step sweep of nano's decoder projections."""
+    from sonicscribe_tpu_torch.tools import bench_int8_matmul
+
+    for rec in bench_int8_matmul.run(batches=(1, 8), reps=10):
+        log("bench_int8_matmul " + json.dumps(rec))
+
+
 async def _collect(gen) -> list:
     return [m async for m in gen]
 
 
-def main_path_phase(torch):
+def payloads() -> dict:
+    return {
+        "3s": speech(3.0, 1),
+        "12s": speech(12.0, 2),
+        "35s": np.concatenate([silence(0.5, 3), speech(24.0, 4), silence(2.0, 5),
+                               speech(7.0, 6), silence(1.5, 7)]),
+    }
+
+
+def serve_request(torch, engine, vad, config, name: str, audio: np.ndarray) -> dict:
+    """One request through the file path (decode_audio +
+    transcribe_file_stream), the launch counters set to 0 just before it
+    and read just after. Checks the NDJSON stream, the mel launches (one per
+    segment) and the decode-attention launches (one per layer per step)."""
     from sonicscribe_tpu_torch.audio.wav import write_wav
-    from sonicscribe_tpu_torch.config import AppConfig
     from sonicscribe_tpu_torch.ops import _build
     from sonicscribe_tpu_torch.serve.decode import decode_audio
     from sonicscribe_tpu_torch.serve.files import FileTranscriptionConfig, transcribe_file_stream
+
+    n_layers = engine.transcriber.cfg.decoder.n_layers
+    wav = write_wav(audio, SR)
+    file_cfg = FileTranscriptionConfig.from_dict({}, default_threshold=config.vad_speech_threshold)
+    file_cfg.max_new_tokens = config.file_max_new_tokens
+    file_cfg.concurrency = engine.concurrency_hint
+    steps0 = engine.stats["decode_steps"]
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    decoded = decode_audio(wav, f"{name}.wav", engine.transcriber.device)
+    msgs = asyncio.run(_collect(
+        transcribe_file_stream(decoded, engine, vad, file_cfg, f"{name}.wav")
+    ))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.launch_counts)
+    steps = engine.stats["decode_steps"] - steps0
+
+    n_seg = msgs[0].get("total_segments", 0)
+    types = [m["type"] for m in msgs]
+    want = ["initialization", "segments_summary"] + ["segment_result"] * n_seg + ["final_summary"]
+    errors = [m for m in msgs if m["type"] == "segment_error"]
+    check(not errors, f"{name}: segment errors {errors}")
+    check(n_seg >= 1 and types == want, f"{name}: NDJSON types {types}")
+    check(counts["log_mel"] == n_seg,
+          f"{name}: log_mel launched {counts['log_mel']} times for {n_seg} segments")
+    check(steps > 0 and counts["decode_attention"] == n_layers * steps,
+          f"{name}: decode_attention launched {counts['decode_attention']} times "
+          f"for {steps} decode steps x {n_layers} layers")
+    tokens = steps + n_seg  # each segment: one token from prefill + one per step
+    duration = len(decoded) / SR
+    log(f"request {name}: {n_seg} segments, wall {wall:.3f} s, RTF "
+        f"{wall / duration:.4f}, {tokens} tokens, {tokens / wall:.1f} tokens/s, "
+        f"launches {counts}, text[:40]={msgs[-1]['full_text'][:40]!r}")
+    return dict(msgs=msgs, n_seg=n_seg, steps=steps, counts=counts)
+
+
+def main_path_phase(torch):
+    from sonicscribe_tpu_torch.config import AppConfig
     from sonicscribe_tpu_torch.serve.runtime import build_runtime
 
     config = AppConfig()
@@ -250,59 +443,19 @@ def main_path_phase(torch):
     engine, vad, info = build_runtime("nano-random", "energy", config, seed=SEED)
     torch.cuda.synchronize()
     log(f"nano-random on {info['device_name']}: {info['params']} params, "
-        f"init {time.perf_counter() - t0:.1f} s")
-    n_layers = engine.transcriber.cfg.decoder.n_layers
+        f"init {time.perf_counter() - t0:.1f} s, resident "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
-    payloads = {
-        "3s": speech(3.0, 1),
-        "12s": speech(12.0, 2),
-        "35s": np.concatenate([silence(0.5, 3), speech(24.0, 4), silence(2.0, 5),
-                               speech(7.0, 6), silence(1.5, 7)]),
-    }
     launches = {"decode_attention": 0, "log_mel": 0}
     torch.cuda.reset_peak_memory_stats()
     try:
-        for name, audio in payloads.items():
-            wav = write_wav(audio, SR)
-            file_cfg = FileTranscriptionConfig.from_dict(
-                {}, default_threshold=config.vad_speech_threshold
-            )
-            file_cfg.max_new_tokens = config.file_max_new_tokens
-            file_cfg.concurrency = engine.concurrency_hint
-            steps0 = engine.stats["decode_steps"]
-            _build.reset_launch_counts()
-            t0 = time.perf_counter()
-            decoded = decode_audio(wav, f"{name}.wav", engine.transcriber.device)
-            msgs = asyncio.run(_collect(
-                transcribe_file_stream(decoded, engine, vad, file_cfg, f"{name}.wav")
-            ))
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts = dict(_build.launch_counts)
-            steps = engine.stats["decode_steps"] - steps0
-
-            n_seg = msgs[0].get("total_segments", 0)
-            types = [m["type"] for m in msgs]
-            want = (["initialization", "segments_summary"] + ["segment_result"] * n_seg
-                    + ["final_summary"])
-            errors = [m for m in msgs if m["type"] == "segment_error"]
-            check(not errors, f"{name}: segment errors {errors}")
-            check(n_seg >= 1 and types == want, f"{name}: NDJSON types {types}")
-            check(counts["log_mel"] == n_seg,
-                  f"{name}: log_mel launched {counts['log_mel']} times for {n_seg} segments")
-            check(steps > 0 and counts["decode_attention"] == n_layers * steps,
-                  f"{name}: decode_attention launched {counts['decode_attention']} times "
-                  f"for {steps} decode steps x {n_layers} layers")
+        for name, audio in payloads().items():
+            r = serve_request(torch, engine, vad, config, name, audio)
             if name == "35s":
-                check(n_seg >= 3 and any(m["is_long_segment"] for m in msgs[1]["segments"]),
-                      f"35s: expected a VAD split and a long-segment cut, got {msgs[1]}")
+                check(r["n_seg"] >= 3 and any(m["is_long_segment"] for m in r["msgs"][1]["segments"]),
+                      f"35s: expected a VAD split and a long-segment cut, got {r['msgs'][1]}")
             for kname in launches:
-                launches[kname] += counts[kname]
-            tokens = steps + n_seg  # each segment: one token from prefill + one per step
-            duration = len(decoded) / SR
-            log(f"request {name}: {n_seg} segments, wall {wall:.3f} s, RTF "
-                f"{wall / duration:.4f}, {tokens} tokens, {tokens / wall:.1f} tokens/s, "
-                f"launches {counts}, text[:40]={msgs[-1]['full_text'][:40]!r}")
+                launches[kname] += r["counts"][kname]
         log(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         return engine, launches
     except BaseException:
@@ -310,10 +463,44 @@ def main_path_phase(torch):
         raise
 
 
-def profile_phase(torch, engine):
+def int8_main_path_phase(torch, mode: str) -> dict:
+    """build_runtime in one int8 mode, then the ~12 s request; checks the
+    int8 kernels' launch counts. -> the request's launch counts."""
+    from sonicscribe_tpu_torch.config import AppConfig
+    from sonicscribe_tpu_torch.serve.runtime import build_runtime
+
+    config = AppConfig()
+    config.quant_mode = mode
+    t0 = time.perf_counter()
+    engine, vad, info = build_runtime("nano-random", "energy", config, seed=SEED)
+    torch.cuda.synchronize()
+    log(f"nano-random {mode}: {info['params']} params, init {time.perf_counter() - t0:.1f} s, "
+        f"resident {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        cfg = engine.transcriber.cfg
+        r = serve_request(torch, engine, vad, config, f"12s {mode}", payloads()["12s"])
+        counts, steps, n_seg = r["counts"], r["steps"], r["n_seg"]
+        n_dec, n_enc = cfg.decoder.n_layers, cfg.encoder.n_layers
+        decode_entry = "int8_matmul_w8a8" if mode == "int8-decoder-a8" else "int8_matmul_stacked"
+        other = "int8_matmul_stacked" if mode == "int8-decoder-a8" else "int8_matmul_w8a8"
+        check(counts[decode_entry] == 4 * n_dec * steps and counts[other] == 0,
+              f"{mode}: {decode_entry} launched {counts[decode_entry]} times for {steps} "
+              f"decode steps x {n_dec} layers x 4 ({other}: {counts[other]})")
+        flat = n_seg * (4 * n_dec + (6 * n_enc if mode == "int8" else 0))
+        check(counts["int8_matmul"] == flat,
+              f"{mode}: int8_matmul launched {counts['int8_matmul']} times, want {flat}")
+        log(f"  {mode}: max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        profile_phase(torch, engine, mode)
+        return counts
+    finally:
+        engine.shutdown()
+
+
+def profile_phase(torch, engine, mode: str = "native"):
     """Where a request's time goes: host wall vs device busy time for one
     3 s request with a 32-token budget, and the top kernels by device time
-    (torch.profiler; informational, after the counted main path)."""
+    (torch.profiler; informational, after the counted request)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -336,44 +523,64 @@ def profile_phase(torch, engine):
 
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     check(busy_ms > 0, "the profiler saw no device time")
-    log(f"profile: 3 s request, 32-token budget: wall {wall * 1e3:.1f} ms (unprofiled), "
+    log(f"profile {mode}: 3 s request, 32-token budget: wall {wall * 1e3:.1f} ms (unprofiled), "
         f"mel {r.timings['mel_s'] * 1e3:.1f} ms host, device busy {busy_ms:.1f} ms "
         f"(idle share {max(0.0, 1 - busy_ms / (wall * 1e3)):.3f})")
     for e in sorted(events, key=dev_us, reverse=True)[:8]:
         log(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
 
 
-def reference_phase(torch, engine):
-    """tiny() f32: card vs CPU tokens; nano prefill logits finite."""
-    from sonicscribe_tpu_torch.audio.mel import log_mel_spectrogram
-    from sonicscribe_tpu_torch.engine.transcriber import (
-        MAX_SUFFIX_TOKENS,
-        Transcriber,
-        assemble_prompt,
-    )
+def tiny_tokens_phase(torch, mode: str = "native"):
+    """tiny() f32 in `mode` gives the same tokens on the card (kernels) as
+    on the CPU (plain versions), from the same tree quantized on the CPU."""
+    from dataclasses import replace
+
+    from sonicscribe_tpu_torch.engine.transcriber import Transcriber
     from sonicscribe_tpu_torch.models.config import tiny
-    from sonicscribe_tpu_torch.models.glm_asr import prefill_kv
-    from sonicscribe_tpu_torch.models.tokenizer import ByteTokenizer, build_prompt
+    from sonicscribe_tpu_torch.models.tokenizer import ByteTokenizer
     from sonicscribe_tpu_torch.models.weights import init_random
+    from sonicscribe_tpu_torch.ops import _build
+    from sonicscribe_tpu_torch.ops.quant import quantize_params_int8
 
     cfg = tiny()
 
-    def scaled(tree, device):  # x4 so the random model's tokens vary
+    def mapped(tree, fn):
         if isinstance(tree, dict):
-            return {k: scaled(v, device) for k, v in tree.items()}
-        return (tree * 4.0).to(device)
+            return {k: mapped(v, fn) for k, v in tree.items()}
+        return fn(tree)
 
-    base = init_random(cfg, seed=SEED + 1, dtype=torch.float32, device="cpu")
-    trs = {d: Transcriber(cfg, scaled(base, d), ByteTokenizer(cfg), prefill_buckets=(128, 256))
+    # x4 so the random model's tokens vary
+    params = mapped(init_random(cfg, seed=SEED + 1, dtype=torch.float32, device="cpu"),
+                    lambda t: t * 4.0)
+    if mode != "native":
+        params = quantize_params_int8(params, decoder_only=mode != "int8")
+        if mode == "int8-decoder-a8":
+            cfg = replace(cfg, decoder=replace(cfg.decoder, act_int8_decode=True))
+    trs = {d: Transcriber(cfg, mapped(params, lambda t, d=d: t.to(d)), ByteTokenizer(cfg),
+                          prefill_buckets=(128, 256))
            for d in ("cpu", "cuda")}
+    _build.reset_launch_counts()
     for sec, sr in ((1.3, 16000), (2.2, 16000)):
         audio = speech(sec, seed=20)
         a = trs["cpu"].transcribe(audio, sr, max_new_tokens=24)
         b = trs["cuda"].transcribe(audio, sr, max_new_tokens=24)
         check(len(a.tokens) > 0 and np.array_equal(a.tokens, b.tokens),
-              f"tiny f32 tokens differ: cpu {a.tokens} cuda {b.tokens}")
-        log(f"reference: tiny f32 {sec} s, {len(a.tokens)} tokens equal on cuda and cpu")
+              f"tiny f32 {mode} tokens differ: cpu {a.tokens} cuda {b.tokens}")
+        log(f"reference: tiny f32 {mode} {sec} s, {len(a.tokens)} tokens equal on cuda and cpu")
+    if mode != "native":
+        decode_entry = "int8_matmul_w8a8" if mode == "int8-decoder-a8" else "int8_matmul_stacked"
+        check(_build.launch_counts[decode_entry] > 0 and _build.launch_counts["int8_matmul"] > 0,
+              f"tiny {mode}: the int8 kernels did not run on the card: {_build.launch_counts}")
 
+
+def reference_phase(torch, engine):
+    """tiny() f32: card vs CPU tokens; nano prefill logits finite."""
+    from sonicscribe_tpu_torch.audio.mel import log_mel_spectrogram
+    from sonicscribe_tpu_torch.engine.transcriber import MAX_SUFFIX_TOKENS, assemble_prompt
+    from sonicscribe_tpu_torch.models.glm_asr import prefill_kv
+    from sonicscribe_tpu_torch.models.tokenizer import build_prompt
+
+    tiny_tokens_phase(torch)
     tr = engine.transcriber
     x = torch.from_numpy(speech(3.0, 30)).cuda()
     mel = log_mel_spectrogram(x, tr.mel_cfg, pad_to_frames=512)[None].to(tr.dtype)
@@ -390,6 +597,15 @@ def reference_phase(torch, engine):
           f"nano logits {tuple(logits.shape)} {logits.dtype}")
     check(bool(torch.isfinite(logits).all()), "nano prefill logits are not finite")
     log("reference: nano prefill logits finite, shape", tuple(logits.shape))
+
+
+def release_memory(torch) -> None:
+    """Free what earlier phases left on the card, cuBLAS's per-stream
+    workspaces included, so that the resident and peak memory read next
+    are the next runtime's alone."""
+    torch._C._cuda_clearCublasWorkspaces()
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -418,7 +634,10 @@ def main() -> None:
 
     timer = Timer(torch)
     attn_err, attn_row, mel_err, mel_row = kernel_phase(torch, timer)
+    int8_errs, int8_rows = int8_kernel_phase(torch, timer)
     del timer
+    bench_phase()
+    release_memory(torch)
 
     engine, launches = main_path_phase(torch)
     try:
@@ -426,6 +645,14 @@ def main() -> None:
         reference_phase(torch, engine)
     finally:
         engine.shutdown()
+    del engine
+    for mode in INT8_MODES:
+        release_memory(torch)
+        counts = int8_main_path_phase(torch, mode)
+        for name in int8_errs:
+            launches[name] = launches.get(name, 0) + counts[name]
+    for mode in INT8_MODES:
+        tiny_tokens_phase(torch, mode)
 
     kernels = [
         dict(name="decode_attention", route="cuda",
@@ -436,6 +663,22 @@ def main() -> None:
              source="sonicscribe_tpu_torch/csrc/log_mel.cu",
              replaces="sonicscribe_tpu/ops/mel_pallas.py:53",
              launches=launches["log_mel"], max_abs_err=mel_err, **mel_row),
+        dict(name="int8_matmul", route="cuda",
+             source="sonicscribe_tpu_torch/csrc/int8_matmul.cu",
+             replaces="sonicscribe_tpu/ops/int8_pallas.py:39",
+             launches=launches["int8_matmul"], max_abs_err=int8_errs["int8_matmul"],
+             **int8_rows["int8_matmul"]),
+        dict(name="int8_matmul_stacked", route="cuda",
+             source="sonicscribe_tpu_torch/csrc/int8_matmul.cu",
+             replaces="sonicscribe_tpu/ops/int8_pallas.py:114",
+             launches=launches["int8_matmul_stacked"],
+             max_abs_err=int8_errs["int8_matmul_stacked"], **int8_rows["int8_matmul_stacked"]),
+        # no Pallas kernel: the JAX package leaves matmul_w8a8 to XLA
+        dict(name="int8_matmul_w8a8", route="cuda",
+             source="sonicscribe_tpu_torch/csrc/int8_matmul.cu",
+             replaces="sonicscribe_tpu/ops/quant.py:72",
+             launches=launches["int8_matmul_w8a8"], max_abs_err=int8_errs["int8_matmul_w8a8"],
+             **int8_rows["int8_matmul_w8a8"]),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on the main path")

@@ -2,8 +2,8 @@
 
 A copy of the JAX package's ``AppConfig`` (the reference's env-backed
 config, backend/config.py:9-44: same timing constants, same env variables),
-cut to the fields this package reads. The continuous batcher's, streaming
-path's and quantization knobs come back with the slices that use them.
+cut to the fields this package reads. The continuous batcher's and
+streaming path's knobs come back with the slices that use them.
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ class AppConfig:
     file_max_new_tokens: int = 256
 
     # ---- engine (no reference counterpart) ----
-    # only "native" is ported; build_runtime refuses the int8 modes
+    # "native" | "int8" | "int8-decoder" | "int8-decoder-a8" (serve/runtime.py)
     quant_mode: str = field(default_factory=lambda: _env("QUANT_MODE", "native"))
     # mel-frame bucket sizes: one prompt shape per bucket
     prefill_buckets: List[int] = field(

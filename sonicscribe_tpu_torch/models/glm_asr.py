@@ -17,6 +17,12 @@ Decode attention goes through ``ops.decode_attention`` (the CUDA kernel on
 the card). Encoder and prefill attention are written as the JAX package
 writes them: einsum, float32 softmax, additive NEG_INF masks.
 
+Every quantizable projection goes through ``ops.quant``: a plain weight is
+``x @ w``; an int8 QTensor takes the flat W8A16 kernel in the encoder and
+in prefill, and the stacked one (or W8A8 when ``act_int8_decode`` is set)
+in the decode step, which hands the kernel the whole stack and a layer
+index.
+
 Unlike JAX, the port updates the KV cache IN PLACE: `prefill` and
 `decode_step` write into the cache tensors they are given.
 """
@@ -32,6 +38,7 @@ import torch.nn.functional as F
 
 from sonicscribe_tpu_torch.models.config import DecoderConfig, GlmAsrConfig
 from sonicscribe_tpu_torch.ops.decode_attention import decode_attention
+from sonicscribe_tpu_torch.ops.quant import is_qtensor, matmul, matmul_w8a8
 
 Params = Dict[str, Any]
 Cache = Dict[str, torch.Tensor]
@@ -107,8 +114,19 @@ def _apply_rope(x, cos, sin, rot):
     return torch.cat([out1.to(x.dtype), out2.to(x.dtype), x[..., rot:]], dim=-1)
 
 
-def _layer(stacked: Params, i: int) -> Params:
-    return {k: v[i] for k, v in stacked.items()}
+def _layer(stacked: Params, i: int, whole_qtensors: bool = False) -> Params:
+    """Layer i of a stacked tree. A QTensor becomes its layer's views
+    (encoder, prefill: the flat kernel), or with `whole_qtensors` stays the
+    whole stack tagged with its layer (decode step: the stacked kernel)."""
+    out = {}
+    for k, v in stacked.items():
+        if not is_qtensor(v):
+            out[k] = v[i]
+        elif whole_qtensors:
+            out[k] = dict(v, layer=i)
+        else:
+            out[k] = {"q": v["q"][i], "scale": v["scale"][i]}
+    return out
 
 
 # =====================================================================
@@ -128,19 +146,19 @@ def _encoder_block(x, mask_bias, lp, n_heads: int):
     hd = D // n_heads
 
     h = _layer_norm(x, lp["ln1_scale"], lp["ln1_bias"])
-    q = (h @ lp["q_w"] + lp["q_b"]).reshape(B, S, n_heads, hd)
-    k = (h @ lp["k_w"]).reshape(B, S, n_heads, hd)
-    v = (h @ lp["v_w"] + lp["v_b"]).reshape(B, S, n_heads, hd)
+    q = (matmul(h, lp["q_w"]) + lp["q_b"]).reshape(B, S, n_heads, hd)
+    k = matmul(h, lp["k_w"]).reshape(B, S, n_heads, hd)
+    v = (matmul(h, lp["v_w"]) + lp["v_b"]).reshape(B, S, n_heads, hd)
 
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     scores = scores * (1.0 / math.sqrt(hd)) + mask_bias
     attn = torch.softmax(scores, dim=-1).to(x.dtype)
     ctx = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, S, D)
-    x = x + ctx @ lp["o_w"] + lp["o_b"]
+    x = x + matmul(ctx, lp["o_w"]) + lp["o_b"]
 
     h = _layer_norm(x, lp["ln2_scale"], lp["ln2_bias"])
-    h = _gelu(h @ lp["fc1_w"] + lp["fc1_b"])
-    return x + h @ lp["fc2_w"] + lp["fc2_b"]
+    h = _gelu(matmul(h, lp["fc1_w"]) + lp["fc1_b"])
+    return x + matmul(h, lp["fc2_w"]) + lp["fc2_b"]
 
 
 def encode_audio(
@@ -205,9 +223,9 @@ def embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
     return embed[tokens.to(embed.device, torch.long)]
 
 
-def _decoder_qkv(lp, h, dec: DecoderConfig):
+def _decoder_qkv(lp, h, dec: DecoderConfig, mm=matmul):
     lead = h.shape[:-1]
-    qkv = h @ lp["qkv_w"]
+    qkv = mm(h, lp["qkv_w"])
     if dec.qkv_bias:
         qkv = qkv + lp["qkv_b"]
     nq = dec.n_heads * dec.head_dim
@@ -218,11 +236,11 @@ def _decoder_qkv(lp, h, dec: DecoderConfig):
     return q, k, v
 
 
-def _decoder_layer_mlp(h, lp, dec: DecoderConfig):
+def _decoder_layer_mlp(h, lp, dec: DecoderConfig, mm=matmul):
     """Post-attention half of every decoder layer."""
     hn = _rms_norm(h, lp["ln2_scale"], dec.rms_eps)
-    gate, up = torch.chunk(hn @ lp["gate_up_w"], 2, dim=-1)
-    return h + (F.silu(gate) * up) @ lp["down_w"]
+    gate, up = torch.chunk(mm(hn, lp["gate_up_w"]), 2, dim=-1)
+    return h + mm(F.silu(gate) * up, lp["down_w"])
 
 
 def _decoder_layer_prefill(x, lp, dec: DecoderConfig, cos, sin, rot, mask_bias):
@@ -239,7 +257,7 @@ def _decoder_layer_prefill(x, lp, dec: DecoderConfig, cos, sin, rot, mask_bias):
     scores = scores * (1.0 / math.sqrt(dec.head_dim)) + mask_bias
     attn = torch.softmax(scores, dim=-1).to(x.dtype)
     ctx = torch.einsum("bkgqs,bskd->bqkgd", attn, v).reshape(B, S, dec.n_heads * dec.head_dim)
-    x = x + ctx @ lp["o_w"]
+    x = x + matmul(ctx, lp["o_w"])
     return _decoder_layer_mlp(x, lp, dec), (k, v)
 
 
@@ -346,12 +364,14 @@ def decode_step(
     write_at = torch.clamp(pos.long(), max=max_len - 1)
     in_range = (pos < max_len)[:, None, None]
 
+    # the JAX package's _decode_mm: W8A8 when the config selects it
+    mm = matmul_w8a8 if dec.act_int8_decode else matmul
     h = x
     for i in range(dec.n_layers):
-        lp = _layer(params["decoder"]["layers"], i)
+        lp = _layer(params["decoder"]["layers"], i, whole_qtensors=True)
         k_cache, v_cache = k_all[i], v_all[i]
         hn = _rms_norm(h, lp["ln1_scale"], dec.rms_eps)
-        q, k_new, v_new = _decoder_qkv(lp, hn, dec)
+        q, k_new, v_new = _decoder_qkv(lp, hn, dec, mm)
         q = _apply_rope(q[:, None], cos[:, None], sin[:, None], rot)[:, 0]
         k_new = _apply_rope(k_new[:, None], cos[:, None], sin[:, None], rot)[:, 0]
         # match the numerics of reading the stored (cache-dtype) K/V back
@@ -361,8 +381,8 @@ def decode_step(
         v_cache[rows, write_at] = torch.where(in_range, v_new, v_cache[rows, write_at])
 
         ctx = decode_attention(q, k_cache, v_cache, pos).to(h.dtype)
-        h = h + ctx @ lp["o_w"]
-        h = _decoder_layer_mlp(h, lp, dec)
+        h = h + mm(ctx, lp["o_w"])
+        h = _decoder_layer_mlp(h, lp, dec, mm)
 
     cache["len"] = torch.where(active, torch.clamp(pos + 1, max=max_len), pos)
     return cache, _lm_logits(params, cfg, h)

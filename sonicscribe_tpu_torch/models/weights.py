@@ -3,7 +3,8 @@ random.
 
 The tree has the JAX package's layout (models/glm_asr.py:init_params):
 {"encoder", "adapter", "decoder"} with stacked layer weights, every leaf a
-tensor.
+tensor; an int8 projection is a QTensor dict {"q", "scale"}
+(ops/quant.py).
 """
 
 from __future__ import annotations
@@ -37,14 +38,21 @@ def _leaf_from_numpy(v: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(v)
 
 
-def params_from_jax(tree, device="cpu") -> dict:
+def params_from_jax(tree, device=None) -> dict:
     """A JAX parameter tree with numpy leaves (``jax.tree.map(np.asarray,
-    params)``) -> the port's tree on `device`, every leaf bit-exact."""
-    if isinstance(tree, dict):
-        return {k: params_from_jax(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [params_from_jax(v, device) for v in tree]
-    return _leaf_from_numpy(np.asarray(tree)).to(resolve_device(device))
+    params)``), quantized or not -> the port's tree on `device` (as in
+    device.resolve_device: the card unless 'cpu' is asked for), every leaf
+    bit-exact."""
+    device = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return _leaf_from_numpy(np.asarray(node)).to(device)
+
+    return walk(tree)
 
 
 def _unflatten(flat: dict) -> dict:
@@ -79,7 +87,9 @@ def load_checkpoint(path: str, device=None):
     """A native checkpoint directory (``sonicscribe_config.json`` +
     ``params.npz``, written by the JAX package's
     tools/convert_weights.py:save_checkpoint) -> (cfg, params on `device`,
-    tokenizer). bfloat16 leaves are stored there as uint16 views."""
+    tokenizer). bfloat16 leaves are stored there as uint16 views; an int8
+    checkpoint (written after ``--int8``) stores each quantized projection
+    as ``…/q`` int8 and ``…/scale`` float32, which become QTensor dicts."""
     device = resolve_device(device)
     cfg_path = os.path.join(path, NATIVE_CONFIG)
     if not os.path.exists(cfg_path):
@@ -92,8 +102,6 @@ def load_checkpoint(path: str, device=None):
     dtypes = meta.get("dtypes", {})
     flat = {}
     with np.load(os.path.join(path, NATIVE_PARAMS)) as z:
-        if any(k.endswith(("/q", "/scale")) for k in z.files):
-            raise NotImplementedError("int8 checkpoints are not yet ported")
         for k in z.files:
             v = z[k]
             if dtypes.get(k) == "bfloat16":

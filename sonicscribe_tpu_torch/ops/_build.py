@@ -27,10 +27,15 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-KERNELS = ("decode_attention", "log_mel")
+KERNELS = ("decode_attention", "log_mel", "int8_matmul")  # csrc/<name>.cu
 
-# launches per kernel: each wrapper adds one where it launches its kernel
-launch_counts: dict[str, int] = {name: 0 for name in KERNELS}
+# launches per wrapper: each adds one where it launches its kernel
+launch_counts: dict[str, int] = {
+    name: 0 for name in (
+        "decode_attention", "log_mel",
+        "int8_matmul", "int8_matmul_stacked", "int8_matmul_w8a8",  # csrc/int8_matmul.cu
+    )
+}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

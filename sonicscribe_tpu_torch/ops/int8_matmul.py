@@ -1,0 +1,198 @@
+"""Int8-weight matrix products: W8A16 (flat and stacked) and W8A8.
+
+Port of the TPU kernels ``sonicscribe_tpu/ops/int8_pallas.py``
+(``int8_matmul``, ``int8_matmul_stacked``) and the counterpart of
+``ops/quant.py:matmul_w8a8``, which the JAX package leaves to XLA. Each
+entry launches the hand-written CUDA kernel ``csrc/int8_matmul.cu`` for
+tensors on the card and runs its ``*_plain`` version for tensors on the
+CPU; there is no other fallback. Weights keep the JAX layout: q int8
+[K, N] (or a stack [L, K, N]) with N contiguous, scale float32 [1, N]
+(or [L, 1, N]).
+
+For W8A8 the per-row activation quantisation (``quantize_activations``)
+is plain PyTorch beside the kernel, as JAX leaves it to XLA; the product
+itself is the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from sonicscribe_tpu_torch.ops import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TILE_N = 128  # columns per block (csrc/int8_matmul.cu kTileN)
+CHUNK_K = 128  # k rows per staged chunk (kChunkK)
+BLOCKS_PER_SM = 4  # split K until the grid holds about this many blocks per SM
+
+
+# ---------------------------------------------------------------- plain
+
+
+def int8_matmul_plain(x, q, scale) -> torch.Tensor:
+    """x [B, K] @ dequant(q [K, N] int8, scale [1, N]) -> [B, N] in
+    x.dtype: the product in float32, then the per-column scale, then one
+    cast (ops/quant.py:matmul of the JAX package)."""
+    return ((x.float() @ q.float()) * scale.reshape(-1)).to(x.dtype)
+
+
+def int8_matmul_stacked_plain(x, q, scale, layer: int) -> torch.Tensor:
+    """int8_matmul_plain on layer `layer` of q [L, K, N], scale [L, 1, N]."""
+    return int8_matmul_plain(x, q[layer], scale[layer])
+
+
+def quantize_activations(x) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic symmetric per-row int8 of x [B, K] -> (xq int8 [B, K], sx
+    float32 [B, 1]): sx = max(max|x|, 1e-8) / 127, xq = clip(round(x /
+    sx), -127, 127), round half to even (ops/quant.py:matmul_w8a8)."""
+    xf = x.float()
+    sx = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8) / 127.0
+    xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
+    return xq, sx
+
+
+def int8_matmul_w8a8_plain(x, q, scale, layer: int) -> torch.Tensor:
+    """x [B, K] with dynamic per-row int8, times layer `layer` of q
+    [L, K, N] int8 -> float32(int32 sums) * sx * scale -> [B, N] in
+    x.dtype. The integer product is formed in float64, which holds every
+    sum exactly (|sum| < 127 * 127 * K < 2**53), on the CPU and the card
+    alike."""
+    xq, sx = quantize_activations(x)
+    acc = xq.double() @ q[layer].double()
+    return (acc.float() * sx * scale[layer].reshape(-1)).to(x.dtype)
+
+
+# ---------------------------------------------------------------- kernel
+
+
+def launch_shape(B: int, K: int, N: int, n_sms: int) -> tuple[int, int, int]:
+    """-> (rows per block, splits of K, rows of K per split). Decode-sized
+    B leaves too few column tiles to fill the card, so K is split over
+    blocks until the grid holds about BLOCKS_PER_SM blocks per SM, each
+    split at least one chunk."""
+    rows = 1 if B == 1 else 2 if B == 2 else 4 if B <= 4 else 8
+    tiles = -(-N // TILE_N) * -(-B // rows)
+    chunks = -(-K // CHUNK_K)
+    splits = min(chunks, max(1, -(-BLOCKS_PER_SM * n_sms // tiles)))
+    k_per_split = -(-chunks // splits) * CHUNK_K
+    return rows, -(-K // k_per_split), k_per_split
+
+
+@functools.cache
+def _lib():
+    lib = _build.load("int8_matmul")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.int8_matmul_w8a16.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, I, P]
+    lib.int8_matmul_w8a8.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P]
+    lib.int8_matmul_w8a16.restype = lib.int8_matmul_w8a8.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _n_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _check(name, x, q, scale, layer: int) -> tuple[int, int, int]:
+    """Validate a launch on the card; -> (B, K, N). Raises on anything the
+    kernel does not take."""
+    if x.dim() != 2 or q.dim() != 3 or scale.shape != (q.shape[0], 1, q.shape[2]):
+        raise ValueError(f"{name}: want x [B, K], q [L, K, N], scale [L, 1, N], got "
+                         f"{tuple(x.shape)}, {tuple(q.shape)}, {tuple(scale.shape)}")
+    (B, K), (L, Kq, N) = x.shape, q.shape
+    if Kq != K or B == 0 or K == 0 or N == 0:
+        raise ValueError(f"{name}: x {tuple(x.shape)} does not match q {tuple(q.shape)}")
+    if N % 16 or -(-B // 8) > 65535:
+        raise ValueError(f"{name}: N must be a multiple of 16 and B at most 524280, "
+                         f"got B={B}, N={N}")
+    if not 0 <= layer < L:
+        raise ValueError(f"{name}: layer {layer} out of range for {L} layers")
+    for tname, t in (("x", x), ("q", q), ("scale", scale)):
+        if t.device.type != "cuda" or t.device != x.device:
+            raise ValueError(f"{name}: {tname} must be on {x.device}, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {tname} must be contiguous")
+    if x.dtype not in _DTYPES or q.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError(f"{name}: want x float32 or bfloat16, q int8, scale float32, got "
+                        f"{x.dtype}, {q.dtype}, {scale.dtype}")
+    if q.data_ptr() % 16:
+        raise ValueError(f"{name}: q must be 16-byte aligned")
+    return B, K, N
+
+
+def _launch(name, x, q, scale, layer: int) -> torch.Tensor:
+    """Launch the W8A16 kernel, or for int8_matmul_w8a8 quantise x per row
+    (plain PyTorch) and launch the W8A8 kernel, on layer `layer` of the
+    whole stack."""
+    B, K, N = _check(name, x, q, scale, layer)
+    w8a8 = name == "int8_matmul_w8a8"
+    if w8a8 and K % 4:
+        raise ValueError(f"{name}: K must be a multiple of 4, got {K}")
+    rows, splits, k_per_split = launch_shape(B, K, N, _n_sms(x.device))
+    out = torch.empty((B, N), device=x.device, dtype=x.dtype)
+    partial = (torch.empty((splits, B, N), device=x.device,
+                           dtype=torch.int32 if w8a8 else torch.float32)
+               if splits > 1 else None)
+    if w8a8:
+        xq, sx = quantize_activations(x)
+        entry, lhs = _lib().int8_matmul_w8a8, (xq.data_ptr(), sx.data_ptr())
+    else:
+        entry, lhs = _lib().int8_matmul_w8a16, (x.data_ptr(),)
+    err = entry(
+        *lhs, q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        partial.data_ptr() if partial is not None else None, _DTYPES[x.dtype],
+        B, K, N, layer, rows, splits, k_per_split,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    _build.launch_counts[name] += 1
+    return out
+
+
+def int8_matmul_cuda(x, q, scale) -> torch.Tensor:
+    """Launch the W8A16 kernel on q [K, N], scale [1, N]."""
+    if q.dim() != 2 or scale.dim() != 2:
+        raise ValueError(f"int8_matmul: want q [K, N], scale [1, N], got "
+                         f"{tuple(q.shape)}, {tuple(scale.shape)}")
+    return _launch("int8_matmul", x, q[None], scale[None], 0)
+
+
+def int8_matmul_stacked_cuda(x, q, scale, layer: int) -> torch.Tensor:
+    """Launch the W8A16 kernel on layer `layer` of the whole stack."""
+    return _launch("int8_matmul_stacked", x, q, scale, layer)
+
+
+def int8_matmul_w8a8_cuda(x, q, scale, layer: int) -> torch.Tensor:
+    """Quantise x per row (plain PyTorch), then launch the W8A8 kernel on
+    layer `layer` of the whole stack."""
+    return _launch("int8_matmul_w8a8", x, q, scale, layer)
+
+
+# ---------------------------------------------------------------- entries
+
+
+def int8_matmul(x, q, scale) -> torch.Tensor:
+    """x [B, K] @ dequant(q [K, N], scale [1, N]) -> [B, N] in x.dtype: the
+    CUDA kernel for tensors on the card, the plain version on the CPU."""
+    if x.device.type == "cpu":
+        return int8_matmul_plain(x, q, scale)
+    return int8_matmul_cuda(x, q, scale)
+
+
+def int8_matmul_stacked(x, q, scale, layer: int) -> torch.Tensor:
+    """x [B, K] @ dequant(q [L, K, N], scale [L, 1, N])[layer] -> [B, N]."""
+    if x.device.type == "cpu":
+        return int8_matmul_stacked_plain(x, q, scale, layer)
+    return int8_matmul_stacked_cuda(x, q, scale, layer)
+
+
+def int8_matmul_w8a8(x, q, scale, layer: int) -> torch.Tensor:
+    """x [B, K] with dynamic per-row int8 @ q [L, K, N][layer] (s8 x s8,
+    int32 sums) * sx * scale -> [B, N] in x.dtype."""
+    if x.device.type == "cpu":
+        return int8_matmul_w8a8_plain(x, q, scale, layer)
+    return int8_matmul_w8a8_cuda(x, q, scale, layer)

@@ -208,6 +208,12 @@ def main(argv=None):
     parser.add_argument("--model", default="tiny-random",
                         help="'tiny-random' | 'nano-random' | native checkpoint dir")
     parser.add_argument("--vad", default="energy", help="'energy'")
+    parser.add_argument(
+        "--quant", default=None,
+        help="'native' | 'int8' | 'int8-decoder' | 'int8-decoder-a8' (a8: decode "
+             "activations quantized per row, s8 x s8 kernel); default $QUANT_MODE "
+             "or native",
+    )
     parser.add_argument("--device", default=None,
                         help="'cuda' (default; fails without a card) | 'cpu'")
     parser.add_argument("--no-warmup", action="store_true",
@@ -219,6 +225,8 @@ def main(argv=None):
         config.host = args.host
     if args.port:
         config.port = args.port
+    if args.quant:
+        config.quant_mode = args.quant
     logging.basicConfig(
         level=getattr(logging, config.log_level.upper(), logging.INFO),
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",

@@ -6,6 +6,8 @@ without importing aiohttp.
 
 from __future__ import annotations
 
+from dataclasses import replace
+
 import torch
 
 from sonicscribe_tpu_torch.config import AppConfig
@@ -15,8 +17,11 @@ from sonicscribe_tpu_torch.models.config import nano, tiny
 from sonicscribe_tpu_torch.models.glm_asr import param_count
 from sonicscribe_tpu_torch.models.tokenizer import ByteTokenizer
 from sonicscribe_tpu_torch.models.weights import init_random, load_checkpoint
+from sonicscribe_tpu_torch.ops.quant import quantize_params_int8
 from sonicscribe_tpu_torch.serve.engine_async import ThreadedEngine
 from sonicscribe_tpu_torch.vad.model import EnergyVad
+
+QUANT_MODES = ("native", "int8", "int8-decoder", "int8-decoder-a8")
 
 
 def build_runtime(
@@ -32,11 +37,17 @@ def build_runtime(
     native checkpoint directory. Random weights are drawn from `seed`.
     vad_spec: 'energy'. The engine is the threaded one. `device` as in
     device.resolve_device: the card unless 'cpu' is asked for.
+    config.quant_mode: 'native' | 'int8' (every projection but embed,
+    adapter and lm_head, the reference's skip-list) | 'int8-decoder' (the
+    decoder's projections only) | 'int8-decoder-a8' (as int8-decoder, and
+    the decode step quantizes its activations per row for the W8A8
+    kernel). Quantization runs on `device` after init; the tensors it
+    replaced are dropped.
     """
     config = config or AppConfig()
     device = resolve_device(device)
-    if config.quant_mode != "native":
-        raise NotImplementedError(f"quant mode {config.quant_mode!r} is not yet ported")
+    if config.quant_mode not in QUANT_MODES:
+        raise ValueError(f"quant mode {config.quant_mode!r} is not one of {QUANT_MODES}")
     if vad_spec != "energy":
         raise NotImplementedError(f"VAD {vad_spec!r} is not yet ported; use 'energy'")
 
@@ -53,6 +64,11 @@ def build_runtime(
     else:
         mcfg, params, tokenizer = load_checkpoint(model_spec, device=device)
         buckets = tuple(config.prefill_buckets)
+
+    if config.quant_mode != "native":
+        params = quantize_params_int8(params, decoder_only=config.quant_mode != "int8")
+        if config.quant_mode == "int8-decoder-a8":
+            mcfg = replace(mcfg, decoder=replace(mcfg.decoder, act_int8_decode=True))
 
     transcriber = Transcriber(mcfg, params, tokenizer, prefill_buckets=buckets)
     vad = EnergyVad(device=device)

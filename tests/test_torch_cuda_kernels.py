@@ -20,7 +20,16 @@ from sonicscribe_tpu_torch.ops.decode_attention import (
     decode_attention,
     decode_attention_plain,
 )
+from sonicscribe_tpu_torch.ops.int8_matmul import (
+    int8_matmul,
+    int8_matmul_plain,
+    int8_matmul_stacked,
+    int8_matmul_stacked_plain,
+    int8_matmul_w8a8,
+    int8_matmul_w8a8_plain,
+)
 from sonicscribe_tpu_torch.ops.mel import log_mel_frames, log_mel_frames_plain
+from sonicscribe_tpu_torch.ops.quant import quantize_tensor
 
 pytestmark = pytest.mark.cuda
 
@@ -87,3 +96,54 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         decode_attention(q, k, k, lens)
     with pytest.raises(ValueError):
         decode_attention(q.float(), k.float(), k.float(), lens.cpu())
+
+
+def _assert_w8a16_close(got, want):
+    """float32 sums in another order: 1e-5 of the largest output; in bf16
+    one more bf16 ulp of want for the final rounding."""
+    want32 = want.float()
+    tol = 1e-5 * want32.abs().max()
+    if want.dtype == torch.bfloat16:
+        exp = torch.floor(torch.log2(want32.abs().clamp(min=2.0**-126)))
+        tol = tol + torch.exp2(exp - 7)
+    err = (got.float() - want32).abs()
+    assert got.dtype == want.dtype and bool((err <= tol).all()), float(err.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,K,N", [(1, 2048, 3072), (4, 5504, 2048), (37, 256, 80)])
+def test_int8_matmul_kernels(cuda, dtype, B, K, N):
+    g = torch.Generator(device=cuda).manual_seed(B)
+    qt = quantize_tensor(torch.randn((3, K, N), generator=g, device=cuda) * 0.02)
+    q, scale = qt["q"], qt["scale"]
+    x = torch.randn((B, K), generator=g, device=cuda).to(dtype)
+    before = dict(_build.launch_counts)
+
+    _assert_w8a16_close(int8_matmul(x, q[1], scale[1]), int8_matmul_plain(x, q[1], scale[1]))
+    _assert_w8a16_close(int8_matmul_stacked(x, q, scale, 2),
+                        int8_matmul_stacked_plain(x, q, scale, 2))
+    # integer sums are exact on both sides: equal outputs
+    got = int8_matmul_w8a8(x, q, scale, 2)
+    assert torch.equal(got, int8_matmul_w8a8_plain(x, q, scale, 2))
+    for name in ("int8_matmul", "int8_matmul_stacked", "int8_matmul_w8a8"):
+        assert _build.launch_counts[name] == before[name] + 1
+
+
+def test_int8_wrappers_reject_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((2, 64), device=cuda)
+    q = torch.zeros((3, 64, 32), dtype=torch.int8, device=cuda)
+    scale = torch.ones((3, 1, 32), device=cuda)
+    with pytest.raises(ValueError, match="out of range"):
+        int8_matmul_stacked(x, q, scale, 3)
+    with pytest.raises(ValueError, match="out of range"):
+        int8_matmul_w8a8(x, q, scale, -1)
+    with pytest.raises(TypeError):
+        int8_matmul(x.half(), q[0], scale[0])
+    with pytest.raises(TypeError):
+        int8_matmul_stacked(x, q.float(), scale, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_matmul(x.T.contiguous().T, q[0], scale[0])
+    with pytest.raises(ValueError, match="multiple of 16"):
+        int8_matmul(x, q[0, :, :24].contiguous(), scale[0, :, :24].contiguous())
+    with pytest.raises(ValueError, match="multiple of 4"):
+        int8_matmul_w8a8(x[:, :62].contiguous(), q[:, :62].contiguous(), scale, 0)

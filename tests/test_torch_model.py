@@ -25,7 +25,7 @@ def setup():
     params_j = jax.tree.map(
         lambda x: x * 4.0, jm.init_params(cfg_j, jax.random.PRNGKey(7), dtype=jnp.float32)
     )
-    params_t = params_from_jax(jax.tree.map(np.asarray, params_j))
+    params_t = params_from_jax(jax.tree.map(np.asarray, params_j), device="cpu")
     return cfg_j, cfg_t, params_j, params_t
 
 
@@ -51,7 +51,7 @@ def test_params_round_trip_bit_exact(dtype):
     params_j = jax.tree.map(
         np.asarray, jm.init_params(tiny_jax(), jax.random.PRNGKey(3), dtype=dtype)
     )
-    params_t = params_from_jax(params_j)
+    params_t = params_from_jax(params_j, device="cpu")
     back = dict(_leaves(params_to_numpy(params_t)))
     want = dict(_leaves(params_j))
     assert back.keys() == want.keys()
@@ -79,9 +79,16 @@ def test_load_native_checkpoint_bit_exact(tmp_path):
 
     from sonicscribe_tpu.ops.quant import quantize_params_int8
 
-    save_checkpoint(quantize_params_int8(params_j), cfg_j, str(tmp_path / "int8"))
-    with pytest.raises(NotImplementedError):
-        load_checkpoint(str(tmp_path / "int8"), device="cpu")
+    qparams_j = quantize_params_int8(params_j)
+    save_checkpoint(qparams_j, cfg_j, str(tmp_path / "int8"))
+    _, qparams, _ = load_checkpoint(str(tmp_path / "int8"), device="cpu")
+    got = dict(_leaves(params_to_numpy(qparams)))
+    want = dict(_leaves(jax.tree.map(np.asarray, qparams_j)))
+    assert got.keys() == want.keys()
+    assert got["/decoder/layers/qkv_w/q"].dtype == np.int8
+    for name, w in want.items():
+        bits = w.view(np.uint16) if w.dtype.name == "bfloat16" else w
+        np.testing.assert_array_equal(got[name], bits, err_msg=name)
 
 
 def test_encode_audio(setup):

@@ -20,6 +20,7 @@ from sonicscribe_tpu.engine.transcriber import Transcriber as TranscriberJax
 from sonicscribe_tpu.models import tiny as tiny_jax
 from sonicscribe_tpu.models.glm_asr import init_params
 from sonicscribe_tpu.models.tokenizer import ByteTokenizer as ByteTokenizerJax
+from sonicscribe_tpu.ops.quant import quantize_params_int8
 from sonicscribe_tpu.serve.app import build_app as build_app_jax
 from sonicscribe_tpu.serve.engine_async import ThreadedEngine as ThreadedEngineJax
 from sonicscribe_tpu.serve.files import FileTranscriptionConfig as FileCfgJax
@@ -76,18 +77,34 @@ def test_energy_vad_probs_and_segments():
     assert len(segs) == 3 and segs[0].is_long_segment
 
 
-@pytest.fixture(scope="module")
-def engines():
+def _engine_pair(quantize=None):
+    """(JAX engine, port engine) on the same tiny() f32 tree, quantized by
+    the JAX package with `quantize` when given, carried over bit-exact."""
     # scaled so the random model's greedy tokens vary (see test_torch_transcriber)
     params_j = jax.tree.map(
         lambda x: x * 4.0, init_params(tiny_jax(), jax.random.PRNGKey(0), dtype=jnp.float32)
     )
+    if quantize is not None:
+        params_j = quantize(params_j)
     tr_j = TranscriberJax(tiny_jax(), params_j, ByteTokenizerJax(tiny_jax()),
                           prefill_buckets=(128, 256))
-    params = params_from_jax(jax.tree.map(np.asarray, params_j))
+    params = params_from_jax(jax.tree.map(np.asarray, params_j), device="cpu")
     tr = Transcriber(tiny(), params, ByteTokenizer(tiny()), prefill_buckets=(128, 256))
-    eng_j = ThreadedEngineJax(tr_j, EnergyVadJax())
-    eng = ThreadedEngine(tr, EnergyVad(device="cpu"))
+    return ThreadedEngineJax(tr_j, EnergyVadJax()), ThreadedEngine(tr, EnergyVad(device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def engines():
+    eng_j, eng = _engine_pair()
+    yield eng_j, eng
+    eng_j.shutdown()
+    eng.shutdown()
+
+
+@pytest.fixture(scope="module")
+def int8_decoder_engines():
+    """The int8-decoder mode: the decoder's projections quantized."""
+    eng_j, eng = _engine_pair(lambda p: quantize_params_int8(p, decoder_only=True))
     yield eng_j, eng
     eng_j.shutdown()
     eng.shutdown()
@@ -110,8 +127,7 @@ def _configs():
     return cfg_j, cfg
 
 
-async def test_transcribe_file_matches_jax_app(engines, aiohttp_client):
-    eng_j, eng = engines
+async def _assert_same_ndjson(eng_j, eng, aiohttp_client):
     cfg_j, cfg = _configs()
     wav = write_wav(_payload(), SR)
     client_j = await aiohttp_client(build_app_jax(cfg_j, eng_j, eng_j.vad))
@@ -135,6 +151,20 @@ async def test_transcribe_file_matches_jax_app(engines, aiohttp_client):
     assert got[-1]["failed_segments"] == 0
 
 
+async def test_transcribe_file_matches_jax_app(engines, aiohttp_client):
+    await _assert_same_ndjson(*engines, aiohttp_client)
+
+
+async def test_transcribe_file_matches_jax_app_int8_decoder(int8_decoder_engines, aiohttp_client):
+    await _assert_same_ndjson(*int8_decoder_engines, aiohttp_client)
+    _, eng = int8_decoder_engines
+    _, cfg = _configs()
+    cfg.quant_mode = "int8-decoder"
+    client = await aiohttp_client(build_app(cfg, eng, eng.vad, {"quant_mode": cfg.quant_mode}))
+    assert (await (await client.get("/debug/config")).json())["quant_mode"] == "int8-decoder"
+    assert (await (await client.get("/health")).json())["model_info"]["quant_mode"] == "int8-decoder"
+
+
 async def test_aggregate_mode_and_health(engines, aiohttp_client):
     _, eng = engines
     _, cfg = _configs()
@@ -153,9 +183,13 @@ def test_build_runtime_on_cpu():
     try:
         r = engine.transcriber.transcribe(_speech(0.5), SR, max_new_tokens=4)
         assert isinstance(r.text, str) and info["device"] == "cpu"
-        with pytest.raises(NotImplementedError):
-            cfg = AppConfig()
-            cfg.quant_mode = "int8"
+        cfg = AppConfig()
+        cfg.quant_mode = "int8"
+        int8_engine, _, int8_info = build_runtime("tiny-random", "energy", cfg, device="cpu")
+        int8_engine.shutdown()
+        assert int8_info["quant_mode"] == "int8"
+        cfg.quant_mode = "int4"
+        with pytest.raises(ValueError, match="int8-decoder-a8"):
             build_runtime("tiny-random", "energy", cfg, device="cpu")
     finally:
         engine.shutdown()
@@ -172,6 +206,12 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
         EnergyVad()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         log_mel_spectrogram(np.zeros(1600, np.float32))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        params_from_jax({"w": np.zeros((2, 2), np.float32)})
+    cfg = AppConfig()
+    cfg.quant_mode = "int8"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_runtime("tiny-random", "energy", cfg)
 
 
 _IMPORT_ALL = r"""

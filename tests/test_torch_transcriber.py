@@ -28,7 +28,7 @@ def pair():
     )
     jax_tr = TranscriberJax(cfg_j, params_j, ByteTokenizerJax(cfg_j), prefill_buckets=BUCKETS)
     cfg = tiny()
-    params = params_from_jax(jax.tree.map(np.asarray, params_j))
+    params = params_from_jax(jax.tree.map(np.asarray, params_j), device="cpu")
     port_tr = Transcriber(cfg, params, ByteTokenizer(cfg), prefill_buckets=BUCKETS)
     return jax_tr, port_tr
 
