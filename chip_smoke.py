@@ -15,11 +15,18 @@ exits non-zero on failure:
    port never calls) and its bound at the H100's 3.35 TB/s and its peak
    rate for the work's type (NVIDIA data sheet, SXM): 67 TFLOP/s float32
    on the CUDA cores for decode attention and the mel; 989 TFLOP/s bf16 and
-   1979 TOP/s int8 on the tensor cores for the int8 products (W8A16 and
-   W8A8), which the tensor cores can run. The int8 kernels are checked at
-   nano's decode shapes (B 1 and 4: qkv, o, gate_up, down), prefill rows
-   (B 419: qkv, down) and encoder rows (B 1536: fc1, fc2), x in float32
-   and bf16; then the bench tool's per-step projection sweep at B 1 and 8.
+   1979 TOP/s int8 on the tensor cores for the int8 and int4 products
+   (W8A16, W4A16 and W8A8, W4A8), which the tensor cores can run. The int8
+   kernels are checked at nano's decode shapes (B 1 and 4: qkv, o, gate_up,
+   down), prefill rows (B 419: qkv, down) and encoder rows (B 1536: fc1,
+   fc2), x in float32 and bf16; the four int4 kernels at nano's decode
+   shapes (B 1, 4, 8, 37, 64), flat and stacked, and timed at B 1 and at
+   gate_up B 64. Then the bench tools' per-step projection sweeps: int8 at
+   B 1 and 8; int4 at B 1, 8 and 64 in every variant, after one eager step
+   of each int4 kernel variant whose launches are counted (4 per layer)
+   and whose output is held against the int8 variant's on the same codes.
+   The int4 kernels serve no request: the JAX package serves no int4 mode,
+   and its only path to them is this sweep.
 3. main path: build_runtime("nano-random") in bf16 at full width, then the
    file-transcription path of POST /transcribe/file (decode_audio +
    transcribe_file_stream) on three 16 kHz WAVs made from a seed: ~3 s,
@@ -37,7 +44,8 @@ exits non-zero on failure:
    the CPU (where the tests hold it against the JAX package), natively and
    in each int8 mode, and nano's prefill logits are finite.
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (nine kernels, each
+with the path its launches were counted on); the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no result.
 """
 
@@ -59,9 +67,14 @@ BF16_FLOPS_PER_S = 989e12  # H100 SXM, bf16 tensor cores, dense
 INT8_OPS_PER_S = 1979e12  # H100 SXM, int8 tensor cores, dense
 ATTN_TOL = 2e-5  # same inputs, float32 sums in another order
 MEL_TOL = 1e-3  # normalized log-mel; float32 DFT sums in another order
-# W8A16: float32 sums in another order, at most this share of max|want|;
-# in bf16 one more bf16 ulp of want for the final rounding. W8A8: equal.
+# W8A16 and W4A16: float32 sums in another order, at most this share of
+# max|want|; in bf16 one more bf16 ulp of want for the final rounding.
+# W8A8 and W4A8: equal.
 INT8_F32_TOL = 1e-5
+# an int4 sweep step against the int8 step on the same codes, as a share of
+# max|int8 step|: bf16 roundings in another order, and in W4A8 the per-row
+# activation quantisation, over 28 layers
+SWEEP_TOL = 0.02
 INT8_MODES = ("int8", "int8-decoder", "int8-decoder-a8")
 SEED = 0
 
@@ -124,6 +137,21 @@ class Timer:
             pairs.append((start, end))
         torch.cuda.synchronize()
         return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+
+def check_w16(torch, name, got, want, case) -> float:
+    """A W8A16 or W4A16 kernel's output against its plain version: within
+    INT8_F32_TOL of max|want|, plus one bf16 ulp of want in bf16. -> the
+    max abs err."""
+    want32 = want.float()
+    err = (got.float() - want32).abs()
+    tol = INT8_F32_TOL * want32.abs().max()
+    if want.dtype == torch.bfloat16:  # one bf16 ulp of want for the rounding
+        tol = tol + torch.exp2(torch.floor(torch.log2(want32.abs().clamp(min=2.0**-126))) - 7)
+    check(got.dtype == want.dtype and bool(torch.isfinite(got).all())
+          and bool((err <= tol).all()), f"{name} {case}: max err {err.max().item()} "
+          f"beyond its tolerance")
+    return err.max().item()
 
 
 def bound_ms(n_bytes: float, flops: float, peak: float = F32_FLOPS_PER_S) -> tuple[float, str]:
@@ -287,15 +315,7 @@ def int8_kernel_phase(torch, timer):
     errs = {"int8_matmul": 0.0, "int8_matmul_stacked": 0.0, "int8_matmul_w8a8": 0.0}
 
     def check_w8a16(name, got, want, case):
-        want32 = want.float()
-        err = (got.float() - want32).abs()
-        tol = INT8_F32_TOL * want32.abs().max()
-        if want.dtype == torch.bfloat16:  # one bf16 ulp of want for the rounding
-            tol = tol + torch.exp2(torch.floor(torch.log2(want32.abs().clamp(min=2.0**-126))) - 7)
-        check(got.dtype == want.dtype and bool(torch.isfinite(got).all())
-              and bool((err <= tol).all()), f"{name} {case}: max err {err.max().item()} "
-              f"beyond its tolerance")
-        errs[name] = max(errs[name], err.max().item())
+        errs[name] = max(errs[name], check_w16(torch, name, got, want, case))
 
     for dtype in (torch.float32, torch.bfloat16):
         for B in (1, 4):
@@ -367,12 +387,169 @@ def int8_kernel_phase(torch, timer):
     return errs, rows
 
 
-def bench_phase():
-    """The bench tool's per-step sweep of nano's decoder projections."""
-    from sonicscribe_tpu_torch.tools import bench_int8_matmul
+# int4 entry -> (line of its TPU kernel in ops/int4_pallas.py, the path its
+# launches are counted on: no entry point of either package serves the
+# flat forms, and the JAX package reaches the stacked ones only through
+# its int4 sweep)
+INT4_ENTRIES = {
+    "int4_matmul": (102, "kernel phase (timed runs)"),
+    "int4_matmul_stacked": (165, "tools/bench_int4_matmul (int4_w4a16, one eager step)"),
+    "int4_matmul_w4a8": (241, "kernel phase (timed runs)"),
+    "int4_matmul_w4a8_stacked": (313, "tools/bench_int4_matmul (int4_w4a8, one eager step)"),
+}
+
+
+def int4_kernel_phase(torch, timer):
+    """The four int4 entries against their plain versions at nano's decode
+    shapes (flat, and layer 1 of a two-layer stack), then their times. The
+    launch counters are set to 0 just before the timed runs and read just
+    after: no entry point of either package serves the flat forms, so their
+    timed runs are their path (INT4_ENTRIES). -> ({entry: max abs err},
+    {entry: row}, {entry: launches in the timed runs})."""
+    from sonicscribe_tpu_torch.models.config import nano
+    from sonicscribe_tpu_torch.ops import _build
+    from sonicscribe_tpu_torch.ops import int4_matmul as i4
+    from sonicscribe_tpu_torch.ops.int8_matmul import quantize_activations
+    from sonicscribe_tpu_torch.tools.bench_int8_matmul import layer_shapes
+
+    # (K, N) of qkv, o, gate_up and down; down's K/2 = 2752 leaves a ragged
+    # last chunk of 128 packed rows
+    shapes = {p.removesuffix("_w"): (K, N) for p, (_, K, N) in layer_shapes(nano()).items()}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 6)
+    stacks = {}
+    for p, (K, N) in shapes.items():  # codes in [-8, 7]: -8 is a valid nibble
+        codes = torch.randint(-8, 8, (2, K, N), generator=gen, device="cuda", dtype=torch.int8)
+        stacks[p] = dict(codes=codes, packed=i4.pack_int4(codes),
+                         scale=0.02 + 0.01 * torch.rand((2, 1, N), generator=gen, device="cuda"))
+
+    def x_of(B, K, dtype):
+        return torch.randn((B, K), generator=gen, device="cuda").to(dtype)
+
+    errs = dict.fromkeys(INT4_ENTRIES, 0.0)
+    for dtype in (torch.float32, torch.bfloat16):
+        for B in (1, 4, 8, 37, 64):
+            for p, (K, _) in shapes.items():
+                pk, sc = stacks[p]["packed"], stacks[p]["scale"]
+                x = x_of(B, K, dtype)
+                case = f"{p} B={B} {dtype}"
+                for name, got, want in (
+                    ("int4_matmul", i4.int4_matmul_cuda(x, pk[1], sc[1]),
+                     i4.int4_matmul_plain(x, pk[1], sc[1])),
+                    ("int4_matmul_stacked", i4.int4_matmul_stacked_cuda(x, pk, sc, 1),
+                     i4.int4_matmul_stacked_plain(x, pk, sc, 1)),
+                ):
+                    errs[name] = max(errs[name], check_w16(torch, name, got, want, case))
+                for name, got, want in (
+                    ("int4_matmul_w4a8", i4.int4_matmul_w4a8_cuda(x, pk[1], sc[1]),
+                     i4.int4_matmul_w4a8_plain(x, pk[1], sc[1])),
+                    ("int4_matmul_w4a8_stacked", i4.int4_matmul_w4a8_stacked_cuda(x, pk, sc, 1),
+                     i4.int4_matmul_w4a8_stacked_plain(x, pk, sc, 1)),
+                ):
+                    check(torch.equal(got, want), f"{name} {case}: max err "
+                          f"{(got.float() - want.float()).abs().max().item()}, want equal")
+    torch.cuda.synchronize()
+    log(f"int4 kernels vs plain: max abs err W4A16 flat {errs['int4_matmul']:.3g}, stacked "
+        f"{errs['int4_matmul_stacked']:.3g} (tolerance {INT8_F32_TOL} x max|want|, + one bf16 "
+        f"ulp in bf16); W4A8 flat and stacked equal (B 1,4,8,37,64 at qkv/o/gate_up/down; "
+        f"f32 and bf16; stacked: layer 1 of 2)")
+
+    # ---- times at the sweep's shapes, bf16 ----
+    def time_row(name, p, B, fn, plain, lib, lib_label):
+        K, N = shapes[p]
+        ms, plain_ms = timer.ms(fn), timer.ms(plain)
+        lib_ms = timer.ms(lib) if lib is not None else None
+        if "w4a8" in name:
+            b_ms, b_by = bound_ms(K // 2 * N + 4 * N + B * (K + 4 + 2 * N), 2 * B * K * N,
+                                  INT8_OPS_PER_S)
+        else:
+            b_ms, b_by = bound_ms(K // 2 * N + 4 * N + 2 * B * (K + N), 2 * B * K * N,
+                                  BF16_FLOPS_PER_S)
+        lib_txt = f"{lib_label} {lib_ms:.4f} ms" if lib_ms is not None else f"{lib_label} n/a"
+        log(f"{name} {p} B={B} K={K} N={N} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"{lib_txt}, bound {b_ms:.5f} ms ({b_by})")
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+    rows = {}
+    _build.reset_launch_counts()
+    for B, p in ((1, "qkv"), (1, "o"), (1, "gate_up"), (1, "down"), (64, "gate_up")):
+        K, N = shapes[p]
+        st = stacks[p]
+        pk, sc = st["packed"], st["scale"]
+        x = x_of(B, K, torch.bfloat16)
+        w = (st["codes"][1].float() * sc[1]).to(torch.bfloat16)
+        for name, fn, plain in (
+            ("int4_matmul", lambda: i4.int4_matmul_cuda(x, pk[1], sc[1]),
+             lambda: i4.int4_matmul_plain(x, pk[1], sc[1])),
+            ("int4_matmul_stacked", lambda: i4.int4_matmul_stacked_cuda(x, pk, sc, 1),
+             lambda: i4.int4_matmul_stacked_plain(x, pk, sc, 1)),
+        ):
+            r = time_row(name, p, B, fn, plain, lambda: torch.mm(x, w),
+                         "bf16 dense mm (4x the weight bytes)")
+            if (B, p) == (1, "gate_up"):
+                rows[name] = r
+        # torch._int_mm takes only B > 16: a yardstick at 64 rows, none at decode rows
+        xq = quantize_activations(x)[0]
+        codes_cm = st["codes"][1].t().contiguous().t()  # column-major s8, as cuBLASLt takes it
+        lib = (lambda: torch._int_mm(xq, codes_cm)) if B > 16 else None
+        for name, fn, plain in (
+            ("int4_matmul_w4a8", lambda: i4.int4_matmul_w4a8_cuda(x, pk[1], sc[1]),
+             lambda: i4.int4_matmul_w4a8_plain(x, pk[1], sc[1])),
+            ("int4_matmul_w4a8_stacked", lambda: i4.int4_matmul_w4a8_stacked_cuda(x, pk, sc, 1),
+             lambda: i4.int4_matmul_w4a8_stacked_plain(x, pk, sc, 1)),
+        ):
+            r = time_row(name, p, B, fn, plain, lib, "torch._int_mm (2x the weight bytes)")
+            if (B, p) == (64, "gate_up"):
+                rows[name] = r
+        quant_ms = timer.ms(lambda: quantize_activations(x))
+        log(f"  of which the plain per-row activation quantisation: {quant_ms:.4f} ms")
+    launches = {name: _build.launch_counts[name] for name in INT4_ENTRIES}
+    return errs, rows, launches
+
+
+def bench_phase(torch):
+    """The bench tools' per-step sweeps of nano's decoder projections. Before
+    the int4 sweep, one eager step of each int4 kernel variant with the
+    launch counters set to 0 just before it and read just after: each
+    stacked entry runs 4 times per layer, and the step agrees with the int8
+    variant on the same codes. -> {entry: launches in the counted steps}."""
+    from sonicscribe_tpu_torch.models.config import nano
+    from sonicscribe_tpu_torch.ops import _build
+    from sonicscribe_tpu_torch.tools import bench_int4_matmul, bench_int8_matmul
 
     for rec in bench_int8_matmul.run(batches=(1, 8), reps=10):
         log("bench_int8_matmul " + json.dumps(rec))
+
+    cfg = nano()
+    n_layers = cfg.decoder.n_layers
+    weights = bench_int4_matmul.make_weights(cfg, SEED, torch.device("cuda"))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 7)
+    h0 = (torch.randn((8, cfg.decoder.d_model), generator=gen, device="cuda") * 0.1
+          ).to(torch.bfloat16)
+    launches = {}
+    with torch.inference_mode():
+        ref = bench_int4_matmul.sweep(bench_int4_matmul.VARIANTS["int8"], weights, h0, n_layers)
+        for variant, entry in (("int4_w4a16", "int4_matmul_stacked"),
+                               ("int4_w4a8", "int4_matmul_w4a8_stacked")):
+            _build.reset_launch_counts()
+            h = bench_int4_matmul.sweep(bench_int4_matmul.VARIANTS[variant], weights, h0, n_layers)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in _build.launch_counts.items() if v}
+            check(counts == {entry: 4 * n_layers},
+                  f"bench_int4_matmul {variant}: launches {counts}, want {entry} "
+                  f"{4 * n_layers} times per step")
+            rel = ((h.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+            log(f"bench_int4_matmul {variant}: one eager step, B=8: {entry} launched "
+                f"{counts[entry]} times; max |step - int8 step| / max |int8 step| {rel:.3g}")
+            check(h.shape == ref.shape and bool(torch.isfinite(h).all()) and rel <= SWEEP_TOL,
+                  f"bench_int4_matmul {variant}: step differs from the int8 step by {rel}")
+            launches[entry] = counts[entry]
+    del weights, ref, h
+    for rec in bench_int4_matmul.run(batches=(1, 8, 64), reps=10,
+                                     variants=tuple(bench_int4_matmul.VARIANTS)):
+        log("bench_int4_matmul " + json.dumps(rec))
+    return launches
 
 
 async def _collect(gen) -> list:
@@ -635,8 +812,9 @@ def main() -> None:
     timer = Timer(torch)
     attn_err, attn_row, mel_err, mel_row = kernel_phase(torch, timer)
     int8_errs, int8_rows = int8_kernel_phase(torch, timer)
+    int4_errs, int4_rows, int4_launches = int4_kernel_phase(torch, timer)
     del timer
-    bench_phase()
+    int4_launches.update(bench_phase(torch))
     release_memory(torch)
 
     engine, launches = main_path_phase(torch)
@@ -657,28 +835,33 @@ def main() -> None:
     kernels = [
         dict(name="decode_attention", route="cuda",
              source="sonicscribe_tpu_torch/csrc/decode_attention.cu",
-             replaces="sonicscribe_tpu/ops/decode_attention.py:34",
+             replaces="sonicscribe_tpu/ops/decode_attention.py:34", path="serve",
              launches=launches["decode_attention"], max_abs_err=attn_err, **attn_row),
         dict(name="log_mel", route="cuda",
              source="sonicscribe_tpu_torch/csrc/log_mel.cu",
-             replaces="sonicscribe_tpu/ops/mel_pallas.py:53",
+             replaces="sonicscribe_tpu/ops/mel_pallas.py:53", path="serve",
              launches=launches["log_mel"], max_abs_err=mel_err, **mel_row),
         dict(name="int8_matmul", route="cuda",
              source="sonicscribe_tpu_torch/csrc/int8_matmul.cu",
-             replaces="sonicscribe_tpu/ops/int8_pallas.py:39",
+             replaces="sonicscribe_tpu/ops/int8_pallas.py:39", path="serve",
              launches=launches["int8_matmul"], max_abs_err=int8_errs["int8_matmul"],
              **int8_rows["int8_matmul"]),
         dict(name="int8_matmul_stacked", route="cuda",
              source="sonicscribe_tpu_torch/csrc/int8_matmul.cu",
-             replaces="sonicscribe_tpu/ops/int8_pallas.py:114",
+             replaces="sonicscribe_tpu/ops/int8_pallas.py:114", path="serve",
              launches=launches["int8_matmul_stacked"],
              max_abs_err=int8_errs["int8_matmul_stacked"], **int8_rows["int8_matmul_stacked"]),
         # no Pallas kernel: the JAX package leaves matmul_w8a8 to XLA
         dict(name="int8_matmul_w8a8", route="cuda",
              source="sonicscribe_tpu_torch/csrc/int8_matmul.cu",
-             replaces="sonicscribe_tpu/ops/quant.py:72",
+             replaces="sonicscribe_tpu/ops/quant.py:72", path="serve",
              launches=launches["int8_matmul_w8a8"], max_abs_err=int8_errs["int8_matmul_w8a8"],
              **int8_rows["int8_matmul_w8a8"]),
+    ] + [
+        dict(name=name, route="cuda", source="sonicscribe_tpu_torch/csrc/int4_matmul.cu",
+             replaces=f"sonicscribe_tpu/ops/int4_pallas.py:{line}", path=path,
+             launches=int4_launches[name], max_abs_err=int4_errs[name], **int4_rows[name])
+        for name, (line, path) in INT4_ENTRIES.items()
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on the main path")

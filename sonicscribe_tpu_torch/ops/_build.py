@@ -27,13 +27,15 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-KERNELS = ("decode_attention", "log_mel", "int8_matmul")  # csrc/<name>.cu
+KERNELS = ("decode_attention", "log_mel", "int8_matmul", "int4_matmul")  # csrc/<name>.cu
 
 # launches per wrapper: each adds one where it launches its kernel
 launch_counts: dict[str, int] = {
     name: 0 for name in (
         "decode_attention", "log_mel",
         "int8_matmul", "int8_matmul_stacked", "int8_matmul_w8a8",  # csrc/int8_matmul.cu
+        "int4_matmul", "int4_matmul_stacked",  # csrc/int4_matmul.cu
+        "int4_matmul_w4a8", "int4_matmul_w4a8_stacked",
     )
 }
 

@@ -35,19 +35,23 @@ from sonicscribe_tpu_torch.models.config import nano
 from sonicscribe_tpu_torch.ops.int8_matmul import int8_matmul_stacked, int8_matmul_w8a8
 from sonicscribe_tpu_torch.ops.quant import quantize_tensor
 
-def layer_weights(cfg, seed: int, device) -> dict:
-    """bf16 stacks [L, K, N] of the four decoder projections, N(0, 0.02)."""
+def layer_shapes(cfg) -> dict:
+    """[L, K, N] of the four decoder projections' stacks."""
     dec = cfg.decoder
     L, d = dec.n_layers, dec.d_model
-    shapes = {
+    return {
         "qkv_w": (L, d, (dec.n_heads + 2 * dec.n_kv_heads) * dec.head_dim),
         "o_w": (L, dec.n_heads * dec.head_dim, d),
         "gate_up_w": (L, d, 2 * dec.ffn_hidden),
         "down_w": (L, dec.ffn_hidden, d),
     }
+
+
+def layer_weights(cfg, seed: int, device) -> dict:
+    """bf16 stacks [L, K, N] of the four decoder projections, N(0, 0.02)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     return {k: (torch.randn(s, generator=gen, device=device) * 0.02).to(torch.bfloat16)
-            for k, s in shapes.items()}
+            for k, s in layer_shapes(cfg).items()}
 
 
 def sweep(mm, weights: dict, h: torch.Tensor, n_layers: int) -> torch.Tensor:

@@ -20,6 +20,17 @@ from sonicscribe_tpu_torch.ops.decode_attention import (
     decode_attention,
     decode_attention_plain,
 )
+from sonicscribe_tpu_torch.ops.int4_matmul import (
+    int4_matmul,
+    int4_matmul_plain,
+    int4_matmul_stacked,
+    int4_matmul_stacked_plain,
+    int4_matmul_w4a8,
+    int4_matmul_w4a8_plain,
+    int4_matmul_w4a8_stacked,
+    int4_matmul_w4a8_stacked_plain,
+    pack_int4,
+)
 from sonicscribe_tpu_torch.ops.int8_matmul import (
     int8_matmul,
     int8_matmul_plain,
@@ -147,3 +158,50 @@ def test_int8_wrappers_reject_what_the_kernel_does_not_take(cuda):
         int8_matmul(x, q[0, :, :24].contiguous(), scale[0, :, :24].contiguous())
     with pytest.raises(ValueError, match="multiple of 4"):
         int8_matmul_w8a8(x[:, :62].contiguous(), q[:, :62].contiguous(), scale, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,K,N", [(1, 2048, 3072), (2, 1024, 384), (4, 5504, 2048),
+                                   (37, 200, 128)])
+def test_int4_matmul_kernels(cuda, dtype, B, K, N):
+    g = torch.Generator(device=cuda).manual_seed(B)
+    packed = pack_int4(torch.randint(-8, 8, (3, K, N), generator=g, device=cuda,
+                                     dtype=torch.int8))
+    scale = 0.02 + 0.01 * torch.rand((3, 1, N), generator=g, device=cuda)
+    x = torch.randn((B, K), generator=g, device=cuda).to(dtype)
+    before = dict(_build.launch_counts)
+
+    _assert_w8a16_close(int4_matmul(x, packed[1], scale[1]),
+                        int4_matmul_plain(x, packed[1], scale[1]))
+    _assert_w8a16_close(int4_matmul_stacked(x, packed, scale, 2),
+                        int4_matmul_stacked_plain(x, packed, scale, 2))
+    # integer sums are exact on both sides: equal outputs
+    assert torch.equal(int4_matmul_w4a8(x, packed[1], scale[1]),
+                       int4_matmul_w4a8_plain(x, packed[1], scale[1]))
+    assert torch.equal(int4_matmul_w4a8_stacked(x, packed, scale, 2),
+                       int4_matmul_w4a8_stacked_plain(x, packed, scale, 2))
+    for name in ("int4_matmul", "int4_matmul_stacked", "int4_matmul_w4a8",
+                 "int4_matmul_w4a8_stacked"):
+        assert _build.launch_counts[name] == before[name] + 1
+
+
+def test_int4_wrappers_reject_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((2, 256), device=cuda)
+    packed = torch.zeros((3, 128, 128), dtype=torch.int8, device=cuda)
+    scale = torch.ones((3, 1, 128), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        int4_matmul(x, packed[0, :, :64].contiguous(), scale[0, :, :64].contiguous())
+    with pytest.raises(ValueError, match="even K"):
+        int4_matmul_stacked(torch.zeros((2, 257), device=cuda), packed, scale, 0)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        int4_matmul_w4a8(x[:, :132].contiguous(), packed[0, :66].contiguous(), scale[0])
+    with pytest.raises(ValueError, match="out of range"):
+        int4_matmul_stacked(x, packed, scale, 3)
+    with pytest.raises(ValueError, match="out of range"):
+        int4_matmul_w4a8_stacked(x, packed, scale, -1)
+    with pytest.raises(TypeError):
+        int4_matmul(x.half(), packed[0], scale[0])
+    with pytest.raises(TypeError):
+        int4_matmul_stacked(x, packed.float(), scale, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        int4_matmul(torch.zeros((256, 2), device=cuda).T, packed[0], scale[0])

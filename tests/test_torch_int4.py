@@ -1,0 +1,187 @@
+"""Port parity for the int4 kernels and the int4 sweep: the plain versions
+of ops/int4_matmul.py against the JAX package's int4_pallas (interpret
+mode) on the CPU, and the port's bench_int4_matmul sweep against the same
+chain composed from the JAX kernels at tiny() decoder widths."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sonicscribe_tpu.ops import int4_pallas as j4
+from sonicscribe_tpu_torch.models import tiny
+from sonicscribe_tpu_torch.models.weights import params_from_jax
+from sonicscribe_tpu_torch.ops import _build
+from sonicscribe_tpu_torch.ops import int4_matmul as t4
+from sonicscribe_tpu_torch.tools import bench_int4_matmul as bench
+
+W16_TOL = 1e-5  # share of max|want|: float32 sums in another order
+
+
+def _t(a) -> torch.Tensor:
+    """numpy / JAX array -> CPU tensor with the same bits."""
+    return params_from_jax(np.asarray(a), device="cpu")
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _codes(rng, shape):
+    return rng.integers(-8, 8, shape).astype(np.int8)  # -8 is a valid nibble
+
+
+def _assert_w16_close(got, want):
+    """float32 sums in another order: W16_TOL of max|want|; in bf16 one
+    more bf16 ulp of want for the final rounding."""
+    got, want32 = _np(got), np.asarray(want, np.float32)
+    tol = W16_TOL * np.abs(want32).max()
+    if want.dtype == jnp.bfloat16:
+        tol = tol + 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want32), 2.0**-126))) - 7)
+    assert got.shape == want32.shape
+    assert (np.abs(got - want32) <= tol).all(), float(np.abs(got - want32).max())
+
+
+# ---------------------------------------------------------------- packing
+
+
+@pytest.mark.parametrize("shape", [(256, 128), (2048, 384), (3, 128, 256)])
+def test_pack_unpack_bit_equal_to_jax(shape):
+    rng = np.random.default_rng(sum(shape))
+    codes = _codes(rng, shape)
+    codes[..., 0, :] = -8
+    want = j4.pack_int4(jnp.asarray(codes))
+    got = t4.pack_int4(torch.from_numpy(codes))
+    assert got.dtype == torch.int8 and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(t4.unpack_int4(got).numpy(), np.asarray(j4.unpack_int4(want)))
+    np.testing.assert_array_equal(t4.unpack_int4(got).numpy(), codes)
+
+
+@pytest.mark.parametrize("x_shape,packed_shape", [
+    ((8, 2048), (1024, 11008)), ((8, 5504), (2752, 2048)), ((8, 2048), (2048, 11008)),
+    ((2, 8, 128), (64, 128)), ((8, 128), (64, 100)),
+])
+def test_supported_agrees_with_jax(x_shape, packed_shape):
+    assert t4.supported(x_shape, packed_shape) == j4.supported(x_shape, packed_shape)
+
+
+# ---------------------------------------------------------------- products
+
+
+def _inputs(seed, b, k, n, dtype, layers=None):
+    rng = np.random.default_rng(seed)
+    shp = (k, n) if layers is None else (layers, k, n)
+    packed = j4.pack_int4(jnp.asarray(_codes(rng, shp)))
+    sshape = (1, n) if layers is None else (layers, 1, n)
+    scale = jnp.asarray(0.02 + 0.01 * rng.random(sshape), jnp.float32)
+    x = jnp.asarray(rng.standard_normal((b, k)), dtype) * 0.1
+    return x, packed, scale
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("b,k,n", [(1, 256, 384), (5, 128, 512), (16, 384, 128)])
+def test_int4_matmul_plain_matches_pallas(dtype, b, k, n):
+    x, packed, scale = _inputs(b, b, k, n, dtype)
+    want = j4.int4_matmul(x, packed, scale, interpret=True)
+    before = dict(_build.launch_counts)
+    got = t4.int4_matmul(_t(x), _t(packed), _t(scale))
+    assert _build.launch_counts == before  # the CPU runs the plain version
+    assert got.dtype == _t(x).dtype
+    _assert_w16_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_int4_matmul_stacked_plain_matches_pallas(dtype):
+    x, packed, scale = _inputs(7, 4, 256, 256, dtype, layers=3)
+    for layer in range(3):
+        want = j4.int4_matmul_stacked(x, packed, scale, layer, interpret=True)
+        _assert_w16_close(t4.int4_matmul_stacked(_t(x), _t(packed), _t(scale), layer), want)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("b,k,n", [(1, 256, 384), (16, 384, 128), (3, 200, 256)])
+def test_int4_matmul_w4a8_plain_equal_to_pallas(dtype, b, k, n):
+    """Equal outputs: the activation quantisation is the same float32
+    arithmetic and the integer sums are exact on both sides."""
+    x, packed, scale = _inputs(b + 1, b, k, n, dtype)
+    want = j4.int4_matmul_w4a8(x, packed, scale, interpret=True)
+    got = t4.int4_matmul_w4a8(_t(x), _t(packed), _t(scale))
+    assert got.dtype == _t(x).dtype
+    np.testing.assert_array_equal(_np(got), np.asarray(want, np.float32))
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_int4_matmul_w4a8_stacked_plain_equal_to_pallas(dtype):
+    x, packed, scale = _inputs(9, 3, 256, 128, dtype, layers=2)
+    for layer in range(2):
+        want = j4.int4_matmul_w4a8_stacked(x, packed, scale, layer, interpret=True)
+        got = t4.int4_matmul_w4a8_stacked(_t(x), _t(packed), _t(scale), layer)
+        np.testing.assert_array_equal(_np(got), np.asarray(want, np.float32))
+
+
+def test_entries_cast_the_scale_as_jax_does():
+    """A bf16 scale of any shape that reshapes to [1, N] / [L, 1, N]."""
+    x, packed, scale = _inputs(11, 2, 128, 128, jnp.float32, layers=2)
+    scale16 = scale.astype(jnp.bfloat16)
+    want = j4.int4_matmul_stacked(x, packed, scale16.reshape(2, -1), 1, interpret=True)
+    got = t4.int4_matmul_stacked(_t(x), _t(packed), _t(scale16).reshape(2, -1), 1)
+    _assert_w16_close(got, want)
+    want = j4.int4_matmul_w4a8(x, packed[0], scale16[0].reshape(-1), interpret=True)
+    got = t4.int4_matmul_w4a8(_t(x), _t(packed[0]), _t(scale16[0]).reshape(-1))
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+
+
+# ---------------------------------------------------------------- the sweep
+
+
+def _jax_sweep(mm_stacked, weights, h, n_layers):
+    """The JAX tool's stacked chain (_sweep_pallas), unjitted."""
+    for layer in range(n_layers):
+        def mm(x, t):
+            return mm_stacked(x, t["packed"], t["scale"], layer, interpret=True)
+
+        qkv = mm(h, weights["qkv_w"])
+        h = h + 0.01 * mm(qkv[:, : h.shape[1]], weights["o_w"])
+        gate, up = jnp.split(mm(h, weights["gate_up_w"]), 2, axis=-1)
+        h = h + 0.01 * mm(jax.nn.silu(gate) * up, weights["down_w"])
+    return h
+
+
+def test_sweep_matches_the_jax_chain():
+    """The tool's sweep through the plain versions at tiny() decoder widths
+    in float32 against the chain of JAX's stacked kernels on the same
+    codes: within 1e-5 relative. Every variant computes the same function
+    of the same codes; W4A8 within its activation quantisation."""
+    cfg = tiny()
+    n_layers = cfg.decoder.n_layers
+    weights = bench.make_weights(cfg, seed=0, device=torch.device("cpu"))
+    wj = {name: {"packed": jnp.asarray(w["packed"].numpy()),
+                 "scale": jnp.asarray(w["scale"].numpy())} for name, w in weights.items()}
+    for name, w in weights.items():  # the int8 variant reads the same codes
+        np.testing.assert_array_equal(t4.unpack_int4(w["packed"]).numpy(), w["q"].numpy())
+        np.testing.assert_array_equal(bench.unpack_interleaved(w["interleaved"]).numpy(),
+                                      w["q"].numpy())
+    h0 = (np.random.default_rng(0).standard_normal((3, cfg.decoder.d_model)) * 0.1
+          ).astype(np.float32)
+    got = {v: bench.sweep(bench.VARIANTS[v], weights, torch.from_numpy(h0), n_layers)
+           for v in bench.VARIANTS}
+    for variant, mm_stacked in (("int4_w4a16", j4.int4_matmul_stacked),
+                                ("int4_w4a8", j4.int4_matmul_w4a8_stacked)):
+        want = np.asarray(_jax_sweep(mm_stacked, wj, jnp.asarray(h0), n_layers))
+        err = np.abs(got[variant].numpy() - want).max() / np.abs(want).max()
+        assert err <= 1e-5, (variant, err)
+    ref = got["int8"]
+    for variant in ("int4_w4a16", "int4_packed", "bf16"):
+        # bf16 weights: codes * a scale that bf16 holds exactly, rounded once
+        tol = 1e-5 if variant != "bf16" else 4e-3
+        torch.testing.assert_close(got[variant], ref, rtol=0, atol=tol * float(ref.abs().max()))
+    assert float((got["int4_w4a8"] - ref).abs().max()) <= 0.02 * float(ref.abs().max())
+
+
+def test_run_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench.run(batches=(1,), reps=1)
