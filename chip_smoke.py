@@ -10,7 +10,9 @@ exits non-zero on failure:
 
 1. build: nvcc compiles every kernel of csrc/ for sm_90a, in parallel.
 2. kernels: each CUDA kernel against its plain PyTorch version on the card,
-   at the main path's shapes, with its stated tolerance; then its time
+   at the main path's shapes, with its stated tolerance (decode attention
+   also at lens on either side of a split boundary, and two launches on the
+   same inputs must give the same bits); then its time
    beside its plain version's, a PyTorch library call's (a yardstick the
    port never calls) and its bound at the H100's 3.35 TB/s and its peak
    rate for the work's type (NVIDIA data sheet, SXM): 67 TFLOP/s float32
@@ -19,7 +21,10 @@ exits non-zero on failure:
    (W8A16, W4A16 and W8A8, W4A8), which the tensor cores can run. The int8
    kernels are checked at nano's decode shapes (B 1 and 4: qkv, o, gate_up,
    down), prefill rows (B 419: qkv, down) and encoder rows (B 1536: fc1,
-   fc2), x in float32 and bf16; the four int4 kernels at nano's decode
+   fc2), x in float32 and bf16, and the flat entry's tensor-core design
+   (bf16, B > 8) also at B 9, 17 and 227 on the four decoder projections;
+   the flat design is timed at the four prefill/encoder shapes beside the
+   CUDA-core design on the same inputs; the four int4 kernels at nano's decode
    shapes (B 1, 4, 8, 37, 64), flat and stacked, and timed at B 1 and at
    gate_up B 64. Then the bench tools' per-step projection sweeps: int8 at
    B 1 and 8; int4 at B 1, 8 and 64 in every variant, after one eager step
@@ -37,7 +42,8 @@ exits non-zero on failure:
    int8-decoder-a8), a runtime of its own serves the ~12 s request: the
    stacked W8A16 kernel (W8A8 in -a8) runs 4 times per layer per decode
    step, the flat W8A16 kernel 4 times per layer per segment in prefill
-   (plus 6 per encoder layer in full int8). Each runtime's peak memory is
+   (plus 6 per encoder layer in full int8), every one of them bf16 with
+   B > 8 and so on the tensor cores (int8_matmul_mma). Each runtime's peak memory is
    read over its request, and a short profiled request splits its time
    between host and card, as for the native runtime.
 4. reference: tiny() in float32 gives the same tokens on the card as on
@@ -45,7 +51,7 @@ exits non-zero on failure:
    in each int8 mode, and nano's prefill logits are finite.
 
 The line before the last is the kernels' JSON record (nine kernels, each
-with the path its launches were counted on); the last line is
+with the path its launches were counted on and its design); the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no result.
 """
 
@@ -169,9 +175,11 @@ def kernel_phase(torch, timer):
         reflect_pad,
     )
     from sonicscribe_tpu_torch.models.config import nano
+    from sonicscribe_tpu_torch.ops import _build
     from sonicscribe_tpu_torch.ops.decode_attention import (
         decode_attention_cuda,
         decode_attention_plain,
+        split_shape,
     )
     from sonicscribe_tpu_torch.ops.mel import log_mel_frames_cuda, log_mel_frames_plain
 
@@ -188,14 +196,19 @@ def kernel_phase(torch, timer):
         return q, k[1], v[1]
 
     # ---- decode attention: correctness at nano heads ----
+    n_sms = _build.n_sms(torch.device("cuda"))
     attn_err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for S in (1, 4):
-            for M in (803, 1024):
+            for M in (675, 803, 1024):
                 q, k, v = cache(S, M, dtype)
-                cases = [[L] * S for L in (0, 1, 127, 128, M - 1, M)]
+                # a slot sees lens + 1 positions: lens chunk - 1 fills the
+                # first split exactly, chunk starts the second
+                chunk, _ = split_shape(S, M, nkv, n_sms)
+                cases = [[L] * S for L in sorted({0, 1, 127, 128, chunk - 2, chunk - 1, chunk,
+                                                  2 * chunk - 1, M - 1, M, M + 5})]
                 if S == 4:
-                    cases.append([0, 127, 128, M - 1])
+                    cases += [[0, 127, 128, M - 1], [chunk - 1, chunk, 2 * chunk, M]]
                 for lens_list in cases:
                     lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
                     got = decode_attention_cuda(q, k, v, lens)
@@ -206,8 +219,13 @@ def kernel_phase(torch, timer):
                           f"decode_attention {dtype} S={S} M={M} lens={lens_list}: "
                           f"max err {err} > {ATTN_TOL}")
                     attn_err = max(attn_err, err)
-    log(f"decode_attention: max abs err {attn_err:.3g} <= {ATTN_TOL} "
-        f"(f32 and bf16 caches, S in 1,4, M in 803,1024, lens 0,1,127,128,M-1,M)")
+        q, k, v = cache(4, 1024, dtype)
+        lens = torch.tensor([5, 300, 677, 1023], dtype=torch.int32, device="cuda")
+        check(torch.equal(decode_attention_cuda(q, k, v, lens), decode_attention_cuda(q, k, v, lens)),
+              f"decode_attention {dtype}: two launches on the same inputs differ")
+    log(f"decode_attention: max abs err {attn_err:.3g} <= {ATTN_TOL} (f32 and bf16 caches, S in "
+        f"1,4, M in 675,803,1024, lens 0,1,127,128,M-1,M,M+5 and on either side of the first "
+        f"two split boundaries); two launches give equal bits in f32 and bf16")
 
     # ---- decode attention: time at main-path shapes (bf16, batch 1) ----
     # M = 3 prefix + bucket/8 audio + 160 suffix + 256 new tokens
@@ -226,10 +244,13 @@ def kernel_phase(torch, timer):
         n_bytes = S * (nh * hd * esize + 2 * (L + 1) * nkv * hd * esize + nh * hd * 4 + 4)
         flops = S * 4 * nh * hd * (L + 1)
         b_ms, b_by = bound_ms(n_bytes, flops)
-        log(f"decode_attention S={S} M={M} lens={L} bf16: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+        chunk, splits = split_shape(S, M, nkv, n_sms)
+        design = (f"split-KV: {splits} splits of {chunk} positions x {nkv} KV heads x {S} "
+                  f"slots, 16-byte loads, deterministic merge kernel")
+        log(f"decode_attention S={S} M={M} lens={L} bf16 ({design}): kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
         attn_rows.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                              library_ms=lib_ms))
+                              library_ms=lib_ms, design=design))
 
     # ---- log-mel: correctness at every bucket, ragged lengths ----
     cfg = MelConfig()
@@ -286,6 +307,7 @@ def int8_kernel_phase(torch, timer):
     from sonicscribe_tpu_torch.engine.transcriber import MAX_SUFFIX_TOKENS
     from sonicscribe_tpu_torch.models.config import nano
     from sonicscribe_tpu_torch.models.tokenizer import ByteTokenizer, build_prompt
+    from sonicscribe_tpu_torch.ops import _build
     from sonicscribe_tpu_torch.ops import int8_matmul as im
     from sonicscribe_tpu_torch.ops.quant import dequantize_tensor, quantize_tensor
 
@@ -317,6 +339,18 @@ def int8_kernel_phase(torch, timer):
     def check_w8a16(name, got, want, case):
         errs[name] = max(errs[name], check_w16(torch, name, got, want, case))
 
+    def check_flat(B, p, dtype):
+        """The flat entry at B rows of projection p: the mma counter must
+        rise exactly for bf16 x with B > 8."""
+        q, sc = stacks[p]["q"][1], stacks[p]["scale"][1]
+        x = x_of(B, shapes[p][0], dtype)
+        before = _build.launch_counts["int8_matmul_mma"]
+        got = im.int8_matmul_cuda(x, q, sc)
+        mma = _build.launch_counts["int8_matmul_mma"] - before
+        check(mma == int(dtype == torch.bfloat16 and B > 8),
+              f"int8_matmul {p} B={B} {dtype}: int8_matmul_mma rose by {mma}")
+        check_w8a16("int8_matmul", got, im.int8_matmul_plain(x, q, sc), f"{p} B={B} {dtype}")
+
     for dtype in (torch.float32, torch.bfloat16):
         for B in (1, 4):
             for p in ("qkv", "o", "gate_up", "down"):
@@ -334,15 +368,16 @@ def int8_kernel_phase(torch, timer):
                       f"{(got.float() - want.float()).abs().max().item()}, want equal")
         for B, p in ((prefill_rows, "qkv"), (prefill_rows, "down"),
                      (encoder_rows, "enc_fc1"), (encoder_rows, "enc_fc2")):
-            q, sc = stacks[p]["q"][1], stacks[p]["scale"][1]
-            x = x_of(B, shapes[p][0], dtype)
-            check_w8a16("int8_matmul", im.int8_matmul_cuda(x, q, sc),
-                        im.int8_matmul_plain(x, q, sc), f"{p} B={B} {dtype}")
+            check_flat(B, p, dtype)
+    for B in (8, 9, 17, 227):  # either side of the design switch, and a ragged row tile
+        for p in ("qkv", "o", "gate_up", "down"):
+            check_flat(B, p, torch.bfloat16)
     torch.cuda.synchronize()
     log(f"int8 kernels vs plain: max abs err W8A16 flat {errs['int8_matmul']:.3g}, stacked "
         f"{errs['int8_matmul_stacked']:.3g} (tolerance {INT8_F32_TOL} x max|want|, + one "
         f"bf16 ulp in bf16); W8A8 equal (decode B 1,4 at qkv/o/gate_up/down; flat also "
-        f"B={prefill_rows} qkv/down, B={encoder_rows} enc fc1/fc2; f32 and bf16)")
+        f"B={prefill_rows} qkv/down, B={encoder_rows} enc fc1/fc2, f32 and bf16, and bf16 "
+        f"B 8,9,17,227 at qkv/o/gate_up/down; the mma design ran exactly for bf16 B > 8)")
 
     # ---- times at the main path's shapes, bf16 ----
     def time_row(label, name, fn, plain, lib, B, K, N, peak, lib_label):
@@ -373,6 +408,25 @@ def int8_kernel_phase(torch, timer):
         log(f"  of which the plain per-row activation quantisation: {quant_ms:.4f} ms")
         if p == "gate_up":
             rows["int8_matmul_w8a8"] = r
+    n_sms = _build.n_sms(torch.device("cuda"))
+
+    def cuda_core_w8a16(x, q, sc):
+        """The CUDA-core W8A16 design on the same inputs, launched directly
+        (the flat entry sends bf16 B > 8 to the tensor cores): the design
+        that the tensor-core one replaced there, timed in the same run."""
+        B, K = x.shape
+        N = q.shape[1]
+        rows_, splits, kps = im.launch_shape(B, K, N, n_sms)
+        out = torch.empty((B, N), device="cuda", dtype=x.dtype)
+        partial = torch.empty((splits, B, N), device="cuda") if splits > 1 else None
+        err = im._lib().int8_matmul_w8a16(
+            x.data_ptr(), q.data_ptr(), sc.data_ptr(), out.data_ptr(),
+            partial.data_ptr() if partial is not None else None, 1, B, K, N, 0, rows_, splits,
+            kps, torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"CUDA-core int8_matmul_w8a16: cudaError {err}")
+        return out
+
+    flat_rows = {}
     for B, p in ((prefill_rows, "qkv"), (prefill_rows, "down"),
                  (encoder_rows, "enc_fc1"), (encoder_rows, "enc_fc2")):
         K, N = shapes[p]
@@ -382,8 +436,18 @@ def int8_kernel_phase(torch, timer):
         r = time_row(p, "int8_matmul", lambda: im.int8_matmul_cuda(x, q, sc),
                      lambda: im.int8_matmul_plain(x, q, sc), lambda: torch.mm(x, w),
                      B, K, N, BF16_FLOPS_PER_S, "bf16 dense mm (2x the weight bytes)")
+        check_w8a16("int8_matmul", cuda_core_w8a16(x, q, sc), im.int8_matmul_plain(x, q, sc),
+                    f"{p} B={B} CUDA-core design")
+        cc_ms = timer.ms(lambda: cuda_core_w8a16(x, q, sc))
+        log(f"  the CUDA-core design on the same inputs: {cc_ms:.4f} ms "
+            f"(mma {cc_ms / r['ms']:.1f}x faster; {2 * B * K * N / r['ms'] / 1e9:.1f} TFLOP/s)")
+        flat_rows[f"{p} B={B}"] = dict(ms=r["ms"], cuda_core_ms=cc_ms, library_ms=r["library_ms"])
         if (B, p) == (prefill_rows, "qkv"):
-            rows["int8_matmul"] = r
+            rows["int8_matmul"] = dict(
+                r, design="mma.sync m16n8k16 bf16 on the tensor cores for bf16 x with B > 8 "
+                "(64 x 128 tiles, K steps of 128, 3-stage cp.async, int8 read by "
+                "ldmatrix.trans and dequantised exactly in registers); CUDA-core streaming "
+                "for B <= 8 and float32 x", flat_shapes=flat_rows)
     return errs, rows
 
 
@@ -667,6 +731,9 @@ def int8_main_path_phase(torch, mode: str) -> dict:
         flat = n_seg * (4 * n_dec + (6 * n_enc if mode == "int8" else 0))
         check(counts["int8_matmul"] == flat,
               f"{mode}: int8_matmul launched {counts['int8_matmul']} times, want {flat}")
+        # every flat launch here is bf16 prefill or encoder rows (B > 8)
+        check(counts["int8_matmul_mma"] == flat,
+              f"{mode}: int8_matmul_mma launched {counts['int8_matmul_mma']} times, want {flat}")
         log(f"  {mode}: max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         profile_phase(torch, engine, mode)
         return counts
@@ -700,9 +767,12 @@ def profile_phase(torch, engine, mode: str = "native"):
 
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     check(busy_ms > 0, "the profiler saw no device time")
+    attn_ms = sum(dev_us(e) for e in events if "decode_attention" in e.key) / 1e3
+    mma_ms = sum(dev_us(e) for e in events if "w8a16_mma" in e.key) / 1e3
     log(f"profile {mode}: 3 s request, 32-token budget: wall {wall * 1e3:.1f} ms (unprofiled), "
         f"mel {r.timings['mel_s'] * 1e3:.1f} ms host, device busy {busy_ms:.1f} ms "
-        f"(idle share {max(0.0, 1 - busy_ms / (wall * 1e3)):.3f})")
+        f"(idle share {max(0.0, 1 - busy_ms / (wall * 1e3)):.3f}); decode attention "
+        f"{attn_ms:.1f} ms ({attn_ms / busy_ms:.3f} of busy), flat W8A16 mma {mma_ms:.1f} ms")
     for e in sorted(events, key=dev_us, reverse=True)[:8]:
         log(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
 
@@ -827,7 +897,7 @@ def main() -> None:
     for mode in INT8_MODES:
         release_memory(torch)
         counts = int8_main_path_phase(torch, mode)
-        for name in int8_errs:
+        for name in (*int8_errs, "int8_matmul_mma"):
             launches[name] = launches.get(name, 0) + counts[name]
     for mode in INT8_MODES:
         tiny_tokens_phase(torch, mode)
@@ -844,8 +914,8 @@ def main() -> None:
         dict(name="int8_matmul", route="cuda",
              source="sonicscribe_tpu_torch/csrc/int8_matmul.cu",
              replaces="sonicscribe_tpu/ops/int8_pallas.py:39", path="serve",
-             launches=launches["int8_matmul"], max_abs_err=int8_errs["int8_matmul"],
-             **int8_rows["int8_matmul"]),
+             launches=launches["int8_matmul"], mma_launches=launches["int8_matmul_mma"],
+             max_abs_err=int8_errs["int8_matmul"], **int8_rows["int8_matmul"]),
         dict(name="int8_matmul_stacked", route="cuda",
              source="sonicscribe_tpu_torch/csrc/int8_matmul.cu",
              replaces="sonicscribe_tpu/ops/int8_pallas.py:114", path="serve",

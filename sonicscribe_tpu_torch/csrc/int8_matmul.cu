@@ -28,16 +28,47 @@
 //   __dp4a over 4 consecutive k regrouped from four 16-byte row loads with
 //   __byte_perm) stay in registers; k-lanes are reduced with warp shuffles
 //   and one shared-memory pass, and the scale is applied in the epilogue.
-// At prefill and in the encoder (B of hundreds to 1536 rows) the same loop
-// walks row tiles of 8 (grid.y) and the products run on the CUDA cores:
-// right, and far from the tensor cores' rate (mma/wgmma is later work).
+// The same loop walks row tiles of 8 (grid.y) for more rows, on the CUDA
+// cores; it serves float32 x at every B, the stacked entry and W8A8.
+//
+// At prefill and in the encoder (bf16 x, B of hundreds to 1536 rows) the
+// flat W8A16 product is bound by operations: 2*B*K*N of them on K*N weight
+// bytes, ~800 per byte at B = 419, past the card's ridge, so it belongs on
+// the tensor cores. `w8a16_mma_kernel` (entry int8_matmul_w8a16_mma) runs
+// it there with mma.sync.m16n8k16 bf16 x bf16 -> float32:
+// - a block owns 64 rows x 128 columns (qkv at B = 419: 7 x 24 = 168
+//   blocks), K in steps of 128; 4 warps side by side along N, each 64 x 32
+//   (4 x 4 mma tiles), so no two warps dequantise the same weights;
+// - the x tile (bf16) and the q tile (int8, as stored) of each step come
+//   into shared memory by cp.async, 3 steps in flight (105 KB of dynamic
+//   shared memory, 2 blocks per SM), one barrier per step. On the H100
+//   this copy path, not the tensor cores, sets the time (TMA and wgmma
+//   are later work);
+// - the layout trap: q is [K, N] with N contiguous, but mma's B operand
+//   wants pairs of consecutive k per column. ldmatrix.trans over the int8
+//   tile, read as 16-bit pairs of columns, hands each lane the bytes of k
+//   and k+1 for two neighbouring columns; two __byte_perm split them into
+//   the k pairs of an even and an odd column, so each warp's 32 columns
+//   are 4 mma n-tiles (even and odd columns of two 16-column halves) and
+//   the epilogue writes 4 neighbouring columns per lane;
+// - int8 -> bf16 is exact (an int8 has at most 8 significant bits), in
+//   registers: each byte goes into the low byte of the float 2^23 + 128 +
+//   w (__byte_perm), one subtraction gives w, and the bf16 is the float's
+//   high half (a second __byte_perm packs two). So every product is exact
+//   and only the float32 summation order differs from the plain version;
+//   the per-column scale and one cast come after.
+// Shared rows are padded by 16 bytes so that each ldmatrix hits 8
+// different banks. Ragged B and ragged K steps are zero-filled (cp.async
+// with a source size of 0); ragged N is masked at 16-column steps.
 //
 // Layout: x [B, K] (float32 / bfloat16, contiguous), xq [B, K] int8 and
 // sx [B] float32 for W8A8, q [L, K, N] int8 and scale [L, 1, N] float32
 // (contiguous), out [B, N] in x's type, partial [splits, B, N] float32 /
 // int32 scratch when splits > 1. N must be a multiple of 16; W8A8 needs
-// K % 4 == 0. The wrapper (ops/int8_matmul.py) checks and picks the
-// launch shape; each entry returns the cudaError of its launches.
+// K % 4 == 0; the mma entry needs bf16 x with K % 8 == 0 and 16-byte
+// aligned x and scale (16-byte copies and loads). The wrapper (ops/int8_matmul.py)
+// checks and picks the design and the launch shape; each entry returns the
+// cudaError of its launches.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -331,7 +362,201 @@ void dispatch_w8a8(int rows, const int8_t* xq, const float* sx, const int8_t* q,
   }
 }
 
+// ---------------------------------------------------------------- mma
+
+constexpr int kMmaWarps = 4;             // side by side along N
+constexpr int kMmaThreads = kMmaWarps * 32;
+constexpr int kMmaTm = 4, kMmaTn = 4;    // mma tiles (16 x 8) per warp: 64 x 32
+constexpr int kMmaBM = kMmaTm * 16;      // 64 rows per block
+constexpr int kMmaBN = kMmaWarps * kMmaTn * 8;  // 128 columns per block
+constexpr int kMmaBK = 128;              // k per step
+constexpr int kStages = 3;               // steps in flight
+constexpr int kXRow = kMmaBK + 8;        // bf16 per x row of a stage (+16 bytes)
+constexpr int kQRow = kMmaBN + 16;       // int8 per q row of a stage (+16 bytes)
+constexpr int kXStage = kMmaBM * kXRow * 2, kQStage = kMmaBK * kQRow;  // bytes
+constexpr int kMmaSmem = kStages * (kXStage + kQStage);               // 107,520
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, or 16 zero bytes where !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One register of ldmatrix.trans over int8 data: bytes q(k, c), q(k, c+1),
+// q(k+1, c), q(k+1, c+1). -> the bf16 pair (k, k+1) of column c (`even`)
+// and of column c+1 (`odd`), exact: w + 128 into the low byte of 2^23,
+// minus 2^23 + 128, and the bf16 is the high half of that float.
+__device__ __forceinline__ void int8_pairs_to_bf16(unsigned r, unsigned& even, unsigned& odd) {
+  const unsigned u = r ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    f[j] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + j)) - 8388736.f;
+  even = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[2]), 0x7632);
+  odd = __byte_perm(__float_as_uint(f[1]), __float_as_uint(f[3]), 0x7632);
+}
+
+__global__ void __launch_bounds__(kMmaThreads)
+w8a16_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
+                 const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, int B, int K,
+                 int N) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);          // [kStages][BM][kXRow]
+  int8_t* q8 = reinterpret_cast<int8_t*>(smem + kStages * kXStage);     // [kStages][BK][kQRow]
+  const int tid = threadIdx.x, lane = tid & 31, wn = (tid >> 5) * kMmaTn * 8;
+  const int n0 = blockIdx.x * kMmaBN, r0 = blockIdx.y * kMmaBM;
+  const int n_k = (K + kMmaBK - 1) / kMmaBK;
+
+  // step `it` into stage it % kStages, in 16-byte pieces (8 bf16 of x, 16
+  // int8 of q); one commit group per step, empty past the last step, so
+  // that the group count stays uniform
+  auto load_step = [&](int it) {
+    if (it < n_k) {
+      const int k0 = it * kMmaBK, st = it % kStages;
+      for (int i = tid; i < kMmaBM * (kMmaBK / 8); i += kMmaThreads) {
+        const int r = i / (kMmaBK / 8), kx = (i % (kMmaBK / 8)) * 8;
+        const bool ok = r0 + r < B && k0 + kx < K;
+        cp_async16(xs + (st * kMmaBM + r) * kXRow + kx,
+                   ok ? x + (long long)(r0 + r) * K + k0 + kx : x, ok);
+      }
+      for (int i = tid; i < kMmaBK * (kMmaBN / 16); i += kMmaThreads) {
+        const int kq = i / (kMmaBN / 16), c = (i % (kMmaBN / 16)) * 16;
+        const bool ok = k0 + kq < K && n0 + c < N;
+        cp_async16(q8 + (st * kMmaBK + kq) * kQRow + c,
+                   ok ? q + (long long)(k0 + kq) * N + n0 + c : q, ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[kMmaTm][kMmaTn][4];
+#pragma unroll
+  for (int i = 0; i < kMmaTm; ++i)
+#pragma unroll
+    for (int j = 0; j < kMmaTn; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int it = 0; it < kStages - 1; ++it) load_step(it);
+  for (int it = 0; it < n_k; ++it) {
+    const int st = it % kStages;
+    cp_async_wait<kStages - 2>();  // step it has landed (this thread's copies)
+    __syncthreads();               // everyone's copies; step it - 1 is done
+    load_step(it + kStages - 1);   // into the stage that step it - 1 used
+    const __nv_bfloat16* xst = xs + st * kMmaBM * kXRow;
+    const int8_t* qst = q8 + st * kMmaBK * kQRow;
+#pragma unroll
+    for (int kk = 0; kk < kMmaBK; kk += 16) {
+      unsigned a[kMmaTm][4], r[4], b[kMmaTn][2];
+#pragma unroll
+      for (int i = 0; i < kMmaTm; ++i)  // rows 16i .. 16i+15, k kk .. kk+15
+        ldmatrix_x4(a[i], xst + (16 * i + (lane & 15)) * kXRow + kk + (lane >> 4) * 8);
+      // k kk .. kk+15 of the warp's 32 int8 columns, read as 16-bit pairs:
+      // r[0], r[1] columns wn .. wn+15 (k and k + 8), r[2], r[3] wn+16 ..
+      ldmatrix_x4_trans(r, qst + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * kQRow + wn +
+                               (lane >> 4) * 16);
+      // n-tiles: 0 the even columns of wn .. wn+15, 1 the odd ones, 2 and 3
+      // the same of wn+16 .. wn+31
+      int8_pairs_to_bf16(r[0], b[0][0], b[1][0]);
+      int8_pairs_to_bf16(r[1], b[0][1], b[1][1]);
+      int8_pairs_to_bf16(r[2], b[2][0], b[3][0]);
+      int8_pairs_to_bf16(r[3], b[2][1], b[3][1]);
+#pragma unroll
+      for (int i = 0; i < kMmaTm; ++i) {
+#pragma unroll
+        for (int j = 0; j < kMmaTn; ++j) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
+      }
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+
+  // epilogue: in n-tile pair h (2h even, 2h + 1 odd), lane holds columns
+  // wn + 16h + 4*t4 .. +3 of rows gid and gid + 8 of each m-tile: scale,
+  // round to bf16, one 8-byte store each
+  const int gid = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int h = 0; h < kMmaTn / 2; ++h) {
+    const int col = n0 + wn + 16 * h + 4 * t4;
+    if (col >= N) continue;
+    const float4 sc = *reinterpret_cast<const float4*>(scale + col);
+#pragma unroll
+    for (int i = 0; i < kMmaTm; ++i) {
+      const float* e = acc[i][2 * h];
+      const float* o = acc[i][2 * h + 1];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = r0 + 16 * i + gid + 8 * half;
+        if (row >= B) continue;
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(e[2 * half] * sc.x, o[2 * half] * sc.y);
+        const __nv_bfloat162 hi =
+            __floats2bfloat162_rn(e[2 * half + 1] * sc.z, o[2 * half + 1] * sc.w);
+        uint2 v;
+        v.x = *reinterpret_cast<const unsigned*>(&lo);
+        v.y = *reinterpret_cast<const unsigned*>(&hi);
+        *reinterpret_cast<uint2*>(out + (long long)row * N + col) = v;
+      }
+    }
+  }
+}
+
 }  // namespace
+
+// W8A16 on the tensor cores: bf16 x [B, K] (K % 8 == 0) @ q [K, N] int8
+// (N % 16 == 0) * scale [N] -> bf16 out [B, N]; x, q and scale 16-byte
+// aligned.
+extern "C" int int8_matmul_w8a16_mma(const void* x, const void* q, const void* scale, void* out,
+                                     int B, int K, int N, void* stream) {
+  if (B <= 0 || K <= 0 || N <= 0 || K % 8 || N % 16 || (B + kMmaBM - 1) / kMmaBM > 65535 ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(q) % 16 ||
+      reinterpret_cast<uintptr_t>(scale) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // above 48 KB of shared memory only by asking (per device; cheap to repeat)
+  const cudaError_t e = cudaFuncSetAttribute(
+      w8a16_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMmaSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((N + kMmaBN - 1) / kMmaBN, (B + kMmaBM - 1) / kMmaBM);
+  w8a16_mma_kernel<<<grid, kMmaThreads, kMmaSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
+      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out), B, K, N);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // dtype: 0 float32, 1 bfloat16 (of x and out). q and scale point at the
 // whole stack; `layer` selects [layer, :, :]. rows: x rows per block

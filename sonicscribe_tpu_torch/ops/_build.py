@@ -14,6 +14,7 @@ machine may have no nvcc.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -34,6 +35,7 @@ launch_counts: dict[str, int] = {
     name: 0 for name in (
         "decode_attention", "log_mel",
         "int8_matmul", "int8_matmul_stacked", "int8_matmul_w8a8",  # csrc/int8_matmul.cu
+        "int8_matmul_mma",  # the flat launches that took the tensor-core design
         "int4_matmul", "int4_matmul_stacked",  # csrc/int4_matmul.cu
         "int4_matmul_w4a8", "int4_matmul_w4a8_stacked",
     )
@@ -46,6 +48,14 @@ _libs: dict[str, ctypes.CDLL] = {}
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+@functools.cache
+def n_sms(device) -> int:
+    """Streaming multiprocessors of a CUDA device (launch shapes fill them)."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _nvcc() -> str:

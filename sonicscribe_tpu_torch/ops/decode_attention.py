@@ -5,6 +5,10 @@ Port of the TPU kernel ``sonicscribe_tpu/ops/decode_attention.py``
 hand-written CUDA kernel ``csrc/decode_attention.cu`` for tensors on the
 card and runs ``decode_attention_plain`` for tensors on the CPU; there is
 no other fallback. Unlike the Pallas kernel it takes any cache length M.
+
+The kernel splits the cache positions over blocks (split-KV) and merges
+the splits in a second pass; ``split_shape`` picks the split and
+``scratch_numel`` sizes the merge's float32 scratch.
 """
 
 from __future__ import annotations
@@ -19,6 +23,9 @@ from sonicscribe_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+BLOCKS_PER_SM = 2  # aim: about this many split blocks per SM
+CHUNK_MULTIPLE = 32  # positions per split: a multiple of one pass (8 groups x 4)
+MAX_SPLITS = 128  # csrc/decode_attention.cu kMaxSplits
 
 
 def decode_attention_plain(q, k_cache, v_cache, lens) -> torch.Tensor:
@@ -42,11 +49,30 @@ def decode_attention_plain(q, k_cache, v_cache, lens) -> torch.Tensor:
     return torch.einsum("skgm,smkd->skgd", attn, v_cache.float()).reshape(S, nh * hd)
 
 
+def split_shape(S: int, M: int, nkv: int, n_sms: int) -> tuple[int, int]:
+    """-> (chunk, splits): split `s` of every (slot, KV head) covers the
+    positions [s * chunk, min((s + 1) * chunk, n)) of a slot that sees n =
+    min(lens, M - 1) + 1 of them, and a split that starts at or past n is
+    skipped. The chunk is the smallest multiple of CHUNK_MULTIPLE that
+    gives S * nkv * splits about BLOCKS_PER_SM blocks per SM, and no more
+    than MAX_SPLITS splits; the grid is (splits, nkv, S)."""
+    per_head = max(1, -(-BLOCKS_PER_SM * n_sms // (S * nkv)))
+    chunk = max(-(-M // per_head), -(-M // MAX_SPLITS))
+    chunk = -(-chunk // CHUNK_MULTIPLE) * CHUNK_MULTIPLE
+    return chunk, -(-M // chunk)
+
+
+def scratch_numel(S: int, nkv: int, splits: int, g: int, hd: int) -> int:
+    """float32 scratch of one launch: each split's unnormalised context
+    [S, nkv, splits, g, hd], then its (max, denominator) [S, nkv, splits, g, 2]."""
+    return S * nkv * splits * g * (hd + 2)
+
+
 @functools.cache
 def _lib():
     fn = _build.load("decode_attention").decode_attention
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [P, P, P, P, P, I, I, I, I, I, I, L, L, L, L, ctypes.c_float, P]
+    fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, L, L, L, L, ctypes.c_float, I, I, P]
     fn.restype = ctypes.c_int
     return fn
 
@@ -76,13 +102,17 @@ def decode_attention_cuda(q, k_cache, v_cache, lens) -> torch.Tensor:
         raise ValueError("q rows must be contiguous [nh, hd]")
     if k_cache.stride() != v_cache.stride() or k_cache.stride(3) != 1:
         raise ValueError("k/v caches must share strides with a contiguous last dim")
+    g = nh // nkv
+    chunk, splits = split_shape(S, M, nkv, _build.n_sms(q.device))
     out = torch.empty((S, nh * hd), device=q.device, dtype=torch.float32)
+    scratch = torch.empty(scratch_numel(S, nkv, splits, g, hd), device=q.device,
+                          dtype=torch.float32)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib()(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), _DTYPES[q.dtype], S, M, nkv, nh // nkv, hd,
+        out.data_ptr(), scratch.data_ptr(), _DTYPES[q.dtype], S, M, nkv, g, hd,
         q.stride(0), k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
-        1.0 / math.sqrt(hd), stream,
+        1.0 / math.sqrt(hd), chunk, splits, stream,
     )
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: cudaError {err}")

@@ -27,7 +27,6 @@ import torch
 from sonicscribe_tpu_torch.ops import _build
 from sonicscribe_tpu_torch.ops.int8_matmul import (
     _DTYPES,
-    _n_sms,
     launch_shape,
     quantize_activations,
 )
@@ -156,7 +155,7 @@ def _launch(name, x, packed, scale, layer: int) -> torch.Tensor:
     w4a8 = name.startswith("int4_matmul_w4a8")
     # split-K over the K/2 packed rows; B=2 takes the 4-row tile (the kernel
     # has no 2-row tile: nvcc spilled its registers)
-    rows, splits, k_per_split = launch_shape(B, K2, N, _n_sms(x.device))
+    rows, splits, k_per_split = launch_shape(B, K2, N, _build.n_sms(x.device))
     rows = 4 if rows == 2 else rows
     out = torch.empty((B, N), device=x.device, dtype=x.dtype)
     partial = (torch.empty((splits, B, N), device=x.device,

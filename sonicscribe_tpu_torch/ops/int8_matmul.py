@@ -12,6 +12,11 @@ CPU; there is no other fallback. Weights keep the JAX layout: q int8
 For W8A8 the per-row activation quantisation (``quantize_activations``)
 is plain PyTorch beside the kernel, as JAX leaves it to XLA; the product
 itself is the kernel.
+
+The flat W8A16 entry has two designs (``uses_mma`` picks): bf16 x with
+more than 8 rows (prefill, the encoder) runs on the tensor cores
+(``mma.sync``); decode rows and float32 x stream the weight on the CUDA
+cores, like the stacked entry and W8A8.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TILE_N = 128  # columns per block (csrc/int8_matmul.cu kTileN)
 CHUNK_K = 128  # k rows per staged chunk (kChunkK)
 BLOCKS_PER_SM = 4  # split K until the grid holds about this many blocks per SM
+MMA_MIN_ROWS = 9  # bf16 x with at least this many rows goes to the tensor cores
 
 
 # ---------------------------------------------------------------- plain
@@ -81,19 +87,26 @@ def launch_shape(B: int, K: int, N: int, n_sms: int) -> tuple[int, int, int]:
     return rows, -(-K // k_per_split), k_per_split
 
 
+def uses_mma(B: int, K: int, dtype: torch.dtype, aligned: bool = True) -> bool:
+    """Whether the flat W8A16 entry runs on the tensor cores: bf16 x with
+    more than 8 rows (prefill and encoder rows; decode rows stream the
+    weight faster on the CUDA cores, and float32 x keeps full float32
+    products). The kernel copies x rows and reads scales in 16-byte pieces,
+    so K must be a multiple of 8 and x and scale 16-byte aligned (`aligned`);
+    every K of the models is."""
+    return dtype == torch.bfloat16 and B >= MMA_MIN_ROWS and K % 8 == 0 and aligned
+
+
 @functools.cache
 def _lib():
     lib = _build.load("int8_matmul")
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.int8_matmul_w8a16.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, I, P]
     lib.int8_matmul_w8a8.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P]
+    lib.int8_matmul_w8a16_mma.argtypes = [P, P, P, P, I, I, I, P]
     lib.int8_matmul_w8a16.restype = lib.int8_matmul_w8a8.restype = ctypes.c_int
+    lib.int8_matmul_w8a16_mma.restype = ctypes.c_int
     return lib
-
-
-@functools.cache
-def _n_sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(name, x, q, scale, layer: int) -> tuple[int, int, int]:
@@ -124,15 +137,26 @@ def _check(name, x, q, scale, layer: int) -> tuple[int, int, int]:
 
 
 def _launch(name, x, q, scale, layer: int) -> torch.Tensor:
-    """Launch the W8A16 kernel, or for int8_matmul_w8a8 quantise x per row
+    """Launch the W8A16 kernel (for int8_matmul, the tensor-core design
+    where uses_mma says so), or for int8_matmul_w8a8 quantise x per row
     (plain PyTorch) and launch the W8A8 kernel, on layer `layer` of the
     whole stack."""
     B, K, N = _check(name, x, q, scale, layer)
     w8a8 = name == "int8_matmul_w8a8"
     if w8a8 and K % 4:
         raise ValueError(f"{name}: K must be a multiple of 4, got {K}")
-    rows, splits, k_per_split = launch_shape(B, K, N, _n_sms(x.device))
     out = torch.empty((B, N), device=x.device, dtype=x.dtype)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    aligned = x.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0
+    if name == "int8_matmul" and uses_mma(B, K, x.dtype, aligned):
+        err = _lib().int8_matmul_w8a16_mma(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                                           out.data_ptr(), B, K, N, stream)
+        if err != 0:
+            raise RuntimeError(f"{name} (mma) kernel launch failed: cudaError {err}")
+        _build.launch_counts[name] += 1
+        _build.launch_counts["int8_matmul_mma"] += 1
+        return out
+    rows, splits, k_per_split = launch_shape(B, K, N, _build.n_sms(x.device))
     partial = (torch.empty((splits, B, N), device=x.device,
                            dtype=torch.int32 if w8a8 else torch.float32)
                if splits > 1 else None)
@@ -144,8 +168,7 @@ def _launch(name, x, q, scale, layer: int) -> torch.Tensor:
     err = entry(
         *lhs, q.data_ptr(), scale.data_ptr(), out.data_ptr(),
         partial.data_ptr() if partial is not None else None, _DTYPES[x.dtype],
-        B, K, N, layer, rows, splits, k_per_split,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        B, K, N, layer, rows, splits, k_per_split, stream,
     )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
@@ -154,7 +177,8 @@ def _launch(name, x, q, scale, layer: int) -> torch.Tensor:
 
 
 def int8_matmul_cuda(x, q, scale) -> torch.Tensor:
-    """Launch the W8A16 kernel on q [K, N], scale [1, N]."""
+    """Launch a W8A16 kernel on q [K, N], scale [1, N]: the tensor-core
+    design where uses_mma says so, else the CUDA-core one."""
     if q.dim() != 2 or scale.dim() != 2:
         raise ValueError(f"int8_matmul: want q [K, N], scale [1, N], got "
                          f"{tuple(q.shape)}, {tuple(scale.shape)}")

@@ -19,6 +19,7 @@ from sonicscribe_tpu_torch.ops import _build
 from sonicscribe_tpu_torch.ops.decode_attention import (
     decode_attention,
     decode_attention_plain,
+    split_shape,
 )
 from sonicscribe_tpu_torch.ops.int4_matmul import (
     int4_matmul,
@@ -66,6 +67,42 @@ def test_decode_attention_kernel(cuda, dtype, M):
     assert _build.launch_counts["decode_attention"] == before + 1
     want = decode_attention_plain(q, k, v, lens)
     torch.testing.assert_close(got, want, rtol=0, atol=2e-5)  # float32 sums, other order
+
+
+def _attention_inputs(device, dtype, S, M, seed=0):
+    """q and one layer of a [2, S, M, 4, 128] cache (the strided view the
+    decode step passes), nano's heads."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((S, 16, 128), generator=g, device=device).to(dtype)
+    k = torch.randn((2, S, M, 4, 128), generator=g, device=device).to(dtype)[1]
+    v = torch.randn((2, S, M, 4, 128), generator=g, device=device).to(dtype)[1]
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,M", [(1, 675), (4, 1024)])
+def test_decode_attention_split_boundaries(cuda, dtype, S, M):
+    """lens on either side of a split boundary (slot sees lens + 1
+    positions), lens >= M, and mixed lens in one batch."""
+    q, k, v = _attention_inputs(cuda, dtype, S, M, seed=S)
+    chunk, _ = split_shape(S, M, 4, _build.n_sms(cuda))
+    cases = [[L] * S for L in (chunk - 2, chunk - 1, chunk, 2 * chunk - 1, M - 1, M, M + 5)]
+    if S == 4:
+        cases.append([0, chunk - 1, chunk, M])
+    for lens_list in cases:
+        lens = torch.tensor(lens_list, dtype=torch.int32, device=cuda)
+        got = decode_attention(q, k, v, lens)
+        want = decode_attention_plain(q, k, v, lens)
+        # float32 sums in another order
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-5, msg=f"lens {lens_list}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_is_deterministic(cuda, dtype):
+    """The splits are merged in a fixed order, with no float atomics."""
+    q, k, v = _attention_inputs(cuda, dtype, 4, 1024, seed=9)
+    lens = torch.tensor([5, 300, 677, 1023], dtype=torch.int32, device=cuda)
+    assert torch.equal(decode_attention(q, k, v, lens), decode_attention(q, k, v, lens))
 
 
 def test_log_mel_kernel(cuda):
@@ -138,6 +175,46 @@ def test_int8_matmul_kernels(cuda, dtype, B, K, N):
     assert torch.equal(got, int8_matmul_w8a8_plain(x, q, scale, 2))
     for name in ("int8_matmul", "int8_matmul_stacked", "int8_matmul_w8a8"):
         assert _build.launch_counts[name] == before[name] + 1
+
+
+# nano's flat (K, N): decoder qkv, o, gate_up, down; encoder q/k/v/o, fc1, fc2
+NANO_FLAT = [(2048, 3072), (2048, 2048), (2048, 11008), (5504, 2048), (1024, 1024),
+             (1024, 4096), (4096, 1024)]
+
+
+@pytest.mark.parametrize("B", [9, 16, 17, 227, 419, 1024, 1536])
+def test_int8_matmul_mma(cuda, B):
+    """The tensor-core W8A16 design at prefill and encoder rows, across
+    nano's (K, N): float32 sums in another order (the int8 -> bf16
+    dequantisation and every product are exact)."""
+    g = torch.Generator(device=cuda).manual_seed(B)
+    x_all = torch.randn((B, 5504), generator=g, device=cuda).to(torch.bfloat16)
+    for K, N in NANO_FLAT:
+        qt = quantize_tensor(torch.randn((K, N), generator=g, device=cuda) * 0.02)
+        x = x_all[:, :K].contiguous()
+        before = dict(_build.launch_counts)
+        got = int8_matmul(x, qt["q"], qt["scale"])
+        assert _build.launch_counts["int8_matmul_mma"] == before["int8_matmul_mma"] + 1
+        assert _build.launch_counts["int8_matmul"] == before["int8_matmul"] + 1
+        _assert_w8a16_close(got, int8_matmul_plain(x, qt["q"], qt["scale"]))
+
+
+@pytest.mark.parametrize("B,dtype,mma", [
+    (8, torch.bfloat16, False), (9, torch.bfloat16, True), (419, torch.bfloat16, True),
+    (9, torch.float32, False), (419, torch.float32, False),
+])
+def test_int8_matmul_mma_counter(cuda, B, dtype, mma):
+    """The mma counter rises only for bf16 x with B > 8; the stacked entry
+    never takes it."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    qt = quantize_tensor(torch.randn((2, 256, 384), generator=g, device=cuda) * 0.02)
+    x = torch.randn((B, 256), generator=g, device=cuda).to(dtype)
+    before = dict(_build.launch_counts)
+    _assert_w8a16_close(int8_matmul(x, qt["q"][0], qt["scale"][0]),
+                        int8_matmul_plain(x, qt["q"][0], qt["scale"][0]))
+    int8_matmul_stacked(x, qt["q"], qt["scale"], 1)
+    assert _build.launch_counts["int8_matmul_mma"] == before["int8_matmul_mma"] + int(mma)
+    assert _build.launch_counts["int8_matmul"] == before["int8_matmul"] + 1
 
 
 def test_int8_wrappers_reject_what_the_kernel_does_not_take(cuda):

@@ -10,7 +10,12 @@ import torch
 from sonicscribe_tpu.models.config import DecoderConfig
 from sonicscribe_tpu.models.glm_asr import _masked_decode_attention
 from sonicscribe_tpu.ops.decode_attention import flash_decode_attention
-from sonicscribe_tpu_torch.ops.decode_attention import decode_attention
+from sonicscribe_tpu_torch.ops.decode_attention import (
+    MAX_SPLITS,
+    decode_attention,
+    scratch_numel,
+    split_shape,
+)
 
 NH, NKV, HD = 8, 2, 128
 TOL = dict(rtol=2e-4, atol=2e-4)  # float32, different summation orders
@@ -78,3 +83,42 @@ def test_strided_layer_view_of_cache():
     big_k[1], big_v[1] = torch.from_numpy(k), torch.from_numpy(v)
     got = decode_attention(torch.from_numpy(q), big_k[1], big_v[1], torch.from_numpy(lens))
     np.testing.assert_allclose(got.numpy(), _masked(q, k, v, lens), **TOL)
+
+
+@pytest.mark.parametrize("S", [1, 4])
+@pytest.mark.parametrize("M", [675, 803, 1024])
+def test_split_shape_covers_every_position_once(S, M):
+    """The kernel's rule (csrc/decode_attention.cu): split s of a slot that
+    sees n = min(lens, M - 1) + 1 positions covers [s * chunk, min((s + 1)
+    * chunk, n)) and is skipped where s * chunk >= n; its scratch rows are
+    ((slot * nkv + head) * splits + s) * g + j."""
+    nkv, g, hd = 4, 4, 128
+    chunk, splits = split_shape(S, M, nkv, 132)
+    assert chunk % 32 == 0 and 1 <= splits <= MAX_SPLITS and chunk * splits >= M
+    assert (splits - 1) * chunk < M  # no split that can never see a position
+    assert S * nkv * splits >= 88  # the card is filled: 44-88 blocks were the aim at S=1
+    assert splits <= 65535 and nkv <= 65535 and S <= 65535  # grid (splits, nkv, S)
+    numel = scratch_numel(S, nkv, splits, g, hd)
+    ctx_rows = S * nkv * splits * g
+    for L in (0, 1, chunk - 1, chunk, chunk + 1, M - 1, M, M + 5):
+        n = min(L, M - 1) + 1
+        seen = []
+        for sp in range(splits):
+            if sp * chunk >= n:
+                continue
+            seen += range(sp * chunk, min((sp + 1) * chunk, n))
+        assert seen == list(range(n)), L
+    for s in range(S):  # the last (max, denominator) pair of the last split fits
+        row = ((s * nkv + nkv - 1) * splits + splits - 1) * g + g - 1
+        assert row * hd + hd <= ctx_rows * hd
+        assert ctx_rows * hd + row * 2 + 2 <= numel
+
+
+def test_split_shape_caps_the_splits():
+    """Long caches grow the chunk rather than the split count (the merge
+    keeps one weight per split in shared memory)."""
+    for M in (1, 31, 33, 4096, 100_000):
+        chunk, splits = split_shape(1, M, 4, 132)
+        assert splits <= MAX_SPLITS and chunk * splits >= M > (splits - 1) * chunk
+    assert split_shape(1, 675, 4, 132) == (32, 22)  # 88 blocks for one slot
+    assert split_shape(4, 1024, 4, 132) == (64, 16)  # 256 blocks for four

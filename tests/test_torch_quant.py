@@ -31,6 +31,7 @@ from sonicscribe_tpu_torch.ops.int8_matmul import (
     int8_matmul_stacked,
     int8_matmul_w8a8,
     launch_shape,
+    uses_mma,
 )
 from sonicscribe_tpu_torch.ops.quant import (
     is_qtensor,
@@ -180,6 +181,37 @@ def test_launch_shape_covers_k_and_fills_the_card():
             assert blocks >= 132 or splits * 128 >= K, (B, K, N, splits)
     assert launch_shape(419, 2048, 3072, 132)[1:] == (1, 2048)  # prefill: no split
     assert launch_shape(1536, 1024, 4096, 132)[1] == 1  # encoder fc1
+
+
+# int4's launch_shape(B, K/2, N, 132) at nano's qkv, o, gate_up and down, as
+# ops/int4_matmul.py has had them since the int4 kernels were added
+INT4_LAUNCH_SHAPES = {
+    1: [(1, 8, 128), (1, 8, 128), (1, 4, 256), (1, 22, 128)],
+    2: [(2, 8, 128), (2, 8, 128), (2, 4, 256), (2, 22, 128)],
+    4: [(4, 8, 128), (4, 8, 128), (4, 4, 256), (4, 22, 128)],
+    8: [(8, 8, 128), (8, 8, 128), (8, 4, 256), (8, 22, 128)],
+    16: [(8, 8, 128), (8, 8, 128), (8, 4, 256), (8, 11, 256)],
+    37: [(8, 4, 256), (8, 4, 256), (8, 2, 512), (8, 6, 512)],
+    64: [(8, 3, 384), (8, 4, 256), (8, 1, 1024), (8, 5, 640)],
+}
+
+
+@pytest.mark.parametrize("B", sorted(INT4_LAUNCH_SHAPES))
+def test_launch_shape_unchanged_for_int4(B):
+    nano = [(2048, 3072), (2048, 2048), (2048, 11008), (5504, 2048)]
+    got = [launch_shape(B, K // 2, N, 132) for K, N in nano]
+    assert got == INT4_LAUNCH_SHAPES[B]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
+def test_flat_dispatch_picks_mma_exactly_for_bf16_above_8_rows(dtype):
+    """The tensor-core design for bf16 x with B > 8 at every K of nano's
+    flat projections; the CUDA-core one for decode rows and float32 x."""
+    for K in (1024, 2048, 4096, 5504):
+        for B in (1, 2, 4, 8, 9, 16, 17, 227, 419, 1024, 1536):
+            assert uses_mma(B, K, dtype) == (dtype == torch.bfloat16 and B > 8), (B, K)
+    assert not uses_mma(419, 2048, dtype, aligned=False)  # 16-byte copies and loads
+    assert not uses_mma(419, 2052, dtype)  # x rows not 16-byte aligned
 
 
 # ---------------------------------------------------------------- model
