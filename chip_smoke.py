@@ -16,17 +16,30 @@ exits non-zero on failure:
    beside its plain version's, a PyTorch library call's (a yardstick the
    port never calls) and its bound at the H100's 3.35 TB/s and its peak
    rate for the work's type (NVIDIA data sheet, SXM): 67 TFLOP/s float32
-   on the CUDA cores for decode attention and the mel; 989 TFLOP/s bf16 and
-   1979 TOP/s int8 on the tensor cores for the int8 and int4 products
-   (W8A16, W4A16 and W8A8, W4A8), which the tensor cores can run. The int8
+   on the CUDA cores for decode attention; for the mel the lesser of that
+   and three passes at 495 TFLOP/s TF32 (its 3xTF32 DFT), both printed;
+   989 TFLOP/s bf16 and 1979 TOP/s int8 on the tensor cores for the int8
+   and int4 products (W8A16, W4A16 and W8A8, W4A8), which the tensor cores
+   can run. The mel kernel is checked at every bucket and on a quiet-then-
+   loud signal in both frame tiles (16 and 32), and timed at 1200 and 3072
+   frames in both. The int8
    kernels are checked at nano's decode shapes (B 1 and 4: qkv, o, gate_up,
    down), prefill rows (B 419: qkv, down) and encoder rows (B 1536: fc1,
    fc2), x in float32 and bf16, and the flat entry's tensor-core design
    (bf16, B > 8) also at B 9, 17 and 227 on the four decoder projections;
    the flat design is timed at the four prefill/encoder shapes beside the
    CUDA-core design on the same inputs; the four int4 kernels at nano's decode
-   shapes (B 1, 4, 8, 37, 64), flat and stacked, and timed at B 1 and at
-   gate_up B 64. Then the bench tools' per-step projection sweeps: int8 at
+   shapes (B 1, 4, 8, 37, 64; W4A8 also 9, 16, 17 and 227, and crafted rows),
+   flat and stacked. W4A8 quantises x in its own kernels, so it is held to
+   the plain version run on CPU copies of the inputs (the JAX recipe's IEEE
+   division; PyTorch's CUDA division by a Python scalar multiplies by the
+   reciprocal, and the script counts the rows where that changes sx); its
+   tensor-core counter must rise exactly where w4a8_uses_mma says, a
+   profile of two calls must show only int4_matmul.cu's kernels, and at
+   B 1 and 4 the tensor-core design is timed beside the dispatched CUDA-core
+   one on the same inputs (equal bits). The
+   int4 kernels are timed at B 1 and at gate_up B 64 (W4A8 also at gate_up
+   B 8 and 37). Then the bench tools' per-step projection sweeps: int8 at
    B 1 and 8; int4 at B 1, 8 and 64 in every variant, after one eager step
    of each int4 kernel variant whose launches are counted (4 per layer)
    and whose output is held against the int8 variant's on the same codes.
@@ -51,7 +64,8 @@ exits non-zero on failure:
    in each int8 mode, and nano's prefill logits are finite.
 
 The line before the last is the kernels' JSON record (nine kernels, each
-with the path its launches were counted on and its design); the last line is
+with the path its launches were counted on; the redesigned ones with their
+design); the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no result.
 """
 
@@ -69,6 +83,7 @@ import numpy as np
 SR = 16000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12  # H100 SXM, TF32 tensor cores, dense
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, bf16 tensor cores, dense
 INT8_OPS_PER_S = 1979e12  # H100 SXM, int8 tensor cores, dense
 ATTN_TOL = 2e-5  # same inputs, float32 sums in another order
@@ -181,7 +196,13 @@ def kernel_phase(torch, timer):
         decode_attention_plain,
         split_shape,
     )
-    from sonicscribe_tpu_torch.ops.mel import log_mel_frames_cuda, log_mel_frames_plain
+    from sonicscribe_tpu_torch.ops import mel as tmel
+    from sonicscribe_tpu_torch.ops.mel import (
+        FRAMES_PER_BLOCK,
+        frames_per_block,
+        log_mel_frames_cuda,
+        log_mel_frames_plain,
+    )
 
     dec = nano().decoder
     nh, nkv, hd = dec.n_heads, dec.n_kv_heads, dec.head_dim
@@ -252,29 +273,50 @@ def kernel_phase(torch, timer):
         attn_rows.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                               library_ms=lib_ms, design=design))
 
-    # ---- log-mel: correctness at every bucket, ragged lengths ----
+    # ---- log-mel: correctness at every bucket, ragged lengths, both tiles ----
     cfg = MelConfig()
     basis, fb = device_tables(cfg, torch.device("cuda"))
     mel_err = 0.0
-    for i, bucket in enumerate((128, 256, 512, 1024, 2048, 3072)):
-        n = int(bucket * 0.8) * cfg.hop_length + 97 + 13 * i
-        x = torch.from_numpy(speech(n / SR, seed=10 + i)).cuda()
-        padded, nf = reflect_pad(x, cfg)
-        raw = log_mel_frames_cuda(padded, basis, fb, nf, cfg.hop_length)
-        raw_plain = log_mel_frames_plain(padded, basis, fb, nf, cfg.hop_length)
-        got = normalize_log_mel(raw, cfg, bucket)
-        want = normalize_log_mel(raw_plain, cfg, bucket)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        raw_err = (raw - raw_plain).abs().max().item()
-        check(got.shape == (bucket, cfg.n_mels), f"log_mel shape {tuple(got.shape)}")
-        check(np.isfinite(err) and err <= MEL_TOL,
-              f"log_mel bucket {bucket}: max err {err} > {MEL_TOL}")
-        mel_err = max(mel_err, err)
-        log(f"log_mel bucket {bucket} ({nf} frames): max abs err {err:.3g} <= {MEL_TOL} "
-            f"(raw log10 {raw_err:.3g})")
 
-    # ---- log-mel: time at the ~12 s request's shape ----
+    def mel_tile(padded, nf, tile):
+        """The kernel with `tile` frames per block (the entry picks one)."""
+        out, err = tmel._launch(padded, basis, fb, nf, cfg.hop_length, tile)
+        check(err == 0, f"log_mel {tile}-frame tiles: cudaError {err}")
+        return out
+
+    signals = [(f"bucket {bucket}", bucket,
+                speech((int(bucket * 0.8) * cfg.hop_length + 97 + 13 * i) / SR, seed=10 + i))
+               for i, bucket in enumerate((128, 256, 512, 1024, 2048, 3072))]
+    # 6 s near silence, then 6 s of speech
+    signals.append(("quiet then loud", 2048, np.concatenate([silence(6.0, 8), speech(6.0, 9)])))
+    for case, bucket, audio in signals:
+        x = torch.from_numpy(audio).cuda()
+        padded, nf = reflect_pad(x, cfg)
+        raw_plain = log_mel_frames_plain(padded, basis, fb, nf, cfg.hop_length)
+        # the same plain version in float64: how far float32 itself is off
+        raw64 = log_mel_frames_plain(padded.double(), basis.double(), fb.double(), nf,
+                                     cfg.hop_length).float()
+        want = normalize_log_mel(raw_plain, cfg, bucket)
+        entry = log_mel_frames_cuda(padded, basis, fb, nf, cfg.hop_length)
+        for tile in FRAMES_PER_BLOCK:
+            raw = mel_tile(padded, nf, tile)
+            check(torch.equal(raw, entry) or tile != frames_per_block(nf, n_sms),
+                  f"log_mel {case}: the entry differs from its own tile")
+            got = normalize_log_mel(raw, cfg, bucket)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            raw_err = (raw - raw_plain).abs().max().item()
+            check(got.shape == (bucket, cfg.n_mels), f"log_mel shape {tuple(got.shape)}")
+            check(np.isfinite(err) and err <= MEL_TOL,
+                  f"log_mel {case} tile {tile}: max err {err} > {MEL_TOL}")
+            mel_err = max(mel_err, err)
+            err64 = (raw - raw64).abs().max().item()
+            plain_err64 = (raw_plain - raw64).abs().max().item()
+            log(f"log_mel {case} ({nf} frames, {tile}-frame tiles): max abs err {err:.3g} <= "
+                f"{MEL_TOL} (raw log10 {raw_err:.3g}; against float64 {err64:.3g}, float32 "
+                f"plain against float64 {plain_err64:.3g})")
+
+    # ---- log-mel: time at the ~12 s and ~30 s requests' shapes, both tiles ----
     mel_rows = []
     for sec in (12.0, 30.72):
         x = torch.from_numpy(speech(sec, seed=3)).cuda()
@@ -287,17 +329,34 @@ def kernel_phase(torch, timer):
             power = spec[:, :nf].abs() ** 2
             return torch.log10(torch.clamp(power.T @ fb, min=1e-10))
 
-        ms = timer.ms(lambda: log_mel_frames_cuda(padded, basis, fb, nf, cfg.hop_length))
+        tile_ms = {tile: timer.ms(lambda t=tile: mel_tile(padded, nf, t))
+                   for tile in FRAMES_PER_BLOCK}
+        tile = frames_per_block(nf, n_sms)
+        ms = tile_ms[tile]
         plain_ms = timer.ms(lambda: log_mel_frames_plain(padded, basis, fb, nf, cfg.hop_length))
         lib_ms = timer.ms(library)
         n_bins = cfg.n_freq_bins
         n_bytes = 4 * (padded.numel() + basis.numel() + fb.numel() + nf * cfg.n_mels)
         flops = nf * (2 * cfg.n_fft * 2 * n_bins + 3 * n_bins + 2 * n_bins * cfg.n_mels)
-        b_ms, b_by = bound_ms(n_bytes, flops)
-        log(f"log_mel {nf} frames: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"stft+matmul {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
-        mel_rows.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                             library_ms=lib_ms))
+        # the least of one float32 pass on the CUDA cores and three TF32
+        # passes (3xTF32) on the tensor cores
+        f32_ms, f32_by = bound_ms(n_bytes, flops)
+        tf32_ms, tf32_by = bound_ms(n_bytes, 3 * flops, TF32_FLOPS_PER_S)
+        b_ms, b_by = min((f32_ms, f32_by), (tf32_ms, tf32_by))
+        log(f"log_mel {nf} frames: kernel {ms:.4f} ms ({tile}-frame tiles; "
+            + ", ".join(f"{t}: {v:.4f}" for t, v in tile_ms.items())
+            + f"), plain {plain_ms:.4f} ms, stft+matmul {lib_ms:.4f} ms, bound {b_ms:.5f} ms "
+            f"({b_by}; float32 CUDA cores {f32_ms:.5f}, 3xTF32 tensor cores {tf32_ms:.5f})")
+        mel_rows.append(dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            design=(f"3xTF32 DFT on the tensor cores (mma.sync m16n8k8; big/small TF32 "
+                    f"split, round to nearest away, in registers; each k-step's sums from "
+                    f"zero, added in float32 on the CUDA cores), {tile}-frame blocks "
+                    f"across all 402 columns, frames (im2col) and a 3-stage ring of 16-row "
+                    f"basis slices in shared memory by bulk copies (cp.async.bulk on "
+                    f"mbarriers), banded mel projection"),
+            tile_ms={str(t): v for t, v in tile_ms.items()}, bound_f32_ms=f32_ms,
+            bound_3xtf32_ms=tf32_ms))
     return attn_err, attn_rows[0], mel_err, mel_rows[0]
 
 
@@ -463,13 +522,28 @@ INT4_ENTRIES = {
 }
 
 
+W4A8_DESIGN = (
+    "x quantised per row in CUDA (IEEE sx, rint half to even; no PyTorch kernel); "
+    "B >= 5: a quantise kernel (a block per row, xq in the fragments' k order), then "
+    "s8 x u8 tensor cores (mma.sync m16n8k32, 64 x 128 tiles of 8 warps, packed read "
+    "as stored by ldmatrix.trans + __byte_perm + nibble mask/xor, code + 8 with "
+    "8 * sum(xq) taken off, 4-stage cp.async ring, split-K to about one block per SM); "
+    "B <= 4: CUDA-core streaming, fused (rows' max|x| per block, __vsub4 + 2 __dp4a)")
+
+
 def int4_kernel_phase(torch, timer):
     """The four int4 entries against their plain versions at nano's decode
     shapes (flat, and layer 1 of a two-layer stack), then their times. The
-    launch counters are set to 0 just before the timed runs and read just
-    after: no entry point of either package serves the flat forms, so their
-    timed runs are their path (INT4_ENTRIES). -> ({entry: max abs err},
-    {entry: row}, {entry: launches in the timed runs})."""
+    W4A8 entries quantise x in the kernel with the JAX recipe (an IEEE
+    division for sx); PyTorch's CUDA division by a Python scalar multiplies
+    by its reciprocal, so their plain version runs on CPU copies of the
+    inputs. The launch counters are set to 0 just before the timed runs
+    and read just after: no entry point of either package serves the flat
+    forms, so their timed runs are their path (INT4_ENTRIES). -> ({entry:
+    max abs err}, {entry: row}, {entry: launches in the timed runs})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from sonicscribe_tpu_torch.models.config import nano
     from sonicscribe_tpu_torch.ops import _build
     from sonicscribe_tpu_torch.ops import int4_matmul as i4
@@ -486,73 +560,139 @@ def int4_kernel_phase(torch, timer):
         codes = torch.randint(-8, 8, (2, K, N), generator=gen, device="cuda", dtype=torch.int8)
         stacks[p] = dict(codes=codes, packed=i4.pack_int4(codes),
                          scale=0.02 + 0.01 * torch.rand((2, 1, N), generator=gen, device="cuda"))
+        stacks[p]["cpu"] = {k: v.cpu() for k, v in stacks[p].items()}
 
     def x_of(B, K, dtype):
         return torch.randn((B, K), generator=gen, device="cuda").to(dtype)
 
+    def recipe(x, p):
+        """The plain W4A8 on CPU copies (layer 1), back on the card."""
+        c = stacks[p]["cpu"]
+        return i4.int4_matmul_w4a8_plain(x.cpu(), c["packed"][1], c["scale"][1]).cuda()
+
     errs = dict.fromkeys(INT4_ENTRIES, 0.0)
+    sx_rows = sx_diff = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for B in (1, 4, 8, 37, 64):
+        for B in (1, 4, 8, 9, 16, 17, 37, 64, 227):
             for p, (K, _) in shapes.items():
                 pk, sc = stacks[p]["packed"], stacks[p]["scale"]
                 x = x_of(B, K, dtype)
                 case = f"{p} B={B} {dtype}"
-                for name, got, want in (
-                    ("int4_matmul", i4.int4_matmul_cuda(x, pk[1], sc[1]),
-                     i4.int4_matmul_plain(x, pk[1], sc[1])),
-                    ("int4_matmul_stacked", i4.int4_matmul_stacked_cuda(x, pk, sc, 1),
-                     i4.int4_matmul_stacked_plain(x, pk, sc, 1)),
-                ):
-                    errs[name] = max(errs[name], check_w16(torch, name, got, want, case))
-                for name, got, want in (
-                    ("int4_matmul_w4a8", i4.int4_matmul_w4a8_cuda(x, pk[1], sc[1]),
-                     i4.int4_matmul_w4a8_plain(x, pk[1], sc[1])),
-                    ("int4_matmul_w4a8_stacked", i4.int4_matmul_w4a8_stacked_cuda(x, pk, sc, 1),
-                     i4.int4_matmul_w4a8_stacked_plain(x, pk, sc, 1)),
-                ):
+                if B in (1, 4, 8, 37, 64):
+                    for name, got, want in (
+                        ("int4_matmul", i4.int4_matmul_cuda(x, pk[1], sc[1]),
+                         i4.int4_matmul_plain(x, pk[1], sc[1])),
+                        ("int4_matmul_stacked", i4.int4_matmul_stacked_cuda(x, pk, sc, 1),
+                         i4.int4_matmul_stacked_plain(x, pk, sc, 1)),
+                    ):
+                        errs[name] = max(errs[name], check_w16(torch, name, got, want, case))
+                before = _build.launch_counts["int4_matmul_w4a8_mma"]
+                flat = i4.int4_matmul_w4a8_cuda(x, pk[1], sc[1])
+                stacked = i4.int4_matmul_w4a8_stacked_cuda(x, pk, sc, 1)
+                mma = _build.launch_counts["int4_matmul_w4a8_mma"] - before
+                check(mma == 2 * int(i4.w4a8_uses_mma(B)),
+                      f"W4A8 {case}: int4_matmul_w4a8_mma rose by {mma}")
+                want = recipe(x, p)
+                for name, got in (("int4_matmul_w4a8", flat),
+                                  ("int4_matmul_w4a8_stacked", stacked)):
                     check(torch.equal(got, want), f"{name} {case}: max err "
                           f"{(got.float() - want.float()).abs().max().item()}, want equal")
+                # how often PyTorch's CUDA quantisation leaves the recipe
+                sx_rows += B
+                sx_diff += int((quantize_activations(x)[1].cpu()
+                                != quantize_activations(x.cpu())[1]).sum())
+    # crafted rows: all zeros (the 1e-8 floor), x / sx on .5 (half to even),
+    # the largest magnitude negative (-127), both ends at +-127
+    K, N = shapes["qkv"]
+    x = x_of(37, K, torch.float32)
+    x[0] = 0.0
+    x[1] = 0.0
+    x[1, :8] = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5], device="cuda")
+    x[2, 5] = -3.0 * x[2].abs().max()
+    x[3] = torch.linspace(-1.0, 1.0, K, device="cuda") * 127.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows in (4, 37):  # both designs
+            xd = x[:rows].to(dtype).contiguous()
+            got = i4.int4_matmul_w4a8_cuda(xd, stacks["qkv"]["packed"][1],
+                                           stacks["qkv"]["scale"][1])
+            check(torch.equal(got, recipe(xd, "qkv")) and not bool(got[0].any()),
+                  f"int4_matmul_w4a8 crafted rows, B={rows} {dtype}: differ from the recipe")
     torch.cuda.synchronize()
     log(f"int4 kernels vs plain: max abs err W4A16 flat {errs['int4_matmul']:.3g}, stacked "
         f"{errs['int4_matmul_stacked']:.3g} (tolerance {INT8_F32_TOL} x max|want|, + one bf16 "
-        f"ulp in bf16); W4A8 flat and stacked equal (B 1,4,8,37,64 at qkv/o/gate_up/down; "
-        f"f32 and bf16; stacked: layer 1 of 2)")
+        f"ulp in bf16; B 1,4,8,37,64); W4A8 flat and stacked equal to the recipe (B 1,4,8,9,16,"
+        f"17,37,64,227 and crafted rows; the mma design ran exactly for B >= "
+        f"{i4.W4A8_MMA_MIN_ROWS}) at qkv/o/gate_up/"
+        f"down; f32 and bf16; stacked: layer 1 of 2. PyTorch's CUDA quantize_activations gave "
+        f"another sx than the recipe in {sx_diff} of {sx_rows} rows")
+
+    # a W4A8 call launches only int4_matmul.cu's kernels
+    pk, sc = stacks["gate_up"]["packed"], stacks["gate_up"]["scale"]
+    xs = [x_of(B, shapes["gate_up"][0], torch.bfloat16) for B in (1, 64)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for x in xs:
+            i4.int4_matmul_w4a8_stacked_cuda(x, pk, sc, 1)
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA})
+    check(names and all("w4a8" in n for n in names), f"W4A8 calls ran other kernels: {names}")
+    log(f"profile of two W4A8 calls (B 1 and 64): only {len(names)} kernels of "
+        f"int4_matmul.cu ran: {[n.split('(')[0][-40:] for n in names]}")
+
+    # ---- below the design threshold: the tensor-core design on the same inputs ----
+    def w4a8_mma(x, pk, sc):
+        """The tensor-core W4A8 design on layer 1, launched directly (the
+        entry takes it from W4A8_MMA_MIN_ROWS rows)."""
+        out, err = i4._launch_mma(x, pk, sc, 1)
+        check(err == 0, f"W4A8 tensor-core design B={x.shape[0]}: cudaError {err}")
+        return out
+
+    for p in ("gate_up", "down"):
+        K, _ = shapes[p]
+        pk, sc = stacks[p]["packed"], stacks[p]["scale"]
+        for B in (1, 4):
+            x = x_of(B, K, torch.bfloat16)
+            check(torch.equal(w4a8_mma(x, pk, sc), i4.int4_matmul_w4a8_stacked_cuda(x, pk, sc, 1)),
+                  f"W4A8 {p} B={B}: the two designs differ")
+            cc_ms = timer.ms(lambda: i4.int4_matmul_w4a8_stacked_cuda(x, pk, sc, 1))
+            mma_ms = timer.ms(lambda: w4a8_mma(x, pk, sc))
+            log(f"int4_matmul_w4a8_stacked {p} B={B} bf16: CUDA-core design (dispatched) "
+                f"{cc_ms:.4f} ms, tensor-core design {mma_ms:.4f} ms")
 
     # ---- times at the sweep's shapes, bf16 ----
     def time_row(name, p, B, fn, plain, lib, lib_label):
         K, N = shapes[p]
         ms, plain_ms = timer.ms(fn), timer.ms(plain)
         lib_ms = timer.ms(lib) if lib is not None else None
-        if "w4a8" in name:
-            b_ms, b_by = bound_ms(K // 2 * N + 4 * N + B * (K + 4 + 2 * N), 2 * B * K * N,
-                                  INT8_OPS_PER_S)
-        else:
-            b_ms, b_by = bound_ms(K // 2 * N + 4 * N + 2 * B * (K + N), 2 * B * K * N,
-                                  BF16_FLOPS_PER_S)
+        # x and out in bf16: the W4A8 entries take x as it is
+        b_ms, b_by = bound_ms(K // 2 * N + 4 * N + 2 * B * (K + N), 2 * B * K * N,
+                              INT8_OPS_PER_S if "w4a8" in name else BF16_FLOPS_PER_S)
         lib_txt = f"{lib_label} {lib_ms:.4f} ms" if lib_ms is not None else f"{lib_label} n/a"
         log(f"{name} {p} B={B} K={K} N={N} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"{lib_txt}, bound {b_ms:.5f} ms ({b_by})")
         return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
     rows = {}
+    w4a8_times = {"int4_matmul_w4a8": {}, "int4_matmul_w4a8_stacked": {}}
     _build.reset_launch_counts()
-    for B, p in ((1, "qkv"), (1, "o"), (1, "gate_up"), (1, "down"), (64, "gate_up")):
+    for B, p in ((1, "qkv"), (1, "o"), (1, "gate_up"), (1, "down"), (8, "gate_up"),
+                 (37, "gate_up"), (64, "gate_up")):
         K, N = shapes[p]
         st = stacks[p]
         pk, sc = st["packed"], st["scale"]
         x = x_of(B, K, torch.bfloat16)
         w = (st["codes"][1].float() * sc[1]).to(torch.bfloat16)
-        for name, fn, plain in (
-            ("int4_matmul", lambda: i4.int4_matmul_cuda(x, pk[1], sc[1]),
-             lambda: i4.int4_matmul_plain(x, pk[1], sc[1])),
-            ("int4_matmul_stacked", lambda: i4.int4_matmul_stacked_cuda(x, pk, sc, 1),
-             lambda: i4.int4_matmul_stacked_plain(x, pk, sc, 1)),
-        ):
-            r = time_row(name, p, B, fn, plain, lambda: torch.mm(x, w),
-                         "bf16 dense mm (4x the weight bytes)")
-            if (B, p) == (1, "gate_up"):
-                rows[name] = r
-        # torch._int_mm takes only B > 16: a yardstick at 64 rows, none at decode rows
+        if B in (1, 64):
+            for name, fn, plain in (
+                ("int4_matmul", lambda: i4.int4_matmul_cuda(x, pk[1], sc[1]),
+                 lambda: i4.int4_matmul_plain(x, pk[1], sc[1])),
+                ("int4_matmul_stacked", lambda: i4.int4_matmul_stacked_cuda(x, pk, sc, 1),
+                 lambda: i4.int4_matmul_stacked_plain(x, pk, sc, 1)),
+            ):
+                r = time_row(name, p, B, fn, plain, lambda: torch.mm(x, w),
+                             "bf16 dense mm (4x the weight bytes)")
+                if (B, p) == (1, "gate_up"):
+                    rows[name] = r
+        # torch._int_mm takes only B > 16: a yardstick at 37 and 64 rows, none below
         xq = quantize_activations(x)[0]
         codes_cm = st["codes"][1].t().contiguous().t()  # column-major s8, as cuBLASLt takes it
         lib = (lambda: torch._int_mm(xq, codes_cm)) if B > 16 else None
@@ -563,11 +703,11 @@ def int4_kernel_phase(torch, timer):
              lambda: i4.int4_matmul_w4a8_stacked_plain(x, pk, sc, 1)),
         ):
             r = time_row(name, p, B, fn, plain, lib, "torch._int_mm (2x the weight bytes)")
+            w4a8_times[name][f"{p} B={B}"] = r["ms"]
             if (B, p) == (64, "gate_up"):
-                rows[name] = r
-        quant_ms = timer.ms(lambda: quantize_activations(x))
-        log(f"  of which the plain per-row activation quantisation: {quant_ms:.4f} ms")
+                rows[name] = dict(r, design=W4A8_DESIGN, times=w4a8_times[name])
     launches = {name: _build.launch_counts[name] for name in INT4_ENTRIES}
+    launches["int4_matmul_w4a8_mma"] = _build.launch_counts["int4_matmul_w4a8_mma"]
     return errs, rows, launches
 
 
@@ -579,6 +719,7 @@ def bench_phase(torch):
     variant on the same codes. -> {entry: launches in the counted steps}."""
     from sonicscribe_tpu_torch.models.config import nano
     from sonicscribe_tpu_torch.ops import _build
+    from sonicscribe_tpu_torch.ops.int4_matmul import w4a8_uses_mma
     from sonicscribe_tpu_torch.tools import bench_int4_matmul, bench_int8_matmul
 
     for rec in bench_int8_matmul.run(batches=(1, 8), reps=10):
@@ -600,15 +741,19 @@ def bench_phase(torch):
             h = bench_int4_matmul.sweep(bench_int4_matmul.VARIANTS[variant], weights, h0, n_layers)
             torch.cuda.synchronize()
             counts = {k: v for k, v in _build.launch_counts.items() if v}
-            check(counts == {entry: 4 * n_layers},
-                  f"bench_int4_matmul {variant}: launches {counts}, want {entry} "
-                  f"{4 * n_layers} times per step")
+            want = {entry: 4 * n_layers}
+            if variant == "int4_w4a8" and w4a8_uses_mma(h0.shape[0]):
+                want["int4_matmul_w4a8_mma"] = 4 * n_layers  # every launch on the tensor cores
+            check(counts == want, f"bench_int4_matmul {variant}: launches {counts}, want {want} "
+                  f"per step")
             rel = ((h.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
-            log(f"bench_int4_matmul {variant}: one eager step, B=8: {entry} launched "
-                f"{counts[entry]} times; max |step - int8 step| / max |int8 step| {rel:.3g}")
+            log(f"bench_int4_matmul {variant}: one eager step, B=8: launches {counts}; "
+                f"max |step - int8 step| / max |int8 step| {rel:.3g}")
             check(h.shape == ref.shape and bool(torch.isfinite(h).all()) and rel <= SWEEP_TOL,
                   f"bench_int4_matmul {variant}: step differs from the int8 step by {rel}")
             launches[entry] = counts[entry]
+            if variant == "int4_w4a8":
+                launches["int4_matmul_w4a8_stacked_mma"] = counts.get("int4_matmul_w4a8_mma", 0)
     del weights, ref, h
     for rec in bench_int4_matmul.run(batches=(1, 8, 64), reps=10,
                                      variants=tuple(bench_int4_matmul.VARIANTS)):
@@ -933,6 +1078,10 @@ def main() -> None:
              launches=int4_launches[name], max_abs_err=int4_errs[name], **int4_rows[name])
         for name, (line, path) in INT4_ENTRIES.items()
     ]
+    # the W4A8 launches that took the tensor cores on each entry's path (the
+    # timed runs count flat and stacked together)
+    kernels[-2]["mma_launches"] = int4_launches["int4_matmul_w4a8_mma"]
+    kernels[-1]["mma_launches"] = int4_launches["int4_matmul_w4a8_stacked_mma"]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on the main path")
     print(json.dumps({"kernels": kernels}))

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from sonicscribe_tpu_torch.device import resolve_device
-from sonicscribe_tpu_torch.ops.mel import log_mel_frames
+from sonicscribe_tpu_torch.ops.mel import check_kernel_shape, log_mel_frames
 
 
 @dataclass(frozen=True)
@@ -111,9 +111,12 @@ _TABLES: dict = {}
 
 def device_tables(cfg: MelConfig, device: torch.device):
     """(basis [n_fft, 2*n_bins], fb [n_bins, n_mels]) f32 on `device`,
-    copied there once per (cfg, device)."""
+    copied there once per (cfg, device). For a CUDA device it first raises
+    ValueError if the log-mel kernel does not take cfg's shape."""
     key = (cfg, str(device))
     if key not in _TABLES:
+        if torch.device(device).type == "cuda":
+            check_kernel_shape(cfg.n_fft, cfg.hop_length, cfg.n_freq_bins)
         basis = torch.from_numpy(np.ascontiguousarray(_dft_conv_weights(cfg).T))
         fb = torch.from_numpy(mel_filter_bank(cfg))
         _TABLES[key] = (basis.to(device), fb.to(device))

@@ -30,21 +30,48 @@
 //   its partial sums and a second pass adds the splits in order, applies
 //   the scale and casts (no atomics: the result is deterministic);
 // - W4A16 sign-extends each nibble with one shift pair on the 32-bit word
-//   and sums in float32 (bf16 * a code in [-8, 7] is exact in float32);
-//   W4A8 regroups four packed rows per column with __byte_perm, splits each
-//   word into two words of 4 signed bytes (low nibbles: rows k..k+3; high
-//   nibbles: rows K/2+k..K/2+k+3) with one __vsub4 each, and runs two
-//   __dp4a against the staged activation words of each half.
-// The products run on the CUDA cores: right, and at B > 8 far from the
-// tensor cores' rate (mma/wgmma is later work).
+//   and sums in float32 (bf16 * a code in [-8, 7] is exact in float32).
 //
-// Layout: x [B, K] (float32 / bfloat16, contiguous), xq [B, K] int8 and
-// sx [B] float32 for W4A8, packed [L, K/2, N] int8 and scale [L, 1, N]
-// float32 (contiguous), out [B, N] in x's type, partial [splits, B, N]
-// float32 / int32 scratch when splits > 1. N must be a multiple of 16 (the
-// wrapper holds it to the JAX gate's 128); W4A8 needs K/2 % 4 == 0. The
-// wrapper (ops/int4_matmul.py) checks and picks the launch shape; each
-// entry returns the cudaError of its launches.
+// W4A8 quantises x itself, so a call launches nothing but this file's
+// kernels: sx = max(max|x|, 1e-8) / 127 per row (an IEEE division) and
+// xq = clamp(rint(x / sx), -127, 127) (the JAX recipe, bit for bit; rint
+// rounds half to even; x * (1/sx) stands in for x / sx except within 2^-14
+// of a half, where the two could round apart). Two designs (the wrapper
+// picks by B):
+// - up to 4 rows (decode), the streaming kernel above on the CUDA cores,
+//   fused: each block takes its rows' max|x| over the whole K, then
+//   quantises x as it stages it; four packed rows per column regrouped with
+//   __byte_perm, each word split into two words of 4 signed bytes (low
+//   nibbles: rows k..k+3; high nibbles: rows K/2+k..K/2+k+3) with one
+//   __vsub4 each, two __dp4a;
+// - 5 rows or more, s8 tensor cores (mma.sync m16n8k32, int32 sums). A first
+//   kernel quantises each row once (a block per row) into xq, in the order
+//   the fragments take it (fused into the product, each of its ~100
+//   blocks read and quantised the same x rows again, which cost more than
+//   the product itself). The product: 64 x 128 tiles of 8 warps (2 x 4, 32
+//   x 32 each); its xq rows (one cp.async group) and then packed, as stored,
+//   stream in through a 4-stage cp.async ring.
+//   ldmatrix.trans over the int8 tile read as 16-bit column pairs gives
+//   each lane rows k, k+1 (and k+8, k+9) of two neighbouring columns;
+//   __byte_perm joins them into the B fragment of 4 packed rows of one
+//   column, and a mask and an xor turn it into the lo-plane and hi-plane
+//   fragments as unsigned bytes, code + 8 (s8 x u8 mma; the 8 * sum(xq)
+//   this adds is taken off in the epilogue). The fragment's k order (rows
+//   2t, 2t+1, 2t+8, 2t+9 for k-lane t) is the order xq is stored in, so no
+//   transpose pass is needed. Two mma per fragment (x's first half against
+//   lo, its second half against hi) add into one int32 accumulator: exact,
+//   so the output is bit-equal to the plain version. Where the tiles alone
+//   leave SMs idle, K/2 is split as above.
+//
+// Layout: x [B, K] (float32 / bfloat16, contiguous, 16-byte aligned),
+// packed [L, K/2, N] int8 and scale [L, 1, N] float32 (contiguous), out
+// [B, N] in x's type, partial [splits, B, N] float32 / int32 scratch and,
+// for W4A8, sx [B] float32 scratch when splits > 1 (always for the mma
+// design, with xq [B, 2, K/2 rounded up to 64] int8). N must be a multiple of
+// 16 (the wrapper holds it to the JAX gate's 128; the mma design needs it);
+// W4A8 needs K/2 % 4 == 0. The wrapper (ops/int4_matmul.py) checks and
+// picks the design and launch shape; each entry returns the cudaError of
+// its launches.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -209,21 +236,109 @@ w4a16_kernel(const T* __restrict__ x, const int8_t* __restrict__ p,
   });
 }
 
+// 4 consecutive values of x (16-byte aligned for float32, 8 for bf16) as float
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  v[0] = __uint_as_float(q.x << 16), v[1] = __uint_as_float(q.x & 0xFFFF0000u);
+  v[2] = __uint_as_float(q.y << 16), v[3] = __uint_as_float(q.y & 0xFFFF0000u);
+}
+
+// max|v| over 16 bytes of x (4 float32 or 8 bf16; 16-byte aligned)
+__device__ __forceinline__ float absmax16(const float* p) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  return fmaxf(fmaxf(fabsf(q.x), fabsf(q.y)), fmaxf(fabsf(q.z), fabsf(q.w)));
+}
+__device__ __forceinline__ float absmax16(const __nv_bfloat16* p) {
+  const uint4 q = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {q.x, q.y, q.z, q.w};
+  float m = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    m = fmaxf(m, fmaxf(fabsf(__uint_as_float(w[j] << 16)),
+                       fabsf(__uint_as_float(w[j] & 0xFFFF0000u))));
+  }
+  return m;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// sx = max(max|x|, 1e-8) / 127, an IEEE division (quant.py:matmul_w8a8)
+__device__ __forceinline__ float act_scale(float absmax) {
+  return __fdiv_rn(fmaxf(absmax, 1e-8f), 127.0f);
+}
+
+// clamp(rint(v / sx), -127, 127) with v / sx the IEEE quotient; rint rounds
+// half to even, as jnp.round. |v| <= 127 sx, so the quotient is at most
+// ~127; v * rsx (rsx = 1 / sx rounded) lies within 2.3e-5 of it, and the two
+// round to the same integer unless they lie that close to a half: only
+// there is the (slow) IEEE division taken.
+__device__ __forceinline__ int quant(float v, float sx, float rsx) {
+  float q = v * rsx;
+  if (fabsf(fabsf(q - rintf(q)) - 0.5f) <= 6.103515625e-05f) q = __fdiv_rn(v, sx);  // 2^-14
+  return static_cast<int>(fminf(fmaxf(rintf(q), -127.f), 127.f));
+}
+
+// 4 values -> one word of 4 s8, value j in byte j
+__device__ __forceinline__ int quant4(const float (&v)[4], float sx, float rsx) {
+  unsigned w = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    w |= (static_cast<unsigned>(quant(v[j], sx, rsx)) & 0xFFu) << (8 * j);
+  }
+  return static_cast<int>(w);
+}
+
 template <typename T, int BT>
 __global__ void __launch_bounds__(kThreads)
-w4a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
-            const int8_t* __restrict__ p, const float* __restrict__ scale,
-            T* __restrict__ out, int* __restrict__ partial, int B, int K2, int N,
-            int k_per_split) {
+w4a8_kernel(const T* __restrict__ x, const int8_t* __restrict__ p,
+            const float* __restrict__ scale, T* __restrict__ out, int* __restrict__ partial,
+            float* __restrict__ sx_out, int B, int K2, int N, int k_per_split) {
   // 4 consecutive k of one row per word: xq[r, c0 + 4g..] and xq[r, K/2 + c0 + 4g..]
   __shared__ int xs[2][BT][kChunkK / 4];
   __shared__ int red[kWarps][BT][kTileN];
+  __shared__ float wmax[kWarps][BT];
+  __shared__ float sxs[BT], rsxs[BT];  // the rows' scales and their rounded reciprocals
   const int tid = threadIdx.x, ct = tid % kColThreads, kl = tid / kColThreads;
+  const int lane = tid & 31, warp = tid >> 5;
   const int n0 = blockIdx.x * kTileN, r0 = blockIdx.y * BT, split = blockIdx.z;
   const int col = n0 + ct * kColsPerThread;
   const long long K = 2LL * K2;
   const int k_begin = split * k_per_split, k_end = min(K2, k_begin + k_per_split);
-  const int* x32 = reinterpret_cast<const int*>(xq);
+
+  // the rows' scales, over the whole K (16-byte loads, all rows at once)
+  constexpr int E = 16 / sizeof(T);
+  float m[BT];
+#pragma unroll
+  for (int b = 0; b < BT; ++b) m[b] = 0.f;
+  for (int v = tid; v < K / E; v += kThreads) {
+#pragma unroll
+    for (int b = 0; b < BT; ++b) {
+      if (r0 + b < B) m[b] = fmaxf(m[b], absmax16(x + (r0 + b) * K + (long long)v * E));
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < BT; ++b) {
+    const float w = warp_max(m[b]);
+    if (lane == 0) wmax[warp][b] = w;
+  }
+  __syncthreads();
+  if (tid < BT) {
+    float mx = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wmax[w][tid]);
+    sxs[tid] = act_scale(mx);
+    rsxs[tid] = __frcp_rn(sxs[tid]);
+    // the split-K pass reads the scales here
+    if (sx_out && blockIdx.x == 0 && split == 0 && r0 + tid < B) sx_out[r0 + tid] = sxs[tid];
+  }
 
   int acc[BT][kColsPerThread];
 #pragma unroll
@@ -233,11 +348,17 @@ w4a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
   }
 
   for (int c0 = k_begin; c0 < k_end; c0 += kChunkK) {
-    __syncthreads();
+    __syncthreads();  // the scales are set; the previous chunk's reads of xs are done
     for (int i = tid; i < 2 * BT * (kChunkK / 4); i += kThreads) {
       const int h = i / (BT * (kChunkK / 4)), b = (i / (kChunkK / 4)) % BT, g = i % (kChunkK / 4);
       const int r = r0 + b, k = c0 + 4 * g;
-      xs[h][b][g] = (r < B && k < k_end) ? x32[(r * K + (long long)h * K2 + k) / 4] : 0;
+      int w = 0;
+      if (r < B && k < k_end) {
+        float v[4];
+        load4(x + r * K + (long long)h * K2 + k, v);
+        w = quant4(v, sxs[b], rsxs[b]);
+      }
+      xs[h][b][g] = w;
     }
     __syncthreads();
     const int k = c0 + 4 * kl;  // this lane's 4 packed rows of the chunk
@@ -266,9 +387,286 @@ w4a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
     if (partial) {
       partial[((long long)split * B + r) * N + n] = v;
     } else {
-      store(out + (long long)r * N + n, __int2float_rn(v) * sx[r] * scale[n]);
+      store(out + (long long)r * N + n, __int2float_rn(v) * sxs[r - r0] * scale[n]);
     }
   });
+}
+
+// ---------------------------------------------------------------- W4A8 mma
+
+constexpr int kQWarps = 8;                 // 2 along M x 4 along N
+constexpr int kQThreads = kQWarps * 32;
+constexpr int kQBM = 64, kQBN = 128;       // block tile; a warp's is 32 x 32
+constexpr int kQBK = 64;                   // packed rows per stage
+constexpr int kQStages = 4;
+constexpr int kQRow = kQBN + 16;           // bytes per packed row of a stage
+constexpr int kQStage = kQBK * kQRow;      // 9,216 bytes
+constexpr int kQMaxKPerSplit = 1472;       // packed rows of x a block holds (a multiple of kQBK)
+// xq [2][kQBM][k_per_split + 16] bytes, then the ring
+constexpr int kQMaxSmem = 2 * kQBM * (kQMaxKPerSplit + 16) + kQStages * kQStage;  // 227,328
+static_assert(kQMaxSmem + 1024 <= 232448, "a block's shared memory");
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, or 16 zero bytes where !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// s8 A x u8 B, int32 sums
+__device__ __forceinline__ void mma_s8u8(int (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 4 packed bytes -> 4 unsigned bytes of their low (high) nibbles plus 8:
+// the code + 8, in [0, 15]; the 8 comes back out as 8 * sum(xq), exactly
+__device__ __forceinline__ unsigned low_nibbles_u(unsigned w) {
+  return (w & 0x0F0F0F0Fu) ^ 0x08080808u;
+}
+__device__ __forceinline__ unsigned high_nibbles_u(unsigned w) { return low_nibbles_u(w >> 4); }
+
+// Byte offset, within its group of 32, at which the staged xq of packed
+// row 4u + 2j (and 4u + 2j + 1 next to it), j = 0 or 1, is stored: the
+// mma's k index of that row in the B fragment. Fragment k = 4t + i holds
+// packed row 2t + (i & 1) + 8 (i >> 1), the order ldmatrix.trans gives.
+__device__ __forceinline__ int xq_slot(int u, int j) {
+  return 16 * (u >> 2) + 8 * (u & 1) + 2 * ((u >> 1) & 1) + 4 * j;
+}
+
+// Per-row quantisation for the mma design, one block per row of x: sx[r],
+// and xq [B][2][K2p] (x's first half, then its second; K2p = K2 rounded up
+// to kQBK, zeros past K2), each group of 32 packed rows in the fragments' k
+// order (xq_slot), so that the product copies its rows as they are.
+template <typename T>
+__global__ void __launch_bounds__(kQThreads)
+w4a8_quant_kernel(const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ sx,
+                  int K2, int K2p) {
+  __shared__ float wmax[kQWarps];
+  __shared__ float sxr[2];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, r = blockIdx.x;
+  const long long K = 2LL * K2;
+  const T* xr = x + r * K;
+  constexpr int E = 16 / sizeof(T);
+  float m = 0.f;
+  for (int v = tid; v < K / E; v += kQThreads) m = fmaxf(m, absmax16(xr + (long long)v * E));
+  m = warp_max(m);
+  if (lane == 0) wmax[warp] = m;
+  __syncthreads();
+  if (tid == 0) {
+#pragma unroll
+    for (int w = 1; w < kQWarps; ++w) m = fmaxf(m, wmax[w]);
+    sxr[0] = act_scale(m);
+    sxr[1] = __frcp_rn(sxr[0]);
+    sx[r] = sxr[0];
+  }
+  __syncthreads();
+  const float s = sxr[0], rs = sxr[1];
+  // a thread per group of 32 packed rows of one half: 8 quads -> 32 bytes
+  for (int g = tid; g < 2 * (K2p / 32); g += kQThreads) {
+    const int h = g / (K2p / 32), k0 = (g % (K2p / 32)) * 32;
+    unsigned char b[32];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      unsigned w = 0;
+      if (k0 + 4 * u < K2) {
+        float v[4];
+        load4(xr + (long long)h * K2 + k0 + 4 * u, v);
+        w = static_cast<unsigned>(quant4(v, s, rs));
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        b[xq_slot(u, j)] = static_cast<unsigned char>(w >> (16 * j));
+        b[xq_slot(u, j) + 1] = static_cast<unsigned char>(w >> (16 * j + 8));
+      }
+    }
+    uint4 lo, hi;
+    lo.x = b[0] | b[1] << 8 | b[2] << 16 | (unsigned)b[3] << 24;
+    lo.y = b[4] | b[5] << 8 | b[6] << 16 | (unsigned)b[7] << 24;
+    lo.z = b[8] | b[9] << 8 | b[10] << 16 | (unsigned)b[11] << 24;
+    lo.w = b[12] | b[13] << 8 | b[14] << 16 | (unsigned)b[15] << 24;
+    hi.x = b[16] | b[17] << 8 | b[18] << 16 | (unsigned)b[19] << 24;
+    hi.y = b[20] | b[21] << 8 | b[22] << 16 | (unsigned)b[23] << 24;
+    hi.z = b[24] | b[25] << 8 | b[26] << 16 | (unsigned)b[27] << 24;
+    hi.w = b[28] | b[29] << 8 | b[30] << 16 | (unsigned)b[31] << 24;
+    uint4* dst = reinterpret_cast<uint4*>(xq + ((long long)r * 2 + h) * K2p + k0);
+    dst[0] = lo;
+    dst[1] = hi;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kQThreads)
+w4a8_mma_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
+                const int8_t* __restrict__ p, const float* __restrict__ scale,
+                T* __restrict__ out, int* __restrict__ partial, int B, int K2, int K2p, int N,
+                int k_per_split) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int xsum[kQBM];  // sum of the row's xq over the block's packed rows, both halves
+  const int xrow = k_per_split + 16;  // an odd multiple of 16 bytes: ldmatrix conflict-free
+  int8_t* xs = reinterpret_cast<int8_t*>(smem);                           // [2][kQBM][xrow]
+  int8_t* ring = reinterpret_cast<int8_t*>(smem + 2 * kQBM * xrow);       // [kQStages][kQBK][kQRow]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = (warp >> 2) * 32, wn = (warp & 3) * 32;
+  const int n0 = blockIdx.x * kQBN, r0 = blockIdx.y * kQBM, split = blockIdx.z;
+  const int k_begin = split * k_per_split, k_end = min(K2p, k_begin + k_per_split);
+  const int n_steps = (k_end - k_begin) / kQBK;
+
+  // the block's rows of xq over its packed rows, both halves (zeros past B),
+  // as one commit group; warp w takes the plane-rows w, w + 8, ...
+  for (int hr = warp; hr < 2 * kQBM; hr += kQWarps) {
+    const int h = hr / kQBM, rr = hr % kQBM;
+    const bool ok = r0 + rr < B;
+    const int8_t* src = xq + ((long long)(ok ? r0 + rr : 0) * 2 + h) * K2p + k_begin;
+    for (int c = 16 * lane; c < n_steps * kQBK; c += 16 * 32) {
+      cp_async16(xs + hr * xrow + c, src + c, ok);
+    }
+  }
+  cp_async_commit();
+
+  // packed rows of step `it` into stage it % kQStages, 16 bytes a copy,
+  // zeros past K/2; one commit group per step, empty past the last
+  auto load_step = [&](int it) {
+    if (it < n_steps) {
+      const int k0 = k_begin + it * kQBK;
+      int8_t* dst = ring + (it % kQStages) * kQStage;
+#pragma unroll
+      for (int i = tid; i < kQBK * (kQBN / 16); i += kQThreads) {
+        const int kq = i / (kQBN / 16), c = (i % (kQBN / 16)) * 16;
+        const bool ok = k0 + kq < K2;
+        cp_async16(dst + kq * kQRow + c, ok ? p + (long long)(k0 + kq) * N + n0 + c : p, ok);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int it = 0; it < kQStages - 1; ++it) load_step(it);
+
+  int acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+
+  // stream packed through the ring
+  for (int it = 0; it < n_steps; ++it) {
+    cp_async_wait<kQStages - 2>();  // xq and step it have landed (this thread's copies)
+    __syncthreads();                // everyone's copies; step it - 1 is done
+    load_step(it + kQStages - 1);   // into the stage that step it - 1 used
+    const int8_t* wst = ring + (it % kQStages) * kQStage;
+#pragma unroll
+    for (int kk = 0; kk < kQBK; kk += 32) {
+      // B: n-tiles 2g (even columns of wn + 16g .. + 15) and 2g + 1 (odd),
+      // as code + 8 (u8)
+      unsigned blo[4][2], bhi[4][2];
+#pragma unroll
+      for (int g = 0; g < 2; ++g) {
+        unsigned r[4];  // packed rows kk + 8m .. + 7 of the 16 columns, as column pairs
+        ldmatrix_x4_trans(r, wst + (kk + lane) * kQRow + wn + 16 * g);
+        const unsigned e0 = __byte_perm(r[0], r[1], 0x6420), e1 = __byte_perm(r[2], r[3], 0x6420);
+        const unsigned o0 = __byte_perm(r[0], r[1], 0x7531), o1 = __byte_perm(r[2], r[3], 0x7531);
+        blo[2 * g][0] = low_nibbles_u(e0), blo[2 * g][1] = low_nibbles_u(e1);
+        bhi[2 * g][0] = high_nibbles_u(e0), bhi[2 * g][1] = high_nibbles_u(e1);
+        blo[2 * g + 1][0] = low_nibbles_u(o0), blo[2 * g + 1][1] = low_nibbles_u(o1);
+        bhi[2 * g + 1][0] = high_nibbles_u(o0), bhi[2 * g + 1][1] = high_nibbles_u(o1);
+      }
+      const int kx = it * kQBK + kk + (lane >> 4) * 16;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        unsigned alo[4], ahi[4];
+        const int row = wm + 16 * i + (lane & 15);
+        ldmatrix_x4(alo, xs + row * xrow + kx);
+        ldmatrix_x4(ahi, xs + (kQBM + row) * xrow + kx);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          mma_s8u8(acc[i][j], alo, blo[j][0], blo[j][1]);
+          mma_s8u8(acc[i][j], ahi, bhi[j][0], bhi[j][1]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+  // each row's sum of xq over both halves (warp w: rows w, w + 8, ...), for
+  // the u8 form of the weights
+  for (int rr = warp; rr < kQBM; rr += kQWarps) {
+    int t = 0;
+    for (int c = 16 * lane; c < n_steps * kQBK; c += 16 * 32) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint4 q = *reinterpret_cast<const uint4*>(xs + (h * kQBM + rr) * xrow + c);
+        t = __dp4a(static_cast<int>(q.x), 0x01010101, t);
+        t = __dp4a(static_cast<int>(q.y), 0x01010101, t);
+        t = __dp4a(static_cast<int>(q.z), 0x01010101, t);
+        t = __dp4a(static_cast<int>(q.w), 0x01010101, t);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
+    if (lane == 0) xsum[rr] = t;
+  }
+  __syncthreads();
+
+  // epilogue: in n-tile pair g, lane holds columns wn + 16g + 4*t4 .. +3
+  // (even c0, odd c0, even c1, odd c1) of rows gid and gid + 8 of each m-tile
+  const int gid = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int g = 0; g < 2; ++g) {
+    const int col = n0 + wn + 16 * g + 4 * t4;
+    if (col >= N) continue;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int* e = acc[i][2 * g];
+      const int* o = acc[i][2 * g + 1];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int rr = wm + 16 * i + gid + 8 * half, row = r0 + rr;
+        if (row >= B) continue;
+        const int c8 = 8 * xsum[rr];  // sum(xq * (code + 8)) - 8 sum(xq) = sum(xq * code)
+        const int v[4] = {e[2 * half] - c8, o[2 * half] - c8, e[2 * half + 1] - c8,
+                          o[2 * half + 1] - c8};
+        if (partial) {
+          *reinterpret_cast<int4*>(partial + ((long long)split * B + row) * N + col) =
+              make_int4(v[0], v[1], v[2], v[3]);
+        } else {
+          const float s = sx[row];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            store(out + (long long)row * N + col + j, __int2float_rn(v[j]) * s * scale[col + j]);
+        }
+      }
+    }
+  }
 }
 
 // Second pass of a split-K launch: add the splits in order, scale, cast.
@@ -318,18 +716,40 @@ void launch_w4a16(const void* x, const int8_t* p, const float* scale, void* out,
 }
 
 template <typename T, int BT>
-void launch_w4a8(const int8_t* xq, const float* sx, const int8_t* p, const float* scale, void* out,
-                 int* partial, int B, int K2, int N, int splits, int k_per_split,
+void launch_w4a8(const void* x, const int8_t* p, const float* scale, void* out, int* partial,
+                 float* sx, int B, int K2, int N, int splits, int k_per_split,
                  cudaStream_t stream) {
   const dim3 grid((N + kTileN - 1) / kTileN, (B + BT - 1) / BT, splits);
   w4a8_kernel<T, BT><<<grid, kThreads, 0, stream>>>(
-      xq, sx, p, scale, static_cast<T*>(out), splits > 1 ? partial : nullptr, B, K2, N,
+      static_cast<const T*>(x), p, scale, static_cast<T*>(out), splits > 1 ? partial : nullptr,
+      splits > 1 ? sx : nullptr, B, K2, N, k_per_split);
+  if (splits > 1) {
+    const long long total = (long long)B * N;
+    w4a8_reduce<T><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
+        partial, sx, scale, static_cast<T*>(out), splits, B, N);
+  }
+}
+
+template <typename T>
+int launch_w4a8_mma(const void* x, const int8_t* p, const float* scale, void* out, int* partial,
+                    int8_t* xq, float* sx, int B, int K2, int N, int splits, int k_per_split,
+                    cudaStream_t stream) {
+  const int K2p = (K2 + kQBK - 1) / kQBK * kQBK;
+  w4a8_quant_kernel<T><<<B, kQThreads, 0, stream>>>(static_cast<const T*>(x), xq, sx, K2, K2p);
+  const int smem = 2 * kQBM * (k_per_split + 16) + kQStages * kQStage;
+  const cudaError_t e = cudaFuncSetAttribute(
+      w4a8_mma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(N / kQBN, (B + kQBM - 1) / kQBM, splits);
+  w4a8_mma_kernel<T><<<grid, kQThreads, smem, stream>>>(
+      xq, sx, p, scale, static_cast<T*>(out), splits > 1 ? partial : nullptr, B, K2, K2p, N,
       k_per_split);
   if (splits > 1) {
     const long long total = (long long)B * N;
     w4a8_reduce<T><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
         partial, sx, scale, static_cast<T*>(out), splits, B, N);
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -344,13 +764,13 @@ void dispatch_w4a16(int rows, const void* x, const int8_t* p, const float* scale
 }
 
 template <typename T>
-void dispatch_w4a8(int rows, const int8_t* xq, const float* sx, const int8_t* p,
-                   const float* scale, void* out, int* partial, int B, int K2, int N, int splits,
-                   int k_per_split, cudaStream_t s) {
-  switch (rows) {
-    case 1: launch_w4a8<T, 1>(xq, sx, p, scale, out, partial, B, K2, N, splits, k_per_split, s); break;
-    case 4: launch_w4a8<T, 4>(xq, sx, p, scale, out, partial, B, K2, N, splits, k_per_split, s); break;
-    default: launch_w4a8<T, 8>(xq, sx, p, scale, out, partial, B, K2, N, splits, k_per_split, s);
+void dispatch_w4a8(int rows, const void* x, const int8_t* p, const float* scale, void* out,
+                   int* partial, float* sx, int B, int K2, int N, int splits, int k_per_split,
+                   cudaStream_t s) {
+  if (rows == 1) {
+    launch_w4a8<T, 1>(x, p, scale, out, partial, sx, B, K2, N, splits, k_per_split, s);
+  } else {  // 2 to 4 rows; from 5 the tensor-core design runs
+    launch_w4a8<T, 4>(x, p, scale, out, partial, sx, B, K2, N, splits, k_per_split, s);
   }
 }
 
@@ -380,25 +800,54 @@ extern "C" int int4_matmul_w4a16(const void* x, const void* packed, const void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-// As int4_matmul_w4a16 with int8 activations xq [B, 2 * K2] and their
-// per-row scales sx [B]; K2 % 4 == 0; partial holds int32 sums.
-extern "C" int int4_matmul_w4a8(const void* xq, const void* sx, const void* packed,
-                                const void* scale, void* out, void* partial, int dtype, int B,
-                                int K2, int N, int layer, int rows, int splits, int k_per_split,
-                                void* stream) {
-  if (bad_shape(B, K2, N, layer, rows, splits, k_per_split) || K2 % 4 || dtype < 0 || dtype > 1) {
+// W4A8 on the CUDA cores: x [B, 2 * K2] float32 / bfloat16, quantised per
+// row in the kernel; rows 1 or 4 (more rows take the tensor-core entry);
+// K2 % 4 == 0; partial holds int32 sums and sx B float32 scales when
+// splits > 1.
+extern "C" int int4_matmul_w4a8(const void* x, const void* packed, const void* scale, void* out,
+                                void* partial, void* sx, int dtype, int B, int K2, int N,
+                                int layer, int rows, int splits, int k_per_split, void* stream) {
+  if (bad_shape(B, K2, N, layer, rows, splits, k_per_split) || rows == 8 || K2 % 4 || dtype < 0 ||
+      dtype > 1 || reinterpret_cast<uintptr_t>(x) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int8_t* pl = static_cast<const int8_t*>(packed) + (long long)layer * K2 * N;
   const float* sl = static_cast<const float*>(scale) + (long long)layer * N;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int8_t* x = static_cast<const int8_t*>(xq);
-  const float* sxf = static_cast<const float*>(sx);
   int* pt = static_cast<int*>(partial);
+  float* sxf = static_cast<float*>(sx);
   if (dtype == 0) {
-    dispatch_w4a8<float>(rows, x, sxf, pl, sl, out, pt, B, K2, N, splits, k_per_split, s);
+    dispatch_w4a8<float>(rows, x, pl, sl, out, pt, sxf, B, K2, N, splits, k_per_split, s);
   } else {
-    dispatch_w4a8<__nv_bfloat16>(rows, x, sxf, pl, sl, out, pt, B, K2, N, splits, k_per_split, s);
+    dispatch_w4a8<__nv_bfloat16>(rows, x, pl, sl, out, pt, sxf, B, K2, N, splits, k_per_split, s);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// W4A8 on the tensor cores, arguments as int4_matmul_w4a8 without `rows`,
+// and xq scratch of B * 2 * K2p bytes (K2p = K2 rounded up to 64) and sx of
+// B float32 always: N % 128 == 0, k_per_split a multiple of 64 and at most
+// 1472, x, packed and xq 16-byte aligned.
+extern "C" int int4_matmul_w4a8_mma(const void* x, const void* packed, const void* scale,
+                                    void* out, void* partial, void* xq, void* sx, int dtype,
+                                    int B, int K2, int N, int layer, int splits, int k_per_split,
+                                    void* stream) {
+  if (B <= 0 || K2 <= 0 || K2 % 4 || N <= 0 || N % kQBN || layer < 0 || dtype < 0 ||
+      dtype > 1 || (B + kQBM - 1) / kQBM > 65535 || splits < 1 || splits > 65535 ||
+      k_per_split <= 0 || k_per_split % kQBK || k_per_split > kQMaxKPerSplit ||
+      (long long)splits * k_per_split < K2 || (long long)(splits - 1) * k_per_split >= K2 ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(packed) % 16 ||
+      reinterpret_cast<uintptr_t>(xq) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int8_t* pl = static_cast<const int8_t*>(packed) + (long long)layer * K2 * N;
+  const float* sl = static_cast<const float*>(scale) + (long long)layer * N;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* pt = static_cast<int*>(partial);
+  int8_t* q = static_cast<int8_t*>(xq);
+  float* sxf = static_cast<float*>(sx);
+  return dtype == 0
+             ? launch_w4a8_mma<float>(x, pl, sl, out, pt, q, sxf, B, K2, N, splits, k_per_split, s)
+             : launch_w4a8_mma<__nv_bfloat16>(x, pl, sl, out, pt, q, sxf, B, K2, N, splits,
+                                              k_per_split, s);
 }

@@ -21,7 +21,12 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from sonicscribe_tpu_torch.audio.mel import MelConfig, frame_count, log_mel_spectrogram
+from sonicscribe_tpu_torch.audio.mel import (
+    MelConfig,
+    device_tables,
+    frame_count,
+    log_mel_spectrogram,
+)
 from sonicscribe_tpu_torch.audio.resample import resample
 from sonicscribe_tpu_torch.models.config import GlmAsrConfig
 from sonicscribe_tpu_torch.models.glm_asr import (
@@ -103,6 +108,7 @@ class Transcriber:
         self.device = embed.device
         self.dtype = embed.dtype
         self.stats = {"requests": 0, "decode_steps": 0}
+        device_tables(self.mel_cfg, self.device)  # a front end the card cannot run raises here
 
     # ---- host-side helpers ----
 

@@ -38,6 +38,7 @@ launch_counts: dict[str, int] = {
         "int8_matmul_mma",  # the flat launches that took the tensor-core design
         "int4_matmul", "int4_matmul_stacked",  # csrc/int4_matmul.cu
         "int4_matmul_w4a8", "int4_matmul_w4a8_stacked",
+        "int4_matmul_w4a8_mma",  # the W4A8 launches (flat and stacked) on the tensor cores
     )
 }
 

@@ -12,9 +12,12 @@ weight row k and the high nibble row k + K/2, both sign-extended
 (``pack_int4``); the scale is per output column, [1, N] (or [L, 1, N]),
 cast to float32 by the entries as JAX's entries cast it.
 
-For W4A8 the per-row activation quantisation (``quantize_activations``,
-JAX's ``_quant_acts``) is plain PyTorch beside the kernel, as JAX computes
-it outside its kernel; the product itself is the kernel.
+For W4A8 the per-row activation quantisation (JAX's ``_quant_acts``, the
+recipe of ``quantize_activations``) runs inside the CUDA code, so a W4A8
+call on the card launches only kernels of ``csrc/int4_matmul.cu``. Its two
+designs (``w4a8_uses_mma`` picks): 5 rows or more run on the s8 tensor
+cores (``mma.sync``, after a quantise kernel), fewer stream the weight on
+the CUDA cores.
 """
 
 from __future__ import annotations
@@ -32,6 +35,10 @@ from sonicscribe_tpu_torch.ops.int8_matmul import (
 )
 
 N_MULTIPLE = 128  # the JAX gate: N a multiple of 128 (int4_pallas.py:83-96)
+W4A8_MMA_MIN_ROWS = 5  # W4A8 with at least this many rows goes to the tensor cores
+MMA_TILE_M, MMA_TILE_N = 64, 128  # the mma design's block tile (csrc kQBM, kQBN)
+MMA_CHUNK_K = 64  # packed rows per pipeline stage (kQBK)
+MMA_MAX_K_PER_SPLIT = 1472  # packed rows of quantised x a block holds (kQMaxKPerSplit)
 
 
 # ---------------------------------------------------------------- plain
@@ -107,13 +114,36 @@ def int4_matmul_w4a8_stacked_plain(x, packed, scale, layer: int) -> torch.Tensor
 # ---------------------------------------------------------------- kernel
 
 
+def w4a8_uses_mma(B: int) -> bool:
+    """Whether a W4A8 launch runs on the s8 tensor cores: 5 rows or more.
+    Up to 4 rows the streaming kernel's 1- and 4-row tiles are faster (it
+    has no wider tile: at 5 to 37 rows its 8-row tile lost to the tensor
+    cores, PERF.md); chip_smoke.py times both designs at 1 and 4 rows."""
+    return B >= W4A8_MMA_MIN_ROWS
+
+
+def w4a8_mma_shape(B: int, K2: int, N: int, n_sms: int) -> tuple[int, int]:
+    """-> (splits, packed rows per split) of the mma design. Its blocks
+    hold their quantised x rows in shared memory and the card holds about
+    one per SM, so the K/2 packed rows are split until the grid is about
+    one block per SM (and each split fits: at most MMA_MAX_K_PER_SPLIT
+    rows), each split a whole number of stages."""
+    tiles = -(-B // MMA_TILE_M) * -(-N // MMA_TILE_N)
+    chunks = -(-K2 // MMA_CHUNK_K)
+    splits = max(1, n_sms // tiles, -(-chunks // (MMA_MAX_K_PER_SPLIT // MMA_CHUNK_K)))
+    k_per_split = -(-chunks // min(splits, chunks)) * MMA_CHUNK_K
+    return -(-K2 // k_per_split), k_per_split
+
+
 @functools.cache
 def _lib():
     lib = _build.load("int4_matmul")
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.int4_matmul_w4a16.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, I, P]
     lib.int4_matmul_w4a8.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P]
-    lib.int4_matmul_w4a16.restype = lib.int4_matmul_w4a8.restype = ctypes.c_int
+    lib.int4_matmul_w4a8_mma.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P]
+    for fn in (lib.int4_matmul_w4a16, lib.int4_matmul_w4a8, lib.int4_matmul_w4a8_mma):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -144,37 +174,66 @@ def _check(name, x, packed, scale, layer: int) -> tuple[int, int, int]:
                         f"got {x.dtype}, {packed.dtype}, {scale.dtype}")
     if packed.data_ptr() % 16:
         raise ValueError(f"{name}: packed must be 16-byte aligned")
+    if name.startswith("int4_matmul_w4a8") and x.data_ptr() % 16:
+        raise ValueError(f"{name}: x must be 16-byte aligned")
     return B, K2, N
 
 
+def _launch_mma(x, packed, scale, layer: int) -> tuple[torch.Tensor, int]:
+    """The tensor-core W4A8 design on layer `layer` of a checked stack: a
+    quantise kernel writes xq and sx, then the mma kernel (and the split-K
+    pass). -> (out, cudaError of the launches). Counts nothing."""
+    B, K2, N = x.shape[0], packed.shape[1], packed.shape[2]
+    splits, k_per_split = w4a8_mma_shape(B, K2, N, _build.n_sms(x.device))
+    out = torch.empty((B, N), device=x.device, dtype=x.dtype)
+    partial = (torch.empty((splits, B, N), device=x.device, dtype=torch.int32)
+               if splits > 1 else None)
+    xq = torch.empty((B, 2, -(-K2 // MMA_CHUNK_K) * MMA_CHUNK_K), device=x.device,
+                     dtype=torch.int8)
+    sx = torch.empty((B,), device=x.device)
+    err = _lib().int4_matmul_w4a8_mma(
+        x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        partial.data_ptr() if partial is not None else None, xq.data_ptr(), sx.data_ptr(),
+        _DTYPES[x.dtype], B, K2, N, layer, splits, k_per_split,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    return out, err
+
+
 def _launch(name, x, packed, scale, layer: int) -> torch.Tensor:
-    """Launch the W4A16 kernel, or for the W4A8 entries quantise x per row
-    (plain PyTorch) and launch the W4A8 kernel, on layer `layer` of the
-    whole stack."""
+    """Launch the W4A16 kernel, or for the W4A8 entries the W4A8 design
+    that w4a8_uses_mma picks, on layer `layer` of the whole stack. Only
+    torch.empty runs beside the kernels."""
     B, K2, N = _check(name, x, packed, scale, layer)
     w4a8 = name.startswith("int4_matmul_w4a8")
-    # split-K over the K/2 packed rows; B=2 takes the 4-row tile (the kernel
-    # has no 2-row tile: nvcc spilled its registers)
-    rows, splits, k_per_split = launch_shape(B, K2, N, _build.n_sms(x.device))
-    rows = 4 if rows == 2 else rows
-    out = torch.empty((B, N), device=x.device, dtype=x.dtype)
-    partial = (torch.empty((splits, B, N), device=x.device,
-                           dtype=torch.int32 if w4a8 else torch.float32)
-               if splits > 1 else None)
-    if w4a8:
-        xq, sx = quantize_activations(x)
-        entry, lhs = _lib().int4_matmul_w4a8, (xq.data_ptr(), sx.data_ptr())
+    mma = w4a8 and w4a8_uses_mma(B)
+    if mma:
+        out, err = _launch_mma(x, packed, scale, layer)
     else:
-        entry, lhs = _lib().int4_matmul_w4a16, (x.data_ptr(),)
-    err = entry(
-        *lhs, packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        partial.data_ptr() if partial is not None else None, _DTYPES[x.dtype],
-        B, K2, N, layer, rows, splits, k_per_split,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+        # split-K over the K/2 packed rows; B=2 takes the 4-row tile (the
+        # kernel has no 2-row tile: nvcc spilled its registers)
+        rows, splits, k_per_split = launch_shape(B, K2, N, _build.n_sms(x.device))
+        rows = 4 if rows == 2 else rows
+        out = torch.empty((B, N), device=x.device, dtype=x.dtype)
+        partial = (torch.empty((splits, B, N), device=x.device,
+                               dtype=torch.int32 if w4a8 else torch.float32)
+                   if splits > 1 else None)
+        ptrs = (x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                partial.data_ptr() if partial is not None else None)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if w4a8:  # up to 4 rows: tiles of 1 or 4; the split-K pass reads sx
+            sx = torch.empty((B,), device=x.device) if splits > 1 else None
+            err = _lib().int4_matmul_w4a8(*ptrs, sx.data_ptr() if sx is not None else None,
+                                          _DTYPES[x.dtype], B, K2, N, layer, rows, splits,
+                                          k_per_split, stream)
+        else:
+            err = _lib().int4_matmul_w4a16(*ptrs, _DTYPES[x.dtype], B, K2, N, layer, rows,
+                                           splits, k_per_split, stream)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"{name}{' (mma)' if mma else ''} kernel launch failed: "
+                           f"cudaError {err}")
     _build.launch_counts[name] += 1
+    if mma:
+        _build.launch_counts["int4_matmul_w4a8_mma"] += 1
     return out
 
 
@@ -197,14 +256,14 @@ def int4_matmul_stacked_cuda(x, packed, scale, layer: int) -> torch.Tensor:
 
 
 def int4_matmul_w4a8_cuda(x, packed, scale) -> torch.Tensor:
-    """Quantise x per row (plain PyTorch), then launch the W4A8 kernel on
-    packed [K/2, N], scale [1, N]."""
+    """Launch the W4A8 kernels (they quantise x per row) on packed [K/2, N],
+    scale [1, N]: the tensor-core design where w4a8_uses_mma says so, else
+    the CUDA-core one."""
     return _flat("int4_matmul_w4a8", x, packed, scale)
 
 
 def int4_matmul_w4a8_stacked_cuda(x, packed, scale, layer: int) -> torch.Tensor:
-    """Quantise x per row (plain PyTorch), then launch the W4A8 kernel on
-    layer `layer` of the whole stack."""
+    """int4_matmul_w4a8_cuda on layer `layer` of the whole stack."""
     return _launch("int4_matmul_w4a8_stacked", x, packed, scale, layer)
 
 

@@ -10,12 +10,18 @@ import numpy as np
 import pytest
 import torch
 
-from sonicscribe_tpu_torch.audio.mel import MelConfig, device_tables, reflect_pad
+from sonicscribe_tpu_torch.audio.mel import (
+    MelConfig,
+    device_tables,
+    normalize_log_mel,
+    reflect_pad,
+)
 from sonicscribe_tpu_torch.device import resolve_device
 from sonicscribe_tpu_torch.models import glm_asr as tm
 from sonicscribe_tpu_torch.models.config import tiny
 from sonicscribe_tpu_torch.models.weights import init_random
 from sonicscribe_tpu_torch.ops import _build
+from sonicscribe_tpu_torch.ops import mel as tmel
 from sonicscribe_tpu_torch.ops.decode_attention import (
     decode_attention,
     decode_attention_plain,
@@ -31,6 +37,7 @@ from sonicscribe_tpu_torch.ops.int4_matmul import (
     int4_matmul_w4a8_stacked,
     int4_matmul_w4a8_stacked_plain,
     pack_int4,
+    w4a8_uses_mma,
 )
 from sonicscribe_tpu_torch.ops.int8_matmul import (
     int8_matmul,
@@ -40,7 +47,11 @@ from sonicscribe_tpu_torch.ops.int8_matmul import (
     int8_matmul_w8a8,
     int8_matmul_w8a8_plain,
 )
-from sonicscribe_tpu_torch.ops.mel import log_mel_frames, log_mel_frames_plain
+from sonicscribe_tpu_torch.ops.mel import (
+    FRAMES_PER_BLOCK,
+    log_mel_frames,
+    log_mel_frames_plain,
+)
 from sonicscribe_tpu_torch.ops.quant import quantize_tensor
 
 pytestmark = pytest.mark.cuda
@@ -105,6 +116,14 @@ def test_decode_attention_is_deterministic(cuda, dtype):
     assert torch.equal(decode_attention(q, k, v, lens), decode_attention(q, k, v, lens))
 
 
+def _speech(sec, seed):
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(16000 * sec)) / 16000
+    env = 0.5 * (1 + np.sin(2 * np.pi * 3 * t))
+    x = 0.25 * env * sum(np.sin(2 * np.pi * f * t) for f in (200, 700, 1500, 2600))
+    return (x + 0.002 * rng.standard_normal(len(t))).astype(np.float32)
+
+
 def test_log_mel_kernel(cuda):
     cfg = MelConfig()
     rng = np.random.default_rng(0)
@@ -116,6 +135,98 @@ def test_log_mel_kernel(cuda):
     assert _build.launch_counts["log_mel"] == before + 1
     want = log_mel_frames_plain(padded, basis, fb, nf, cfg.hop_length)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)  # float32 DFT sums
+
+
+def _plain_f64(padded, basis, fb, n_frames, hop):
+    """The plain version on the same inputs in float64: the exact function
+    to within float64's rounding."""
+    return log_mel_frames_plain(padded.double(), basis.double(), fb.double(), n_frames,
+                                hop).float()
+
+
+def _assert_every_tile_close(padded, basis, fb, n_frames, hop, want):
+    """The kernel through the entry (its own tile choice, one count) and in
+    each frame tile, within 1e-4 raw log10 of `want` over every element."""
+    before = _build.launch_counts["log_mel"]
+    torch.testing.assert_close(log_mel_frames(padded, basis, fb, n_frames, hop), want, rtol=0,
+                               atol=1e-4)
+    assert _build.launch_counts["log_mel"] == before + 1
+    for tile in FRAMES_PER_BLOCK:
+        got, err = tmel._launch(padded, basis, fb, n_frames, hop, tile)
+        assert err == 0, (tile, err)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("n_frames", [1, 15, 16, 17, 1200, 3072])
+def test_log_mel_kernel_frame_counts(cuda, n_frames):
+    """Noise at frame counts on either side of a tile: within 1e-4 raw
+    log10 of the plain version in float64. The float32 plain version is no
+    yardstick at that tolerance here: in the deepest dip of the 16-frame
+    case (frame 0, 7 decades down) it is itself further than that from
+    float64."""
+    cfg = MelConfig()
+    rng = np.random.default_rng(n_frames)
+    n = n_frames * cfg.hop_length + int(rng.integers(0, cfg.hop_length))
+    x = torch.from_numpy((0.1 * rng.standard_normal(n)).astype(np.float32))
+    padded, nf = reflect_pad(x.to(cuda), cfg)
+    assert nf == n_frames
+    basis, fb = device_tables(cfg, cuda)
+    _assert_every_tile_close(padded, basis, fb, nf, cfg.hop_length,
+                             _plain_f64(padded, basis, fb, nf, cfg.hop_length))
+
+
+def test_log_mel_kernel_quiet_then_loud(cuda):
+    """6 s of near silence (noise of std 6e-4), then 6 s of loud noise
+    (std 0.1): within 1e-4 raw log10 of the plain version, in float32 and
+    in float64, over every element; the quiet frames' error scales with
+    their own level, not the loud frames'."""
+    cfg = MelConfig()
+    quiet = 0.0006 * np.random.default_rng(7).standard_normal(16000 * 6)
+    loud = 0.1 * np.random.default_rng(9).standard_normal(16000 * 6)
+    x = torch.from_numpy(np.concatenate([quiet, loud]).astype(np.float32))
+    padded, nf = reflect_pad(x.to(cuda), cfg)
+    basis, fb = device_tables(cfg, cuda)
+    want = log_mel_frames_plain(padded, basis, fb, nf, cfg.hop_length)
+    torch.testing.assert_close(log_mel_frames(padded, basis, fb, nf, cfg.hop_length), want,
+                               rtol=0, atol=1e-4)
+    _assert_every_tile_close(padded, basis, fb, nf, cfg.hop_length,
+                             _plain_f64(padded, basis, fb, nf, cfg.hop_length))
+
+
+@pytest.mark.parametrize("n_mels", [32, 64])
+def test_log_mel_kernel_wide_filters(cuda, n_mels):
+    """Filter banks whose filters span more bins (34 and 18) than the 16
+    the kernel holds in registers: the rest of each band is read from the
+    cache, within 1e-4 raw log10 of the plain version in float64."""
+    cfg = MelConfig(n_mels=n_mels)
+    x = torch.from_numpy((0.1 * np.random.default_rng(n_mels).standard_normal(16000 * 4))
+                         .astype(np.float32))
+    padded, nf = reflect_pad(x.to(cuda), cfg)
+    basis, fb = device_tables(cfg, cuda)
+    _assert_every_tile_close(padded, basis, fb, nf, cfg.hop_length,
+                             _plain_f64(padded, basis, fb, nf, cfg.hop_length))
+
+
+@pytest.mark.parametrize("signal", ["speech", "quiet_then_loud"])
+def test_log_mel_kernel_on_tonal_signals(cuda, signal):
+    """Partials leave valleys up to 10 decades deep between them, where
+    float32 itself (the plain version) is ~1e-3 off float64 in log10 on
+    the card (chip_smoke prints both): within 1e-3 raw log10 where the
+    normalisation keeps the value (max - 8 and up), and within 1e-3
+    normalised everywhere (chip_smoke's MEL_TOL)."""
+    cfg = MelConfig()
+    x = _speech(12.0, 2)
+    if signal == "quiet_then_loud":
+        quiet = 0.0006 * np.random.default_rng(7).standard_normal(16000 * 6)
+        x = np.concatenate([quiet.astype(np.float32), _speech(6.0, 7)])
+    padded, nf = reflect_pad(torch.from_numpy(x).to(cuda), cfg)
+    basis, fb = device_tables(cfg, cuda)
+    got = log_mel_frames(padded, basis, fb, nf, cfg.hop_length)
+    want = log_mel_frames_plain(padded, basis, fb, nf, cfg.hop_length)
+    kept = want >= want.max() - cfg.dynamic_range_db_factor
+    assert float((got - want).abs()[kept].max()) <= 1e-3
+    torch.testing.assert_close(normalize_log_mel(got, cfg), normalize_log_mel(want, cfg),
+                               rtol=0, atol=1e-3)
 
 
 def test_greedy_generate_card_matches_cpu(cuda):
@@ -252,11 +363,14 @@ def test_int4_matmul_kernels(cuda, dtype, B, K, N):
                         int4_matmul_plain(x, packed[1], scale[1]))
     _assert_w8a16_close(int4_matmul_stacked(x, packed, scale, 2),
                         int4_matmul_stacked_plain(x, packed, scale, 2))
-    # integer sums are exact on both sides: equal outputs
+    # integer sums are exact on both sides: equal outputs. The kernel
+    # quantises x with the JAX recipe's IEEE division, so the plain version
+    # runs on the CPU (PyTorch's CUDA division by a Python scalar multiplies
+    # by its reciprocal instead)
     assert torch.equal(int4_matmul_w4a8(x, packed[1], scale[1]),
-                       int4_matmul_w4a8_plain(x, packed[1], scale[1]))
+                       _on_cpu(int4_matmul_w4a8_plain, x, packed[1], scale[1]))
     assert torch.equal(int4_matmul_w4a8_stacked(x, packed, scale, 2),
-                       int4_matmul_w4a8_stacked_plain(x, packed, scale, 2))
+                       _on_cpu(int4_matmul_w4a8_stacked_plain, x, packed, scale, 2))
     for name in ("int4_matmul", "int4_matmul_stacked", "int4_matmul_w4a8",
                  "int4_matmul_w4a8_stacked"):
         assert _build.launch_counts[name] == before[name] + 1
@@ -282,3 +396,84 @@ def test_int4_wrappers_reject_what_the_kernel_does_not_take(cuda):
         int4_matmul_stacked(x, packed.float(), scale, 0)
     with pytest.raises(ValueError, match="contiguous"):
         int4_matmul(torch.zeros((256, 2), device=cuda).T, packed[0], scale[0])
+
+
+def _on_cpu(fn, *args):
+    """The plain version on CPU copies of the inputs, back on the card: the
+    JAX recipe's arithmetic (an IEEE division for sx), the W4A8 oracle."""
+    cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    return fn(*cpu).to(args[0].device)
+
+
+def _nano_int4(device, seed):
+    """Two-layer int4 stacks at nano's four decoder projections: (K, N) ->
+    (packed [2, K/2, N], scale [2, 1, N])."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for K, N in [(2048, 3072), (2048, 2048), (2048, 11008), (5504, 2048)]:
+        codes = torch.randint(-8, 8, (2, K, N), generator=g, device=device, dtype=torch.int8)
+        out[K, N] = (pack_int4(codes), 0.02 + 0.01 * torch.rand((2, 1, N), generator=g,
+                                                                    device=device))
+    return out, g
+
+
+@pytest.mark.parametrize("B", [1, 8, 9, 16, 17, 37, 64, 227])
+def test_int4_w4a8_kernels_equal_the_recipe(cuda, B):
+    """Both W4A8 entries quantise x in the kernel: equal bits with the
+    plain version at nano's four projections, float32 and bf16 x; the mma
+    counter rises exactly for the launches w4a8_uses_mma sends to the
+    tensor cores."""
+    weights, g = _nano_int4(cuda, B)
+    for (K, N), (packed, scale) in weights.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((B, K), generator=g, device=cuda).to(dtype)
+            before = dict(_build.launch_counts)
+            got = int4_matmul_w4a8(x, packed[1], scale[1])
+            got_st = int4_matmul_w4a8_stacked(x, packed, scale, 1)
+            mma = _build.launch_counts["int4_matmul_w4a8_mma"] - before["int4_matmul_w4a8_mma"]
+            assert mma == 2 * int(w4a8_uses_mma(B)), (K, N, dtype)
+            assert torch.equal(got, _on_cpu(int4_matmul_w4a8_plain, x, packed[1], scale[1]))
+            assert torch.equal(got_st, _on_cpu(int4_matmul_w4a8_stacked_plain, x, packed, scale, 1))
+
+
+@pytest.mark.parametrize("B", [4, 37])
+def test_int4_w4a8_crafted_rows(cuda, B):
+    """Rows that pin the recipe: all zeros (the 1e-8 floor), x / sx exactly
+    on .5 (half to even), the largest magnitude negative (-127), and
+    values at +-127 after the clamp."""
+    K, N = 256, 128
+    g = torch.Generator(device=cuda).manual_seed(5)
+    packed = pack_int4(torch.randint(-8, 8, (K, N), generator=g, device=cuda, dtype=torch.int8))
+    scale = 0.02 + 0.01 * torch.rand((1, N), generator=g, device=cuda)
+    x = torch.randn((B, K), generator=g, device=cuda)
+    x[0] = 0.0
+    x[1] = 0.0  # max|x| = 127 -> sx = 1: x / sx = v exactly
+    x[1, :8] = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5])
+    x[2, 5] = -3.0 * x[2].abs().max()  # the largest magnitude is negative
+    x[3] = torch.linspace(-1.0, 1.0, K, device=cuda) * 127.0  # both ends at +-127
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(dtype)
+        got = int4_matmul_w4a8(xd, packed, scale)
+        want = _on_cpu(int4_matmul_w4a8_plain, xd, packed, scale)
+        assert torch.equal(got, want)
+        assert not bool(got[0].any())  # a zero row stays zero
+
+
+def test_int4_w4a8_launches_only_its_own_kernels(cuda):
+    """A W4A8 call on the card runs no PyTorch kernel: in a profile of one
+    call of each design, every kernel on the card is one of
+    csrc/int4_matmul.cu's W4A8 kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    weights, g = _nano_int4(cuda, 0)
+    packed, scale = weights[2048, 3072]
+    xs = [torch.randn((B, 2048), generator=g, device=cuda).to(torch.bfloat16) for B in (1, 64)]
+    for x in xs:  # builds and loads the kernels outside the profile
+        int4_matmul_w4a8_stacked(x, packed, scale, 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for x in xs:
+            int4_matmul_w4a8_stacked(x, packed, scale, 1)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert names and all("w4a8" in n for n in names), names

@@ -185,3 +185,81 @@ def test_run_needs_a_card():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         bench.run(batches=(1,), reps=1)
+
+
+# ---------------------------------------------------------------- W4A8 designs
+
+# nano's four decoder projections as (K/2, N): qkv, o, gate_up, down
+NANO_K2_N = [(1024, 3072), (1024, 2048), (1024, 11008), (2752, 2048)]
+
+
+def test_w4a8_uses_mma_from_5_rows():
+    """The threshold measured on the H100: the tensor cores from 5 rows."""
+    for B in range(1, 300):
+        assert t4.w4a8_uses_mma(B) == (B >= t4.W4A8_MMA_MIN_ROWS)
+    assert t4.W4A8_MMA_MIN_ROWS == 5
+    assert not t4.w4a8_uses_mma(4) and t4.w4a8_uses_mma(5) and t4.w4a8_uses_mma(8)
+
+
+@pytest.mark.parametrize("B", [5, 8, 9, 16, 37, 64, 227, 1536])
+def test_w4a8_mma_shape_covers_every_row_and_column_once(B):
+    """The mma design's grid (N/128 column tiles, B/64 row tiles, splits of
+    K/2) covers every packed row and every output element exactly once,
+    each split a whole number of stages that fits a block's shared memory,
+    with about one block per SM."""
+    for K2, N in NANO_K2_N:
+        splits, kps = t4.w4a8_mma_shape(B, K2, N, 132)
+        assert kps % t4.MMA_CHUNK_K == 0 and 0 < kps <= t4.MMA_MAX_K_PER_SPLIT
+        rows = np.zeros(K2, int)
+        for s in range(splits):
+            rows[s * kps: min(K2, (s + 1) * kps)] += 1
+        assert (rows == 1).all(), (K2, N, splits, kps)
+        assert (splits - 1) * kps < K2  # no empty split
+        cols = np.zeros((B, N), int)
+        for bx in range(N // t4.MMA_TILE_N):
+            for by in range(-(-B // t4.MMA_TILE_M)):
+                cols[by * 64: (by + 1) * 64, bx * 128: (bx + 1) * 128] += 1
+        assert (cols == 1).all()
+        tiles = N // t4.MMA_TILE_N * -(-B // t4.MMA_TILE_M)
+        fit = -(-K2 // t4.MMA_MAX_K_PER_SPLIT)  # splits for x to fit shared memory
+        assert splits == 1 or tiles * splits <= max(132, tiles * fit) + tiles
+
+
+def test_w4a8_mma_shape_at_the_sweep_shapes():
+    """Pinned: at B=64, gate_up needs no split (86 tiles); qkv, o and down
+    are split until about one block per SM; down at 227 rows splits only
+    so that its quantised x fits shared memory."""
+    got = [t4.w4a8_mma_shape(64, K2, N, 132) for K2, N in NANO_K2_N]
+    assert got == [(4, 256), (8, 128), (1, 1024), (8, 384)]
+    assert t4.w4a8_mma_shape(227, 2752, 2048, 132) == (2, 1408)
+
+
+def test_w4a8_entries_launch_nothing_on_the_cpu():
+    """On the CPU the W4A8 entries run the plain version: no kernel, no
+    counter (the mma counter included)."""
+    x, packed, scale = _inputs(5, 16, 256, 128, jnp.bfloat16)
+    before = dict(_build.launch_counts)
+    t4.int4_matmul_w4a8(_t(x), _t(packed), _t(scale))
+    assert _build.launch_counts == before
+
+
+def test_w4a8_quantisation_fast_path_rounds_as_the_division():
+    """The kernels' quantisation (csrc/int4_matmul.cu `quant`), emulated in
+    float32: x * rsx (rsx = 1 / sx rounded) stands in for the IEEE x / sx,
+    and the division runs only within 2^-14 of a half; the integers equal
+    those of rint(x / sx) everywhere, near-halves included."""
+    rng = np.random.default_rng(0)
+    for m in 10.0 ** rng.uniform(-6, 3, 25):
+        m = np.float32(m)
+        sx = np.float32(np.maximum(m, np.float32(1e-8)) / np.float32(127.0))
+        rsx = np.float32(np.float32(1.0) / sx)
+        halves = rng.integers(-127, 127, 50_000) + 0.5
+        near = (halves * np.float64(sx) * (1 + rng.uniform(-1e-6, 1e-6, halves.size)))
+        x = np.concatenate([(rng.uniform(-1, 1, 50_000) * m), near, [m, -m, 0.0]])
+        x = x.astype(np.float32)
+        exact = (x / sx).astype(np.float32)  # numpy's float32 division is IEEE
+        q = (x * rsx).astype(np.float32)
+        slow = np.abs(np.abs(q - np.rint(q)) - np.float32(0.5)) <= np.float32(2.0 ** -14)
+        q = np.where(slow, exact, q)
+        np.testing.assert_array_equal(np.clip(np.rint(q), -127, 127),
+                                      np.clip(np.rint(exact), -127, 127))
