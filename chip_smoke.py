@@ -9,6 +9,11 @@ It imports nothing of JAX or of the JAX package. Phases, each of which
 exits non-zero on failure:
 
 1. build: nvcc compiles every kernel of csrc/ for sm_90a, in parallel.
+   Then weights quantized on the card against the same weights quantized
+   on the CPU at nano's projection shapes: the script counts the columns
+   whose scale or codes differ with the old `/ 127.0` (PyTorch's CUDA
+   division by a Python scalar multiplies by the reciprocal) and with
+   quantize_tensor, which must give none.
 2. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the main path's shapes, with its stated tolerance (decode attention
    also at lens on either side of a split boundary, and two launches on the
@@ -23,26 +28,36 @@ exits non-zero on failure:
    can run. The mel kernel is checked at every bucket and on a quiet-then-
    loud signal in both frame tiles (16 and 32), and timed at 1200 and 3072
    frames in both. The int8
-   kernels are checked at nano's decode shapes (B 1 and 4: qkv, o, gate_up,
-   down), prefill rows (B 419: qkv, down) and encoder rows (B 1536: fc1,
-   fc2), x in float32 and bf16, and the flat entry's tensor-core design
-   (bf16, B > 8) also at B 9, 17 and 227 on the four decoder projections;
-   the flat design is timed at the four prefill/encoder shapes beside the
-   CUDA-core design on the same inputs; the four int4 kernels at nano's decode
-   shapes (B 1, 4, 8, 37, 64; W4A8 also 9, 16, 17 and 227, and crafted rows),
-   flat and stacked. W4A8 quantises x in its own kernels, so it is held to
-   the plain version run on CPU copies of the inputs (the JAX recipe's IEEE
-   division; PyTorch's CUDA division by a Python scalar multiplies by the
-   reciprocal, and the script counts the rows where that changes sx); its
-   tensor-core counter must rise exactly where w4a8_uses_mma says, a
-   profile of two calls must show only int4_matmul.cu's kernels, and at
-   B 1 and 4 the tensor-core design is timed beside the dispatched CUDA-core
-   one on the same inputs (equal bits). The
-   int4 kernels are timed at B 1 and at gate_up B 64 (W4A8 also at gate_up
-   B 8 and 37). Then the bench tools' per-step projection sweeps: int8 at
-   B 1 and 8; int4 at B 1, 8 and 64 in every variant, after one eager step
-   of each int4 kernel variant whose launches are counted (4 per layer)
-   and whose output is held against the int8 variant's on the same codes.
+   kernels are checked at nano's decode shapes (B 1, 2, 4, 5 and 8: qkv, o,
+   gate_up, down; the stacked W8A16 kernel also for equal bits over two
+   runs), prefill rows (B 419: qkv, down) and encoder rows (B 1536: fc1,
+   fc2), x in float32 and bf16, and the flat and stacked entries'
+   tensor-core design (bf16, B > 8) also at B 9, 17 and 227 on the four
+   decoder projections;
+   W8A8 quantises x in its own kernels and is held to the plain version run
+   on CPU copies of the inputs (the JAX recipe), crafted rows included; a
+   profile of one stacked W8A16 call at B 1 must show one kernel, and of one
+   W8A8 call only W8A8 kernels; the flat design is timed at the four
+   prefill/encoder shapes beside the cluster split-K design on the same
+   inputs; the four int4 kernels at nano's decode
+   shapes (B 1, 2, 4, 5, 8, 9, 16, 17, 37, 64, 227, and W4A8 crafted rows),
+   flat and stacked, each tensor-core counter rising exactly where
+   w4a16_uses_mma / w4a8_uses_mma say. W4A8 is held to the plain version run
+   on CPU copies, and the script counts the rows where the old `/ 127.0`
+   on the card changes sx (and checks that quantize_activations never
+   does); a profile of two W4A8 calls must show only int4_matmul.cu's
+   kernels, and at B 1 and 4 the W4A8 tensor-core design is timed beside the
+   dispatched CUDA-core one on the same inputs (equal bits). Both W4A16
+   designs are timed on the same inputs at the four decode projections, B
+   1-5, 8 and 9, and gate_up also at 16, 37 and 64 (the threshold's A/B).
+   The int4 kernels are timed at B 1 and at gate_up B 64 (W4A8 also at
+   gate_up B 8 and 37). Then the bench tools' per-step projection sweeps:
+   int8 at B 1 and 8; int4 at B 1, 8 and 64 in every variant, after one
+   eager step of each int4 kernel variant whose launches are counted (4 per
+   layer) and whose output is held against the int8 variant's on the same
+   codes; and the cluster split-K design's slice table (half, shipped and
+   twice CLUSTER_ROWS_PER_CTA) timed in a replayed int8 and int4_w4a16
+   step.
    The int4 kernels serve no request: the JAX package serves no int4 mode,
    and its only path to them is this sweep.
 3. main path: build_runtime("nano-random") in bf16 at full width, then the
@@ -54,18 +69,20 @@ exits non-zero on failure:
    per layer per decode step. Then, in each int8 mode (int8, int8-decoder,
    int8-decoder-a8), a runtime of its own serves the ~12 s request: the
    stacked W8A16 kernel (W8A8 in -a8) runs 4 times per layer per decode
-   step, the flat W8A16 kernel 4 times per layer per segment in prefill
+   step (one launch each), the flat W8A16 kernel 4 times per layer per segment in prefill
    (plus 6 per encoder layer in full int8), every one of them bf16 with
    B > 8 and so on the tensor cores (int8_matmul_mma). Each runtime's peak memory is
    read over its request, and a short profiled request splits its time
    between host and card, as for the native runtime.
 4. reference: tiny() in float32 gives the same tokens on the card as on
    the CPU (where the tests hold it against the JAX package), natively and
-   in each int8 mode, and nano's prefill logits are finite.
+   in each int8 mode (each tree quantized on its own device, as
+   build_runtime quantizes it), and nano's prefill logits are finite.
 
 The line before the last is the kernels' JSON record (nine kernels, each
 with the path its launches were counted on; the redesigned ones with their
-design); the last line is
+design; the flat W8A16 and the four int4 entries with `mma_launches`, the
+launches that took the tensor cores); the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no result.
 """
 
@@ -178,6 +195,19 @@ def check_w16(torch, name, got, want, case) -> float:
 def bound_ms(n_bytes: float, flops: float, peak: float = F32_FLOPS_PER_S) -> tuple[float, str]:
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel_names(torch, fn) -> list[str]:
+    """The kernels one call of fn runs on the card (built and loaded first)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
 def kernel_phase(torch, timer):
@@ -399,19 +429,26 @@ def int8_kernel_phase(torch, timer):
         errs[name] = max(errs[name], check_w16(torch, name, got, want, case))
 
     def check_flat(B, p, dtype):
-        """The flat entry at B rows of projection p: the mma counter must
-        rise exactly for bf16 x with B > 8."""
-        q, sc = stacks[p]["q"][1], stacks[p]["scale"][1]
+        """The flat and the stacked entry at B rows of projection p: the mma
+        counter must rise exactly for bf16 x with B > 8."""
+        q, sc = stacks[p]["q"], stacks[p]["scale"]
         x = x_of(B, shapes[p][0], dtype)
         before = _build.launch_counts["int8_matmul_mma"]
-        got = im.int8_matmul_cuda(x, q, sc)
+        got = im.int8_matmul_cuda(x, q[1], sc[1])
+        got_st = im.int8_matmul_stacked_cuda(x, q, sc, 1)
         mma = _build.launch_counts["int8_matmul_mma"] - before
-        check(mma == int(dtype == torch.bfloat16 and B > 8),
+        check(mma == 2 * int(dtype == torch.bfloat16 and B > 8),
               f"int8_matmul {p} B={B} {dtype}: int8_matmul_mma rose by {mma}")
-        check_w8a16("int8_matmul", got, im.int8_matmul_plain(x, q, sc), f"{p} B={B} {dtype}")
+        want = im.int8_matmul_plain(x, q[1], sc[1])
+        check_w8a16("int8_matmul", got, want, f"{p} B={B} {dtype}")
+        check_w8a16("int8_matmul_stacked", got_st, want, f"{p} B={B} {dtype}")
+
+    def recipe(x, q, sc):
+        """The plain W8A8 (the JAX recipe) on CPU copies, layer 1, back on the card."""
+        return im.int8_matmul_w8a8_plain(x.cpu(), q.cpu(), sc.cpu(), 1).cuda()
 
     for dtype in (torch.float32, torch.bfloat16):
-        for B in (1, 4):
+        for B in (1, 2, 4, 5, 8):
             for p in ("qkv", "o", "gate_up", "down"):
                 K, _ = shapes[p]
                 q, sc = stacks[p]["q"], stacks[p]["scale"]
@@ -419,12 +456,31 @@ def int8_kernel_phase(torch, timer):
                 case = f"{p} B={B} {dtype}"
                 check_w8a16("int8_matmul", im.int8_matmul_cuda(x, q[1], sc[1]),
                             im.int8_matmul_plain(x, q[1], sc[1]), case)
-                check_w8a16("int8_matmul_stacked", im.int8_matmul_stacked_cuda(x, q, sc, 1),
-                            im.int8_matmul_stacked_plain(x, q, sc, 1), case)
+                got = im.int8_matmul_stacked_cuda(x, q, sc, 1)
+                check_w8a16("int8_matmul_stacked", got, im.int8_matmul_stacked_plain(x, q, sc, 1),
+                            case)
+                check(torch.equal(got, im.int8_matmul_stacked_cuda(x, q, sc, 1)),
+                      f"int8_matmul_stacked {case}: two runs differ")
                 got = im.int8_matmul_w8a8_cuda(x, q, sc, 1)
-                want = im.int8_matmul_w8a8_plain(x, q, sc, 1)
+                want = recipe(x, q, sc)
                 check(torch.equal(got, want), f"int8_matmul_w8a8 {case}: max err "
                       f"{(got.float() - want.float()).abs().max().item()}, want equal")
+    # crafted rows: all zeros (the 1e-8 floor), x / sx on .5 (half to even),
+    # the largest magnitude negative, both ends at +-127
+    K = shapes["qkv"][0]
+    q, sc = stacks["qkv"]["q"], stacks["qkv"]["scale"]
+    x = x_of(8, K, torch.float32)
+    x[0] = 0.0
+    x[1] = 0.0
+    x[1, :8] = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5], device="cuda")
+    x[2, 5] = -3.0 * x[2].abs().max()
+    x[3] = torch.linspace(-1.0, 1.0, K, device="cuda") * 127.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows in (4, 8):
+            xd = x[:rows].to(dtype).contiguous()
+            got = im.int8_matmul_w8a8_cuda(xd, q, sc, 1)
+            check(torch.equal(got, recipe(xd, q, sc)) and not bool(got[0].any()),
+                  f"int8_matmul_w8a8 crafted rows, B={rows} {dtype}: differ from the recipe")
         for B, p in ((prefill_rows, "qkv"), (prefill_rows, "down"),
                      (encoder_rows, "enc_fc1"), (encoder_rows, "enc_fc2")):
             check_flat(B, p, dtype)
@@ -434,9 +490,21 @@ def int8_kernel_phase(torch, timer):
     torch.cuda.synchronize()
     log(f"int8 kernels vs plain: max abs err W8A16 flat {errs['int8_matmul']:.3g}, stacked "
         f"{errs['int8_matmul_stacked']:.3g} (tolerance {INT8_F32_TOL} x max|want|, + one "
-        f"bf16 ulp in bf16); W8A8 equal (decode B 1,4 at qkv/o/gate_up/down; flat also "
+        f"bf16 ulp in bf16; two stacked runs equal bits); W8A8 equal to the recipe on CPU "
+        f"copies (decode B 1,2,4,5,8 at qkv/o/gate_up/down and crafted rows; flat also "
         f"B={prefill_rows} qkv/down, B={encoder_rows} enc fc1/fc2, f32 and bf16, and bf16 "
         f"B 8,9,17,227 at qkv/o/gate_up/down; the mma design ran exactly for bf16 B > 8)")
+
+    # one stacked W8A16 call is one kernel; a W8A8 call runs only W8A8 kernels
+    q, sc = stacks["qkv"]["q"], stacks["qkv"]["scale"]
+    x = x_of(1, shapes["qkv"][0], torch.bfloat16)
+    names = kernel_names(torch, lambda: im.int8_matmul_stacked_cuda(x, q, sc, 1))
+    check(len(names) == 1, f"a stacked W8A16 call at B=1 ran {names}")
+    log(f"profile of one stacked W8A16 call (qkv, B=1): one kernel, {names[0][:60]}")
+    names = kernel_names(torch, lambda: im.int8_matmul_w8a8_cuda(x, q, sc, 1))
+    check(names and all("w8a8" in n for n in names), f"a W8A8 call ran other kernels: {names}")
+    log(f"profile of one W8A8 call (qkv, B=1): only int8_matmul.cu's W8A8 kernels ran: "
+        f"{[n.split('(')[0][-40:] for n in names]}")
 
     # ---- times at the main path's shapes, bf16 ----
     def time_row(label, name, fn, plain, lib, B, K, N, peak, lib_label):
@@ -449,6 +517,8 @@ def int8_kernel_phase(torch, timer):
         return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
     rows = {}
+    stacked_times, w8a8_times = {}, {}
+    n_sms = _build.n_sms(torch.device("cuda"))
     for p in ("qkv", "o", "gate_up", "down"):
         K, N = shapes[p]
         q, sc = stacks[p]["q"], stacks[p]["scale"]
@@ -457,32 +527,77 @@ def int8_kernel_phase(torch, timer):
         r = time_row(p, "int8_matmul_stacked", lambda: im.int8_matmul_stacked_cuda(x, q, sc, 1),
                      lambda: im.int8_matmul_stacked_plain(x, q, sc, 1), lambda: torch.mm(x, w),
                      1, K, N, BF16_FLOPS_PER_S, "bf16 dense mm (2x the bytes)")
+        shape = im.cluster_shape(1, K, N)
+        log(f"  launch: {shape.grid} CTAs, clusters of {shape.cluster} along K, "
+            f"{shape.k_per_cta} rows of q ({shape.k_per_cta * 128 // 1024} KB) per CTA")
+        stacked_times[p] = dict(ms=r["ms"], library_ms=r["library_ms"], bound_ms=r["bound_ms"],
+                                cluster=shape.cluster, k_per_cta=shape.k_per_cta)
         if p == "gate_up":
-            rows["int8_matmul_stacked"] = r
+            rows["int8_matmul_stacked"] = dict(
+                r, design="one launch per call at B <= 8: a cluster of CTAs along K per 128 "
+                "columns, each CTA's K slice loaded as 16-byte pieces into registers, 8 rows "
+                "per k-lane in flight (4 at 8 x rows), x staged once, sums added in rank 0's "
+                "shared memory through distributed shared memory in rank order "
+                "(deterministic)", times=stacked_times)
         # torch._int_mm takes only B > 16: no yardstick at decode rows
         r = time_row(p, "int8_matmul_w8a8", lambda: im.int8_matmul_w8a8_cuda(x, q, sc, 1),
                      lambda: im.int8_matmul_w8a8_plain(x, q, sc, 1), None,
                      1, K, N, INT8_OPS_PER_S, "torch._int_mm")
-        quant_ms = timer.ms(lambda: im.quantize_activations(x))
-        log(f"  of which the plain per-row activation quantisation: {quant_ms:.4f} ms")
+        w8a8_times[p] = r["ms"]
         if p == "gate_up":
-            rows["int8_matmul_w8a8"] = r
-    n_sms = _build.n_sms(torch.device("cuda"))
+            rows["int8_matmul_w8a8"] = dict(
+                r, design="repaired, not redesigned: x quantised in CUDA (IEEE sx, fused "
+                "into the streaming __dp4a kernel: each block takes its rows' max|x|, then "
+                "quantises as it stages); split-K pass reads sx from scratch", times=w8a8_times)
+
+    # the design space of the cluster split-K kernel: every cluster size
+    # whose slices fit, on the same inputs
+    floor_t = torch.zeros(1, device="cuda")
+    floor_ms = timer.ms(lambda: floor_t.add_(1.0))
+    log(f"timer floor: one 1-element add kernel {floor_ms:.4f} ms")
+    space = {}
+    for B, p in ((B, p) for B in (1, 2, 4, 8) for p in ("qkv", "o", "gate_up", "down")):
+        K, N = shapes[p]
+        q, sc = stacks[p]["q"], stacks[p]["scale"]
+        x = x_of(B, K, torch.bfloat16)
+        want = im.int8_matmul_stacked_plain(x, q, sc, 1)
+        cells = []
+        for cluster in (2, 4, 8, 16):
+            shape = im.cluster_shape(B, K, N, cluster=cluster)
+            if shape.k_per_cta > 1024 or im.cluster_smem(1, shape.rows, cluster,
+                                                          shape.k_per_cta) > im.MAX_SMEM:
+                continue
+
+            def run(cluster=cluster):
+                out, err = im._launch_streaming(x, q, sc, 1, cluster=cluster)
+                check(err == 0, f"W8A16 {p} cluster {cluster}: cudaError {err}")
+                return out
+            got = run()
+            check_w16(torch, "int8_matmul_stacked", got, want, f"{p} cluster {cluster}")
+            check(torch.equal(got, run()), f"W8A16 {p} cluster {cluster}: two runs differ")
+            t = timer.ms(run)
+            cells.append(f"{cluster}: {t:.4f}")
+            space[f"{p} B={B} cluster={cluster}"] = t
+        log(f"int8_matmul_stacked {p} B={B}, ms by cluster size (dispatched "
+            f"{im.cluster_shape(B, K, N).cluster}): " + ", ".join(cells))
+    # the cluster kernel's fixed cost: 16 rows of q per CTA at o's N (4 KB
+    # of weight per cluster rank), by cluster size
+    cells = []
+    for cluster in (1, 2, 8, 16):
+        qt = quantize_tensor(torch.randn((1, 16 * cluster, 2048), generator=gen, device="cuda"))
+        x = x_of(1, 16 * cluster, torch.bfloat16)
+        t = timer.ms(lambda: im._launch_streaming(x, qt["q"], qt["scale"], 0, cluster=cluster))
+        cells.append(f"cluster {cluster} {t:.4f}")
+        space[f"fixed cost, 16 rows per CTA, N=2048, cluster={cluster}"] = t
+    log("int8_matmul_stacked fixed cost (16 rows of q per CTA, N=2048, B=1): " + ", ".join(cells))
+    rows["int8_matmul_stacked"]["design_space"] = space
+    rows["int8_matmul_stacked"]["timer_floor_ms"] = floor_ms
 
     def cuda_core_w8a16(x, q, sc):
-        """The CUDA-core W8A16 design on the same inputs, launched directly
-        (the flat entry sends bf16 B > 8 to the tensor cores): the design
-        that the tensor-core one replaced there, timed in the same run."""
-        B, K = x.shape
-        N = q.shape[1]
-        rows_, splits, kps = im.launch_shape(B, K, N, n_sms)
-        out = torch.empty((B, N), device="cuda", dtype=x.dtype)
-        partial = torch.empty((splits, B, N), device="cuda") if splits > 1 else None
-        err = im._lib().int8_matmul_w8a16(
-            x.data_ptr(), q.data_ptr(), sc.data_ptr(), out.data_ptr(),
-            partial.data_ptr() if partial is not None else None, 1, B, K, N, 0, rows_, splits,
-            kps, torch.cuda.current_stream().cuda_stream)
-        check(err == 0, f"CUDA-core int8_matmul_w8a16: cudaError {err}")
+        """The cluster split-K W8A16 design on the same inputs, launched
+        directly (the flat entry sends bf16 B > 8 to the tensor cores)."""
+        out, err = im._launch_streaming(x, q[None], sc[None], 0)
+        check(err == 0, f"cluster split-K int8_matmul_w8a16: cudaError {err}")
         return out
 
     flat_rows = {}
@@ -498,15 +613,15 @@ def int8_kernel_phase(torch, timer):
         check_w8a16("int8_matmul", cuda_core_w8a16(x, q, sc), im.int8_matmul_plain(x, q, sc),
                     f"{p} B={B} CUDA-core design")
         cc_ms = timer.ms(lambda: cuda_core_w8a16(x, q, sc))
-        log(f"  the CUDA-core design on the same inputs: {cc_ms:.4f} ms "
+        log(f"  the cluster split-K design on the same inputs: {cc_ms:.4f} ms "
             f"(mma {cc_ms / r['ms']:.1f}x faster; {2 * B * K * N / r['ms'] / 1e9:.1f} TFLOP/s)")
         flat_rows[f"{p} B={B}"] = dict(ms=r["ms"], cuda_core_ms=cc_ms, library_ms=r["library_ms"])
         if (B, p) == (prefill_rows, "qkv"):
             rows["int8_matmul"] = dict(
                 r, design="mma.sync m16n8k16 bf16 on the tensor cores for bf16 x with B > 8 "
                 "(64 x 128 tiles, K steps of 128, 3-stage cp.async, int8 read by "
-                "ldmatrix.trans and dequantised exactly in registers); CUDA-core streaming "
-                "for B <= 8 and float32 x", flat_shapes=flat_rows)
+                "ldmatrix.trans and dequantised exactly in registers); the cluster split-K "
+                "design for B <= 8 and float32 x", flat_shapes=flat_rows)
     return errs, rows
 
 
@@ -521,6 +636,13 @@ INT4_ENTRIES = {
     "int4_matmul_w4a8_stacked": (313, "tools/bench_int4_matmul (int4_w4a8, one eager step)"),
 }
 
+
+W4A16_DESIGN = (
+    "bf16 B >= W4A16_MMA_MIN_ROWS: bf16 tensor cores (mma.sync m16n8k16, 64 x 128 tiles of "
+    "8 warps, 4-stage cp.async ring of packed rows as stored and both halves of x, "
+    "ldmatrix.trans + __byte_perm into 0x4300 | (code + 8) and __hsub2 136: exact bf16 "
+    "codes, split-K to about one block per SM); decode rows and float32 x: the cluster "
+    "split-K design of the stacked W8A16 kernel (one launch)")
 
 W4A8_DESIGN = (
     "x quantised per row in CUDA (IEEE sx, rint half to even; no PyTorch kernel); "
@@ -571,21 +693,24 @@ def int4_kernel_phase(torch, timer):
         return i4.int4_matmul_w4a8_plain(x.cpu(), c["packed"][1], c["scale"][1]).cuda()
 
     errs = dict.fromkeys(INT4_ENTRIES, 0.0)
-    sx_rows = sx_diff = 0
+    sx_rows = sx_old = sx_new = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for B in (1, 4, 8, 9, 16, 17, 37, 64, 227):
+        for B in (1, 2, 4, 5, 8, 9, 16, 17, 37, 64, 227):
             for p, (K, _) in shapes.items():
                 pk, sc = stacks[p]["packed"], stacks[p]["scale"]
                 x = x_of(B, K, dtype)
                 case = f"{p} B={B} {dtype}"
-                if B in (1, 4, 8, 37, 64):
-                    for name, got, want in (
-                        ("int4_matmul", i4.int4_matmul_cuda(x, pk[1], sc[1]),
-                         i4.int4_matmul_plain(x, pk[1], sc[1])),
-                        ("int4_matmul_stacked", i4.int4_matmul_stacked_cuda(x, pk, sc, 1),
-                         i4.int4_matmul_stacked_plain(x, pk, sc, 1)),
-                    ):
-                        errs[name] = max(errs[name], check_w16(torch, name, got, want, case))
+                before = _build.launch_counts["int4_matmul_w4a16_mma"]
+                for name, got, want in (
+                    ("int4_matmul", i4.int4_matmul_cuda(x, pk[1], sc[1]),
+                     i4.int4_matmul_plain(x, pk[1], sc[1])),
+                    ("int4_matmul_stacked", i4.int4_matmul_stacked_cuda(x, pk, sc, 1),
+                     i4.int4_matmul_stacked_plain(x, pk, sc, 1)),
+                ):
+                    errs[name] = max(errs[name], check_w16(torch, name, got, want, case))
+                mma = _build.launch_counts["int4_matmul_w4a16_mma"] - before
+                check(mma == 2 * int(i4.w4a16_uses_mma(B, dtype)),
+                      f"W4A16 {case}: int4_matmul_w4a16_mma rose by {mma}")
                 before = _build.launch_counts["int4_matmul_w4a8_mma"]
                 flat = i4.int4_matmul_w4a8_cuda(x, pk[1], sc[1])
                 stacked = i4.int4_matmul_w4a8_stacked_cuda(x, pk, sc, 1)
@@ -597,10 +722,14 @@ def int4_kernel_phase(torch, timer):
                                   ("int4_matmul_w4a8_stacked", stacked)):
                     check(torch.equal(got, want), f"{name} {case}: max err "
                           f"{(got.float() - want.float()).abs().max().item()}, want equal")
-                # how often PyTorch's CUDA quantisation leaves the recipe
+                # how often the card's plain quantisation leaves the recipe:
+                # the old `/ 127.0` (a reciprocal multiply on the card), and
+                # quantize_activations now (div127: must be never)
+                want_sx = quantize_activations(x.cpu())[1]
+                old_sx = torch.clamp(x.float().abs().amax(dim=-1, keepdim=True), min=1e-8) / 127.0
                 sx_rows += B
-                sx_diff += int((quantize_activations(x)[1].cpu()
-                                != quantize_activations(x.cpu())[1]).sum())
+                sx_old += int((old_sx.cpu() != want_sx).sum())
+                sx_new += int((quantize_activations(x)[1].cpu() != want_sx).sum())
     # crafted rows: all zeros (the 1e-8 floor), x / sx on .5 (half to even),
     # the largest magnitude negative (-127), both ends at +-127
     K, N = shapes["qkv"]
@@ -618,13 +747,15 @@ def int4_kernel_phase(torch, timer):
             check(torch.equal(got, recipe(xd, "qkv")) and not bool(got[0].any()),
                   f"int4_matmul_w4a8 crafted rows, B={rows} {dtype}: differ from the recipe")
     torch.cuda.synchronize()
+    check(sx_new == 0, f"quantize_activations on the card left the recipe in {sx_new} rows")
     log(f"int4 kernels vs plain: max abs err W4A16 flat {errs['int4_matmul']:.3g}, stacked "
         f"{errs['int4_matmul_stacked']:.3g} (tolerance {INT8_F32_TOL} x max|want|, + one bf16 "
-        f"ulp in bf16; B 1,4,8,37,64); W4A8 flat and stacked equal to the recipe (B 1,4,8,9,16,"
-        f"17,37,64,227 and crafted rows; the mma design ran exactly for B >= "
-        f"{i4.W4A8_MMA_MIN_ROWS}) at qkv/o/gate_up/"
-        f"down; f32 and bf16; stacked: layer 1 of 2. PyTorch's CUDA quantize_activations gave "
-        f"another sx than the recipe in {sx_diff} of {sx_rows} rows")
+        f"ulp in bf16; the mma design ran exactly for bf16 B >= {i4.W4A16_MMA_MIN_ROWS}); W4A8 "
+        f"flat and stacked equal to the recipe (crafted rows too; the mma design ran exactly "
+        f"for B >= {i4.W4A8_MMA_MIN_ROWS}); B 1,2,4,5,8,9,16,17,37,64,227 at qkv/o/gate_up/"
+        f"down; f32 and bf16; stacked: layer 1 of 2. sx on the card against the recipe on the "
+        f"CPU: the old `/ 127.0` differed in {sx_old} of {sx_rows} rows, "
+        f"quantize_activations (div127) in {sx_new}")
 
     # a W4A8 call launches only int4_matmul.cu's kernels
     pk, sc = stacks["gate_up"]["packed"], stacks["gate_up"]["scale"]
@@ -658,6 +789,52 @@ def int4_kernel_phase(torch, timer):
             log(f"int4_matmul_w4a8_stacked {p} B={B} bf16: CUDA-core design (dispatched) "
                 f"{cc_ms:.4f} ms, tensor-core design {mma_ms:.4f} ms")
 
+    # ---- W4A16: both designs on the same inputs either side of the threshold ----
+    def w4a16_design(launch, x, pk, sc):
+        out, err = launch(x, pk, sc, 1)
+        check(err == 0, f"W4A16 {launch.__name__} B={x.shape[0]}: cudaError {err}")
+        return out
+
+    threshold = {}
+    for p, Bs in (("gate_up", (1, 2, 3, 4, 5, 8, 9, 16, 37, 64)), ("qkv", (1, 2, 3, 4, 5, 8, 9)),
+                  ("o", (1, 2, 3, 4, 5, 8, 9)), ("down", (1, 2, 3, 4, 5, 8, 9))):
+        K, N = shapes[p]
+        pk, sc = stacks[p]["packed"], stacks[p]["scale"]
+        for B in Bs:
+            x = x_of(B, K, torch.bfloat16)
+            want = i4.int4_matmul_stacked_plain(x, pk, sc, 1)
+            for launch in (i4._launch_w4a16_streaming, i4._launch_w4a16_mma):
+                check_w16(torch, "int4_matmul_stacked", w4a16_design(launch, x, pk, sc), want,
+                          f"{p} B={B} {launch.__name__}")
+            cc_ms = timer.ms(lambda: w4a16_design(i4._launch_w4a16_streaming, x, pk, sc))
+            mma_ms = timer.ms(lambda: w4a16_design(i4._launch_w4a16_mma, x, pk, sc))
+            threshold[f"{p} B={B}"] = dict(cluster_splitk_ms=cc_ms, mma_ms=mma_ms)
+            log(f"int4_matmul_stacked {p} B={B} bf16: cluster split-K design {cc_ms:.4f} ms, "
+                f"tensor-core design {mma_ms:.4f} ms (dispatched: "
+                f"{'mma' if i4.w4a16_uses_mma(B, torch.bfloat16) else 'cluster split-K'})")
+
+    # the cluster split-K design at B=1: every cluster size
+    space = {}
+    for p, (K, N) in shapes.items():
+        pk, sc = stacks[p]["packed"], stacks[p]["scale"]
+        x = x_of(1, K, torch.bfloat16)
+        want = i4.int4_matmul_stacked_plain(x, pk, sc, 1)
+        cells = []
+        for cluster in (2, 4, 8, 16):
+            if i4.cluster_shape(1, K // 2, N, halves=2, cluster=cluster).k_per_cta > 1024:
+                continue
+
+            def run(cluster=cluster):
+                return w4a16_design(lambda *a: i4._launch_w4a16_streaming(
+                    *a, cluster=cluster), x, pk, sc)
+            check_w16(torch, "int4_matmul_stacked", run(), want, f"{p} cluster {cluster}")
+            t = timer.ms(run)
+            cells.append(f"{cluster}: {t:.4f}")
+            space[f"{p} B=1 cluster={cluster}"] = t
+        shape = i4.cluster_shape(1, K // 2, N, halves=2)
+        log(f"int4_matmul_stacked {p} B=1, ms by cluster size (dispatched {shape.cluster}): "
+            + ", ".join(cells))
+
     # ---- times at the sweep's shapes, bf16 ----
     def time_row(name, p, B, fn, plain, lib, lib_label):
         K, N = shapes[p]
@@ -673,6 +850,7 @@ def int4_kernel_phase(torch, timer):
 
     rows = {}
     w4a8_times = {"int4_matmul_w4a8": {}, "int4_matmul_w4a8_stacked": {}}
+    w4a16_times = {"int4_matmul": {}, "int4_matmul_stacked": {}}
     _build.reset_launch_counts()
     for B, p in ((1, "qkv"), (1, "o"), (1, "gate_up"), (1, "down"), (8, "gate_up"),
                  (37, "gate_up"), (64, "gate_up")):
@@ -690,8 +868,10 @@ def int4_kernel_phase(torch, timer):
             ):
                 r = time_row(name, p, B, fn, plain, lambda: torch.mm(x, w),
                              "bf16 dense mm (4x the weight bytes)")
+                w4a16_times[name][f"{p} B={B}"] = dict(ms=r["ms"], library_ms=r["library_ms"])
                 if (B, p) == (1, "gate_up"):
-                    rows[name] = r
+                    rows[name] = dict(r, design=W4A16_DESIGN, times=w4a16_times[name],
+                                      threshold=threshold, design_space=space)
         # torch._int_mm takes only B > 16: a yardstick at 37 and 64 rows, none below
         xq = quantize_activations(x)[0]
         codes_cm = st["codes"][1].t().contiguous().t()  # column-major s8, as cuBLASLt takes it
@@ -707,7 +887,8 @@ def int4_kernel_phase(torch, timer):
             if (B, p) == (64, "gate_up"):
                 rows[name] = dict(r, design=W4A8_DESIGN, times=w4a8_times[name])
     launches = {name: _build.launch_counts[name] for name in INT4_ENTRIES}
-    launches["int4_matmul_w4a8_mma"] = _build.launch_counts["int4_matmul_w4a8_mma"]
+    for name in ("int4_matmul_w4a16_mma", "int4_matmul_w4a8_mma"):
+        launches[name] = _build.launch_counts[name]
     return errs, rows, launches
 
 
@@ -719,7 +900,7 @@ def bench_phase(torch):
     variant on the same codes. -> {entry: launches in the counted steps}."""
     from sonicscribe_tpu_torch.models.config import nano
     from sonicscribe_tpu_torch.ops import _build
-    from sonicscribe_tpu_torch.ops.int4_matmul import w4a8_uses_mma
+    from sonicscribe_tpu_torch.ops.int4_matmul import w4a8_uses_mma, w4a16_uses_mma
     from sonicscribe_tpu_torch.tools import bench_int4_matmul, bench_int8_matmul
 
     for rec in bench_int8_matmul.run(batches=(1, 8), reps=10):
@@ -744,6 +925,8 @@ def bench_phase(torch):
             want = {entry: 4 * n_layers}
             if variant == "int4_w4a8" and w4a8_uses_mma(h0.shape[0]):
                 want["int4_matmul_w4a8_mma"] = 4 * n_layers  # every launch on the tensor cores
+            if variant == "int4_w4a16" and w4a16_uses_mma(h0.shape[0], h0.dtype):
+                want["int4_matmul_w4a16_mma"] = 4 * n_layers
             check(counts == want, f"bench_int4_matmul {variant}: launches {counts}, want {want} "
                   f"per step")
             rel = ((h.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
@@ -752,13 +935,61 @@ def bench_phase(torch):
             check(h.shape == ref.shape and bool(torch.isfinite(h).all()) and rel <= SWEEP_TOL,
                   f"bench_int4_matmul {variant}: step differs from the int8 step by {rel}")
             launches[entry] = counts[entry]
-            if variant == "int4_w4a8":
-                launches["int4_matmul_w4a8_stacked_mma"] = counts.get("int4_matmul_w4a8_mma", 0)
+            mma = "int4_matmul_w4a8_mma" if variant == "int4_w4a8" else "int4_matmul_w4a16_mma"
+            launches[f"{entry}_mma"] = counts.get(mma, 0)
+    steps = slice_table_steps(torch, weights, n_layers)
     del weights, ref, h
     for rec in bench_int4_matmul.run(batches=(1, 8, 64), reps=10,
                                      variants=tuple(bench_int4_matmul.VARIANTS)):
         log("bench_int4_matmul " + json.dumps(rec))
-    return launches
+    return launches, steps
+
+
+# the cluster split-K design's slice tables that slice_table_steps compares:
+# the shipped ops/int8_matmul.py:CLUSTER_ROWS_PER_CTA, half and twice it
+SLICE_TABLES = {"half": 0.5, "shipped": 1.0, "twice": 2.0}
+
+
+def slice_table_steps(torch, weights, n_layers) -> dict:
+    """The cluster split-K design's slice table inside a decode step: the
+    int8 (stacked W8A16) and int4_w4a16 sweeps of nano's layers at the
+    decode rows that reach the design, replayed as a CUDA graph
+    (bench_int8_matmul.time_step), under each of SLICE_TABLES in turn, two
+    rounds. Each step's output is held to the shipped table's. -> {"<variant>
+    B=<b>": {table: [ms of each round]}}."""
+    from sonicscribe_tpu_torch.ops import int8_matmul as im
+    from sonicscribe_tpu_torch.tools import bench_int4_matmul
+    from sonicscribe_tpu_torch.tools.bench_int8_matmul import time_step
+
+    shipped = dict(im.CLUSTER_ROWS_PER_CTA)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 8)
+    d = weights["qkv_w"]["q"].shape[1]
+    steps = {}
+    try:
+        for variant, B in (("int8", 1), ("int8", 8), ("int4_w4a16", 1), ("int4_w4a16", 2)):
+            h0 = (torch.randn((B, d), generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+            mm = bench_int4_matmul.VARIANTS[variant]
+            cell = steps[f"{variant} B={B}"] = {t: [] for t in SLICE_TABLES}
+            want = None
+            for _ in range(2):
+                for table, f in SLICE_TABLES.items():
+                    im.CLUSTER_ROWS_PER_CTA.update({r: int(v * f) for r, v in shipped.items()})
+                    with torch.inference_mode():
+                        h = bench_int4_matmul.sweep(mm, weights, h0, n_layers)
+                        if want is None:
+                            want = h
+                        rel = ((h.float() - want.float()).abs().max()
+                               / want.float().abs().max()).item()
+                        check(rel <= SWEEP_TOL, f"slice table {table}, {variant} B={B}: the "
+                              f"step differs from the shipped table's by {rel}")
+                        cell[table].append(time_step(
+                            lambda: bench_int4_matmul.sweep(mm, weights, h0, n_layers), 10)[0])
+            log(f"slice table in a replayed {variant} step, B={B} (device ms, two rounds): "
+                + ", ".join(f"{t} {v[0]:.4f} / {v[1]:.4f}" for t, v in cell.items()))
+    finally:
+        im.CLUSTER_ROWS_PER_CTA.update(shipped)
+    return steps
 
 
 async def _collect(gen) -> list:
@@ -924,7 +1155,8 @@ def profile_phase(torch, engine, mode: str = "native"):
 
 def tiny_tokens_phase(torch, mode: str = "native"):
     """tiny() f32 in `mode` gives the same tokens on the card (kernels) as
-    on the CPU (plain versions), from the same tree quantized on the CPU."""
+    on the CPU (plain versions), from the same float32 tree, quantized on
+    each device as build_runtime quantizes it (after moving it there)."""
     from dataclasses import replace
 
     from sonicscribe_tpu_torch.engine.transcriber import Transcriber
@@ -944,13 +1176,13 @@ def tiny_tokens_phase(torch, mode: str = "native"):
     # x4 so the random model's tokens vary
     params = mapped(init_random(cfg, seed=SEED + 1, dtype=torch.float32, device="cpu"),
                     lambda t: t * 4.0)
+    trees = {d: mapped(params, lambda t, d=d: t.to(d)) for d in ("cpu", "cuda")}
     if mode != "native":
-        params = quantize_params_int8(params, decoder_only=mode != "int8")
+        trees = {d: quantize_params_int8(t, decoder_only=mode != "int8") for d, t in trees.items()}
         if mode == "int8-decoder-a8":
             cfg = replace(cfg, decoder=replace(cfg.decoder, act_int8_decode=True))
-    trs = {d: Transcriber(cfg, mapped(params, lambda t, d=d: t.to(d)), ByteTokenizer(cfg),
-                          prefill_buckets=(128, 256))
-           for d in ("cpu", "cuda")}
+    trs = {d: Transcriber(cfg, t, ByteTokenizer(cfg), prefill_buckets=(128, 256))
+           for d, t in trees.items()}
     _build.reset_launch_counts()
     for sec, sr in ((1.3, 16000), (2.2, 16000)):
         audio = speech(sec, seed=20)
@@ -991,6 +1223,50 @@ def reference_phase(torch, engine):
     log("reference: nano prefill logits finite, shape", tuple(logits.shape))
 
 
+def weight_scale_phase(torch) -> None:
+    """Weights quantized on the card (build_runtime's path) against the same
+    weights quantized on the CPU, at nano's projection shapes (two layers,
+    bf16 as nano-random): the columns whose scale or codes differ, with the
+    old formula (`/ 127.0`, which PyTorch runs on the card as a multiply by
+    the reciprocal) inline, and with quantize_tensor, which must give none."""
+    from sonicscribe_tpu_torch.models.config import nano
+    from sonicscribe_tpu_torch.ops.quant import quantize_tensor
+
+    def old_formula(w):
+        wf = w.float()
+        scale = torch.clamp(wf.abs().amax(dim=-2, keepdim=True), min=1e-8) / 127.0
+        return {"q": torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8),
+                "scale": scale}
+
+    def columns_differ(got, want) -> int:
+        bad = (got["scale"].cpu() != want["scale"]) | (got["q"].cpu() != want["q"]).any(
+            dim=-2, keepdim=True)
+        return int(bad.sum())
+
+    cfg = nano()
+    dec, enc = cfg.decoder, cfg.encoder
+    d, e = dec.d_model, enc.d_model
+    shapes = {  # the nine quantized keys (o_w names the decoder's and the encoder's)
+        "qkv_w": (d, (dec.n_heads + 2 * dec.n_kv_heads) * dec.head_dim),
+        "o_w": (dec.n_heads * dec.head_dim, d), "gate_up_w": (d, 2 * dec.ffn_hidden),
+        "down_w": (dec.ffn_hidden, d), "q_w": (e, e), "k_w": (e, e), "v_w": (e, e),
+        "enc o_w": (e, e), "fc1_w": (e, enc.ffn_mult * e), "fc2_w": (enc.ffn_mult * e, e),
+    }
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 8)
+    n_cols = old = new = 0
+    for K, N in shapes.values():
+        w = (torch.randn((2, K, N), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+        want = quantize_tensor(w.cpu())
+        n_cols += 2 * N
+        old += columns_differ(old_formula(w), want)
+        new += columns_differ(quantize_tensor(w), want)
+    log(f"weight scales quantized on the card vs the CPU (nano's {len(shapes)} projection "
+        f"weights, 2 layers, {n_cols} columns): old formula {old} columns differ, "
+        f"quantize_tensor {new}")
+    check(new == 0, f"quantize_tensor on the card differs from the CPU in {new} columns")
+
+
 def release_memory(torch) -> None:
     """Free what earlier phases left on the card, cuBLAS's per-stream
     workspaces included, so that the resident and peak memory read next
@@ -1024,12 +1300,15 @@ def main() -> None:
         regs = [ln.strip() for ln in report.splitlines() if "registers" in ln]
         log(f"  {name}: {'; '.join(regs)}")
 
+    weight_scale_phase(torch)
     timer = Timer(torch)
     attn_err, attn_row, mel_err, mel_row = kernel_phase(torch, timer)
     int8_errs, int8_rows = int8_kernel_phase(torch, timer)
     int4_errs, int4_rows, int4_launches = int4_kernel_phase(torch, timer)
     del timer
-    int4_launches.update(bench_phase(torch))
+    bench_launches, slice_steps = bench_phase(torch)
+    int4_launches.update(bench_launches)
+    int8_rows["int8_matmul_stacked"]["slice_table_steps"] = slice_steps
     release_memory(torch)
 
     engine, launches = main_path_phase(torch)
@@ -1078,8 +1357,10 @@ def main() -> None:
              launches=int4_launches[name], max_abs_err=int4_errs[name], **int4_rows[name])
         for name, (line, path) in INT4_ENTRIES.items()
     ]
-    # the W4A8 launches that took the tensor cores on each entry's path (the
+    # the int4 launches that took the tensor cores on each entry's path (the
     # timed runs count flat and stacked together)
+    kernels[-4]["mma_launches"] = int4_launches["int4_matmul_w4a16_mma"]
+    kernels[-3]["mma_launches"] = int4_launches["int4_matmul_stacked_mma"]
     kernels[-2]["mma_launches"] = int4_launches["int4_matmul_w4a8_mma"]
     kernels[-1]["mma_launches"] = int4_launches["int4_matmul_w4a8_stacked_mma"]
     for k in kernels:

@@ -17,33 +17,47 @@
 // sign-extended (lo and hi above). The layer is read by offset from the
 // whole stack, so no slice is ever copied.
 //
-// What bounds it on an H100: at decode (B of 1 to 64 rows) bytes. The
+// What bounds it on an H100: at decode (B of 1 to 8 rows) bytes. The
 // weight is K/2 * N bytes and each byte feeds 4 * B operations, far below
-// the card's ridge, so the design streams packed once:
-// - a block owns 128 columns; each thread reads 16 of them in one 16-byte
-//   load per packed row, and its 32 k-lanes walk the block's packed rows in
-//   an interleaved order so that a warp reads whole 128-byte lines;
-// - one packed row gives two k rows of the same 16 columns, so the x values
-//   of both halves of a chunk (k and K/2 + k) are staged in shared memory;
-// - where the column tiles alone give too few blocks to fill the 132 SMs,
-//   the K/2 packed rows are split over blocks (grid.z); each block writes
-//   its partial sums and a second pass adds the splits in order, applies
-//   the scale and casts (no atomics: the result is deterministic);
-// - W4A16 sign-extends each nibble with one shift pair on the 32-bit word
-//   and sums in float32 (bf16 * a code in [-8, 7] is exact in float32).
+// the card's ridge. With more rows each byte feeds more operations than
+// the CUDA cores keep up with, and the product belongs on the tensor cores.
 //
-// W4A8 quantises x itself, so a call launches nothing but this file's
-// kernels: sx = max(max|x|, 1e-8) / 127 per row (an IEEE division) and
-// xq = clamp(rint(x / sx), -127, 127) (the JAX recipe, bit for bit; rint
-// rounds half to even; x * (1/sx) stands in for x / sx except within 2^-14
-// of a half, where the two could round apart). Two designs (the wrapper
-// picks by B):
-// - up to 4 rows (decode), the streaming kernel above on the CUDA cores,
-//   fused: each block takes its rows' max|x| over the whole K, then
-//   quantises x as it stages it; four packed rows per column regrouped with
-//   __byte_perm, each word split into two words of 4 signed bytes (low
-//   nibbles: rows k..k+3; high nibbles: rows K/2+k..K/2+k+3) with one
-//   __vsub4 each, two __dp4a;
+// W4A16 has two designs (the wrapper picks by B and x's type):
+// - decode rows, and float32 x at every B: cluster_splitk.cuh's one-launch
+//   streaming design (a CTA per 128 columns and slice of packed rows, all
+//   its weight pieces in flight at once, the slices of a column tile one
+//   thread-block cluster that adds its sums in rank 0 in rank order). `Int4Rows` is its weight policy: one packed row gives two
+//   k rows of the same 16 columns, so x is staged for both halves (k and
+//   K/2 + k); each nibble is sign-extended by one shift pair on the 32-bit
+//   word, and bf16 * a code in [-8, 7] is exact in float32;
+// - bf16 x from W4A16_MMA_MIN_ROWS rows: bf16 tensor cores (mma.sync
+//   m16n8k16, float32 sums), the W4A8 mma design below with bf16 x: 64 x 128
+//   tiles of 8 warps (2 x 4, 32 x 32 each); each stage of a 4-stage cp.async
+//   ring holds 64 packed rows as stored and the tile's x rows over both
+//   halves of those k (x is not quantised). ldmatrix.trans over the packed
+//   tile read as 16-bit column pairs gives each lane packed rows k, k+1 of
+//   two neighbouring columns; the nibbles become bf16 exactly in registers:
+//   the unsigned nibble u = code + 8 goes into the low mantissa bits of
+//   bf16 128 (0x4300 | u = 128 + u, whose ulp is 1, by __byte_perm, which
+//   also splits the even and odd columns) and 136 comes off (__hsub2), so
+//   every product is exact and only the float32 summation order differs
+//   from the plain version. The lo plane's fragments meet x's first half,
+//   the hi plane's its second, in one accumulator. Where the tiles alone
+//   leave SMs idle, K/2 is split over blocks (grid.z) and a second pass adds
+//   the splits in order, applies the scale and casts.
+//
+// W4A8 quantises x itself (act_quant.cuh), so a call launches nothing but
+// this file's kernels: sx = max(max|x|, 1e-8) / 127 per row (an IEEE
+// division) and xq = clamp(rint(x / sx), -127, 127) (the JAX recipe, bit
+// for bit). Two designs (the wrapper picks by B):
+// - up to 4 rows (decode), a streaming kernel on the CUDA cores, fused:
+//   a block owns 128 columns, each thread reads 16 of them in 16-byte loads
+//   of 4 packed rows; each block takes its rows' max|x| over the whole K,
+//   then quantises x as it stages a chunk; four packed rows per column
+//   regrouped with __byte_perm, each word split into two words of 4 signed
+//   bytes (low nibbles: rows k..k+3; high nibbles: rows K/2+k..K/2+k+3)
+//   with one __vsub4 each, two __dp4a; K/2 split over blocks as above when
+//   the column tiles leave SMs idle (int32 partials, sx from scratch);
 // - 5 rows or more, s8 tensor cores (mma.sync m16n8k32, int32 sums). A first
 //   kernel quantises each row once (a block per row) into xq, in the order
 //   the fragments take it (fused into the product, each of its ~100
@@ -63,41 +77,34 @@
 //   so the output is bit-equal to the plain version. Where the tiles alone
 //   leave SMs idle, K/2 is split as above.
 //
-// Layout: x [B, K] (float32 / bfloat16, contiguous, 16-byte aligned),
-// packed [L, K/2, N] int8 and scale [L, 1, N] float32 (contiguous), out
-// [B, N] in x's type, partial [splits, B, N] float32 / int32 scratch and,
-// for W4A8, sx [B] float32 scratch when splits > 1 (always for the mma
-// design, with xq [B, 2, K/2 rounded up to 64] int8). N must be a multiple of
-// 16 (the wrapper holds it to the JAX gate's 128; the mma design needs it);
-// W4A8 needs K/2 % 4 == 0. The wrapper (ops/int4_matmul.py) checks and
-// picks the design and launch shape; each entry returns the cudaError of
-// its launches.
+// Layout: x [B, K] (float32 / bfloat16, contiguous), packed [L, K/2, N]
+// int8 and scale [L, 1, N] float32 (contiguous), out [B, N] in x's type,
+// partial [splits, B, N] float32 / int32 scratch and, for W4A8, sx [B]
+// float32 scratch when splits > 1 (always for the W4A8 mma design, with
+// xq [B, 2, K/2 rounded up to 64] int8). N must be a multiple of 16 (the
+// wrapper holds it to the JAX gate's 128; the mma designs need it); W4A8
+// needs K/2 % 4 == 0 and 16-byte aligned x; W4A16's mma design bf16 x,
+// K/2 % 8 == 0 and 16-byte aligned x and scale. The wrapper
+// (ops/int4_matmul.py) checks and picks the design and launch shape; each
+// entry returns the cudaError of its launches.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "act_quant.cuh"
+#include "cluster_splitk.cuh"
+#include "common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kColsPerThread = 16;                     // one 16-byte load of packed
-constexpr int kColThreads = 8;
-constexpr int kTileN = kColThreads * kColsPerThread;  // 128 columns per block
-constexpr int kKLanes = kThreads / kColThreads;        // 32
-constexpr int kChunkK = 128;                           // packed rows staged per pass
-constexpr int kRowsPerLane = kChunkK / kKLanes;        // 4
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ uint4 load16(const int8_t* p) {
-  return __ldg(reinterpret_cast<const uint4*>(p));
-}
+using splitk::kColsPerThread;
+using splitk::kColThreads;
+using splitk::kKLanes;
+using splitk::kThreads;
+using splitk::kTileN;
+using splitk::kWarps;
+constexpr int kChunkK = 128;  // W4A8 streaming: packed rows staged per pass
 
 // nibble `i` (0..7, from the least significant) of w, sign-extended
 __device__ __forceinline__ float nibble(unsigned w, int i) {
@@ -129,13 +136,27 @@ __device__ __forceinline__ int low_nibbles(unsigned w) {
 }
 __device__ __forceinline__ int high_nibbles(unsigned w) { return low_nibbles(w >> 4); }
 
-template <typename Acc>
-__device__ __forceinline__ Acc lane_sum(Acc v) {
-  // the 4 k-lanes of a warp: lanes 8 and 16 apart hold the same columns
-  v += __shfl_xor_sync(0xffffffffu, v, 8);
-  v += __shfl_xor_sync(0xffffffffu, v, 16);
-  return v;
-}
+// the W4A16 weight policy of cluster_splitk.cuh: a packed row holds weight
+// rows k (low nibbles, against x[b, k]) and K/2 + k (high, x[b, K/2 + k])
+struct Int4Rows {
+  static constexpr int kHalves = 2;
+  template <int BT>
+  __device__ __forceinline__ static void accumulate(float (&acc)[BT][kColsPerThread], const uint4 w,
+                                             const float (&xv)[2][BT]) {
+    const unsigned words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float lo = nibble(words[q], 2 * j), hi = nibble(words[q], 2 * j + 1);
+#pragma unroll
+        for (int b = 0; b < BT; ++b) {
+          acc[b][4 * q + j] = fmaf(xv[1][b], hi, fmaf(xv[0][b], lo, acc[b][4 * q + j]));
+        }
+      }
+    }
+  }
+};
 
 // Reduce the block's k-lanes and hand each (row, column) sum to `emit`.
 template <typename Acc, int BT, typename Emit>
@@ -165,135 +186,6 @@ __device__ __forceinline__ void block_reduce(Acc (&acc)[BT][kColsPerThread],
     for (int w = 0; w < kWarps; ++w) v += red[w][b][c];
     emit(r, n, v);
   }
-}
-
-template <typename T, int BT>
-__global__ void __launch_bounds__(kThreads)
-w4a16_kernel(const T* __restrict__ x, const int8_t* __restrict__ p,
-             const float* __restrict__ scale, T* __restrict__ out,
-             float* __restrict__ partial, int B, int K2, int N, int k_per_split) {
-  __shared__ float xs[2][BT][kChunkK];  // x[r, c0 + kk] and x[r, K/2 + c0 + kk]
-  __shared__ float red[kWarps][BT][kTileN];
-  const int tid = threadIdx.x, ct = tid % kColThreads, kl = tid / kColThreads;
-  const int n0 = blockIdx.x * kTileN, r0 = blockIdx.y * BT, split = blockIdx.z;
-  const int col = n0 + ct * kColsPerThread;
-  const long long K = 2LL * K2;
-  const int k_begin = split * k_per_split, k_end = min(K2, k_begin + k_per_split);
-
-  float acc[BT][kColsPerThread];
-#pragma unroll
-  for (int b = 0; b < BT; ++b) {
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) acc[b][j] = 0.f;
-  }
-
-  for (int c0 = k_begin; c0 < k_end; c0 += kChunkK) {
-    __syncthreads();  // the previous chunk's reads of xs are done
-    for (int i = tid; i < 2 * BT * kChunkK; i += kThreads) {
-      const int h = i / (BT * kChunkK), b = (i / kChunkK) % BT, kk = i % kChunkK;
-      const int r = r0 + b, k = c0 + kk;
-      xs[h][b][kk] = (r < B && k < k_end) ? to_f32(x[r * K + (long long)h * K2 + k]) : 0.f;
-    }
-    __syncthreads();
-    if (col < N) {
-      uint4 w[kRowsPerLane];
-#pragma unroll
-      for (int i = 0; i < kRowsPerLane; ++i) {
-        const int k = c0 + kl + i * kKLanes;
-        w[i] = k < k_end ? load16(p + (long long)k * N + col) : make_uint4(0, 0, 0, 0);
-      }
-#pragma unroll
-      for (int i = 0; i < kRowsPerLane; ++i) {
-        const int kk = kl + i * kKLanes;
-        float xl[BT], xh[BT];
-#pragma unroll
-        for (int b = 0; b < BT; ++b) {
-          xl[b] = xs[0][b][kk];
-          xh[b] = xs[1][b][kk];
-        }
-        const unsigned words[4] = {w[i].x, w[i].y, w[i].z, w[i].w};
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float lo = nibble(words[q], 2 * j), hi = nibble(words[q], 2 * j + 1);
-#pragma unroll
-            for (int b = 0; b < BT; ++b) {
-              acc[b][4 * q + j] = fmaf(xh[b], hi, fmaf(xl[b], lo, acc[b][4 * q + j]));
-            }
-          }
-        }
-      }
-    }
-  }
-
-  block_reduce<float, BT>(acc, red, B, N, r0, n0, [&](int r, int n, float v) {
-    if (partial) {
-      partial[((long long)split * B + r) * N + n] = v;
-    } else {
-      store(out + (long long)r * N + n, v * scale[n]);
-    }
-  });
-}
-
-// 4 consecutive values of x (16-byte aligned for float32, 8 for bf16) as float
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
-  const uint2 q = *reinterpret_cast<const uint2*>(p);
-  v[0] = __uint_as_float(q.x << 16), v[1] = __uint_as_float(q.x & 0xFFFF0000u);
-  v[2] = __uint_as_float(q.y << 16), v[3] = __uint_as_float(q.y & 0xFFFF0000u);
-}
-
-// max|v| over 16 bytes of x (4 float32 or 8 bf16; 16-byte aligned)
-__device__ __forceinline__ float absmax16(const float* p) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  return fmaxf(fmaxf(fabsf(q.x), fabsf(q.y)), fmaxf(fabsf(q.z), fabsf(q.w)));
-}
-__device__ __forceinline__ float absmax16(const __nv_bfloat16* p) {
-  const uint4 q = *reinterpret_cast<const uint4*>(p);
-  const unsigned w[4] = {q.x, q.y, q.z, q.w};
-  float m = 0.f;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    m = fmaxf(m, fmaxf(fabsf(__uint_as_float(w[j] << 16)),
-                       fabsf(__uint_as_float(w[j] & 0xFFFF0000u))));
-  }
-  return m;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// sx = max(max|x|, 1e-8) / 127, an IEEE division (quant.py:matmul_w8a8)
-__device__ __forceinline__ float act_scale(float absmax) {
-  return __fdiv_rn(fmaxf(absmax, 1e-8f), 127.0f);
-}
-
-// clamp(rint(v / sx), -127, 127) with v / sx the IEEE quotient; rint rounds
-// half to even, as jnp.round. |v| <= 127 sx, so the quotient is at most
-// ~127; v * rsx (rsx = 1 / sx rounded) lies within 2.3e-5 of it, and the two
-// round to the same integer unless they lie that close to a half: only
-// there is the (slow) IEEE division taken.
-__device__ __forceinline__ int quant(float v, float sx, float rsx) {
-  float q = v * rsx;
-  if (fabsf(fabsf(q - rintf(q)) - 0.5f) <= 6.103515625e-05f) q = __fdiv_rn(v, sx);  // 2^-14
-  return static_cast<int>(fminf(fmaxf(rintf(q), -127.f), 127.f));
-}
-
-// 4 values -> one word of 4 s8, value j in byte j
-__device__ __forceinline__ int quant4(const float (&v)[4], float sx, float rsx) {
-  unsigned w = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    w |= (static_cast<unsigned>(quant(v[j], sx, rsx)) & 0xFFu) << (8 * j);
-  }
-  return static_cast<int>(w);
 }
 
 template <typename T, int BT>
@@ -405,38 +297,6 @@ constexpr int kQMaxKPerSplit = 1472;       // packed rows of x a block holds (a 
 // xq [2][kQBM][k_per_split + 16] bytes, then the ring
 constexpr int kQMaxSmem = 2 * kQBM * (kQMaxKPerSplit + 16) + kQStages * kQStage;  // 227,328
 static_assert(kQMaxSmem + 1024 <= 232448, "a block's shared memory");
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, or 16 zero bytes where !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N committed groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
 
 // s8 A x u8 B, int32 sums
 __device__ __forceinline__ void mma_s8u8(int (&d)[4], const unsigned (&a)[4], unsigned b0,
@@ -702,20 +562,6 @@ bool bad_shape(int B, int K2, int N, int layer, int rows, int splits, int k_per_
 }
 
 template <typename T, int BT>
-void launch_w4a16(const void* x, const int8_t* p, const float* scale, void* out, float* partial,
-                  int B, int K2, int N, int splits, int k_per_split, cudaStream_t stream) {
-  const dim3 grid((N + kTileN - 1) / kTileN, (B + BT - 1) / BT, splits);
-  w4a16_kernel<T, BT><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), p, scale, static_cast<T*>(out), splits > 1 ? partial : nullptr,
-      B, K2, N, k_per_split);
-  if (splits > 1) {
-    const long long total = (long long)B * N;
-    w4a16_reduce<T><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-        partial, scale, static_cast<T*>(out), splits, B, N);
-  }
-}
-
-template <typename T, int BT>
 void launch_w4a8(const void* x, const int8_t* p, const float* scale, void* out, int* partial,
                  float* sx, int B, int K2, int N, int splits, int k_per_split,
                  cudaStream_t stream) {
@@ -753,17 +599,6 @@ int launch_w4a8_mma(const void* x, const int8_t* p, const float* scale, void* ou
 }
 
 template <typename T>
-void dispatch_w4a16(int rows, const void* x, const int8_t* p, const float* scale, void* out,
-                    float* partial, int B, int K2, int N, int splits, int k_per_split,
-                    cudaStream_t s) {
-  switch (rows) {
-    case 1: launch_w4a16<T, 1>(x, p, scale, out, partial, B, K2, N, splits, k_per_split, s); break;
-    case 4: launch_w4a16<T, 4>(x, p, scale, out, partial, B, K2, N, splits, k_per_split, s); break;
-    default: launch_w4a16<T, 8>(x, p, scale, out, partial, B, K2, N, splits, k_per_split, s);
-  }
-}
-
-template <typename T>
 void dispatch_w4a8(int rows, const void* x, const int8_t* p, const float* scale, void* out,
                    int* partial, float* sx, int B, int K2, int N, int splits, int k_per_split,
                    cudaStream_t s) {
@@ -774,30 +609,219 @@ void dispatch_w4a8(int rows, const void* x, const int8_t* p, const float* scale,
   }
 }
 
+// ---------------------------------------------------------------- W4A16 mma
+
+constexpr int kHXRow = kQBK + 8;                 // bf16 per x row of a stage (+16 bytes)
+constexpr int kHXStage = 2 * kQBM * kHXRow * 2;  // bytes: the tile's x rows, both halves
+constexpr int kHStage = kQStage + kHXStage;      // 27,648
+constexpr int kHSmem = kQStages * kHStage;       // 110,592: two blocks per SM
+
+// a bf16 pair minus 136 each (exact on 128 + u, u in [0, 15])
+__device__ __forceinline__ unsigned minus136(unsigned v) {
+  __nv_bfloat162 b = *reinterpret_cast<__nv_bfloat162*>(&v);
+  b = __hsub2(b, __bfloat162bfloat162(__ushort_as_bfloat16(0x4308)));
+  return *reinterpret_cast<unsigned*>(&b);
+}
+
+// One register of ldmatrix.trans over packed bytes: p(k, c), p(k, c+1),
+// p(k+1, c), p(k+1, c+1). -> the bf16 code pairs (k, k+1) of column c
+// ([0]) and c + 1 ([1]) of the lo plane (low nibbles: weight rows k, k+1)
+// and of the hi plane (high nibbles: rows K/2 + k, K/2 + k + 1), exact:
+// u = code + 8 = nibble ^ 8 in the low byte of bf16 0x4300 (128 + u), 136
+// off.
+__device__ __forceinline__ void nibble_pairs_to_bf16(unsigned r, unsigned (&lo)[2],
+                                                     unsigned (&hi)[2]) {
+  const unsigned l = (r & 0x0F0F0F0Fu) ^ 0x08080808u;
+  const unsigned h = ((r >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+  lo[0] = minus136(__byte_perm(l, 0x43434343u, 0x4240));
+  lo[1] = minus136(__byte_perm(l, 0x43434343u, 0x4341));
+  hi[0] = minus136(__byte_perm(h, 0x43434343u, 0x4240));
+  hi[1] = minus136(__byte_perm(h, 0x43434343u, 0x4341));
+}
+
+__global__ void __launch_bounds__(kQThreads)
+w4a16_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ p,
+                 const float* __restrict__ scale, __nv_bfloat16* __restrict__ out,
+                 float* __restrict__ partial, int B, int K2, int N, int k_per_split) {
+  extern __shared__ __align__(16) unsigned char smem[];  // [kQStages][kHStage]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = (warp >> 2) * 32, wn = (warp & 3) * 32;
+  const int n0 = blockIdx.x * kQBN, r0 = blockIdx.y * kQBM, split = blockIdx.z;
+  const int k_begin = split * k_per_split, k_end = min(K2, k_begin + k_per_split);
+  const int n_steps = (k_end - k_begin + kQBK - 1) / kQBK;
+  const long long K = 2LL * K2;
+
+  // step `it` into stage it % kQStages: packed rows k0 .. k0 + 63 as stored
+  // ([kQBK][kQRow] bytes), then x's columns k0 .. k0 + 63 and K/2 + k0 ..
+  // of the tile's rows ([2][kQBM][kHXRow] bf16), 16 bytes a copy, zeros
+  // past the split, K/2 and B; one commit group per step, empty past the
+  // last
+  auto load_step = [&](int it) {
+    if (it < n_steps) {
+      const int k0 = k_begin + it * kQBK;
+      unsigned char* st = smem + (it % kQStages) * kHStage;
+      for (int i = tid; i < kQBK * (kQBN / 16); i += kQThreads) {
+        const int kq = i / (kQBN / 16), c = (i % (kQBN / 16)) * 16;
+        const bool ok = k0 + kq < k_end;
+        cp_async16(st + kq * kQRow + c, ok ? p + (long long)(k0 + kq) * N + n0 + c : p, ok);
+      }
+      __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(st + kQStage);
+      for (int i = tid; i < 2 * kQBM * (kQBK / 8); i += kQThreads) {
+        const int hr = i / (kQBK / 8), kx = (i % (kQBK / 8)) * 8;
+        const int h = hr / kQBM, r = hr % kQBM;
+        const bool ok = r0 + r < B && k0 + kx < k_end;  // K/2 % 8 == 0: whole pieces
+        cp_async16(xs + hr * kHXRow + kx, ok ? x + (r0 + r) * K + h * K2 + k0 + kx : x, ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int it = 0; it < kQStages - 1; ++it) load_step(it);
+  for (int it = 0; it < n_steps; ++it) {
+    cp_async_wait<kQStages - 2>();  // step it has landed (this thread's copies)
+    __syncthreads();                // everyone's copies; step it - 1 is done
+    load_step(it + kQStages - 1);   // into the stage that step it - 1 used
+    const unsigned char* st = smem + (it % kQStages) * kHStage;
+    const __nv_bfloat16* xst = reinterpret_cast<const __nv_bfloat16*>(st + kQStage);
+#pragma unroll
+    for (int kk = 0; kk < kQBK; kk += 16) {
+      // packed rows kk .. kk + 15 of the warp's 32 columns, as 16-bit column
+      // pairs: r[0], r[1] columns wn .. wn + 15 (rows kk.., kk + 8..), r[2],
+      // r[3] wn + 16 ..; n-tiles: 2g the even columns of wn + 16g .. + 15,
+      // 2g + 1 the odd ones
+      unsigned r[4], blo[4][2], bhi[4][2];
+      ldmatrix_x4_trans(r, st + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * kQRow + wn +
+                               (lane >> 4) * 16);
+#pragma unroll
+      for (int g = 0; g < 2; ++g) {
+#pragma unroll
+        for (int f = 0; f < 2; ++f) {
+          unsigned lo[2], hi[2];
+          nibble_pairs_to_bf16(r[2 * g + f], lo, hi);
+          blo[2 * g][f] = lo[0], blo[2 * g + 1][f] = lo[1];
+          bhi[2 * g][f] = hi[0], bhi[2 * g + 1][f] = hi[1];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        unsigned alo[4], ahi[4];  // rows wm + 16i .., x's columns k (lo) and K/2 + k (hi)
+        const int row = wm + 16 * i + (lane & 15);
+        ldmatrix_x4(alo, xst + row * kHXRow + kk + (lane >> 4) * 8);
+        ldmatrix_x4(ahi, xst + (kQBM + row) * kHXRow + kk + (lane >> 4) * 8);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          mma_bf16(acc[i][j], alo, blo[j][0], blo[j][1]);
+          mma_bf16(acc[i][j], ahi, bhi[j][0], bhi[j][1]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+
+  // epilogue: in n-tile pair g, lane holds columns wn + 16g + 4*t4 .. +3
+  // (even, odd, even, odd) of rows gid and gid + 8 of each m-tile: scale,
+  // round to bf16, one 8-byte store each (or float32 partial sums)
+  const int gid = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int g = 0; g < 2; ++g) {
+    const int col = n0 + wn + 16 * g + 4 * t4;
+    const float4 sc = *reinterpret_cast<const float4*>(scale + col);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float* e = acc[i][2 * g];
+      const float* o = acc[i][2 * g + 1];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = r0 + wm + 16 * i + gid + 8 * half;
+        if (row >= B) continue;
+        if (partial) {
+          *reinterpret_cast<float4*>(partial + ((long long)split * B + row) * N + col) =
+              make_float4(e[2 * half], o[2 * half], e[2 * half + 1], o[2 * half + 1]);
+          continue;
+        }
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(e[2 * half] * sc.x, o[2 * half] * sc.y);
+        const __nv_bfloat162 hi =
+            __floats2bfloat162_rn(e[2 * half + 1] * sc.z, o[2 * half + 1] * sc.w);
+        uint2 v;
+        v.x = *reinterpret_cast<const unsigned*>(&lo);
+        v.y = *reinterpret_cast<const unsigned*>(&hi);
+        *reinterpret_cast<uint2*>(out + (long long)row * N + col) = v;
+      }
+    }
+  }
+}
+
+int launch_w4a16_mma(const void* x, const int8_t* p, const float* scale, void* out,
+                     float* partial, int B, int K2, int N, int splits, int k_per_split,
+                     cudaStream_t stream) {
+  // above 48 KB of shared memory only by asking (per device; cheap to repeat)
+  const cudaError_t e = cudaFuncSetAttribute(
+      w4a16_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kHSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(N / kQBN, (B + kQBM - 1) / kQBM, splits);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  w4a16_mma_kernel<<<grid, kQThreads, kHSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), p, scale, o, splits > 1 ? partial : nullptr, B, K2, N,
+      k_per_split);
+  if (splits > 1) {
+    const long long total = (long long)B * N;
+    w4a16_reduce<__nv_bfloat16><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
+        partial, scale, o, splits, B, N);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (of x and out). packed and scale point at
-// the whole stack; `layer` selects [layer, :, :]. K2 is the packed row
-// count K/2 (x has 2 * K2 columns). rows: x rows per block (1, 4 or 8; a
-// 2-row tile of the W4A16 kernel spilled registers).
-// The K2 packed rows are split into `splits` ranges of k_per_split rows (a
-// multiple of 128); partial holds splits * B * N float32 when splits > 1.
+// W4A16 at decode rows and for float32 x (cluster_splitk.cuh). dtype: 0
+// float32, 1 bfloat16 (of x and out). packed and scale point at the whole
+// stack; `layer` selects [layer, :, :]. K2 is the packed row count K/2 (x
+// has 2 * K2 columns). rows: x rows per CTA (1, 2, 4 or 8); the K2 packed
+// rows are split over `cluster` CTAs (a power of two, at most 16) of
+// k_per_cta rows each (a multiple of 16), none of them empty.
 extern "C" int int4_matmul_w4a16(const void* x, const void* packed, const void* scale, void* out,
-                                 void* partial, int dtype, int B, int K2, int N, int layer,
-                                 int rows, int splits, int k_per_split, void* stream) {
-  if (bad_shape(B, K2, N, layer, rows, splits, k_per_split) || dtype < 0 || dtype > 1) {
+                                 int dtype, int B, int K2, int N, int layer, int rows, int cluster,
+                                 int k_per_cta, void* stream) {
+  if (splitk::bad_shape(2, B, K2, N, rows, cluster, k_per_cta) || layer < 0 || dtype < 0 ||
+      dtype > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int8_t* pl = static_cast<const int8_t*>(packed) + (long long)layer * K2 * N;
   const float* sl = static_cast<const float*>(scale) + (long long)layer * N;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* pt = static_cast<float*>(partial);
-  if (dtype == 0) {
-    dispatch_w4a16<float>(rows, x, pl, sl, out, pt, B, K2, N, splits, k_per_split, s);
-  } else {
-    dispatch_w4a16<__nv_bfloat16>(rows, x, pl, sl, out, pt, B, K2, N, splits, k_per_split, s);
+  const cudaError_t e = splitk::launch<Int4Rows>(dtype, rows, x, pl, sl, out, B, K2, N,
+                                               cluster, k_per_cta, s);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// W4A16 on the bf16 tensor cores: bf16 x [B, 2 * K2] (K2 % 8 == 0), N %
+// 128 == 0, K2 split into `splits` ranges of k_per_split packed rows (a
+// multiple of 64); partial holds splits * B * N float32 when splits > 1;
+// x, packed and scale (at the layer) 16-byte aligned.
+extern "C" int int4_matmul_w4a16_mma(const void* x, const void* packed, const void* scale,
+                                     void* out, void* partial, int B, int K2, int N, int layer,
+                                     int splits, int k_per_split, void* stream) {
+  const int8_t* pl = static_cast<const int8_t*>(packed) + (long long)layer * K2 * N;
+  const float* sl = static_cast<const float*>(scale) + (long long)layer * N;
+  if (B <= 0 || K2 <= 0 || K2 % 8 || N <= 0 || N % kQBN || layer < 0 ||
+      (B + kQBM - 1) / kQBM > 65535 || splits < 1 || splits > 65535 || k_per_split <= 0 ||
+      k_per_split % kQBK || (long long)splits * k_per_split < K2 ||
+      (long long)(splits - 1) * k_per_split >= K2 || (splits > 1 && partial == nullptr) ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(pl) % 16 ||
+      reinterpret_cast<uintptr_t>(sl) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch_w4a16_mma(x, pl, sl, out, static_cast<float*>(partial), B, K2, N, splits,
+                          k_per_split, static_cast<cudaStream_t>(stream));
 }
 
 // W4A8 on the CUDA cores: x [B, 2 * K2] float32 / bfloat16, quantised per
@@ -851,3 +875,4 @@ extern "C" int int4_matmul_w4a8_mma(const void* x, const void* packed, const voi
              : launch_w4a8_mma<__nv_bfloat16>(x, pl, sl, out, pt, q, sxf, B, K2, N, splits,
                                               k_per_split, s);
 }
+

@@ -15,21 +15,29 @@
 //
 // What bounds it on an H100: at decode (B of 1 to 8 rows) bytes. The
 // weight is K*N bytes and each byte feeds 2*B operations, far below the
-// card's ridge, so the design streams q once at the memory rate:
-// - a block owns 128 columns; each thread reads 16 of them in one 16-byte
-//   load per k row, and its 32 k-lanes walk the block's rows in an
-//   interleaved order so that a warp reads whole 128-byte lines;
-// - where the column tiles alone give too few blocks to fill the 132 SMs
-//   (qkv's N = 3072 gives 24), K is split over blocks (grid.z); each block
-//   writes its partial sums and a second pass adds the splits in order,
-//   applies the scale and casts (no atomics: the result is deterministic);
-// - the x rows of a 128-row chunk are staged in shared memory, and float32
-//   sums (W8A16: bf16 * int8 is exact in float32) or int32 sums (W8A8,
-//   __dp4a over 4 consecutive k regrouped from four 16-byte row loads with
-//   __byte_perm) stay in registers; k-lanes are reduced with warp shuffles
-//   and one shared-memory pass, and the scale is applied in the epilogue.
-// The same loop walks row tiles of 8 (grid.y) for more rows, on the CUDA
-// cores; it serves float32 x at every B, the stacked entry and W8A8.
+// card's ridge, and a decode projection moves 4-23 MB, a few microseconds
+// at the memory rate, so latency and launches cost as much as the bytes.
+// W8A16 at decode rows (the stacked entry, and the flat one below its
+// tensor-core threshold) runs cluster_splitk.cuh's one-launch design: a
+// CTA per 128 columns and K slice has all its weight pieces in flight at
+// once, and the K slices of a column tile form one thread-block cluster
+// that adds its sums in rank 0's shared memory, in rank order
+// (deterministic), and stores. `Int8Rows` below is its weight policy:
+// bf16 * int8 is exact in float32, so only the summation order differs
+// from the plain version.
+//
+// W8A8 quantises x itself (act_quant.cuh: the JAX recipe bit for bit, an
+// IEEE division for sx), so a call launches only this file's kernels. It
+// streams q on the CUDA cores, fused: each block takes its rows' max|x|
+// over the whole K, then quantises x as it stages a 128-row chunk in
+// shared memory; a block owns 128 columns, each thread reads 16 of them in
+// 16-byte loads of 4 consecutive rows, regrouped with __byte_perm into
+// words of 4 k per column for __dp4a (int32 sums, exact, so the output
+// equals the plain version's bits); k-lanes are reduced with warp shuffles
+// and one shared-memory pass. Where the column tiles alone give too few
+// blocks to fill the 132 SMs, K is split over blocks (grid.z); each block
+// writes its int32 partial sums and a second pass adds the splits in
+// order, reading sx from scratch, applies the scales and casts.
 //
 // At prefill and in the encoder (bf16 x, B of hundreds to 1536 rows) the
 // flat W8A16 product is bound by operations: 2*B*K*N of them on K*N weight
@@ -61,12 +69,12 @@
 // different banks. Ragged B and ragged K steps are zero-filled (cp.async
 // with a source size of 0); ragged N is masked at 16-column steps.
 //
-// Layout: x [B, K] (float32 / bfloat16, contiguous), xq [B, K] int8 and
-// sx [B] float32 for W8A8, q [L, K, N] int8 and scale [L, 1, N] float32
-// (contiguous), out [B, N] in x's type, partial [splits, B, N] float32 /
-// int32 scratch when splits > 1. N must be a multiple of 16; W8A8 needs
-// K % 4 == 0; the mma entry needs bf16 x with K % 8 == 0 and 16-byte
-// aligned x and scale (16-byte copies and loads). The wrapper (ops/int8_matmul.py)
+// Layout: x [B, K] (float32 / bfloat16, contiguous), q [L, K, N] int8 and
+// scale [L, 1, N] float32 (contiguous), out [B, N] in x's type; for W8A8
+// partial [splits, B, N] int32 and sx [B] float32 scratch when splits > 1.
+// N must be a multiple of 16; W8A8 needs K % 4 == 0 and 16-byte aligned x;
+// the mma entry needs bf16 x with K % 8 == 0 and 16-byte aligned x and
+// scale (16-byte copies and loads). The wrapper (ops/int8_matmul.py)
 // checks and picks the design and the launch shape; each entry returns the
 // cudaError of its launches.
 
@@ -74,27 +82,19 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "act_quant.cuh"
+#include "cluster_splitk.cuh"
+#include "common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kColsPerThread = 16;                     // one 16-byte load of q
-constexpr int kColThreads = 8;
-constexpr int kTileN = kColThreads * kColsPerThread;  // 128 columns per block
-constexpr int kKLanes = kThreads / kColThreads;        // 32
-constexpr int kChunkK = 128;                           // k rows staged per pass
-constexpr int kRowsPerLane = kChunkK / kKLanes;        // 4
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ uint4 load16(const int8_t* p) {
-  return __ldg(reinterpret_cast<const uint4*>(p));
-}
+using splitk::kColsPerThread;
+using splitk::kColThreads;
+using splitk::kKLanes;
+using splitk::kThreads;
+using splitk::kTileN;
+using splitk::kWarps;
+constexpr int kChunkK = 128;  // W8A8: k rows staged per pass
 
 // 16 int8 of one 16-byte load -> float
 __device__ __forceinline__ void unpack(const uint4 w, float (&f)[kColsPerThread]) {
@@ -107,6 +107,22 @@ __device__ __forceinline__ void unpack(const uint4 w, float (&f)[kColsPerThread]
     }
   }
 }
+
+// the W8A16 weight policy of cluster_splitk.cuh: one x value per row
+struct Int8Rows {
+  static constexpr int kHalves = 1;
+  template <int BT>
+  __device__ __forceinline__ static void accumulate(float (&acc)[BT][kColsPerThread], const uint4 w,
+                                             const float (&xv)[1][BT]) {
+    float wf[kColsPerThread];
+    unpack(w, wf);
+#pragma unroll
+    for (int b = 0; b < BT; ++b) {
+#pragma unroll
+      for (int j = 0; j < kColsPerThread; ++j) acc[b][j] = fmaf(xv[0][b], wf[j], acc[b][j]);
+    }
+  }
+};
 
 // rows k..k+3 of 16 columns -> per column one word of its 4 consecutive k
 __device__ __forceinline__ void regroup(const uint4 (&r)[4], int (&c)[kColsPerThread]) {
@@ -127,115 +143,46 @@ __device__ __forceinline__ void regroup(const uint4 (&r)[4], int (&c)[kColsPerTh
   }
 }
 
-template <typename Acc>
-__device__ __forceinline__ Acc lane_sum(Acc v) {
-  // the 4 k-lanes of a warp: lanes 8 and 16 apart hold the same columns
-  v += __shfl_xor_sync(0xffffffffu, v, 8);
-  v += __shfl_xor_sync(0xffffffffu, v, 16);
-  return v;
-}
-
-// Reduce the block's k-lanes and hand each (row, column) sum to `emit`.
-template <typename Acc, int BT, typename Emit>
-__device__ __forceinline__ void block_reduce(Acc (&acc)[BT][kColsPerThread],
-                                             Acc (&red)[kWarps][BT][kTileN], int B, int N,
-                                             int r0, int n0, Emit emit) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-#pragma unroll
-  for (int b = 0; b < BT; ++b) {
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) acc[b][j] = lane_sum(acc[b][j]);
-  }
-  if (lane < kColThreads) {
-#pragma unroll
-    for (int b = 0; b < BT; ++b) {
-#pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j) red[warp][b][lane * kColsPerThread + j] = acc[b][j];
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < BT * kTileN; i += kThreads) {
-    const int b = i / kTileN, c = i % kTileN;
-    const int r = r0 + b, n = n0 + c;
-    if (r >= B || n >= N) continue;
-    Acc v = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) v += red[w][b][c];
-    emit(r, n, v);
-  }
-}
-
 template <typename T, int BT>
 __global__ void __launch_bounds__(kThreads)
-w8a16_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
-             const float* __restrict__ scale, T* __restrict__ out,
-             float* __restrict__ partial, int B, int K, int N, int k_per_split) {
-  __shared__ float xs[BT][kChunkK];
-  __shared__ float red[kWarps][BT][kTileN];
-  const int tid = threadIdx.x, ct = tid % kColThreads, kl = tid / kColThreads;
-  const int n0 = blockIdx.x * kTileN, r0 = blockIdx.y * BT, split = blockIdx.z;
-  const int col = n0 + ct * kColsPerThread;
-  const int k_begin = split * k_per_split, k_end = min(K, k_begin + k_per_split);
-
-  float acc[BT][kColsPerThread];
-#pragma unroll
-  for (int b = 0; b < BT; ++b) {
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) acc[b][j] = 0.f;
-  }
-
-  for (int c0 = k_begin; c0 < k_end; c0 += kChunkK) {
-    __syncthreads();  // the previous chunk's reads of xs are done
-    for (int i = tid; i < BT * kChunkK; i += kThreads) {
-      const int b = i / kChunkK, kk = i % kChunkK;
-      const int r = r0 + b, k = c0 + kk;
-      xs[b][kk] = (r < B && k < k_end) ? to_f32(x[(long long)r * K + k]) : 0.f;
-    }
-    __syncthreads();
-    if (col < N) {
-      uint4 w[kRowsPerLane];
-#pragma unroll
-      for (int i = 0; i < kRowsPerLane; ++i) {
-        const int k = c0 + kl + i * kKLanes;
-        w[i] = k < k_end ? load16(q + (long long)k * N + col) : make_uint4(0, 0, 0, 0);
-      }
-#pragma unroll
-      for (int i = 0; i < kRowsPerLane; ++i) {
-        float wf[kColsPerThread];
-        unpack(w[i], wf);
-        const int kk = kl + i * kKLanes;
-#pragma unroll
-        for (int b = 0; b < BT; ++b) {
-          const float xv = xs[b][kk];
-#pragma unroll
-          for (int j = 0; j < kColsPerThread; ++j) acc[b][j] = fmaf(xv, wf[j], acc[b][j]);
-        }
-      }
-    }
-  }
-
-  block_reduce<float, BT>(acc, red, B, N, r0, n0, [&](int r, int n, float v) {
-    if (partial) {
-      partial[((long long)split * B + r) * N + n] = v;
-    } else {
-      store(out + (long long)r * N + n, v * scale[n]);
-    }
-  });
-}
-
-template <typename T, int BT>
-__global__ void __launch_bounds__(kThreads)
-w8a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
-            const int8_t* __restrict__ q, const float* __restrict__ scale,
-            T* __restrict__ out, int* __restrict__ partial, int B, int K, int N,
-            int k_per_split) {
+w8a8_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
+            const float* __restrict__ scale, T* __restrict__ out, int* __restrict__ partial,
+            float* __restrict__ sx_out, int B, int K, int N, int k_per_split) {
   __shared__ int xs[BT][kChunkK / 4];  // 4 consecutive k of one row per word
   __shared__ int red[kWarps][BT][kTileN];
+  __shared__ float wmax[kWarps][BT];
+  __shared__ float sxs[BT], rsxs[BT];  // the rows' scales and their rounded reciprocals
   const int tid = threadIdx.x, ct = tid % kColThreads, kl = tid / kColThreads;
+  const int lane = tid & 31, warp = tid >> 5;
   const int n0 = blockIdx.x * kTileN, r0 = blockIdx.y * BT, split = blockIdx.z;
   const int col = n0 + ct * kColsPerThread;
   const int k_begin = split * k_per_split, k_end = min(K, k_begin + k_per_split);
-  const int* x32 = reinterpret_cast<const int*>(xq);
+
+  // the rows' scales, over the whole K (4 values a load, all rows at once)
+  float m[BT];
+#pragma unroll
+  for (int b = 0; b < BT; ++b) m[b] = 0.f;
+  for (int v = tid; v < K / 4; v += kThreads) {
+#pragma unroll
+    for (int b = 0; b < BT; ++b) {
+      if (r0 + b < B) m[b] = fmaxf(m[b], absmax4(x + (long long)(r0 + b) * K + 4 * v));
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < BT; ++b) {
+    const float w = warp_max(m[b]);
+    if (lane == 0) wmax[warp][b] = w;
+  }
+  __syncthreads();
+  if (tid < BT) {
+    float mx = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wmax[w][tid]);
+    sxs[tid] = act_scale(mx);
+    rsxs[tid] = __frcp_rn(sxs[tid]);
+    // the split-K pass reads the scales here
+    if (sx_out && blockIdx.x == 0 && split == 0 && r0 + tid < B) sx_out[r0 + tid] = sxs[tid];
+  }
 
   int acc[BT][kColsPerThread];
 #pragma unroll
@@ -245,11 +192,17 @@ w8a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
   }
 
   for (int c0 = k_begin; c0 < k_end; c0 += kChunkK) {
-    __syncthreads();
+    __syncthreads();  // the scales are set; the previous chunk's reads of xs are done
     for (int i = tid; i < BT * (kChunkK / 4); i += kThreads) {
       const int b = i / (kChunkK / 4), g = i % (kChunkK / 4);
       const int r = r0 + b, k = c0 + 4 * g;
-      xs[b][g] = (r < B && k < k_end) ? x32[((long long)r * K + k) / 4] : 0;
+      int w = 0;
+      if (r < B && k < k_end) {  // K % 4 == 0: k..k+3 all lie below k_end
+        float v[4];
+        load4(x + (long long)r * K + k, v);
+        w = quant4(v, sxs[b], rsxs[b]);
+      }
+      xs[b][g] = w;
     }
     __syncthreads();
     const int k = c0 + 4 * kl;  // this lane's 4 rows of the chunk
@@ -268,27 +221,36 @@ w8a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
     }
   }
 
-  block_reduce<int, BT>(acc, red, B, N, r0, n0, [&](int r, int n, int v) {
+  // k-lanes by shuffles, warps through shared memory
+#pragma unroll
+  for (int b = 0; b < BT; ++b) {
+#pragma unroll
+    for (int j = 0; j < kColsPerThread; ++j) acc[b][j] = lane_sum(acc[b][j]);
+  }
+  if (lane < kColThreads) {
+#pragma unroll
+    for (int b = 0; b < BT; ++b) {
+#pragma unroll
+      for (int j = 0; j < kColsPerThread; ++j) red[warp][b][lane * kColsPerThread + j] = acc[b][j];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < BT * kTileN; i += kThreads) {
+    const int b = i / kTileN, c = i % kTileN;
+    const int r = r0 + b, n = n0 + c;
+    if (r >= B || n >= N) continue;
+    int v = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) v += red[w][b][c];
     if (partial) {
       partial[((long long)split * B + r) * N + n] = v;
     } else {
-      store(out + (long long)r * N + n, __int2float_rn(v) * sx[r] * scale[n]);
+      store(out + (long long)r * N + n, __int2float_rn(v) * sxs[b] * scale[n]);
     }
-  });
+  }
 }
 
-// Second pass of a split-K launch: add the splits in order, scale, cast.
-template <typename T>
-__global__ void w8a16_reduce(const float* __restrict__ partial, const float* __restrict__ scale,
-                             T* __restrict__ out, int splits, int B, int N) {
-  const long long total = (long long)B * N;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  float v = 0.f;
-  for (int s = 0; s < splits; ++s) v += partial[s * total + i];
-  store(out + i, v * scale[i % N]);
-}
-
+// Second pass of a split-K W8A8 launch: add the splits in order, scale, cast.
 template <typename T>
 __global__ void w8a8_reduce(const int* __restrict__ partial, const float* __restrict__ sx,
                             const float* __restrict__ scale, T* __restrict__ out, int splits,
@@ -301,36 +263,14 @@ __global__ void w8a8_reduce(const int* __restrict__ partial, const float* __rest
   store(out + i, __int2float_rn(v) * sx[i / N] * scale[i % N]);
 }
 
-bool bad_shape(int B, int K, int N, int layer, int rows, int splits, int k_per_split) {
-  if (B <= 0 || K <= 0 || N <= 0 || layer < 0 || N % kColsPerThread) return true;
-  if (rows != 1 && rows != 2 && rows != 4 && rows != 8) return true;
-  if (splits < 1 || k_per_split <= 0 || k_per_split % kChunkK) return true;
-  if ((long long)splits * k_per_split < K || (long long)(splits - 1) * k_per_split >= K) return true;
-  return (B + rows - 1) / rows > 65535 || splits > 65535;
-}
-
 template <typename T, int BT>
-void launch_w8a16(const void* x, const int8_t* q, const float* scale, void* out, float* partial,
-                  int B, int K, int N, int splits, int k_per_split, cudaStream_t stream) {
-  const dim3 grid((N + kTileN - 1) / kTileN, (B + BT - 1) / BT, splits);
-  w8a16_kernel<T, BT><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), q, scale, static_cast<T*>(out), splits > 1 ? partial : nullptr,
-      B, K, N, k_per_split);
-  if (splits > 1) {
-    const long long total = (long long)B * N;
-    w8a16_reduce<T><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-        partial, scale, static_cast<T*>(out), splits, B, N);
-  }
-}
-
-template <typename T, int BT>
-void launch_w8a8(const int8_t* xq, const float* sx, const int8_t* q, const float* scale, void* out,
-                 int* partial, int B, int K, int N, int splits, int k_per_split,
+void launch_w8a8(const void* x, const int8_t* q, const float* scale, void* out, int* partial,
+                 float* sx, int B, int K, int N, int splits, int k_per_split,
                  cudaStream_t stream) {
   const dim3 grid((N + kTileN - 1) / kTileN, (B + BT - 1) / BT, splits);
   w8a8_kernel<T, BT><<<grid, kThreads, 0, stream>>>(
-      xq, sx, q, scale, static_cast<T*>(out), splits > 1 ? partial : nullptr, B, K, N,
-      k_per_split);
+      static_cast<const T*>(x), q, scale, static_cast<T*>(out), splits > 1 ? partial : nullptr,
+      splits > 1 ? sx : nullptr, B, K, N, k_per_split);
   if (splits > 1) {
     const long long total = (long long)B * N;
     w8a8_reduce<T><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
@@ -339,26 +279,14 @@ void launch_w8a8(const int8_t* xq, const float* sx, const int8_t* q, const float
 }
 
 template <typename T>
-void dispatch_w8a16(int rows, const void* x, const int8_t* q, const float* scale, void* out,
-                    float* partial, int B, int K, int N, int splits, int k_per_split,
-                    cudaStream_t s) {
+void dispatch_w8a8(int rows, const void* x, const int8_t* q, const float* scale, void* out,
+                   int* partial, float* sx, int B, int K, int N, int splits, int k_per_split,
+                   cudaStream_t s) {
   switch (rows) {
-    case 1: launch_w8a16<T, 1>(x, q, scale, out, partial, B, K, N, splits, k_per_split, s); break;
-    case 2: launch_w8a16<T, 2>(x, q, scale, out, partial, B, K, N, splits, k_per_split, s); break;
-    case 4: launch_w8a16<T, 4>(x, q, scale, out, partial, B, K, N, splits, k_per_split, s); break;
-    default: launch_w8a16<T, 8>(x, q, scale, out, partial, B, K, N, splits, k_per_split, s);
-  }
-}
-
-template <typename T>
-void dispatch_w8a8(int rows, const int8_t* xq, const float* sx, const int8_t* q,
-                   const float* scale, void* out, int* partial, int B, int K, int N, int splits,
-                   int k_per_split, cudaStream_t s) {
-  switch (rows) {
-    case 1: launch_w8a8<T, 1>(xq, sx, q, scale, out, partial, B, K, N, splits, k_per_split, s); break;
-    case 2: launch_w8a8<T, 2>(xq, sx, q, scale, out, partial, B, K, N, splits, k_per_split, s); break;
-    case 4: launch_w8a8<T, 4>(xq, sx, q, scale, out, partial, B, K, N, splits, k_per_split, s); break;
-    default: launch_w8a8<T, 8>(xq, sx, q, scale, out, partial, B, K, N, splits, k_per_split, s);
+    case 1: launch_w8a8<T, 1>(x, q, scale, out, partial, sx, B, K, N, splits, k_per_split, s); break;
+    case 2: launch_w8a8<T, 2>(x, q, scale, out, partial, sx, B, K, N, splits, k_per_split, s); break;
+    case 4: launch_w8a8<T, 4>(x, q, scale, out, partial, sx, B, K, N, splits, k_per_split, s); break;
+    default: launch_w8a8<T, 8>(x, q, scale, out, partial, sx, B, K, N, splits, k_per_split, s);
   }
 }
 
@@ -375,47 +303,6 @@ constexpr int kXRow = kMmaBK + 8;        // bf16 per x row of a stage (+16 bytes
 constexpr int kQRow = kMmaBN + 16;       // int8 per q row of a stage (+16 bytes)
 constexpr int kXStage = kMmaBM * kXRow * 2, kQStage = kMmaBK * kQRow;  // bytes
 constexpr int kMmaSmem = kStages * (kXStage + kQStage);               // 107,520
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, or 16 zero bytes where !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N committed groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // One register of ldmatrix.trans over int8 data: bytes q(k, c), q(k, c+1),
 // q(k+1, c), q(k+1, c+1). -> the bf16 pair (k, k+1) of column c (`even`)
@@ -558,46 +445,51 @@ extern "C" int int8_matmul_w8a16_mma(const void* x, const void* q, const void* s
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype: 0 float32, 1 bfloat16 (of x and out). q and scale point at the
-// whole stack; `layer` selects [layer, :, :]. rows: x rows per block
-// (1, 2, 4 or 8). K is split into `splits` ranges of k_per_split rows
-// (a multiple of 128); partial holds splits * B * N float32 when splits > 1.
+// W8A16 at decode rows (cluster_splitk.cuh). dtype: 0 float32, 1 bfloat16
+// (of x and out). q and scale point at the whole stack; `layer` selects
+// [layer, :, :]. rows: x rows per CTA (1, 2, 4 or 8); the K rows are
+// split over `cluster` CTAs (a power of two, at most 16) of k_per_cta
+// rows each (a multiple of 16), none of them empty.
 extern "C" int int8_matmul_w8a16(const void* x, const void* q, const void* scale, void* out,
-                                 void* partial, int dtype, int B, int K, int N, int layer,
-                                 int rows, int splits, int k_per_split, void* stream) {
-  if (bad_shape(B, K, N, layer, rows, splits, k_per_split) || dtype < 0 || dtype > 1) {
+                                 int dtype, int B, int K, int N, int layer, int rows, int cluster,
+                                 int k_per_cta, void* stream) {
+  if (splitk::bad_shape(1, B, K, N, rows, cluster, k_per_cta) || layer < 0 || dtype < 0 ||
+      dtype > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int8_t* ql = static_cast<const int8_t*>(q) + (long long)layer * K * N;
   const float* sl = static_cast<const float*>(scale) + (long long)layer * N;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* p = static_cast<float*>(partial);
-  if (dtype == 0) {
-    dispatch_w8a16<float>(rows, x, ql, sl, out, p, B, K, N, splits, k_per_split, s);
-  } else {
-    dispatch_w8a16<__nv_bfloat16>(rows, x, ql, sl, out, p, B, K, N, splits, k_per_split, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t e = splitk::launch<Int8Rows>(dtype, rows, x, ql, sl, out, B, K, N,
+                                               cluster, k_per_cta, s);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-// As int8_matmul_w8a16 with int8 activations xq [B, K] and their per-row
-// scales sx [B]; K % 4 == 0; partial holds int32 sums.
-extern "C" int int8_matmul_w8a8(const void* xq, const void* sx, const void* q, const void* scale,
-                                void* out, void* partial, int dtype, int B, int K, int N,
+// W8A8: x [B, K] float32 / bfloat16 (16-byte aligned, K % 4 == 0),
+// quantised per row in the kernel; other arguments as the streaming
+// W8A16 launch had them: rows 1, 2, 4 or 8, K split into `splits` ranges
+// of k_per_split rows (a multiple of 128); partial holds splits * B * N
+// int32 sums and sx B float32 scales when splits > 1.
+extern "C" int int8_matmul_w8a8(const void* x, const void* q, const void* scale, void* out,
+                                void* partial, void* sx, int dtype, int B, int K, int N,
                                 int layer, int rows, int splits, int k_per_split, void* stream) {
-  if (bad_shape(B, K, N, layer, rows, splits, k_per_split) || K % 4 || dtype < 0 || dtype > 1) {
+  if (B <= 0 || K <= 0 || N <= 0 || layer < 0 || N % kColsPerThread || K % 4 || dtype < 0 ||
+      dtype > 1 || (rows != 1 && rows != 2 && rows != 4 && rows != 8) || splits < 1 ||
+      k_per_split <= 0 || k_per_split % kChunkK || (long long)splits * k_per_split < K ||
+      (long long)(splits - 1) * k_per_split >= K || (B + rows - 1) / rows > 65535 ||
+      splits > 65535 || reinterpret_cast<uintptr_t>(x) % 16 ||
+      (splits > 1 && (partial == nullptr || sx == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int8_t* ql = static_cast<const int8_t*>(q) + (long long)layer * K * N;
   const float* sl = static_cast<const float*>(scale) + (long long)layer * N;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int8_t* x = static_cast<const int8_t*>(xq);
-  const float* sxf = static_cast<const float*>(sx);
   int* p = static_cast<int*>(partial);
+  float* sxf = static_cast<float*>(sx);
   if (dtype == 0) {
-    dispatch_w8a8<float>(rows, x, sxf, ql, sl, out, p, B, K, N, splits, k_per_split, s);
+    dispatch_w8a8<float>(rows, x, ql, sl, out, p, sxf, B, K, N, splits, k_per_split, s);
   } else {
-    dispatch_w8a8<__nv_bfloat16>(rows, x, sxf, ql, sl, out, p, B, K, N, splits, k_per_split, s);
+    dispatch_w8a8<__nv_bfloat16>(rows, x, ql, sl, out, p, sxf, B, K, N, splits, k_per_split, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with nvcc
 for Hopper (``sm_90a``) into ``build/kernels/<name>-<digest>.so`` at the
 root of the checkout, on first use, and loaded with ctypes. The digest
-covers the source and the flags, so an edited source builds anew and a
-stale library is never loaded. ``build()`` starts one nvcc per source, all
+covers the source, every header of ``csrc/`` it includes (``#include
+"x.cuh"``, followed through the headers' own includes) and the flags, so
+an edited source or header builds anew and a stale library is never
+loaded. ``build()`` starts one nvcc per source, all
 at once, and waits for them; ``load()`` builds what is missing.
 
 Nothing here runs at import: the CPU tests import every module, and this
@@ -17,6 +19,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -37,6 +40,7 @@ launch_counts: dict[str, int] = {
         "int8_matmul", "int8_matmul_stacked", "int8_matmul_w8a8",  # csrc/int8_matmul.cu
         "int8_matmul_mma",  # the flat launches that took the tensor-core design
         "int4_matmul", "int4_matmul_stacked",  # csrc/int4_matmul.cu
+        "int4_matmul_w4a16_mma",  # the W4A16 launches (flat and stacked) on the tensor cores
         "int4_matmul_w4a8", "int4_matmul_w4a8_stacked",
         "int4_matmul_w4a8_mma",  # the W4A8 launches (flat and stacked) on the tensor cores
     )
@@ -70,10 +74,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list[Path]:
+    """csrc/<name>.cu and every csrc/ header it includes, directly or
+    through another header, each once, in the order first reached."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [CSRC / inc.decode() for inc in _INCLUDE.findall(path.read_bytes())]
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names=KERNELS) -> dict[str, str]:

@@ -12,6 +12,12 @@ weight row k and the high nibble row k + K/2, both sign-extended
 (``pack_int4``); the scale is per output column, [1, N] (or [L, 1, N]),
 cast to float32 by the entries as JAX's entries cast it.
 
+W4A16 has two designs (``w4a16_uses_mma`` picks): bf16 x from
+W4A16_MMA_MIN_ROWS rows runs on the bf16 tensor cores (``mma.sync``, the
+nibbles turned into bf16 exactly in registers); decode rows and float32 x
+run the one-launch cluster split-K design of the W8A16 decode kernel
+(``int8_matmul.cluster_shape``).
+
 For W4A8 the per-row activation quantisation (JAX's ``_quant_acts``, the
 recipe of ``quantize_activations``) runs inside the CUDA code, so a W4A8
 call on the card launches only kernels of ``csrc/int4_matmul.cu``. Its two
@@ -30,13 +36,15 @@ import torch
 from sonicscribe_tpu_torch.ops import _build
 from sonicscribe_tpu_torch.ops.int8_matmul import (
     _DTYPES,
+    cluster_shape,
     launch_shape,
     quantize_activations,
 )
 
 N_MULTIPLE = 128  # the JAX gate: N a multiple of 128 (int4_pallas.py:83-96)
 W4A8_MMA_MIN_ROWS = 5  # W4A8 with at least this many rows goes to the tensor cores
-MMA_TILE_M, MMA_TILE_N = 64, 128  # the mma design's block tile (csrc kQBM, kQBN)
+W4A16_MMA_MIN_ROWS = 3  # bf16 W4A16 with at least this many rows goes to the tensor cores
+MMA_TILE_M, MMA_TILE_N = 64, 128  # the mma designs' block tile (csrc kQBM, kQBN)
 MMA_CHUNK_K = 64  # packed rows per pipeline stage (kQBK)
 MMA_MAX_K_PER_SPLIT = 1472  # packed rows of quantised x a block holds (kQMaxKPerSplit)
 
@@ -122,6 +130,28 @@ def w4a8_uses_mma(B: int) -> bool:
     return B >= W4A8_MMA_MIN_ROWS
 
 
+def w4a16_uses_mma(B: int, dtype: torch.dtype, aligned: bool = True) -> bool:
+    """Whether a W4A16 launch runs on the bf16 tensor cores: bf16 x with at
+    least W4A16_MMA_MIN_ROWS rows (chip_smoke.py times both designs at
+    nano's four decode projections, B 1-9, and gate_up to 64; PERF.md).
+    The mma design copies x and reads the scale in 16-byte pieces, so K/2
+    must be a multiple of 8 and x and scale 16-byte aligned (`aligned`);
+    float32 x keeps full float32 products on the CUDA cores."""
+    return dtype == torch.bfloat16 and B >= W4A16_MMA_MIN_ROWS and aligned
+
+
+def w4a16_mma_shape(B: int, K2: int, N: int, n_sms: int) -> tuple[int, int]:
+    """-> (splits, packed rows per split) of the W4A16 mma design: the K/2
+    packed rows are split until the grid is about one block per SM, each
+    split a whole number of stages (its x comes through the ring, so a
+    split has no size limit)."""
+    tiles = -(-B // MMA_TILE_M) * -(-N // MMA_TILE_N)
+    chunks = -(-K2 // MMA_CHUNK_K)
+    splits = min(chunks, max(1, n_sms // tiles))
+    k_per_split = -(-chunks // splits) * MMA_CHUNK_K
+    return -(-K2 // k_per_split), k_per_split
+
+
 def w4a8_mma_shape(B: int, K2: int, N: int, n_sms: int) -> tuple[int, int]:
     """-> (splits, packed rows per split) of the mma design. Its blocks
     hold their quantised x rows in shared memory and the card holds about
@@ -139,10 +169,12 @@ def w4a8_mma_shape(B: int, K2: int, N: int, n_sms: int) -> tuple[int, int]:
 def _lib():
     lib = _build.load("int4_matmul")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.int4_matmul_w4a16.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, I, P]
+    lib.int4_matmul_w4a16.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I, P]
+    lib.int4_matmul_w4a16_mma.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
     lib.int4_matmul_w4a8.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P]
     lib.int4_matmul_w4a8_mma.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P]
-    for fn in (lib.int4_matmul_w4a16, lib.int4_matmul_w4a8, lib.int4_matmul_w4a8_mma):
+    for fn in (lib.int4_matmul_w4a16, lib.int4_matmul_w4a16_mma, lib.int4_matmul_w4a8,
+               lib.int4_matmul_w4a8_mma):
         fn.restype = ctypes.c_int
     return lib
 
@@ -199,41 +231,68 @@ def _launch_mma(x, packed, scale, layer: int) -> tuple[torch.Tensor, int]:
     return out, err
 
 
+def _launch_w4a16_mma(x, packed, scale, layer: int) -> tuple[torch.Tensor, int]:
+    """The tensor-core W4A16 design (bf16 x, K/2 % 8 == 0, 16-byte aligned
+    x and scale) on layer `layer` of a checked stack, and its split-K pass.
+    -> (out, cudaError of the launches). Counts nothing."""
+    B, K2, N = x.shape[0], packed.shape[1], packed.shape[2]
+    splits, k_per_split = w4a16_mma_shape(B, K2, N, _build.n_sms(x.device))
+    out = torch.empty((B, N), device=x.device, dtype=x.dtype)
+    partial = torch.empty((splits, B, N), device=x.device) if splits > 1 else None
+    err = _lib().int4_matmul_w4a16_mma(
+        x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        partial.data_ptr() if partial is not None else None, B, K2, N, layer, splits,
+        k_per_split, torch.cuda.current_stream(x.device).cuda_stream)
+    return out, err
+
+
+def _launch_w4a16_streaming(x, packed, scale, layer: int,
+                            cluster: int | None = None) -> tuple[torch.Tensor, int]:
+    """The cluster split-K W4A16 design on layer `layer` of a checked
+    stack: one launch; `cluster` as for int8_matmul._launch_streaming. ->
+    (out, cudaError). Counts nothing."""
+    B, K2, N = x.shape[0], packed.shape[1], packed.shape[2]
+    shape = cluster_shape(B, K2, N, halves=2, cluster=cluster)
+    out = torch.empty((B, N), device=x.device, dtype=x.dtype)
+    err = _lib().int4_matmul_w4a16(
+        x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(), _DTYPES[x.dtype], B,
+        K2, N, layer, shape.rows, shape.cluster, shape.k_per_cta,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    return out, err
+
+
 def _launch(name, x, packed, scale, layer: int) -> torch.Tensor:
-    """Launch the W4A16 kernel, or for the W4A8 entries the W4A8 design
-    that w4a8_uses_mma picks, on layer `layer` of the whole stack. Only
-    torch.empty runs beside the kernels."""
+    """Launch the design that w4a16_uses_mma (W4A16) or w4a8_uses_mma
+    (W4A8) picks on layer `layer` of the whole stack. Only torch.empty runs
+    beside the kernels."""
     B, K2, N = _check(name, x, packed, scale, layer)
     w4a8 = name.startswith("int4_matmul_w4a8")
-    mma = w4a8 and w4a8_uses_mma(B)
-    if mma:
+    if not w4a8:
+        mma = w4a16_uses_mma(B, x.dtype, K2 % 8 == 0 and x.data_ptr() % 16 == 0
+                             and scale.data_ptr() % 16 == 0)
+        out, err = (_launch_w4a16_mma if mma else _launch_w4a16_streaming)(x, packed, scale, layer)
+    elif mma := w4a8_uses_mma(B):
         out, err = _launch_mma(x, packed, scale, layer)
     else:
-        # split-K over the K/2 packed rows; B=2 takes the 4-row tile (the
-        # kernel has no 2-row tile: nvcc spilled its registers)
+        # up to 4 rows: split-K over the K/2 packed rows; B=2 takes the 4-row
+        # tile (the kernel has no 2-row tile)
         rows, splits, k_per_split = launch_shape(B, K2, N, _build.n_sms(x.device))
         rows = 4 if rows == 2 else rows
         out = torch.empty((B, N), device=x.device, dtype=x.dtype)
-        partial = (torch.empty((splits, B, N), device=x.device,
-                               dtype=torch.int32 if w4a8 else torch.float32)
+        partial = (torch.empty((splits, B, N), device=x.device, dtype=torch.int32)
                    if splits > 1 else None)
-        ptrs = (x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                partial.data_ptr() if partial is not None else None)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        if w4a8:  # up to 4 rows: tiles of 1 or 4; the split-K pass reads sx
-            sx = torch.empty((B,), device=x.device) if splits > 1 else None
-            err = _lib().int4_matmul_w4a8(*ptrs, sx.data_ptr() if sx is not None else None,
-                                          _DTYPES[x.dtype], B, K2, N, layer, rows, splits,
-                                          k_per_split, stream)
-        else:
-            err = _lib().int4_matmul_w4a16(*ptrs, _DTYPES[x.dtype], B, K2, N, layer, rows,
-                                           splits, k_per_split, stream)
+        sx = torch.empty((B,), device=x.device) if splits > 1 else None  # read by the split-K pass
+        err = _lib().int4_matmul_w4a8(
+            x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            partial.data_ptr() if partial is not None else None,
+            sx.data_ptr() if sx is not None else None, _DTYPES[x.dtype], B, K2, N, layer, rows,
+            splits, k_per_split, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}{' (mma)' if mma else ''} kernel launch failed: "
                            f"cudaError {err}")
     _build.launch_counts[name] += 1
     if mma:
-        _build.launch_counts["int4_matmul_w4a8_mma"] += 1
+        _build.launch_counts["int4_matmul_w4a8_mma" if w4a8 else "int4_matmul_w4a16_mma"] += 1
     return out
 
 
@@ -246,12 +305,14 @@ def _flat(name, x, packed, scale) -> torch.Tensor:
 
 
 def int4_matmul_cuda(x, packed, scale) -> torch.Tensor:
-    """Launch the W4A16 kernel on packed [K/2, N], scale [1, N]."""
+    """Launch a W4A16 kernel on packed [K/2, N], scale [1, N]: the
+    tensor-core design where w4a16_uses_mma says so, else the cluster
+    split-K one."""
     return _flat("int4_matmul", x, packed, scale)
 
 
 def int4_matmul_stacked_cuda(x, packed, scale, layer: int) -> torch.Tensor:
-    """Launch the W4A16 kernel on layer `layer` of the whole stack."""
+    """int4_matmul_cuda on layer `layer` of the whole stack."""
     return _launch("int4_matmul_stacked", x, packed, scale, layer)
 
 

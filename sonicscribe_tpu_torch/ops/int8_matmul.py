@@ -9,30 +9,42 @@ CPU; there is no other fallback. Weights keep the JAX layout: q int8
 [K, N] (or a stack [L, K, N]) with N contiguous, scale float32 [1, N]
 (or [L, 1, N]).
 
-For W8A8 the per-row activation quantisation (``quantize_activations``)
-is plain PyTorch beside the kernel, as JAX leaves it to XLA; the product
-itself is the kernel.
+W8A8 quantises x per row inside the CUDA code (the JAX recipe, bit for
+bit), so a W8A8 call on the card launches only kernels of
+``csrc/int8_matmul.cu``; ``quantize_activations`` is its plain version.
 
-The flat W8A16 entry has two designs (``uses_mma`` picks): bf16 x with
-more than 8 rows (prefill, the encoder) runs on the tensor cores
-(``mma.sync``); decode rows and float32 x stream the weight on the CUDA
-cores, like the stacked entry and W8A8.
+The W8A16 entries (flat and stacked) have two designs: bf16 x with more
+than 8 rows (prefill, the encoder) runs on the tensor cores
+(``mma.sync``, ``uses_mma``); decode rows and float32 x run the one-launch
+cluster split-K design (``cluster_shape``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from sonicscribe_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-TILE_N = 128  # columns per block (csrc/int8_matmul.cu kTileN)
-CHUNK_K = 128  # k rows per staged chunk (kChunkK)
-BLOCKS_PER_SM = 4  # split K until the grid holds about this many blocks per SM
+TILE_N = 128  # columns per block (csrc/cluster_splitk.cuh kTileN)
+CHUNK_K = 128  # W8A8: k rows per staged chunk (csrc/int8_matmul.cu kChunkK)
+BLOCKS_PER_SM = 4  # W8A8: split K until the grid holds about this many blocks per SM
 MMA_MIN_ROWS = 9  # bf16 x with at least this many rows goes to the tensor cores
+# the cluster split-K design (csrc/cluster_splitk.cuh)
+CLUSTER_MAX = 16  # CTAs per cluster (kMaxCluster); above 8 a non-portable size
+CLUSTER_ROW_ALIGN = 16  # rows of q per CTA are a multiple of this (kRowAlign)
+# rows of the weight per CTA that the cluster is sized for, by x rows per
+# CTA (an int4 packed row holds two): the fastest of the tables that
+# chip_smoke.py times in a decode step replayed on the H100 (PERF.md; it
+# also times every cluster size alone). More x rows hold more registers (1
+# CTA per SM at 8) and do more FMAs per weight byte, so they take longer
+# slices.
+CLUSTER_ROWS_PER_CTA = {1: 256, 2: 256, 4: 256, 8: 512}
+MAX_SMEM = 232448  # a CTA's shared memory on the H100 (kMaxSmem)
 
 
 # ---------------------------------------------------------------- plain
@@ -50,12 +62,22 @@ def int8_matmul_stacked_plain(x, q, scale, layer: int) -> torch.Tensor:
     return int8_matmul_plain(x, q[layer], scale[layer])
 
 
+def div127(v: torch.Tensor) -> torch.Tensor:
+    """v / 127 as an IEEE division on any device. PyTorch's CUDA division
+    by a Python scalar (or any CPU scalar) multiplies by the reciprocal,
+    which rounds some values differently from JAX's division (4% of the
+    rows' activation scales on the H100, PERF.md); by a tensor on v's
+    device it divides."""
+    return v / torch.full((), 127.0, device=v.device)
+
+
 def quantize_activations(x) -> tuple[torch.Tensor, torch.Tensor]:
     """Dynamic symmetric per-row int8 of x [B, K] -> (xq int8 [B, K], sx
     float32 [B, 1]): sx = max(max|x|, 1e-8) / 127, xq = clip(round(x /
-    sx), -127, 127), round half to even (ops/quant.py:matmul_w8a8)."""
+    sx), -127, 127), round half to even (ops/quant.py:matmul_w8a8), with
+    IEEE divisions wherever it runs."""
     xf = x.float()
-    sx = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8) / 127.0
+    sx = div127(torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8))
     xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
     return xq, sx
 
@@ -75,10 +97,11 @@ def int8_matmul_w8a8_plain(x, q, scale, layer: int) -> torch.Tensor:
 
 
 def launch_shape(B: int, K: int, N: int, n_sms: int) -> tuple[int, int, int]:
-    """-> (rows per block, splits of K, rows of K per split). Decode-sized
-    B leaves too few column tiles to fill the card, so K is split over
-    blocks until the grid holds about BLOCKS_PER_SM blocks per SM, each
-    split at least one chunk."""
+    """-> (rows per block, splits of K, rows of K per split) of the
+    streaming kernels with a split-K pass (W8A8, and W4A8 below its
+    tensor-core threshold). Decode-sized B leaves too few column tiles to
+    fill the card, so K is split over blocks until the grid holds about
+    BLOCKS_PER_SM blocks per SM, each split at least one chunk."""
     rows = 1 if B == 1 else 2 if B == 2 else 4 if B <= 4 else 8
     tiles = -(-N // TILE_N) * -(-B // rows)
     chunks = -(-K // CHUNK_K)
@@ -87,8 +110,51 @@ def launch_shape(B: int, K: int, N: int, n_sms: int) -> tuple[int, int, int]:
     return rows, -(-K // k_per_split), k_per_split
 
 
+class ClusterShape(NamedTuple):
+    rows: int  # x rows per CTA: 1, 2, 4 or 8
+    cluster: int  # CTAs per cluster, the splits of K: a power of two, at most CLUSTER_MAX
+    k_per_cta: int  # rows of q per CTA, a multiple of CLUSTER_ROW_ALIGN
+    grid: tuple[int, int, int]  # (column tiles, row tiles, cluster)
+
+
+def cluster_smem(halves: int, rows: int, cluster: int, k_per_cta: int) -> int:
+    """Bytes of shared memory of a cluster split-K CTA: x's rows over its
+    slice (`halves`: 2 for int4's two planes), the warps' sums and the
+    cluster's slots (csrc/cluster_splitk.cuh smem_bytes; q goes to
+    registers)."""
+    return 4 * (halves * rows * k_per_cta + (8 + cluster) * rows * TILE_N)
+
+
+def cluster_shape(B: int, K: int, N: int, halves: int = 1,
+                  cluster: int | None = None) -> ClusterShape:
+    """The one-launch cluster split-K design's launch for x [B, K @ q's
+    rows] against q [K, N] (for int4, K is the packed rows K/2, halves=2).
+    Decode-sized B leaves too few column tiles to fill the card, so each
+    tile's K is split over the CTAs of one cluster: the smallest cluster
+    whose slices hold at most CLUSTER_ROWS_PER_CTA rows of the weight (a
+    1/halves share of that in rows of q), grown further while a CTA
+    exceeds the shared memory, but never so far that a CTA would get no
+    rows. The SM count does not enter: the table was
+    measured on the H100's 132 SMs (64-688 CTAs at nano's shapes).
+    `cluster` forces the cluster size (chip_smoke.py times the others)."""
+    rows = 1 if B == 1 else 2 if B == 2 else 4 if B <= 4 else 8
+
+    def k_per(c):
+        return -(-K // (c * CLUSTER_ROW_ALIGN)) * CLUSTER_ROW_ALIGN
+
+    if cluster is None:
+        cluster = 1
+        while cluster < CLUSTER_MAX and (
+                k_per(cluster) > CLUSTER_ROWS_PER_CTA[rows] // halves
+                or cluster_smem(halves, rows, cluster, k_per(cluster)) > MAX_SMEM):
+            if (2 * cluster - 1) * k_per(2 * cluster) >= K:  # the last CTA would be empty
+                break
+            cluster *= 2
+    return ClusterShape(rows, cluster, k_per(cluster), (-(-N // TILE_N), -(-B // rows), cluster))
+
+
 def uses_mma(B: int, K: int, dtype: torch.dtype, aligned: bool = True) -> bool:
-    """Whether the flat W8A16 entry runs on the tensor cores: bf16 x with
+    """Whether a W8A16 entry runs on the tensor cores: bf16 x with
     more than 8 rows (prefill and encoder rows; decode rows stream the
     weight faster on the CUDA cores, and float32 x keeps full float32
     products). The kernel copies x rows and reads scales in 16-byte pieces,
@@ -101,7 +167,7 @@ def uses_mma(B: int, K: int, dtype: torch.dtype, aligned: bool = True) -> bool:
 def _lib():
     lib = _build.load("int8_matmul")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.int8_matmul_w8a16.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, I, P]
+    lib.int8_matmul_w8a16.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I, P]
     lib.int8_matmul_w8a8.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P]
     lib.int8_matmul_w8a16_mma.argtypes = [P, P, P, P, I, I, I, P]
     lib.int8_matmul_w8a16.restype = lib.int8_matmul_w8a8.restype = ctypes.c_int
@@ -136,49 +202,64 @@ def _check(name, x, q, scale, layer: int) -> tuple[int, int, int]:
     return B, K, N
 
 
-def _launch(name, x, q, scale, layer: int) -> torch.Tensor:
-    """Launch the W8A16 kernel (for int8_matmul, the tensor-core design
-    where uses_mma says so), or for int8_matmul_w8a8 quantise x per row
-    (plain PyTorch) and launch the W8A8 kernel, on layer `layer` of the
-    whole stack."""
-    B, K, N = _check(name, x, q, scale, layer)
-    w8a8 = name == "int8_matmul_w8a8"
-    if w8a8 and K % 4:
-        raise ValueError(f"{name}: K must be a multiple of 4, got {K}")
+def _launch_streaming(x, q, scale, layer: int,
+                      cluster: int | None = None) -> tuple[torch.Tensor, int]:
+    """The cluster split-K W8A16 design on layer `layer` of a checked
+    stack; `cluster` forces a cluster size (chip_smoke.py times them). ->
+    (out, cudaError of the launch). Counts nothing."""
+    B, K, N = x.shape[0], q.shape[1], q.shape[2]
+    shape = cluster_shape(B, K, N, cluster=cluster)
     out = torch.empty((B, N), device=x.device, dtype=x.dtype)
+    err = _lib().int8_matmul_w8a16(
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), _DTYPES[x.dtype], B, K, N,
+        layer, shape.rows, shape.cluster, shape.k_per_cta,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    return out, err
+
+
+def _launch(name, x, q, scale, layer: int) -> torch.Tensor:
+    """Launch a W8A16 kernel (the tensor-core design where uses_mma says
+    so), or the W8A8 kernels, which quantise x themselves, on layer `layer`
+    of the whole stack. Only torch.empty runs beside the kernels."""
+    B, K, N = _check(name, x, q, scale, layer)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    aligned = x.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0
-    if name == "int8_matmul" and uses_mma(B, K, x.dtype, aligned):
-        err = _lib().int8_matmul_w8a16_mma(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
-                                           out.data_ptr(), B, K, N, stream)
-        if err != 0:
-            raise RuntimeError(f"{name} (mma) kernel launch failed: cudaError {err}")
-        _build.launch_counts[name] += 1
-        _build.launch_counts["int8_matmul_mma"] += 1
-        return out
-    rows, splits, k_per_split = launch_shape(B, K, N, _build.n_sms(x.device))
-    partial = (torch.empty((splits, B, N), device=x.device,
-                           dtype=torch.int32 if w8a8 else torch.float32)
-               if splits > 1 else None)
-    if w8a8:
-        xq, sx = quantize_activations(x)
-        entry, lhs = _lib().int8_matmul_w8a8, (xq.data_ptr(), sx.data_ptr())
+    mma = False
+    if name == "int8_matmul_w8a8":
+        if K % 4:
+            raise ValueError(f"{name}: K must be a multiple of 4, got {K}")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: x must be 16-byte aligned")
+        rows, splits, k_per_split = launch_shape(B, K, N, _build.n_sms(x.device))
+        out = torch.empty((B, N), device=x.device, dtype=x.dtype)
+        partial = (torch.empty((splits, B, N), device=x.device, dtype=torch.int32)
+                   if splits > 1 else None)
+        sx = torch.empty((B,), device=x.device) if splits > 1 else None  # read by the split-K pass
+        err = _lib().int8_matmul_w8a8(
+            x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            partial.data_ptr() if partial is not None else None,
+            sx.data_ptr() if sx is not None else None, _DTYPES[x.dtype], B, K, N, layer, rows,
+            splits, k_per_split, stream)
+    elif uses_mma(B, K, x.dtype,
+                  x.data_ptr() % 16 == 0 and scale[layer].data_ptr() % 16 == 0):
+        mma = True
+        out = torch.empty((B, N), device=x.device, dtype=x.dtype)
+        err = _lib().int8_matmul_w8a16_mma(x.data_ptr(), q[layer].data_ptr(),
+                                           scale[layer].data_ptr(), out.data_ptr(), B, K, N,
+                                           stream)
     else:
-        entry, lhs = _lib().int8_matmul_w8a16, (x.data_ptr(),)
-    err = entry(
-        *lhs, q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        partial.data_ptr() if partial is not None else None, _DTYPES[x.dtype],
-        B, K, N, layer, rows, splits, k_per_split, stream,
-    )
+        out, err = _launch_streaming(x, q, scale, layer)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"{name}{' (mma)' if mma else ''} kernel launch failed: "
+                           f"cudaError {err}")
     _build.launch_counts[name] += 1
+    if mma:
+        _build.launch_counts["int8_matmul_mma"] += 1
     return out
 
 
 def int8_matmul_cuda(x, q, scale) -> torch.Tensor:
     """Launch a W8A16 kernel on q [K, N], scale [1, N]: the tensor-core
-    design where uses_mma says so, else the CUDA-core one."""
+    design where uses_mma says so, else the cluster split-K one."""
     if q.dim() != 2 or scale.dim() != 2:
         raise ValueError(f"int8_matmul: want q [K, N], scale [1, N], got "
                          f"{tuple(q.shape)}, {tuple(scale.shape)}")
@@ -186,13 +267,13 @@ def int8_matmul_cuda(x, q, scale) -> torch.Tensor:
 
 
 def int8_matmul_stacked_cuda(x, q, scale, layer: int) -> torch.Tensor:
-    """Launch the W8A16 kernel on layer `layer` of the whole stack."""
+    """int8_matmul_cuda on layer `layer` of the whole stack: one launch."""
     return _launch("int8_matmul_stacked", x, q, scale, layer)
 
 
 def int8_matmul_w8a8_cuda(x, q, scale, layer: int) -> torch.Tensor:
-    """Quantise x per row (plain PyTorch), then launch the W8A8 kernel on
-    layer `layer` of the whole stack."""
+    """Launch the W8A8 kernel (and its split-K pass) on layer `layer` of
+    the whole stack; it quantises x per row itself."""
     return _launch("int8_matmul_w8a8", x, q, scale, layer)
 
 

@@ -25,6 +25,7 @@ from typing import Any
 import torch
 
 from sonicscribe_tpu_torch.ops.int8_matmul import (
+    div127,
     int8_matmul,
     int8_matmul_stacked,
     int8_matmul_w8a8,
@@ -49,10 +50,11 @@ def is_qtensor(x: Any) -> bool:
 
 def quantize_tensor(w: torch.Tensor) -> QTensor:
     """Per-output-channel symmetric int8 over the input axis (axis -2):
-    float32 division and round half to even, bit-exact with JAX."""
+    float32 division and round half to even, bit-exact with JAX on the CPU
+    and on the card alike (IEEE divisions: div127)."""
     wf = w.float()
     absmax = wf.abs().amax(dim=-2, keepdim=True)
-    scale = torch.clamp(absmax, min=1e-8) / 127.0
+    scale = div127(torch.clamp(absmax, min=1e-8))
     q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
     return {"q": q, "scale": scale}
 

@@ -38,8 +38,10 @@ from sonicscribe_tpu_torch.ops.int4_matmul import (
     int4_matmul_w4a8_stacked_plain,
     pack_int4,
     w4a8_uses_mma,
+    w4a16_uses_mma,
 )
 from sonicscribe_tpu_torch.ops.int8_matmul import (
+    div127,
     int8_matmul,
     int8_matmul_plain,
     int8_matmul_stacked,
@@ -281,9 +283,11 @@ def test_int8_matmul_kernels(cuda, dtype, B, K, N):
     _assert_w8a16_close(int8_matmul(x, q[1], scale[1]), int8_matmul_plain(x, q[1], scale[1]))
     _assert_w8a16_close(int8_matmul_stacked(x, q, scale, 2),
                         int8_matmul_stacked_plain(x, q, scale, 2))
-    # integer sums are exact on both sides: equal outputs
+    # integer sums are exact on both sides: equal outputs. The kernel
+    # quantises x with the JAX recipe's IEEE division: the plain version on
+    # CPU copies is that recipe
     got = int8_matmul_w8a8(x, q, scale, 2)
-    assert torch.equal(got, int8_matmul_w8a8_plain(x, q, scale, 2))
+    assert torch.equal(got, _on_cpu(int8_matmul_w8a8_plain, x, q, scale, 2))
     for name in ("int8_matmul", "int8_matmul_stacked", "int8_matmul_w8a8"):
         assert _build.launch_counts[name] == before[name] + 1
 
@@ -315,17 +319,19 @@ def test_int8_matmul_mma(cuda, B):
     (9, torch.float32, False), (419, torch.float32, False),
 ])
 def test_int8_matmul_mma_counter(cuda, B, dtype, mma):
-    """The mma counter rises only for bf16 x with B > 8; the stacked entry
-    never takes it."""
+    """The mma counter rises only for bf16 x with B > 8, on the flat and
+    the stacked entry alike (layer 1 read by offset)."""
     g = torch.Generator(device=cuda).manual_seed(0)
     qt = quantize_tensor(torch.randn((2, 256, 384), generator=g, device=cuda) * 0.02)
     x = torch.randn((B, 256), generator=g, device=cuda).to(dtype)
     before = dict(_build.launch_counts)
     _assert_w8a16_close(int8_matmul(x, qt["q"][0], qt["scale"][0]),
                         int8_matmul_plain(x, qt["q"][0], qt["scale"][0]))
-    int8_matmul_stacked(x, qt["q"], qt["scale"], 1)
-    assert _build.launch_counts["int8_matmul_mma"] == before["int8_matmul_mma"] + int(mma)
+    _assert_w8a16_close(int8_matmul_stacked(x, qt["q"], qt["scale"], 1),
+                        int8_matmul_stacked_plain(x, qt["q"], qt["scale"], 1))
+    assert _build.launch_counts["int8_matmul_mma"] == before["int8_matmul_mma"] + 2 * int(mma)
     assert _build.launch_counts["int8_matmul"] == before["int8_matmul"] + 1
+    assert _build.launch_counts["int8_matmul_stacked"] == before["int8_matmul_stacked"] + 1
 
 
 def test_int8_wrappers_reject_what_the_kernel_does_not_take(cuda):
@@ -477,3 +483,141 @@ def test_int4_w4a8_launches_only_its_own_kernels(cuda):
         torch.cuda.synchronize()
     names = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
     assert names and all("w4a8" in n for n in names), names
+
+
+# ---------------------------------------------------------------- the repairs and redesigns
+
+
+# nano's projection weights by quantised key: (K, N) of one layer
+NANO_PROJECTIONS = {
+    "qkv_w": (2048, 3072), "o_w": (2048, 2048), "gate_up_w": (2048, 11008),
+    "down_w": (5504, 2048), "q_w": (1024, 1024), "k_w": (1024, 1024), "v_w": (1024, 1024),
+    "enc_o_w": (1024, 1024), "fc1_w": (1024, 4096), "fc2_w": (4096, 1024),
+}
+
+
+def test_div127_divides_on_the_card(cuda):
+    """div127 on the card is an IEEE division (equal to the CPU's), where
+    PyTorch's `/ 127.0` multiplies by the reciprocal."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    v = torch.rand((1 << 20,), generator=g, device=cuda) * 10.0
+    assert torch.equal(div127(v).cpu(), div127(v.cpu()))
+
+
+@pytest.mark.parametrize("key", sorted(NANO_PROJECTIONS))
+def test_quantize_tensor_on_the_card_equals_the_cpu(cuda, key):
+    """A tree quantised on the card (build_runtime's path) has the CPU's
+    scales and codes, bit for bit, at nano's projection shapes (two layers,
+    bf16 weights as nano-random's)."""
+    K, N = NANO_PROJECTIONS[key]
+    g = torch.Generator(device=cuda).manual_seed(K + N)
+    w = (torch.randn((2, K, N), generator=g, device=cuda) * 0.02).to(torch.bfloat16)
+    w[0, :, 0] = 0.0  # the 1e-8 floor
+    got, want = quantize_tensor(w), quantize_tensor(w.cpu())
+    assert torch.equal(got["scale"].cpu(), want["scale"])
+    assert torch.equal(got["q"].cpu(), want["q"])
+
+
+@pytest.mark.parametrize("B", [1, 2, 3, 4, 5, 8])
+def test_int8_w8a8_equals_the_recipe(cuda, B):
+    """W8A8 quantises x in the kernel: equal bits with the plain version
+    (the JAX recipe) run on CPU copies, at nano's decode projections,
+    float32 and bf16 x."""
+    g = torch.Generator(device=cuda).manual_seed(B)
+    for K, N in NANO_PROJECTIONS.values():
+        if (K, N) in ((1024, 1024), (1024, 4096), (4096, 1024)):
+            continue  # the encoder's: W8A8 serves decode only
+        qt = quantize_tensor(torch.randn((2, K, N), generator=g, device=cuda) * 0.02)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((B, K), generator=g, device=cuda).to(dtype)
+            got = int8_matmul_w8a8(x, qt["q"], qt["scale"], 1)
+            assert torch.equal(got, _on_cpu(int8_matmul_w8a8_plain, x, qt["q"], qt["scale"], 1))
+
+
+@pytest.mark.parametrize("B", [4, 8])
+def test_int8_w8a8_crafted_rows(cuda, B):
+    """Rows that pin the recipe, as for W4A8: all zeros (the 1e-8 floor),
+    x / sx exactly on .5 (half to even), the largest magnitude negative,
+    and both ends at +-127."""
+    K, N = 256, 128
+    g = torch.Generator(device=cuda).manual_seed(5)
+    qt = quantize_tensor(torch.randn((1, K, N), generator=g, device=cuda) * 0.02)
+    x = torch.randn((B, K), generator=g, device=cuda)
+    x[0] = 0.0
+    x[1] = 0.0  # max|x| = 127 -> sx = 1: x / sx = v exactly
+    x[1, :8] = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5])
+    x[2, 5] = -3.0 * x[2].abs().max()  # the largest magnitude is negative
+    x[3] = torch.linspace(-1.0, 1.0, K, device=cuda) * 127.0  # both ends at +-127
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(dtype)
+        got = int8_matmul_w8a8(xd, qt["q"], qt["scale"], 0)
+        assert torch.equal(got, _on_cpu(int8_matmul_w8a8_plain, xd, qt["q"], qt["scale"], 0))
+        assert not bool(got[0].any())  # a zero row stays zero
+
+
+def _kernel_names(fn):
+    """The names of the kernels one call of fn runs on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # builds and loads the kernels outside the profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def test_int8_w8a8_launches_only_its_own_kernels(cuda):
+    """A W8A8 call runs no PyTorch kernel: at B 1 (split-K: the kernel and
+    its second pass) and 8, every kernel on the card is a W8A8 kernel of
+    csrc/int8_matmul.cu."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    qt = quantize_tensor(torch.randn((2, 2048, 3072), generator=g, device=cuda) * 0.02)
+    for B in (1, 8):
+        x = torch.randn((B, 2048), generator=g, device=cuda).to(torch.bfloat16)
+        names = _kernel_names(lambda: int8_matmul_w8a8(x, qt["q"], qt["scale"], 1))
+        assert names and all("w8a8" in n for n in names), names
+
+
+@pytest.mark.parametrize("B", [1, 2, 3, 4, 5, 8])
+def test_int8_w8a16_decode_rows(cuda, B):
+    """The cluster split-K W8A16 design at decode rows, stacked and flat
+    (below the tensor-core threshold), at nano's decoder projections:
+    within tolerance of the plain version, two runs bit-equal, the stacked
+    call one launch of one kernel."""
+    g = torch.Generator(device=cuda).manual_seed(B)
+    for K, N in [(2048, 3072), (2048, 2048), (2048, 11008), (5504, 2048)]:
+        qt = quantize_tensor(torch.randn((2, K, N), generator=g, device=cuda) * 0.02)
+        q, scale = qt["q"], qt["scale"]
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((B, K), generator=g, device=cuda).to(dtype)
+            got = int8_matmul_stacked(x, q, scale, 1)
+            _assert_w8a16_close(got, int8_matmul_stacked_plain(x, q, scale, 1))
+            assert torch.equal(got, int8_matmul_stacked(x, q, scale, 1))
+            flat = int8_matmul(x, q[1], scale[1])
+            _assert_w8a16_close(flat, int8_matmul_plain(x, q[1], scale[1]))
+            assert torch.equal(flat, got)  # flat is a stack of one: the same kernel
+    names = _kernel_names(lambda: int8_matmul_stacked(x, q, scale, 1))
+    assert len(names) == 1, names
+
+
+@pytest.mark.parametrize("B", [1, 2, 4, 5, 8, 9, 16, 37, 64, 227])
+def test_int4_w4a16_designs(cuda, B):
+    """W4A16 flat and stacked at nano's four projections, float32 and bf16
+    x, both sides of the tensor-core threshold and ragged B: within
+    tolerance of the plain version; the mma counter rises exactly where
+    w4a16_uses_mma says."""
+    weights, g = _nano_int4(cuda, B + 100)
+    for (K, N), (packed, scale) in weights.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((B, K), generator=g, device=cuda).to(dtype)
+            before = dict(_build.launch_counts)
+            got = int4_matmul(x, packed[1], scale[1])
+            got_st = int4_matmul_stacked(x, packed, scale, 1)
+            mma = _build.launch_counts["int4_matmul_w4a16_mma"] - before["int4_matmul_w4a16_mma"]
+            assert mma == 2 * int(w4a16_uses_mma(B, dtype)), (K, N, dtype)
+            assert _build.launch_counts["int4_matmul"] == before["int4_matmul"] + 1
+            want = int4_matmul_plain(x, packed[1], scale[1])
+            _assert_w8a16_close(got, want)
+            _assert_w8a16_close(got_st, want)
+            assert torch.equal(got_st, int4_matmul_stacked(x, packed, scale, 1))

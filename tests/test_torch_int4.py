@@ -263,3 +263,100 @@ def test_w4a8_quantisation_fast_path_rounds_as_the_division():
         q = np.where(slow, exact, q)
         np.testing.assert_array_equal(np.clip(np.rint(q), -127, 127),
                                       np.clip(np.rint(exact), -127, 127))
+
+
+# ---------------------------------------------------------------- W4A16 designs
+
+
+def _byte_perm(x: int, y: int, s: int) -> int:
+    """CUDA's __byte_perm: byte n of the result is byte (s >> 4n) & 7 of
+    the 8 bytes of y:x."""
+    both = (y << 32) | x
+    return sum(((both >> (8 * ((s >> (4 * n)) & 7))) & 0xFF) << (8 * n) for n in range(4))
+
+
+def _bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def _nibble_pairs_to_bf16(r: int) -> dict:
+    """csrc/int4_matmul.cu nibble_pairs_to_bf16, emulated: one register of
+    ldmatrix.trans (bytes p(k, c), p(k, c+1), p(k+1, c), p(k+1, c+1)) ->
+    {(plane, column): [value at k, value at k+1]}; bf16 0x4300 | u is 128
+    + u, and 136 comes off in bf16 (exact: checked against float64)."""
+    lo = (r & 0x0F0F0F0F) ^ 0x08080808
+    hi = ((r >> 4) & 0x0F0F0F0F) ^ 0x08080808
+    out = {}
+    for plane, w in (("lo", lo), ("hi", hi)):
+        for col, sel in ((0, 0x4240), (1, 0x4341)):
+            word = _byte_perm(w, 0x43434343, sel)
+            halves = np.array([word & 0xFFFF, word >> 16], np.uint16)
+            f = _bf16_bits_to_f32(halves).astype(np.float64) - 136.0
+            diff = torch.from_numpy(f.astype(np.float32)).to(torch.bfloat16).float().numpy()
+            assert (diff == f).all()  # __hsub2's bf16 result is exact
+            out[plane, col] = diff
+    return out
+
+
+def test_nibble_to_bf16_is_exact_for_every_packed_byte():
+    """The W4A16 mma design's nibble -> bf16 conversion, emulated bit for
+    bit over all 256 packed byte values in each of the four byte positions
+    of a register, both planes and both columns, against unpack_halves."""
+    values = np.arange(256, dtype=np.uint8)
+    lo, hi = (t.numpy().astype(np.float64) for t in
+              t4.unpack_halves(torch.from_numpy(values.view(np.int8))))
+    rng = np.random.default_rng(0)
+    for pos in range(4):  # byte pos: (k, c), (k, c+1), (k+1, c), (k+1, c+1)
+        for v in range(256):
+            b = rng.integers(0, 256, 4)
+            b[pos] = v
+            got = _nibble_pairs_to_bf16(int(b[0] | b[1] << 8 | b[2] << 16 | b[3] << 24))
+            for plane, ref in (("lo", lo), ("hi", hi)):
+                assert list(got[plane, 0]) == [ref[b[0]], ref[b[2]]], (pos, v, plane)
+                assert list(got[plane, 1]) == [ref[b[1]], ref[b[3]]], (pos, v, plane)
+
+
+def test_w4a16_uses_mma_from_its_measured_threshold():
+    """The threshold measured on the H100 (chip_smoke.py's A/B of both
+    designs at nano's four decode projections, PERF.md): bf16 x from
+    W4A16_MMA_MIN_ROWS rows; never float32 x, nor a shape the mma design
+    does not take."""
+    assert t4.W4A16_MMA_MIN_ROWS == 3
+    for B in range(1, 300):
+        assert t4.w4a16_uses_mma(B, torch.bfloat16) == (B >= t4.W4A16_MMA_MIN_ROWS)
+        assert not t4.w4a16_uses_mma(B, torch.float32)
+        assert not t4.w4a16_uses_mma(B, torch.bfloat16, aligned=False)
+
+
+@pytest.mark.parametrize("B", [5, 8, 9, 16, 37, 64, 227, 1536])
+def test_w4a16_mma_shape_covers_every_row_and_column_once(B):
+    """The W4A16 mma design's grid covers every packed row and every output
+    element exactly once, each split a whole number of stages, no split
+    empty, and splits only while the tiles leave SMs idle."""
+    for K2, N in NANO_K2_N + [(64, 256), (128, 128)]:
+        splits, kps = t4.w4a16_mma_shape(B, K2, N, 132)
+        assert kps % t4.MMA_CHUNK_K == 0 and kps > 0
+        rows = np.zeros(K2, int)
+        for s in range(splits):
+            assert s * kps < K2  # no empty split
+            rows[s * kps: min(K2, (s + 1) * kps)] += 1
+        assert (rows == 1).all(), (K2, N, splits, kps)
+        tiles = N // t4.MMA_TILE_N * -(-B // t4.MMA_TILE_M)
+        assert splits == 1 or tiles * splits <= 132 + tiles
+        cols = np.zeros((B, N), int)
+        for bx in range(N // t4.MMA_TILE_N):
+            for by in range(-(-B // t4.MMA_TILE_M)):
+                cols[by * 64: (by + 1) * 64, bx * 128: (bx + 1) * 128] += 1
+        assert (cols == 1).all()
+    assert t4.w4a16_mma_shape(64, 1024, 11008, 132) == (1, 1024)  # gate_up: 86 tiles
+
+
+def test_w4a16_entries_launch_nothing_on_the_cpu():
+    """On the CPU the W4A16 entries run the plain version at any B: no
+    kernel, no counter (the mma counter included)."""
+    for B in (1, 16):
+        x, packed, scale = _inputs(5, B, 256, 128, jnp.bfloat16, layers=2)
+        before = dict(_build.launch_counts)
+        t4.int4_matmul(_t(x), _t(packed[0]), _t(scale[0]))
+        t4.int4_matmul_stacked(_t(x), _t(packed), _t(scale), 1)
+        assert _build.launch_counts == before

@@ -27,10 +27,16 @@ from sonicscribe_tpu_torch.models.tokenizer import ByteTokenizer
 from sonicscribe_tpu_torch.models.weights import load_checkpoint, params_from_jax
 from sonicscribe_tpu_torch.ops import _build
 from sonicscribe_tpu_torch.ops.int8_matmul import (
+    CLUSTER_MAX,
+    MAX_SMEM,
+    cluster_shape,
+    cluster_smem,
+    div127,
     int8_matmul,
     int8_matmul_stacked,
     int8_matmul_w8a8,
     launch_shape,
+    quantize_activations,
     uses_mma,
 )
 from sonicscribe_tpu_torch.ops.quant import (
@@ -201,6 +207,116 @@ def test_launch_shape_unchanged_for_int4(B):
     nano = [(2048, 3072), (2048, 2048), (2048, 11008), (5504, 2048)]
     got = [launch_shape(B, K // 2, N, 132) for K, N in nano]
     assert got == INT4_LAUNCH_SHAPES[B]
+
+
+# (K, N) of the products that reach the cluster split-K design: nano's and
+# tiny's decoder projections (for int4, K is the packed rows K/2), and the
+# encoders' flat projections (float32 x at any B)
+NANO_DEC = [(2048, 3072), (2048, 2048), (2048, 11008), (5504, 2048)]
+TINY_DEC = [(128, 256), (128, 128), (128, 512), (256, 128)]
+ENCODERS = [(1024, 1024), (1024, 4096), (4096, 1024), (64, 64), (64, 256), (256, 64)]
+
+
+def _cluster_cases():
+    for K, N in NANO_DEC + TINY_DEC:
+        yield 1, K, N
+        yield 2, K // 2, N
+    for K, N in ENCODERS:
+        yield 1, K, N
+
+
+@pytest.mark.parametrize("halves,K,N", list(_cluster_cases()))
+def test_cluster_shape_covers_every_row_and_column_once(halves, K, N):
+    """The one-launch design's grid (column tiles x row tiles x a cluster
+    of CTAs along K) covers every row of q and every output element exactly
+    once, no CTA without rows, a power-of-two cluster of at most 16, each
+    CTA's shared memory within the card's, at decode rows and beyond."""
+    for B in (1, 2, 3, 4, 5, 8, 9, 37, 419):
+        s = cluster_shape(B, K, N, halves)
+        assert s.rows == {1: 1, 2: 2, 3: 4, 4: 4}.get(B, 8), (B, s)
+        assert s.cluster in (1, 2, 4, 8, 16) and s.cluster <= CLUSTER_MAX
+        assert s.k_per_cta % 16 == 0 and cluster_smem(halves, s.rows, s.cluster,
+                                                      s.k_per_cta) <= MAX_SMEM
+        assert s.grid == (-(-N // 128), -(-B // s.rows), s.cluster)
+        rows = np.zeros(K, int)
+        for rank in range(s.cluster):
+            lo, hi = rank * s.k_per_cta, min(K, (rank + 1) * s.k_per_cta)
+            assert hi > lo, (B, K, N, s)  # no empty CTA
+            rows[lo:hi] += 1
+        assert (rows == 1).all(), (B, K, N, s)
+        cols = np.zeros((B, N), int)
+        for bx in range(s.grid[0]):
+            for by in range(s.grid[1]):
+                cols[by * s.rows: (by + 1) * s.rows, bx * 128: (bx + 1) * 128] += 1
+        assert (cols == 1).all()
+
+
+def test_cluster_shape_at_nano_decode_rows():
+    """Pinned, the H100 sweep's choices (PERF.md): slices of at most 256
+    rows of q per CTA up to 4 x rows and 512 at 8, in clusters of at most 16
+    (down's K = 5504 needs 16 CTAs of 352 rows); int4's packed rows hold
+    two rows of the weight each, so its slices hold half as many."""
+    got = [[cluster_shape(B, K, N)[1:3] for K, N in NANO_DEC] for B in (1, 2, 4, 8)]
+    assert got == [[(8, 256), (8, 256), (8, 256), (16, 352)]] * 3 + [
+        [(4, 512), (4, 512), (4, 512), (16, 352)]]
+    got = [cluster_shape(1, K // 2, N, halves=2)[1:3] for K, N in NANO_DEC]
+    assert got == [(8, 128), (8, 128), (8, 128), (16, 176)]
+
+
+def test_div127_is_the_ieee_division_on_the_cpu():
+    """div127 and the quantisers built on it give JAX's bits (its float32
+    division by 127) where a multiply by the rounded reciprocal, PyTorch's
+    CUDA form of `/ 127.0`, does not: on values chosen where the two
+    differ, and on random rows' scales."""
+    rng = np.random.default_rng(11)
+    v = rng.uniform(1e-3, 10.0, 200_000).astype(np.float32)
+    want = np.asarray(jnp.asarray(v) / jnp.float32(127.0))
+    recip = v * (np.float32(1.0) / np.float32(127.0))
+    differ = recip != want
+    assert differ.mean() > 0.01  # the reciprocal form would fail this test
+    np.testing.assert_array_equal(div127(torch.from_numpy(v)).numpy(), want)
+    x = rng.standard_normal((64, 256)).astype(np.float32)
+    x[0] = 0.0  # the 1e-8 floor
+    x[1, 3] = v[np.argmax(differ)]  # a row whose scale needs the division
+    x[1] = np.clip(x[1], -x[1, 3], x[1, 3])
+    _, sx = quantize_activations(torch.from_numpy(x))
+    want_sx = np.asarray(jnp.maximum(jnp.abs(jnp.asarray(x)).max(axis=-1, keepdims=True),
+                                     jnp.float32(1e-8)) / jnp.float32(127.0))
+    np.testing.assert_array_equal(sx.numpy(), want_sx)
+    w = rng.standard_normal((256, 64)).astype(np.float32)
+    w[:, 5] = np.clip(w[:, 5], -v[np.argmax(differ)], v[np.argmax(differ)])
+    np.testing.assert_array_equal(quantize_tensor(torch.from_numpy(w))["scale"].numpy(),
+                                  np.asarray(jq.quantize_tensor(jnp.asarray(w))["scale"]))
+
+
+def test_library_path_hashes_the_included_headers(tmp_path, monkeypatch):
+    """An edited header of csrc/, included directly or through another
+    header, changes the library's digest, so a stale library is never
+    loaded; a header the source does not include does not."""
+    (tmp_path / "k.cu").write_text('#include <stdint.h>\n#include "a.cuh"\nint f();\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    (tmp_path / "other.cuh").write_text("// other\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert [p.name for p in _build.sources("k")] == ["k.cu", "a.cuh", "b.cuh"]
+    first = _build.library_path("k")
+    (tmp_path / "other.cuh").write_text("// other, edited\n")
+    assert _build.library_path("k") == first
+    (tmp_path / "b.cuh").write_text("// b, edited\n")
+    second = _build.library_path("k")
+    assert second != first and second.name.startswith("k-")
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n// edited\n')
+    assert _build.library_path("k") not in (first, second)
+
+
+def test_every_kernel_source_and_header_is_hashed():
+    """The package's own sources: each kernel's digest covers the headers
+    it includes (act_quant.cuh, cluster_splitk.cuh, common.cuh)."""
+    for name in _build.KERNELS:
+        assert _build.sources(name)[0].name == f"{name}.cu"
+    for name in ("int8_matmul", "int4_matmul"):
+        assert {p.name for p in _build.sources(name)[1:]} == {
+            "act_quant.cuh", "cluster_splitk.cuh", "common.cuh"}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
