@@ -35,9 +35,16 @@ exits non-zero on failure:
    tensor-core design (bf16, B > 8) also at B 9, 17 and 227 on the four
    decoder projections;
    W8A8 quantises x in its own kernels and is held to the plain version run
-   on CPU copies of the inputs (the JAX recipe), crafted rows included; a
-   profile of one stacked W8A16 call at B 1 must show one kernel, and of one
-   W8A8 call only W8A8 kernels; the flat design is timed at the four
+   on CPU copies of the inputs (the JAX recipe), bit for bit, at B 1, 2, 4,
+   5, 8 and either side of W8A8_MMA_MIN_ROWS, crafted rows included, under
+   the entry and both designs forced (two runs equal bits; the
+   int8_matmul_w8a8_mma counter rising exactly from the threshold); a
+   profile of one stacked W8A16 call and of one W8A8 call at B 1 must each
+   show one kernel, and of a W8A8 call at the threshold and at 64 rows only
+   W8A8 kernels; W8A8 is timed at B 1 on the four projections and at gate_up
+   B 8, 37 and 64 (torch._int_mm its yardstick above 16 rows), with its
+   cluster sizes at B 1, 2 and 4 and both designs at the four projections
+   from 1 to 256 rows (the threshold's A/B); the flat W8A16 design is timed at the four
    prefill/encoder shapes beside the cluster split-K design on the same
    inputs; the four int4 kernels at nano's decode
    shapes (B 1, 2, 4, 5, 8, 9, 16, 17, 37, 64, 227, and W4A8 crafted rows),
@@ -52,12 +59,12 @@ exits non-zero on failure:
    1-5, 8 and 9, and gate_up also at 16, 37 and 64 (the threshold's A/B).
    The int4 kernels are timed at B 1 and at gate_up B 64 (W4A8 also at
    gate_up B 8 and 37). Then the bench tools' per-step projection sweeps:
-   int8 at B 1 and 8; int4 at B 1, 8 and 64 in every variant, after one
+   int8 at B 1, 8 and 64; int4 at B 1, 8 and 64 in every variant, after one
    eager step of each int4 kernel variant whose launches are counted (4 per
    layer) and whose output is held against the int8 variant's on the same
-   codes; and the cluster split-K design's slice table (half, shipped and
-   twice CLUSTER_ROWS_PER_CTA) timed in a replayed int8 and int4_w4a16
-   step.
+   codes; and the cluster split-K design's slice tables (half, shipped and
+   twice CLUSTER_ROWS_PER_CTA, and W8A8's own) timed in a replayed int8,
+   int8_w8a8 and int4_w4a16 step.
    The int4 kernels serve no request: the JAX package serves no int4 mode,
    and its only path to them is this sweep.
 3. main path: build_runtime("nano-random") in bf16 at full width, then the
@@ -71,9 +78,11 @@ exits non-zero on failure:
    stacked W8A16 kernel (W8A8 in -a8) runs 4 times per layer per decode
    step (one launch each), the flat W8A16 kernel 4 times per layer per segment in prefill
    (plus 6 per encoder layer in full int8), every one of them bf16 with
-   B > 8 and so on the tensor cores (int8_matmul_mma). Each runtime's peak memory is
+   B > 8 and so on the tensor cores (int8_matmul_mma), and W8A8's one decode
+   row on its cluster design. Each runtime's peak memory is
    read over its request, and a short profiled request splits its time
-   between host and card, as for the native runtime.
+   between host and card, as for the native runtime (in int8-decoder-a8
+   one W8A8 kernel per W8A8 call).
 4. reference: tiny() in float32 gives the same tokens on the card as on
    the CPU (where the tests hold it against the JAX package), natively and
    in each int8 mode (each tree quantized on its own device, as
@@ -81,8 +90,8 @@ exits non-zero on failure:
 
 The line before the last is the kernels' JSON record (nine kernels, each
 with the path its launches were counted on; the redesigned ones with their
-design; the flat W8A16 and the four int4 entries with `mma_launches`, the
-launches that took the tensor cores); the last line is
+design; the flat W8A16, W8A8 and the four int4 entries with
+`mma_launches`, the launches that took the tensor cores); the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no result.
 """
 
@@ -447,6 +456,13 @@ def int8_kernel_phase(torch, timer):
         """The plain W8A8 (the JAX recipe) on CPU copies, layer 1, back on the card."""
         return im.int8_matmul_w8a8_plain(x.cpu(), q.cpu(), sc.cpu(), 1).cuda()
 
+    def w8a8_design(design, x, q, sc, **kw):
+        """One W8A8 design forced on layer 1 (the entry picks by B)."""
+        launch = im._launch_w8a8_mma if design == "mma" else im._launch_w8a8_cluster
+        out, err = launch(x, q, sc, 1, **kw)
+        check(err == 0, f"W8A8 {design} design B={x.shape[0]}: cudaError {err}")
+        return out
+
     for dtype in (torch.float32, torch.bfloat16):
         for B in (1, 2, 4, 5, 8):
             for p in ("qkv", "o", "gate_up", "down"):
@@ -461,10 +477,30 @@ def int8_kernel_phase(torch, timer):
                             case)
                 check(torch.equal(got, im.int8_matmul_stacked_cuda(x, q, sc, 1)),
                       f"int8_matmul_stacked {case}: two runs differ")
+    # W8A8 at decode rows and either side of its design threshold: the
+    # entry and both designs forced equal the recipe, two runs equal bits,
+    # the mma counter rising exactly from W8A8_MMA_MIN_ROWS rows
+    T = im.W8A8_MMA_MIN_ROWS
+    w8a8_rows = sorted({1, 2, 4, 5, 8, T - 1, T})
+    for dtype in (torch.float32, torch.bfloat16):
+        for B in w8a8_rows:
+            for p in ("qkv", "o", "gate_up", "down"):
+                K, N = shapes[p]
+                q, sc = stacks[p]["q"], stacks[p]["scale"]
+                x = x_of(B, K, dtype)
+                case = f"{p} B={B} {dtype}"
+                before = _build.launch_counts["int8_matmul_w8a8_mma"]
                 got = im.int8_matmul_w8a8_cuda(x, q, sc, 1)
+                mma = _build.launch_counts["int8_matmul_w8a8_mma"] - before
+                check(mma == int(B >= T), f"int8_matmul_w8a8 {case}: the mma counter rose by {mma}")
                 want = recipe(x, q, sc)
                 check(torch.equal(got, want), f"int8_matmul_w8a8 {case}: max err "
                       f"{(got.float() - want.float()).abs().max().item()}, want equal")
+                check(torch.equal(got, im.int8_matmul_w8a8_cuda(x, q, sc, 1)),
+                      f"int8_matmul_w8a8 {case}: two runs differ")
+                for design in ("cluster", "mma"):
+                    check(torch.equal(w8a8_design(design, x, q, sc), want),
+                          f"int8_matmul_w8a8 {case}, {design} design: differs from the recipe")
     # crafted rows: all zeros (the 1e-8 floor), x / sx on .5 (half to even),
     # the largest magnitude negative, both ends at +-127
     K = shapes["qkv"][0]
@@ -478,9 +514,13 @@ def int8_kernel_phase(torch, timer):
     for dtype in (torch.float32, torch.bfloat16):
         for rows in (4, 8):
             xd = x[:rows].to(dtype).contiguous()
-            got = im.int8_matmul_w8a8_cuda(xd, q, sc, 1)
-            check(torch.equal(got, recipe(xd, q, sc)) and not bool(got[0].any()),
-                  f"int8_matmul_w8a8 crafted rows, B={rows} {dtype}: differ from the recipe")
+            want = recipe(xd, q, sc)
+            for design, got in (("entry", im.int8_matmul_w8a8_cuda(xd, q, sc, 1)),
+                                ("cluster", w8a8_design("cluster", xd, q, sc)),
+                                ("mma", w8a8_design("mma", xd, q, sc))):
+                check(torch.equal(got, want) and not bool(got[0].any()),
+                      f"int8_matmul_w8a8 crafted rows, B={rows} {dtype}, {design}: differ from "
+                      f"the recipe")
         for B, p in ((prefill_rows, "qkv"), (prefill_rows, "down"),
                      (encoder_rows, "enc_fc1"), (encoder_rows, "enc_fc2")):
             check_flat(B, p, dtype)
@@ -491,7 +531,9 @@ def int8_kernel_phase(torch, timer):
     log(f"int8 kernels vs plain: max abs err W8A16 flat {errs['int8_matmul']:.3g}, stacked "
         f"{errs['int8_matmul_stacked']:.3g} (tolerance {INT8_F32_TOL} x max|want|, + one "
         f"bf16 ulp in bf16; two stacked runs equal bits); W8A8 equal to the recipe on CPU "
-        f"copies (decode B 1,2,4,5,8 at qkv/o/gate_up/down and crafted rows; flat also "
+        f"copies, the entry and both designs forced, two runs equal (B "
+        f"{','.join(map(str, w8a8_rows))} at qkv/o/gate_up/down and crafted rows; the mma "
+        f"design ran exactly for B >= {T}); W8A16 flat also "
         f"B={prefill_rows} qkv/down, B={encoder_rows} enc fc1/fc2, f32 and bf16, and bf16 "
         f"B 8,9,17,227 at qkv/o/gate_up/down; the mma design ran exactly for bf16 B > 8)")
 
@@ -502,9 +544,15 @@ def int8_kernel_phase(torch, timer):
     check(len(names) == 1, f"a stacked W8A16 call at B=1 ran {names}")
     log(f"profile of one stacked W8A16 call (qkv, B=1): one kernel, {names[0][:60]}")
     names = kernel_names(torch, lambda: im.int8_matmul_w8a8_cuda(x, q, sc, 1))
-    check(names and all("w8a8" in n for n in names), f"a W8A8 call ran other kernels: {names}")
-    log(f"profile of one W8A8 call (qkv, B=1): only int8_matmul.cu's W8A8 kernels ran: "
-        f"{[n.split('(')[0][-40:] for n in names]}")
+    check(len(names) == 1 and "w8a8" in names[0].lower(), f"a W8A8 call at B=1 ran {names}")
+    log(f"profile of one W8A8 call (qkv, B=1): one kernel, {names[0][:70]}")
+    for B in (T, 64):
+        xb = x_of(B, shapes["qkv"][0], torch.bfloat16)
+        names = kernel_names(torch, lambda: im.int8_matmul_w8a8_cuda(xb, q, sc, 1))
+        check(names and all("w8a8" in n.lower() for n in names),
+              f"a W8A8 call at B={B} ran other kernels: {names}")
+        log(f"profile of one W8A8 call (qkv, B={B}): only W8A8 kernels ran: "
+            f"{[n.split('(')[0][-40:] for n in names]}")
 
     # ---- times at the main path's shapes, bf16 ----
     def time_row(label, name, fn, plain, lib, B, K, N, peak, lib_label):
@@ -539,16 +587,31 @@ def int8_kernel_phase(torch, timer):
                 "per k-lane in flight (4 at 8 x rows), x staged once, sums added in rank 0's "
                 "shared memory through distributed shared memory in rank order "
                 "(deterministic)", times=stacked_times)
-        # torch._int_mm takes only B > 16: no yardstick at decode rows
+    # W8A8: B=1 at the four projections, gate_up also at 8, 37 and 64 rows;
+    # torch._int_mm (s8 x s8 -> int32, cuBLASLt) on x quantised beforehand
+    # is the yardstick where it runs (B > 16)
+    for B, p in ((1, "qkv"), (1, "o"), (1, "gate_up"), (1, "down"), (8, "gate_up"),
+                 (37, "gate_up"), (64, "gate_up")):
+        K, N = shapes[p]
+        q, sc = stacks[p]["q"], stacks[p]["scale"]
+        x = x_of(B, K, torch.bfloat16)
+        xq = im.quantize_activations(x)[0]
+        q_cm = q[1].t().contiguous().t()  # column-major s8, as cuBLASLt takes it
         r = time_row(p, "int8_matmul_w8a8", lambda: im.int8_matmul_w8a8_cuda(x, q, sc, 1),
-                     lambda: im.int8_matmul_w8a8_plain(x, q, sc, 1), None,
-                     1, K, N, INT8_OPS_PER_S, "torch._int_mm")
-        w8a8_times[p] = r["ms"]
-        if p == "gate_up":
-            rows["int8_matmul_w8a8"] = dict(
-                r, design="repaired, not redesigned: x quantised in CUDA (IEEE sx, fused "
-                "into the streaming __dp4a kernel: each block takes its rows' max|x|, then "
-                "quantises as it stages); split-K pass reads sx from scratch", times=w8a8_times)
+                     lambda: im.int8_matmul_w8a8_plain(x, q, sc, 1),
+                     (lambda: torch._int_mm(xq, q_cm)) if B > 16 else None,
+                     B, K, N, INT8_OPS_PER_S, "torch._int_mm (x quantised beforehand)")
+        if im.w8a8_uses_mma(B, N):
+            splits, kps = im.s8_mma_shape(B, K, N, n_sms, im.W8A8_MMA_MAX_K_PER_SPLIT)
+            launch = dict(design="mma", splits=splits, k_per_split=kps)
+        else:
+            shape = im.w8a8_cluster_shape(B, K, N)
+            launch = dict(design="cluster", cluster=shape.cluster, k_per_cta=shape.k_per_cta)
+        log(f"  launch: {launch}")
+        w8a8_times[f"{p} B={B}"] = dict(ms=r["ms"], library_ms=r["library_ms"],
+                                        bound_ms=r["bound_ms"], **launch)
+        if (B, p) == (1, "gate_up"):
+            rows["int8_matmul_w8a8"] = dict(r, design=W8A8_DESIGN, times=w8a8_times)
 
     # the design space of the cluster split-K kernel: every cluster size
     # whose slices fit, on the same inputs
@@ -593,6 +656,44 @@ def int8_kernel_phase(torch, timer):
     rows["int8_matmul_stacked"]["design_space"] = space
     rows["int8_matmul_stacked"]["timer_floor_ms"] = floor_ms
 
+    # W8A8's design space: the cluster sizes that fit its integer policy at
+    # B 1, 2 and 4, and the threshold A/B of the cluster design against the
+    # s8 tensor cores
+    space, threshold = {}, {}
+    for B, p in ((B, p) for B in (1, 2, 4) for p in ("qkv", "o", "gate_up", "down")):
+        K, N = shapes[p]
+        q, sc = stacks[p]["q"], stacks[p]["scale"]
+        x = x_of(B, K, torch.bfloat16)
+        want = recipe(x, q, sc)
+        cells = []
+        for cluster in (2, 4, 8, 16):
+            shape = im.w8a8_cluster_shape(B, K, N, cluster)
+            if shape.k_per_cta > 1024 or im.cluster_smem(1, shape.rows, cluster, shape.k_per_cta,
+                                                          1) > im.MAX_SMEM:
+                continue
+            got = w8a8_design("cluster", x, q, sc, cluster=cluster)
+            check(torch.equal(got, want), f"W8A8 {p} B={B} cluster {cluster}: differs")
+            t = timer.ms(lambda c=cluster: w8a8_design("cluster", x, q, sc, cluster=c))
+            cells.append(f"{cluster}: {t:.4f}")
+            space[f"{p} B={B} cluster={cluster}"] = t
+        log(f"int8_matmul_w8a8 {p} B={B}, ms by cluster size (dispatched "
+            f"{im.w8a8_cluster_shape(B, K, N).cluster}): " + ", ".join(cells))
+    for p in ("qkv", "o", "gate_up", "down"):
+        K, N = shapes[p]
+        q, sc = stacks[p]["q"], stacks[p]["scale"]
+        for B in (1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 17, 32, 64, 128, 256):
+            x = x_of(B, K, torch.bfloat16)
+            cc = w8a8_design("cluster", x, q, sc)
+            check(torch.equal(cc, w8a8_design("mma", x, q, sc)),
+                  f"W8A8 {p} B={B}: the two designs differ")
+            cc_ms = timer.ms(lambda: w8a8_design("cluster", x, q, sc))
+            mma_ms = timer.ms(lambda: w8a8_design("mma", x, q, sc))
+            threshold[f"{p} B={B}"] = dict(cluster_splitk_ms=cc_ms, mma_ms=mma_ms)
+            log(f"int8_matmul_w8a8 {p} B={B} bf16: cluster split-K design {cc_ms:.4f} ms, "
+                f"tensor-core design {mma_ms:.4f} ms (dispatched: "
+                f"{'mma' if im.w8a8_uses_mma(B, N) else 'cluster split-K'})")
+    rows["int8_matmul_w8a8"].update(design_space=space, threshold=threshold)
+
     def cuda_core_w8a16(x, q, sc):
         """The cluster split-K W8A16 design on the same inputs, launched
         directly (the flat entry sends bf16 B > 8 to the tensor cores)."""
@@ -636,6 +737,17 @@ INT4_ENTRIES = {
     "int4_matmul_w4a8_stacked": (313, "tools/bench_int4_matmul (int4_w4a8, one eager step)"),
 }
 
+
+W8A8_DESIGN = (
+    "x quantised per row in CUDA (IEEE sx, rint half to even; no PyTorch kernel); B < "
+    "W8A8_MMA_MIN_ROWS: one launch of the cluster split-K kernel with the integer policy "
+    "(weight loads issued first, each CTA's rows' max|x| over the whole K, x's slice "
+    "quantised into shared memory as words of 4 k, 4 rows of q per k-lane regrouped by "
+    "__byte_perm, one __dp4a per column and row, int32 slots added in rank 0 in rank "
+    "order); from W8A8_MMA_MIN_ROWS rows: a quantise kernel (a block per row, xq in the "
+    "fragments' k order), then s8 x s8 tensor cores (mma.sync m16n8k32, 64 x 128 tiles of "
+    "8 warps, q read as stored by ldmatrix.trans + __byte_perm, 4-stage cp.async ring, "
+    "split-K to about one block per SM)")
 
 W4A16_DESIGN = (
     "bf16 B >= W4A16_MMA_MIN_ROWS: bf16 tensor cores (mma.sync m16n8k16, 64 x 128 tiles of "
@@ -903,7 +1015,7 @@ def bench_phase(torch):
     from sonicscribe_tpu_torch.ops.int4_matmul import w4a8_uses_mma, w4a16_uses_mma
     from sonicscribe_tpu_torch.tools import bench_int4_matmul, bench_int8_matmul
 
-    for rec in bench_int8_matmul.run(batches=(1, 8), reps=10):
+    for rec in bench_int8_matmul.run(batches=(1, 8, 64), reps=10):
         log("bench_int8_matmul " + json.dumps(rec))
 
     cfg = nano()
@@ -952,29 +1064,35 @@ SLICE_TABLES = {"half": 0.5, "shipped": 1.0, "twice": 2.0}
 
 def slice_table_steps(torch, weights, n_layers) -> dict:
     """The cluster split-K design's slice table inside a decode step: the
-    int8 (stacked W8A16) and int4_w4a16 sweeps of nano's layers at the
-    decode rows that reach the design, replayed as a CUDA graph
+    int8 (stacked W8A16), int8_w8a8 and int4_w4a16 sweeps of nano's layers
+    at the decode rows that reach the design, replayed as a CUDA graph
     (bench_int8_matmul.time_step), under each of SLICE_TABLES in turn, two
-    rounds. Each step's output is held to the shipped table's. -> {"<variant>
-    B=<b>": {table: [ms of each round]}}."""
+    rounds (W8A16 and W4A16 scale CLUSTER_ROWS_PER_CTA, W8A8 its own
+    W8A8_CLUSTER_ROWS_PER_CTA). Each step's output is held to the shipped
+    table's. -> {"<variant> B=<b>": {table: [ms of each round]}}."""
     from sonicscribe_tpu_torch.ops import int8_matmul as im
-    from sonicscribe_tpu_torch.tools import bench_int4_matmul
+    from sonicscribe_tpu_torch.tools import bench_int4_matmul, bench_int8_matmul
     from sonicscribe_tpu_torch.tools.bench_int8_matmul import time_step
 
-    shipped = dict(im.CLUSTER_ROWS_PER_CTA)
+    tables = (im.CLUSTER_ROWS_PER_CTA, im.W8A8_CLUSTER_ROWS_PER_CTA)
+    shipped = [dict(t) for t in tables]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 8)
     d = weights["qkv_w"]["q"].shape[1]
     steps = {}
     try:
-        for variant, B in (("int8", 1), ("int8", 8), ("int4_w4a16", 1), ("int4_w4a16", 2)):
+        variants = {**bench_int4_matmul.VARIANTS,
+                    "int8_w8a8": bench_int8_matmul.VARIANTS["int8_w8a8"]}
+        for variant, B in (("int8", 1), ("int8", 8), ("int8_w8a8", 1), ("int8_w8a8", 2),
+                           ("int4_w4a16", 1), ("int4_w4a16", 2)):
             h0 = (torch.randn((B, d), generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
-            mm = bench_int4_matmul.VARIANTS[variant]
+            mm = variants[variant]
             cell = steps[f"{variant} B={B}"] = {t: [] for t in SLICE_TABLES}
             want = None
             for _ in range(2):
                 for table, f in SLICE_TABLES.items():
-                    im.CLUSTER_ROWS_PER_CTA.update({r: int(v * f) for r, v in shipped.items()})
+                    for t, t0 in zip(tables, shipped):
+                        t.update({r: int(v * f) for r, v in t0.items()})
                     with torch.inference_mode():
                         h = bench_int4_matmul.sweep(mm, weights, h0, n_layers)
                         if want is None:
@@ -988,7 +1106,8 @@ def slice_table_steps(torch, weights, n_layers) -> dict:
             log(f"slice table in a replayed {variant} step, B={B} (device ms, two rounds): "
                 + ", ".join(f"{t} {v[0]:.4f} / {v[1]:.4f}" for t, v in cell.items()))
     finally:
-        im.CLUSTER_ROWS_PER_CTA.update(shipped)
+        for t, t0 in zip(tables, shipped):
+            t.update(t0)
     return steps
 
 
@@ -1107,9 +1226,12 @@ def int8_main_path_phase(torch, mode: str) -> dict:
         flat = n_seg * (4 * n_dec + (6 * n_enc if mode == "int8" else 0))
         check(counts["int8_matmul"] == flat,
               f"{mode}: int8_matmul launched {counts['int8_matmul']} times, want {flat}")
-        # every flat launch here is bf16 prefill or encoder rows (B > 8)
+        # every flat launch here is bf16 prefill or encoder rows (B > 8); the
+        # decode step's one row takes W8A8's cluster design
         check(counts["int8_matmul_mma"] == flat,
               f"{mode}: int8_matmul_mma launched {counts['int8_matmul_mma']} times, want {flat}")
+        check(counts["int8_matmul_w8a8_mma"] == 0,
+              f"{mode}: W8A8 took the tensor cores {counts['int8_matmul_w8a8_mma']} times at B=1")
         log(f"  {mode}: max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         profile_phase(torch, engine, mode)
         return counts
@@ -1124,6 +1246,8 @@ def profile_phase(torch, engine, mode: str = "native"):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from sonicscribe_tpu_torch.ops import _build
+
     tr = engine.transcriber
     audio = speech(3.0, 40)
     tr.transcribe(audio, SR, max_new_tokens=32)
@@ -1132,9 +1256,11 @@ def profile_phase(torch, engine, mode: str = "native"):
     r = tr.transcribe(audio, SR, max_new_tokens=32)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    _build.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         tr.transcribe(audio, SR, max_new_tokens=32)
         torch.cuda.synchronize()
+    w8a8_calls = _build.launch_counts["int8_matmul_w8a8"]
     # kernels only: an operator's own entry repeats its kernels' device time
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
 
@@ -1151,6 +1277,13 @@ def profile_phase(torch, engine, mode: str = "native"):
         f"{attn_ms:.1f} ms ({attn_ms / busy_ms:.3f} of busy), flat W8A16 mma {mma_ms:.1f} ms")
     for e in sorted(events, key=dev_us, reverse=True)[:8]:
         log(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
+    if w8a8_calls:  # one W8A8 kernel per projection per step: one per call
+        w8a8 = [e for e in events if "w8a8" in e.key.lower()]
+        n_kernels = sum(e.count for e in w8a8)
+        check(n_kernels == w8a8_calls, f"profile {mode}: {n_kernels} W8A8 kernels for "
+              f"{w8a8_calls} W8A8 calls: {[(e.key[:60], e.count) for e in w8a8]}")
+        log(f"profile {mode}: {w8a8_calls} W8A8 calls ran {n_kernels} W8A8 kernels, "
+            f"{sum(dev_us(e) for e in w8a8) / n_kernels:.2f} us of device time per call")
 
 
 def tiny_tokens_phase(torch, mode: str = "native"):
@@ -1321,7 +1454,7 @@ def main() -> None:
     for mode in INT8_MODES:
         release_memory(torch)
         counts = int8_main_path_phase(torch, mode)
-        for name in (*int8_errs, "int8_matmul_mma"):
+        for name in (*int8_errs, "int8_matmul_mma", "int8_matmul_w8a8_mma"):
             launches[name] = launches.get(name, 0) + counts[name]
     for mode in INT8_MODES:
         tiny_tokens_phase(torch, mode)
@@ -1349,7 +1482,8 @@ def main() -> None:
         dict(name="int8_matmul_w8a8", route="cuda",
              source="sonicscribe_tpu_torch/csrc/int8_matmul.cu",
              replaces="sonicscribe_tpu/ops/quant.py:72", path="serve",
-             launches=launches["int8_matmul_w8a8"], max_abs_err=int8_errs["int8_matmul_w8a8"],
+             launches=launches["int8_matmul_w8a8"], mma_launches=launches["int8_matmul_w8a8_mma"],
+             max_abs_err=int8_errs["int8_matmul_w8a8"],
              **int8_rows["int8_matmul_w8a8"]),
     ] + [
         dict(name=name, route="cuda", source="sonicscribe_tpu_torch/csrc/int4_matmul.cu",

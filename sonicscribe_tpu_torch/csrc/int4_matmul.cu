@@ -58,24 +58,18 @@
 //   bytes (low nibbles: rows k..k+3; high nibbles: rows K/2+k..K/2+k+3)
 //   with one __vsub4 each, two __dp4a; K/2 split over blocks as above when
 //   the column tiles leave SMs idle (int32 partials, sx from scratch);
-// - 5 rows or more, s8 tensor cores (mma.sync m16n8k32, int32 sums). A first
-//   kernel quantises each row once (a block per row) into xq, in the order
-//   the fragments take it (fused into the product, each of its ~100
-//   blocks read and quantised the same x rows again, which cost more than
-//   the product itself). The product: 64 x 128 tiles of 8 warps (2 x 4, 32
-//   x 32 each); its xq rows (one cp.async group) and then packed, as stored,
-//   stream in through a 4-stage cp.async ring.
-//   ldmatrix.trans over the int8 tile read as 16-bit column pairs gives
-//   each lane rows k, k+1 (and k+8, k+9) of two neighbouring columns;
-//   __byte_perm joins them into the B fragment of 4 packed rows of one
-//   column, and a mask and an xor turn it into the lo-plane and hi-plane
-//   fragments as unsigned bytes, code + 8 (s8 x u8 mma; the 8 * sum(xq)
-//   this adds is taken off in the epilogue). The fragment's k order (rows
-//   2t, 2t+1, 2t+8, 2t+9 for k-lane t) is the order xq is stored in, so no
-//   transpose pass is needed. Two mma per fragment (x's first half against
-//   lo, its second half against hi) add into one int32 accumulator: exact,
-//   so the output is bit-equal to the plain version. Where the tiles alone
-//   leave SMs idle, K/2 is split as above.
+// - 5 rows or more, s8 tensor cores: s8_mma.cuh's design (shared with
+//   W8A8), a quantise kernel (a block per row, xq [B][2][K/2 rounded up],
+//   x's two halves as two planes), then mma.sync m16n8k32 over 64 x 128
+//   tiles of 8 warps with packed streaming in, as stored, through a
+//   4-stage cp.async ring. `NibblePlanes` is its fragment policy: a mask
+//   and an xor turn each 4-row B fragment of packed bytes into the
+//   lo-plane and hi-plane fragments as unsigned bytes, code + 8 (s8 x u8
+//   mma; the 8 * sum(xq) this adds is taken off in the epilogue); two mma
+//   per fragment (x's first half against lo, its second half against hi)
+//   add into one int32 accumulator: exact, so the output is bit-equal to
+//   the plain version. Where the tiles alone leave SMs idle, K/2 is split
+//   as above.
 //
 // Layout: x [B, K] (float32 / bfloat16, contiguous), packed [L, K/2, N]
 // int8 and scale [L, 1, N] float32 (contiguous), out [B, N] in x's type,
@@ -95,6 +89,7 @@
 #include "act_quant.cuh"
 #include "cluster_splitk.cuh"
 #include "common.cuh"
+#include "s8_mma.cuh"
 
 namespace {
 
@@ -138,8 +133,7 @@ __device__ __forceinline__ int high_nibbles(unsigned w) { return low_nibbles(w >
 
 // the W4A16 weight policy of cluster_splitk.cuh: a packed row holds weight
 // rows k (low nibbles, against x[b, k]) and K/2 + k (high, x[b, K/2 + k])
-struct Int4Rows {
-  static constexpr int kHalves = 2;
+struct Int4Rows : splitk::FloatX<2, Int4Rows> {
   template <int BT>
   __device__ __forceinline__ static void accumulate(float (&acc)[BT][kColsPerThread], const uint4 w,
                                              const float (&xv)[2][BT]) {
@@ -286,27 +280,15 @@ w4a8_kernel(const T* __restrict__ x, const int8_t* __restrict__ p,
 
 // ---------------------------------------------------------------- W4A8 mma
 
-constexpr int kQWarps = 8;                 // 2 along M x 4 along N
-constexpr int kQThreads = kQWarps * 32;
-constexpr int kQBM = 64, kQBN = 128;       // block tile; a warp's is 32 x 32
-constexpr int kQBK = 64;                   // packed rows per stage
-constexpr int kQStages = 4;
-constexpr int kQRow = kQBN + 16;           // bytes per packed row of a stage
-constexpr int kQStage = kQBK * kQRow;      // 9,216 bytes
-constexpr int kQMaxKPerSplit = 1472;       // packed rows of x a block holds (a multiple of kQBK)
-// xq [2][kQBM][k_per_split + 16] bytes, then the ring
-constexpr int kQMaxSmem = 2 * kQBM * (kQMaxKPerSplit + 16) + kQStages * kQStage;  // 227,328
-static_assert(kQMaxSmem + 1024 <= 232448, "a block's shared memory");
-
-// s8 A x u8 B, int32 sums
-__device__ __forceinline__ void mma_s8u8(int (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr int kQWarps = s8mma::kWarps;     // 2 along M x 4 along N
+constexpr int kQThreads = s8mma::kThreads;
+constexpr int kQBM = s8mma::kBM, kQBN = s8mma::kBN;  // block tile; a warp's is 32 x 32
+constexpr int kQBK = s8mma::kBK;           // packed rows per stage
+constexpr int kQStages = s8mma::kStages;
+constexpr int kQRow = s8mma::kRow;         // bytes per packed row of a stage
+constexpr int kQStage = s8mma::kStage;     // 9,216 bytes
+constexpr int kQMaxKPerSplit = s8mma::max_k_per_split(2);  // 1472 packed rows of x a block holds
+static_assert(kQMaxKPerSplit == 1472, "ops/int4_matmul.py MMA_MAX_K_PER_SPLIT");
 
 // 4 packed bytes -> 4 unsigned bytes of their low (high) nibbles plus 8:
 // the code + 8, in [0, 15]; the 8 comes back out as 8 * sum(xq), exactly
@@ -315,73 +297,28 @@ __device__ __forceinline__ unsigned low_nibbles_u(unsigned w) {
 }
 __device__ __forceinline__ unsigned high_nibbles_u(unsigned w) { return low_nibbles_u(w >> 4); }
 
-// Byte offset, within its group of 32, at which the staged xq of packed
-// row 4u + 2j (and 4u + 2j + 1 next to it), j = 0 or 1, is stored: the
-// mma's k index of that row in the B fragment. Fragment k = 4t + i holds
-// packed row 2t + (i & 1) + 8 (i >> 1), the order ldmatrix.trans gives.
-__device__ __forceinline__ int xq_slot(int u, int j) {
-  return 16 * (u >> 2) + 8 * (u & 1) + 2 * ((u >> 1) & 1) + 4 * j;
-}
+// the W4A8 fragment policy of s8_mma.cuh: a packed row's low nibbles meet
+// x's first half, its high nibbles the second, as unsigned code + 8 (s8 x
+// u8 mma)
+struct NibblePlanes {
+  static constexpr int kPlanes = 2, kOffset = 8;
+  __device__ __forceinline__ static void planes(unsigned w, unsigned (&p)[2]) {
+    p[0] = low_nibbles_u(w), p[1] = high_nibbles_u(w);
+  }
+  __device__ __forceinline__ static void mma(int (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                             unsigned b1) {
+    s8mma::mma_s8u8(d, a, b0, b1);
+  }
+};
 
 // Per-row quantisation for the mma design, one block per row of x: sx[r],
 // and xq [B][2][K2p] (x's first half, then its second; K2p = K2 rounded up
-// to kQBK, zeros past K2), each group of 32 packed rows in the fragments' k
-// order (xq_slot), so that the product copies its rows as they are.
+// to kQBK, zeros past K2) in the fragments' k order (s8_mma.cuh).
 template <typename T>
 __global__ void __launch_bounds__(kQThreads)
 w4a8_quant_kernel(const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ sx,
                   int K2, int K2p) {
-  __shared__ float wmax[kQWarps];
-  __shared__ float sxr[2];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, r = blockIdx.x;
-  const long long K = 2LL * K2;
-  const T* xr = x + r * K;
-  constexpr int E = 16 / sizeof(T);
-  float m = 0.f;
-  for (int v = tid; v < K / E; v += kQThreads) m = fmaxf(m, absmax16(xr + (long long)v * E));
-  m = warp_max(m);
-  if (lane == 0) wmax[warp] = m;
-  __syncthreads();
-  if (tid == 0) {
-#pragma unroll
-    for (int w = 1; w < kQWarps; ++w) m = fmaxf(m, wmax[w]);
-    sxr[0] = act_scale(m);
-    sxr[1] = __frcp_rn(sxr[0]);
-    sx[r] = sxr[0];
-  }
-  __syncthreads();
-  const float s = sxr[0], rs = sxr[1];
-  // a thread per group of 32 packed rows of one half: 8 quads -> 32 bytes
-  for (int g = tid; g < 2 * (K2p / 32); g += kQThreads) {
-    const int h = g / (K2p / 32), k0 = (g % (K2p / 32)) * 32;
-    unsigned char b[32];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      unsigned w = 0;
-      if (k0 + 4 * u < K2) {
-        float v[4];
-        load4(xr + (long long)h * K2 + k0 + 4 * u, v);
-        w = static_cast<unsigned>(quant4(v, s, rs));
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        b[xq_slot(u, j)] = static_cast<unsigned char>(w >> (16 * j));
-        b[xq_slot(u, j) + 1] = static_cast<unsigned char>(w >> (16 * j + 8));
-      }
-    }
-    uint4 lo, hi;
-    lo.x = b[0] | b[1] << 8 | b[2] << 16 | (unsigned)b[3] << 24;
-    lo.y = b[4] | b[5] << 8 | b[6] << 16 | (unsigned)b[7] << 24;
-    lo.z = b[8] | b[9] << 8 | b[10] << 16 | (unsigned)b[11] << 24;
-    lo.w = b[12] | b[13] << 8 | b[14] << 16 | (unsigned)b[15] << 24;
-    hi.x = b[16] | b[17] << 8 | b[18] << 16 | (unsigned)b[19] << 24;
-    hi.y = b[20] | b[21] << 8 | b[22] << 16 | (unsigned)b[23] << 24;
-    hi.z = b[24] | b[25] << 8 | b[26] << 16 | (unsigned)b[27] << 24;
-    hi.w = b[28] | b[29] << 8 | b[30] << 16 | (unsigned)b[31] << 24;
-    uint4* dst = reinterpret_cast<uint4*>(xq + ((long long)r * 2 + h) * K2p + k0);
-    dst[0] = lo;
-    dst[1] = hi;
-  }
+  s8mma::quantize_row<T, 2>(x, xq, sx, K2, K2p);
 }
 
 template <typename T>
@@ -390,143 +327,7 @@ w4a8_mma_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
                 const int8_t* __restrict__ p, const float* __restrict__ scale,
                 T* __restrict__ out, int* __restrict__ partial, int B, int K2, int K2p, int N,
                 int k_per_split) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int xsum[kQBM];  // sum of the row's xq over the block's packed rows, both halves
-  const int xrow = k_per_split + 16;  // an odd multiple of 16 bytes: ldmatrix conflict-free
-  int8_t* xs = reinterpret_cast<int8_t*>(smem);                           // [2][kQBM][xrow]
-  int8_t* ring = reinterpret_cast<int8_t*>(smem + 2 * kQBM * xrow);       // [kQStages][kQBK][kQRow]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = (warp >> 2) * 32, wn = (warp & 3) * 32;
-  const int n0 = blockIdx.x * kQBN, r0 = blockIdx.y * kQBM, split = blockIdx.z;
-  const int k_begin = split * k_per_split, k_end = min(K2p, k_begin + k_per_split);
-  const int n_steps = (k_end - k_begin) / kQBK;
-
-  // the block's rows of xq over its packed rows, both halves (zeros past B),
-  // as one commit group; warp w takes the plane-rows w, w + 8, ...
-  for (int hr = warp; hr < 2 * kQBM; hr += kQWarps) {
-    const int h = hr / kQBM, rr = hr % kQBM;
-    const bool ok = r0 + rr < B;
-    const int8_t* src = xq + ((long long)(ok ? r0 + rr : 0) * 2 + h) * K2p + k_begin;
-    for (int c = 16 * lane; c < n_steps * kQBK; c += 16 * 32) {
-      cp_async16(xs + hr * xrow + c, src + c, ok);
-    }
-  }
-  cp_async_commit();
-
-  // packed rows of step `it` into stage it % kQStages, 16 bytes a copy,
-  // zeros past K/2; one commit group per step, empty past the last
-  auto load_step = [&](int it) {
-    if (it < n_steps) {
-      const int k0 = k_begin + it * kQBK;
-      int8_t* dst = ring + (it % kQStages) * kQStage;
-#pragma unroll
-      for (int i = tid; i < kQBK * (kQBN / 16); i += kQThreads) {
-        const int kq = i / (kQBN / 16), c = (i % (kQBN / 16)) * 16;
-        const bool ok = k0 + kq < K2;
-        cp_async16(dst + kq * kQRow + c, ok ? p + (long long)(k0 + kq) * N + n0 + c : p, ok);
-      }
-    }
-    cp_async_commit();
-  };
-#pragma unroll
-  for (int it = 0; it < kQStages - 1; ++it) load_step(it);
-
-  int acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  // stream packed through the ring
-  for (int it = 0; it < n_steps; ++it) {
-    cp_async_wait<kQStages - 2>();  // xq and step it have landed (this thread's copies)
-    __syncthreads();                // everyone's copies; step it - 1 is done
-    load_step(it + kQStages - 1);   // into the stage that step it - 1 used
-    const int8_t* wst = ring + (it % kQStages) * kQStage;
-#pragma unroll
-    for (int kk = 0; kk < kQBK; kk += 32) {
-      // B: n-tiles 2g (even columns of wn + 16g .. + 15) and 2g + 1 (odd),
-      // as code + 8 (u8)
-      unsigned blo[4][2], bhi[4][2];
-#pragma unroll
-      for (int g = 0; g < 2; ++g) {
-        unsigned r[4];  // packed rows kk + 8m .. + 7 of the 16 columns, as column pairs
-        ldmatrix_x4_trans(r, wst + (kk + lane) * kQRow + wn + 16 * g);
-        const unsigned e0 = __byte_perm(r[0], r[1], 0x6420), e1 = __byte_perm(r[2], r[3], 0x6420);
-        const unsigned o0 = __byte_perm(r[0], r[1], 0x7531), o1 = __byte_perm(r[2], r[3], 0x7531);
-        blo[2 * g][0] = low_nibbles_u(e0), blo[2 * g][1] = low_nibbles_u(e1);
-        bhi[2 * g][0] = high_nibbles_u(e0), bhi[2 * g][1] = high_nibbles_u(e1);
-        blo[2 * g + 1][0] = low_nibbles_u(o0), blo[2 * g + 1][1] = low_nibbles_u(o1);
-        bhi[2 * g + 1][0] = high_nibbles_u(o0), bhi[2 * g + 1][1] = high_nibbles_u(o1);
-      }
-      const int kx = it * kQBK + kk + (lane >> 4) * 16;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        unsigned alo[4], ahi[4];
-        const int row = wm + 16 * i + (lane & 15);
-        ldmatrix_x4(alo, xs + row * xrow + kx);
-        ldmatrix_x4(ahi, xs + (kQBM + row) * xrow + kx);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          mma_s8u8(acc[i][j], alo, blo[j][0], blo[j][1]);
-          mma_s8u8(acc[i][j], ahi, bhi[j][0], bhi[j][1]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();  // no copy outlives the block
-  // each row's sum of xq over both halves (warp w: rows w, w + 8, ...), for
-  // the u8 form of the weights
-  for (int rr = warp; rr < kQBM; rr += kQWarps) {
-    int t = 0;
-    for (int c = 16 * lane; c < n_steps * kQBK; c += 16 * 32) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const uint4 q = *reinterpret_cast<const uint4*>(xs + (h * kQBM + rr) * xrow + c);
-        t = __dp4a(static_cast<int>(q.x), 0x01010101, t);
-        t = __dp4a(static_cast<int>(q.y), 0x01010101, t);
-        t = __dp4a(static_cast<int>(q.z), 0x01010101, t);
-        t = __dp4a(static_cast<int>(q.w), 0x01010101, t);
-      }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
-    if (lane == 0) xsum[rr] = t;
-  }
-  __syncthreads();
-
-  // epilogue: in n-tile pair g, lane holds columns wn + 16g + 4*t4 .. +3
-  // (even c0, odd c0, even c1, odd c1) of rows gid and gid + 8 of each m-tile
-  const int gid = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int g = 0; g < 2; ++g) {
-    const int col = n0 + wn + 16 * g + 4 * t4;
-    if (col >= N) continue;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int* e = acc[i][2 * g];
-      const int* o = acc[i][2 * g + 1];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int rr = wm + 16 * i + gid + 8 * half, row = r0 + rr;
-        if (row >= B) continue;
-        const int c8 = 8 * xsum[rr];  // sum(xq * (code + 8)) - 8 sum(xq) = sum(xq * code)
-        const int v[4] = {e[2 * half] - c8, o[2 * half] - c8, e[2 * half + 1] - c8,
-                          o[2 * half + 1] - c8};
-        if (partial) {
-          *reinterpret_cast<int4*>(partial + ((long long)split * B + row) * N + col) =
-              make_int4(v[0], v[1], v[2], v[3]);
-        } else {
-          const float s = sx[row];
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            store(out + (long long)row * N + col + j, __int2float_rn(v[j]) * s * scale[col + j]);
-        }
-      }
-    }
-  }
+  s8mma::product<T, NibblePlanes>(xq, sx, p, scale, out, partial, B, K2, K2p, N, k_per_split);
 }
 
 // Second pass of a split-K launch: add the splits in order, scale, cast.
@@ -545,12 +346,7 @@ template <typename T>
 __global__ void w4a8_reduce(const int* __restrict__ partial, const float* __restrict__ sx,
                             const float* __restrict__ scale, T* __restrict__ out, int splits,
                             int B, int N) {
-  const long long total = (long long)B * N;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  int v = 0;
-  for (int s = 0; s < splits; ++s) v += partial[s * total + i];
-  store(out + i, __int2float_rn(v) * sx[i / N] * scale[i % N]);
+  s8mma::reduce_splits<T>(partial, sx, scale, out, splits, B, N);
 }
 
 bool bad_shape(int B, int K2, int N, int layer, int rows, int splits, int k_per_split) {
@@ -582,7 +378,7 @@ int launch_w4a8_mma(const void* x, const int8_t* p, const float* scale, void* ou
                     cudaStream_t stream) {
   const int K2p = (K2 + kQBK - 1) / kQBK * kQBK;
   w4a8_quant_kernel<T><<<B, kQThreads, 0, stream>>>(static_cast<const T*>(x), xq, sx, K2, K2p);
-  const int smem = 2 * kQBM * (k_per_split + 16) + kQStages * kQStage;
+  const int smem = s8mma::smem_bytes(2, k_per_split);
   const cudaError_t e = cudaFuncSetAttribute(
       w4a8_mma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);

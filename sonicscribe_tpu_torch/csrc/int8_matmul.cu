@@ -27,17 +27,26 @@
 // from the plain version.
 //
 // W8A8 quantises x itself (act_quant.cuh: the JAX recipe bit for bit, an
-// IEEE division for sx), so a call launches only this file's kernels. It
-// streams q on the CUDA cores, fused: each block takes its rows' max|x|
-// over the whole K, then quantises x as it stages a 128-row chunk in
-// shared memory; a block owns 128 columns, each thread reads 16 of them in
-// 16-byte loads of 4 consecutive rows, regrouped with __byte_perm into
-// words of 4 k per column for __dp4a (int32 sums, exact, so the output
-// equals the plain version's bits); k-lanes are reduced with warp shuffles
-// and one shared-memory pass. Where the column tiles alone give too few
-// blocks to fill the 132 SMs, K is split over blocks (grid.z); each block
-// writes its int32 partial sums and a second pass adds the splits in
-// order, reading sx from scratch, applies the scales and casts.
+// IEEE division for sx), so a call launches only this file's kernels. The
+// int32 sums are exact, so both of its designs give the plain version's
+// bits. Two designs (the wrapper picks by B, ops/int8_matmul.py
+// w8a8_uses_mma):
+// - decode rows: the same one-launch cluster split-K kernel, with
+//   `W8A8Rows` as its policy. A k-lane takes 4 consecutive rows of q
+//   (four 16-byte loads, regrouped with __byte_perm into one word of 4 k
+//   per column) against one word of 4 quantised k of each x row: one
+//   __dp4a per column and row does 4 k. The CTA's weight loads are issued
+//   first; under their latency it takes its rows' max|x| over the whole K
+//   from L2 (a cluster shares no scale: each CTA needs max over all K),
+//   and quantises x's slice into shared memory, 1 byte per k. No global
+//   scratch and no second kernel: rank 0 adds the int32 slots in rank
+//   order and applies float32(sum) * sx * scale;
+// - from W8A8_MMA_MIN_ROWS rows, the s8 tensor cores (s8_mma.cuh, shared
+//   with W4A8): a quantise kernel (a block per row, xq in the fragments' k
+//   order, one plane), then mma.sync m16n8k32 s8 x s8 over 64 x 128 tiles
+//   with q streaming in, as stored, through a 4-stage cp.async ring; q's
+//   bytes are the B fragment as they are (`S8Plane`), and a split-K pass
+//   where the tiles leave SMs idle.
 //
 // At prefill and in the encoder (bf16 x, B of hundreds to 1536 rows) the
 // flat W8A16 product is bound by operations: 2*B*K*N of them on K*N weight
@@ -70,13 +79,14 @@
 // with a source size of 0); ragged N is masked at 16-column steps.
 //
 // Layout: x [B, K] (float32 / bfloat16, contiguous), q [L, K, N] int8 and
-// scale [L, 1, N] float32 (contiguous), out [B, N] in x's type; for W8A8
-// partial [splits, B, N] int32 and sx [B] float32 scratch when splits > 1.
-// N must be a multiple of 16; W8A8 needs K % 4 == 0 and 16-byte aligned x;
-// the mma entry needs bf16 x with K % 8 == 0 and 16-byte aligned x and
-// scale (16-byte copies and loads). The wrapper (ops/int8_matmul.py)
-// checks and picks the design and the launch shape; each entry returns the
-// cudaError of its launches.
+// scale [L, 1, N] float32 (contiguous), out [B, N] in x's type; for W8A8's
+// mma design xq [B, K rounded up to 64] int8 and sx [B] float32 scratch,
+// and partial [splits, B, N] int32 when splits > 1. N must be a multiple
+// of 16 (128 for W8A8's mma design); W8A8 needs K % 4 == 0 and 16-byte
+// aligned x; the W8A16 mma entry needs bf16 x with K % 8 == 0 and 16-byte
+// aligned x and scale (16-byte copies and loads). The wrapper
+// (ops/int8_matmul.py) checks and picks the design and the launch shape;
+// each entry returns the cudaError of its launches.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -85,16 +95,13 @@
 #include "act_quant.cuh"
 #include "cluster_splitk.cuh"
 #include "common.cuh"
+#include "s8_mma.cuh"
 
 namespace {
 
 using splitk::kColsPerThread;
-using splitk::kColThreads;
-using splitk::kKLanes;
 using splitk::kThreads;
-using splitk::kTileN;
 using splitk::kWarps;
-constexpr int kChunkK = 128;  // W8A8: k rows staged per pass
 
 // 16 int8 of one 16-byte load -> float
 __device__ __forceinline__ void unpack(const uint4 w, float (&f)[kColsPerThread]) {
@@ -109,8 +116,7 @@ __device__ __forceinline__ void unpack(const uint4 w, float (&f)[kColsPerThread]
 }
 
 // the W8A16 weight policy of cluster_splitk.cuh: one x value per row
-struct Int8Rows {
-  static constexpr int kHalves = 1;
+struct Int8Rows : splitk::FloatX<1, Int8Rows> {
   template <int BT>
   __device__ __forceinline__ static void accumulate(float (&acc)[BT][kColsPerThread], const uint4 w,
                                              const float (&xv)[1][BT]) {
@@ -125,7 +131,7 @@ struct Int8Rows {
 };
 
 // rows k..k+3 of 16 columns -> per column one word of its 4 consecutive k
-__device__ __forceinline__ void regroup(const uint4 (&r)[4], int (&c)[kColsPerThread]) {
+__device__ __forceinline__ void regroup(const uint4* r, int (&c)[kColsPerThread]) {
   const unsigned a[4] = {r[0].x, r[0].y, r[0].z, r[0].w};
   const unsigned b[4] = {r[1].x, r[1].y, r[1].z, r[1].w};
   const unsigned cc[4] = {r[2].x, r[2].y, r[2].z, r[2].w};
@@ -143,151 +149,151 @@ __device__ __forceinline__ void regroup(const uint4 (&r)[4], int (&c)[kColsPerTh
   }
 }
 
-template <typename T, int BT>
-__global__ void __launch_bounds__(kThreads)
-w8a8_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
-            const float* __restrict__ scale, T* __restrict__ out, int* __restrict__ partial,
-            float* __restrict__ sx_out, int B, int K, int N, int k_per_split) {
-  __shared__ int xs[BT][kChunkK / 4];  // 4 consecutive k of one row per word
-  __shared__ int red[kWarps][BT][kTileN];
-  __shared__ float wmax[kWarps][BT];
-  __shared__ float sxs[BT], rsxs[BT];  // the rows' scales and their rounded reciprocals
-  const int tid = threadIdx.x, ct = tid % kColThreads, kl = tid / kColThreads;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int n0 = blockIdx.x * kTileN, r0 = blockIdx.y * BT, split = blockIdx.z;
-  const int col = n0 + ct * kColsPerThread;
-  const int k_begin = split * k_per_split, k_end = min(K, k_begin + k_per_split);
+// The W8A8 weight policy of cluster_splitk.cuh: x quantised per row into
+// words of 4 consecutive k, 4 rows of q per k-lane step, int32 sums. The
+// rows' scales need max|x| over the whole K, which no CTA's slice holds:
+// every CTA reads its rows over the whole K (4-11 KB of bf16 a row at
+// nano, from L2, under the weight loads' latency). Sharing the slices'
+// maxima through the cluster instead (one more cluster barrier) measured
+// slower at 1-2 rows on the H100 (PERF.md).
+struct W8A8Rows {
+  using Acc = int;
+  static constexpr int kHalves = 1, kRows = 4, kXBytes = 1;
+  // act: sx [8], its rounded reciprocal [8], the warps' maxima [kWarps][8]
+  static constexpr int kActFloats = 16 + 8 * kWarps;
 
-  // the rows' scales, over the whole K (4 values a load, all rows at once)
-  float m[BT];
+  template <typename T, int BT>
+  __device__ __forceinline__ static void stage(const T* __restrict__ x, unsigned char* smem,
+                                               float* act, int B, int r0, int K, int k_begin,
+                                               int rows, int k_per_cta,
+                                               splitk::cg::cluster_group&) {
+    float *sxs = act, *rsxs = act + 8, *wmax = act + 16;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    float m[BT];
 #pragma unroll
-  for (int b = 0; b < BT; ++b) m[b] = 0.f;
-  for (int v = tid; v < K / 4; v += kThreads) {
+    for (int b = 0; b < BT; ++b) m[b] = 0.f;
+    constexpr int E = 16 / sizeof(T);
+    if (K % E == 0) {  // rows 16-byte aligned: 16-byte loads
+      for (int v = tid; v < K / E; v += kThreads) {
+#pragma unroll
+        for (int b = 0; b < BT; ++b) {
+          if (r0 + b < B) m[b] = fmaxf(m[b], absmax16(x + (long long)(r0 + b) * K + (long long)v * E));
+        }
+      }
+    } else {
+      for (int v = tid; v < K / 4; v += kThreads) {
+#pragma unroll
+        for (int b = 0; b < BT; ++b) {
+          if (r0 + b < B) m[b] = fmaxf(m[b], absmax4(x + (long long)(r0 + b) * K + 4 * v));
+        }
+      }
+    }
 #pragma unroll
     for (int b = 0; b < BT; ++b) {
-      if (r0 + b < B) m[b] = fmaxf(m[b], absmax4(x + (long long)(r0 + b) * K + 4 * v));
-    }
-  }
-#pragma unroll
-  for (int b = 0; b < BT; ++b) {
-    const float w = warp_max(m[b]);
-    if (lane == 0) wmax[warp][b] = w;
-  }
-  __syncthreads();
-  if (tid < BT) {
-    float mx = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wmax[w][tid]);
-    sxs[tid] = act_scale(mx);
-    rsxs[tid] = __frcp_rn(sxs[tid]);
-    // the split-K pass reads the scales here
-    if (sx_out && blockIdx.x == 0 && split == 0 && r0 + tid < B) sx_out[r0 + tid] = sxs[tid];
-  }
-
-  int acc[BT][kColsPerThread];
-#pragma unroll
-  for (int b = 0; b < BT; ++b) {
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) acc[b][j] = 0;
-  }
-
-  for (int c0 = k_begin; c0 < k_end; c0 += kChunkK) {
-    __syncthreads();  // the scales are set; the previous chunk's reads of xs are done
-    for (int i = tid; i < BT * (kChunkK / 4); i += kThreads) {
-      const int b = i / (kChunkK / 4), g = i % (kChunkK / 4);
-      const int r = r0 + b, k = c0 + 4 * g;
-      int w = 0;
-      if (r < B && k < k_end) {  // K % 4 == 0: k..k+3 all lie below k_end
-        float v[4];
-        load4(x + (long long)r * K + k, v);
-        w = quant4(v, sxs[b], rsxs[b]);
-      }
-      xs[b][g] = w;
+      const float w = warp_max(m[b]);
+      if (lane == 0) wmax[warp * 8 + b] = w;
     }
     __syncthreads();
-    const int k = c0 + 4 * kl;  // this lane's 4 rows of the chunk
-    if (col < N && k < k_end) {
-      uint4 rows[4];
+    if (tid < BT) {
+      float mx = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) rows[i] = load16(q + (long long)(k + i) * N + col);
-      int wc[kColsPerThread];
-      regroup(rows, wc);
-#pragma unroll
-      for (int b = 0; b < BT; ++b) {
-        const int xv = xs[b][kl];
-#pragma unroll
-        for (int j = 0; j < kColsPerThread; ++j) acc[b][j] = __dp4a(wc[j], xv, acc[b][j]);
+      for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wmax[w * 8 + tid]);
+      sxs[tid] = act_scale(mx);
+      rsxs[tid] = __frcp_rn(sxs[tid]);
+    }
+    __syncthreads();
+    // the slice quantised, [BT][k_per_cta / 4] words of 4 k, zeros past B
+    // and the slice (K % 4 == 0: a word lies wholly inside or outside)
+    int* xw = reinterpret_cast<int*>(smem);
+    for (int i = tid; i < BT * (k_per_cta / 4); i += kThreads) {
+      const int b = i / (k_per_cta / 4), k = 4 * (i % (k_per_cta / 4));
+      int w = 0;
+      if (r0 + b < B && k < rows) {
+        float v[4];
+        load4(x + (long long)(r0 + b) * K + k_begin + k, v);
+        w = quant4(v, sxs[b], rsxs[b]);
       }
+      xw[i] = w;
     }
   }
 
-  // k-lanes by shuffles, warps through shared memory
-#pragma unroll
-  for (int b = 0; b < BT; ++b) {
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) acc[b][j] = lane_sum(acc[b][j]);
-  }
-  if (lane < kColThreads) {
+  template <int BT>
+  __device__ __forceinline__ static void step(int (&acc)[BT][kColsPerThread], const uint4* w,
+                                              const unsigned char* smem, int k_per_cta, int r) {
+    int wc[kColsPerThread];
+    regroup(w, wc);
+    const int* xw = reinterpret_cast<const int*>(smem) + r / 4;
 #pragma unroll
     for (int b = 0; b < BT; ++b) {
+      const int xv = xw[b * (k_per_cta / 4)];
 #pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j) red[warp][b][lane * kColsPerThread + j] = acc[b][j];
+      for (int j = 0; j < kColsPerThread; ++j) acc[b][j] = __dp4a(wc[j], xv, acc[b][j]);
     }
   }
-  __syncthreads();
-  for (int i = tid; i < BT * kTileN; i += kThreads) {
-    const int b = i / kTileN, c = i % kTileN;
-    const int r = r0 + b, n = n0 + c;
-    if (r >= B || n >= N) continue;
-    int v = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) v += red[w][b][c];
-    if (partial) {
-      partial[((long long)split * B + r) * N + n] = v;
-    } else {
-      store(out + (long long)r * N + n, __int2float_rn(v) * sxs[b] * scale[n]);
-    }
+
+  __device__ __forceinline__ static float finish(int v, int b, const float* act) {
+    return __int2float_rn(v) * act[b];
   }
+};
+
+static_assert(s8mma::max_k_per_split(1) == 3008, "ops/int8_matmul.py W8A8_MMA_MAX_K_PER_SPLIT");
+
+// the W8A8 fragment policy of s8_mma.cuh: q's bytes are s8 as stored
+struct S8Plane {
+  static constexpr int kPlanes = 1, kOffset = 0;
+  __device__ __forceinline__ static void planes(unsigned w, unsigned (&p)[1]) { p[0] = w; }
+  __device__ __forceinline__ static void mma(int (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                             unsigned b1) {
+    s8mma::mma_s8s8(d, a, b0, b1);
+  }
+};
+
+// W8A8's s8 tensor-core design: quantise (a block per row), product, and
+// the split-K pass
+template <typename T>
+__global__ void __launch_bounds__(s8mma::kThreads)
+w8a8_quant_kernel(const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ sx,
+                  int K, int Kp) {
+  s8mma::quantize_row<T, 1>(x, xq, sx, K, Kp);
 }
 
-// Second pass of a split-K W8A8 launch: add the splits in order, scale, cast.
+template <typename T>
+__global__ void __launch_bounds__(s8mma::kThreads)
+w8a8_mma_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
+                const int8_t* __restrict__ q, const float* __restrict__ scale,
+                T* __restrict__ out, int* __restrict__ partial, int B, int K, int Kp, int N,
+                int k_per_split) {
+  s8mma::product<T, S8Plane>(xq, sx, q, scale, out, partial, B, K, Kp, N, k_per_split);
+}
+
 template <typename T>
 __global__ void w8a8_reduce(const int* __restrict__ partial, const float* __restrict__ sx,
                             const float* __restrict__ scale, T* __restrict__ out, int splits,
                             int B, int N) {
-  const long long total = (long long)B * N;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  int v = 0;
-  for (int s = 0; s < splits; ++s) v += partial[s * total + i];
-  store(out + i, __int2float_rn(v) * sx[i / N] * scale[i % N]);
+  s8mma::reduce_splits<T>(partial, sx, scale, out, splits, B, N);
 }
 
-template <typename T, int BT>
-void launch_w8a8(const void* x, const int8_t* q, const float* scale, void* out, int* partial,
-                 float* sx, int B, int K, int N, int splits, int k_per_split,
-                 cudaStream_t stream) {
-  const dim3 grid((N + kTileN - 1) / kTileN, (B + BT - 1) / BT, splits);
-  w8a8_kernel<T, BT><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), q, scale, static_cast<T*>(out), splits > 1 ? partial : nullptr,
-      splits > 1 ? sx : nullptr, B, K, N, k_per_split);
+template <typename T>
+int launch_w8a8_mma(const void* x, const int8_t* q, const float* scale, void* out, int* partial,
+                    int8_t* xq, float* sx, int B, int K, int N, int splits, int k_per_split,
+                    cudaStream_t stream) {
+  const int Kp = (K + s8mma::kBK - 1) / s8mma::kBK * s8mma::kBK;
+  w8a8_quant_kernel<T><<<B, s8mma::kThreads, 0, stream>>>(static_cast<const T*>(x), xq, sx, K,
+                                                          Kp);
+  const int smem = s8mma::smem_bytes(1, k_per_split);
+  const cudaError_t e = cudaFuncSetAttribute(
+      w8a8_mma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(N / s8mma::kBN, (B + s8mma::kBM - 1) / s8mma::kBM, splits);
+  w8a8_mma_kernel<T><<<grid, s8mma::kThreads, smem, stream>>>(
+      xq, sx, q, scale, static_cast<T*>(out), splits > 1 ? partial : nullptr, B, K, Kp, N,
+      k_per_split);
   if (splits > 1) {
     const long long total = (long long)B * N;
     w8a8_reduce<T><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
         partial, sx, scale, static_cast<T*>(out), splits, B, N);
   }
-}
-
-template <typename T>
-void dispatch_w8a8(int rows, const void* x, const int8_t* q, const float* scale, void* out,
-                   int* partial, float* sx, int B, int K, int N, int splits, int k_per_split,
-                   cudaStream_t s) {
-  switch (rows) {
-    case 1: launch_w8a8<T, 1>(x, q, scale, out, partial, sx, B, K, N, splits, k_per_split, s); break;
-    case 2: launch_w8a8<T, 2>(x, q, scale, out, partial, sx, B, K, N, splits, k_per_split, s); break;
-    case 4: launch_w8a8<T, 4>(x, q, scale, out, partial, sx, B, K, N, splits, k_per_split, s); break;
-    default: launch_w8a8<T, 8>(x, q, scale, out, partial, sx, B, K, N, splits, k_per_split, s);
-  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------- mma
@@ -465,31 +471,50 @@ extern "C" int int8_matmul_w8a16(const void* x, const void* q, const void* scale
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-// W8A8: x [B, K] float32 / bfloat16 (16-byte aligned, K % 4 == 0),
-// quantised per row in the kernel; other arguments as the streaming
-// W8A16 launch had them: rows 1, 2, 4 or 8, K split into `splits` ranges
-// of k_per_split rows (a multiple of 128); partial holds splits * B * N
-// int32 sums and sx B float32 scales when splits > 1.
+// W8A8 at decode rows (cluster_splitk.cuh): x [B, K] float32 / bfloat16
+// (16-byte aligned, K % 4 == 0), quantised per row in the kernel; the
+// other arguments as int8_matmul_w8a16's.
 extern "C" int int8_matmul_w8a8(const void* x, const void* q, const void* scale, void* out,
-                                void* partial, void* sx, int dtype, int B, int K, int N,
-                                int layer, int rows, int splits, int k_per_split, void* stream) {
-  if (B <= 0 || K <= 0 || N <= 0 || layer < 0 || N % kColsPerThread || K % 4 || dtype < 0 ||
-      dtype > 1 || (rows != 1 && rows != 2 && rows != 4 && rows != 8) || splits < 1 ||
-      k_per_split <= 0 || k_per_split % kChunkK || (long long)splits * k_per_split < K ||
-      (long long)(splits - 1) * k_per_split >= K || (B + rows - 1) / rows > 65535 ||
-      splits > 65535 || reinterpret_cast<uintptr_t>(x) % 16 ||
-      (splits > 1 && (partial == nullptr || sx == nullptr))) {
+                                int dtype, int B, int K, int N, int layer, int rows, int cluster,
+                                int k_per_cta, void* stream) {
+  if (splitk::bad_shape(1, B, K, N, rows, cluster, k_per_cta, 1) || K % 4 || layer < 0 ||
+      dtype < 0 || dtype > 1 || reinterpret_cast<uintptr_t>(x) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int8_t* ql = static_cast<const int8_t*>(q) + (long long)layer * K * N;
   const float* sl = static_cast<const float*>(scale) + (long long)layer * N;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int* p = static_cast<int*>(partial);
-  float* sxf = static_cast<float*>(sx);
-  if (dtype == 0) {
-    dispatch_w8a8<float>(rows, x, ql, sl, out, p, sxf, B, K, N, splits, k_per_split, s);
-  } else {
-    dispatch_w8a8<__nv_bfloat16>(rows, x, ql, sl, out, p, sxf, B, K, N, splits, k_per_split, s);
+  const cudaError_t e = splitk::launch<W8A8Rows>(dtype, rows, x, ql, sl, out, B, K, N, cluster,
+                                                 k_per_cta, s);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// W8A8 on the s8 tensor cores: x as above, N % 128 == 0, K split into
+// `splits` ranges of k_per_split rows (a multiple of 64, at most
+// max_k_per_split(1) = 3008);
+// xq scratch of B * Kp bytes (Kp = K rounded up to 64) and sx of B float32
+// always, partial of splits * B * N int32 when splits > 1; x, q (at the
+// layer) and xq 16-byte aligned.
+extern "C" int int8_matmul_w8a8_mma(const void* x, const void* q, const void* scale, void* out,
+                                    void* partial, void* xq, void* sx, int dtype, int B, int K,
+                                    int N, int layer, int splits, int k_per_split, void* stream) {
+  const int8_t* ql = static_cast<const int8_t*>(q) + (long long)layer * K * N;
+  const float* sl = static_cast<const float*>(scale) + (long long)layer * N;
+  if (B <= 0 || K <= 0 || K % 4 || N <= 0 || N % s8mma::kBN || layer < 0 || dtype < 0 ||
+      dtype > 1 || (B + s8mma::kBM - 1) / s8mma::kBM > 65535 || splits < 1 || splits > 65535 ||
+      k_per_split <= 0 || k_per_split % s8mma::kBK ||
+      k_per_split > s8mma::max_k_per_split(1) || (long long)splits * k_per_split < K ||
+      (long long)(splits - 1) * k_per_split >= K || (splits > 1 && partial == nullptr) ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(ql) % 16 ||
+      reinterpret_cast<uintptr_t>(xq) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* pt = static_cast<int*>(partial);
+  int8_t* xb = static_cast<int8_t*>(xq);
+  float* sxf = static_cast<float*>(sx);
+  return dtype == 0
+             ? launch_w8a8_mma<float>(x, ql, sl, out, pt, xb, sxf, B, K, N, splits, k_per_split, s)
+             : launch_w8a8_mma<__nv_bfloat16>(x, ql, sl, out, pt, xb, sxf, B, K, N, splits,
+                                              k_per_split, s);
 }

@@ -39,6 +39,7 @@ launch_counts: dict[str, int] = {
         "decode_attention", "log_mel",
         "int8_matmul", "int8_matmul_stacked", "int8_matmul_w8a8",  # csrc/int8_matmul.cu
         "int8_matmul_mma",  # the flat launches that took the tensor-core design
+        "int8_matmul_w8a8_mma",  # the W8A8 launches on the s8 tensor cores
         "int4_matmul", "int4_matmul_stacked",  # csrc/int4_matmul.cu
         "int4_matmul_w4a16_mma",  # the W4A16 launches (flat and stacked) on the tensor cores
         "int4_matmul_w4a8", "int4_matmul_w4a8_stacked",

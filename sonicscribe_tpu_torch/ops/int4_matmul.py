@@ -39,6 +39,7 @@ from sonicscribe_tpu_torch.ops.int8_matmul import (
     cluster_shape,
     launch_shape,
     quantize_activations,
+    s8_mma_shape,
 )
 
 N_MULTIPLE = 128  # the JAX gate: N a multiple of 128 (int4_pallas.py:83-96)
@@ -153,16 +154,11 @@ def w4a16_mma_shape(B: int, K2: int, N: int, n_sms: int) -> tuple[int, int]:
 
 
 def w4a8_mma_shape(B: int, K2: int, N: int, n_sms: int) -> tuple[int, int]:
-    """-> (splits, packed rows per split) of the mma design. Its blocks
-    hold their quantised x rows in shared memory and the card holds about
-    one per SM, so the K/2 packed rows are split until the grid is about
-    one block per SM (and each split fits: at most MMA_MAX_K_PER_SPLIT
-    rows), each split a whole number of stages."""
-    tiles = -(-B // MMA_TILE_M) * -(-N // MMA_TILE_N)
-    chunks = -(-K2 // MMA_CHUNK_K)
-    splits = max(1, n_sms // tiles, -(-chunks // (MMA_MAX_K_PER_SPLIT // MMA_CHUNK_K)))
-    k_per_split = -(-chunks // min(splits, chunks)) * MMA_CHUNK_K
-    return -(-K2 // k_per_split), k_per_split
+    """-> (splits, packed rows per split) of the mma design
+    (int8_matmul.s8_mma_shape over the K/2 packed rows, each split at most
+    MMA_MAX_K_PER_SPLIT rows: its two planes of quantised x fit a block's
+    shared memory)."""
+    return s8_mma_shape(B, K2, N, n_sms, MMA_MAX_K_PER_SPLIT)
 
 
 @functools.cache

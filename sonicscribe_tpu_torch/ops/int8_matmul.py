@@ -12,6 +12,11 @@ CPU; there is no other fallback. Weights keep the JAX layout: q int8
 W8A8 quantises x per row inside the CUDA code (the JAX recipe, bit for
 bit), so a W8A8 call on the card launches only kernels of
 ``csrc/int8_matmul.cu``; ``quantize_activations`` is its plain version.
+It has two designs (``w8a8_uses_mma`` picks): decode rows run the
+one-launch cluster split-K design with int32 ``__dp4a``
+(``w8a8_cluster_shape``); from W8A8_MMA_MIN_ROWS rows a quantise
+kernel and the s8 tensor cores (``mma.sync``, the W4A8 design with one
+plane, ``s8_mma_shape``).
 
 The W8A16 entries (flat and stacked) have two designs: bf16 x with more
 than 8 rows (prefill, the encoder) runs on the tensor cores
@@ -31,8 +36,8 @@ from sonicscribe_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TILE_N = 128  # columns per block (csrc/cluster_splitk.cuh kTileN)
-CHUNK_K = 128  # W8A8: k rows per staged chunk (csrc/int8_matmul.cu kChunkK)
-BLOCKS_PER_SM = 4  # W8A8: split K until the grid holds about this many blocks per SM
+CHUNK_K = 128  # W4A8 at decode rows: k rows per staged chunk (csrc/int4_matmul.cu kChunkK)
+BLOCKS_PER_SM = 4  # W4A8 at decode rows: split K until the grid holds about this many blocks per SM
 MMA_MIN_ROWS = 9  # bf16 x with at least this many rows goes to the tensor cores
 # the cluster split-K design (csrc/cluster_splitk.cuh)
 CLUSTER_MAX = 16  # CTAs per cluster (kMaxCluster); above 8 a non-portable size
@@ -44,7 +49,18 @@ CLUSTER_ROW_ALIGN = 16  # rows of q per CTA are a multiple of this (kRowAlign)
 # CTA per SM at 8) and do more FMAs per weight byte, so they take longer
 # slices.
 CLUSTER_ROWS_PER_CTA = {1: 256, 2: 256, 4: 256, 8: 512}
+# W8A8's table: each __dp4a does 4 k, and in a replayed decode step twice
+# the W8A16 slices were fastest at 1 and 2 x rows (chip_smoke.py
+# slice_table_steps, PERF.md)
+W8A8_CLUSTER_ROWS_PER_CTA = {1: 512, 2: 512, 4: 512, 8: 1024}
 MAX_SMEM = 232448  # a CTA's shared memory on the H100 (kMaxSmem)
+# W8A8 with at least this many rows runs on the s8 tensor cores: where the
+# four decode projections' summed time crosses in chip_smoke.py's A/B of
+# both designs on the H100 (qkv, o and gate_up cross there too; PERF.md)
+W8A8_MMA_MIN_ROWS = 5
+# the s8 tensor-core designs (csrc/s8_mma.cuh): block tile and rows per stage
+S8_MMA_TILE_M, S8_MMA_TILE_N, S8_MMA_CHUNK_K = 64, 128, 64
+W8A8_MMA_MAX_K_PER_SPLIT = 3008  # rows of quantised x a block holds, one plane (max_k_per_split(1))
 
 
 # ---------------------------------------------------------------- plain
@@ -98,8 +114,8 @@ def int8_matmul_w8a8_plain(x, q, scale, layer: int) -> torch.Tensor:
 
 def launch_shape(B: int, K: int, N: int, n_sms: int) -> tuple[int, int, int]:
     """-> (rows per block, splits of K, rows of K per split) of the
-    streaming kernels with a split-K pass (W8A8, and W4A8 below its
-    tensor-core threshold). Decode-sized B leaves too few column tiles to
+    streaming kernel with a split-K pass (W4A8 below its tensor-core
+    threshold; K is its packed rows K/2). Decode-sized B leaves too few column tiles to
     fill the card, so K is split over blocks until the grid holds about
     BLOCKS_PER_SM blocks per SM, each split at least one chunk."""
     rows = 1 if B == 1 else 2 if B == 2 else 4 if B <= 4 else 8
@@ -117,27 +133,29 @@ class ClusterShape(NamedTuple):
     grid: tuple[int, int, int]  # (column tiles, row tiles, cluster)
 
 
-def cluster_smem(halves: int, rows: int, cluster: int, k_per_cta: int) -> int:
+def cluster_smem(halves: int, rows: int, cluster: int, k_per_cta: int, x_bytes: int = 4) -> int:
     """Bytes of shared memory of a cluster split-K CTA: x's rows over its
-    slice (`halves`: 2 for int4's two planes), the warps' sums and the
-    cluster's slots (csrc/cluster_splitk.cuh smem_bytes; q goes to
-    registers)."""
-    return 4 * (halves * rows * k_per_cta + (8 + cluster) * rows * TILE_N)
+    slice (`halves`: 2 for int4's two planes; `x_bytes` per value: 4 staged
+    as float, 1 quantised for W8A8), the warps' sums and the cluster's
+    slots (csrc/cluster_splitk.cuh smem_bytes; q goes to registers)."""
+    return x_bytes * halves * rows * k_per_cta + 4 * (8 + cluster) * rows * TILE_N
 
 
-def cluster_shape(B: int, K: int, N: int, halves: int = 1,
-                  cluster: int | None = None) -> ClusterShape:
+def cluster_shape(B: int, K: int, N: int, halves: int = 1, cluster: int | None = None,
+                  x_bytes: int = 4, table: dict | None = None) -> ClusterShape:
     """The one-launch cluster split-K design's launch for x [B, K @ q's
     rows] against q [K, N] (for int4, K is the packed rows K/2, halves=2).
     Decode-sized B leaves too few column tiles to fill the card, so each
     tile's K is split over the CTAs of one cluster: the smallest cluster
-    whose slices hold at most CLUSTER_ROWS_PER_CTA rows of the weight (a
-    1/halves share of that in rows of q), grown further while a CTA
+    whose slices hold at most `table` (CLUSTER_ROWS_PER_CTA) rows of the
+    weight by x rows (a 1/halves share of that in rows of q), grown further while a CTA
     exceeds the shared memory, but never so far that a CTA would get no
     rows. The SM count does not enter: the table was
     measured on the H100's 132 SMs (64-688 CTAs at nano's shapes).
+    `x_bytes` is the policy's staged bytes per x value (1 for W8A8).
     `cluster` forces the cluster size (chip_smoke.py times the others)."""
     rows = 1 if B == 1 else 2 if B == 2 else 4 if B <= 4 else 8
+    table = CLUSTER_ROWS_PER_CTA if table is None else table
 
     def k_per(c):
         return -(-K // (c * CLUSTER_ROW_ALIGN)) * CLUSTER_ROW_ALIGN
@@ -145,8 +163,8 @@ def cluster_shape(B: int, K: int, N: int, halves: int = 1,
     if cluster is None:
         cluster = 1
         while cluster < CLUSTER_MAX and (
-                k_per(cluster) > CLUSTER_ROWS_PER_CTA[rows] // halves
-                or cluster_smem(halves, rows, cluster, k_per(cluster)) > MAX_SMEM):
+                k_per(cluster) > table[rows] // halves
+                or cluster_smem(halves, rows, cluster, k_per(cluster), x_bytes) > MAX_SMEM):
             if (2 * cluster - 1) * k_per(2 * cluster) >= K:  # the last CTA would be empty
                 break
             cluster *= 2
@@ -163,15 +181,46 @@ def uses_mma(B: int, K: int, dtype: torch.dtype, aligned: bool = True) -> bool:
     return dtype == torch.bfloat16 and B >= MMA_MIN_ROWS and K % 8 == 0 and aligned
 
 
+def w8a8_cluster_shape(B: int, K: int, N: int, cluster: int | None = None) -> ClusterShape:
+    """cluster_shape under W8A8's integer policy: 1 byte of staged x per k
+    and W8A8_CLUSTER_ROWS_PER_CTA."""
+    return cluster_shape(B, K, N, cluster=cluster, x_bytes=1, table=W8A8_CLUSTER_ROWS_PER_CTA)
+
+
+def w8a8_uses_mma(B: int, N: int) -> bool:
+    """Whether a W8A8 launch runs on the s8 tensor cores: from
+    W8A8_MMA_MIN_ROWS rows (chip_smoke.py times both designs at nano's four
+    decode projections, PERF.md), where N is a whole number of the mma
+    design's 128-column tiles (every N of the models is); else the cluster
+    split-K design."""
+    return B >= W8A8_MMA_MIN_ROWS and N % S8_MMA_TILE_N == 0
+
+
+def s8_mma_shape(B: int, Kr: int, N: int, n_sms: int, max_k_per_split: int) -> tuple[int, int]:
+    """-> (splits, rows per split) of the s8 tensor-core designs (W8A8 on K
+    rows, W4A8 on K/2 packed rows). Their blocks hold their quantised x
+    rows in shared memory and the card holds about one per SM, so the Kr
+    rows are split until the grid is about one block per SM (and each split
+    fits: at most max_k_per_split rows), each split a whole number of
+    stages."""
+    tiles = -(-B // S8_MMA_TILE_M) * -(-N // S8_MMA_TILE_N)
+    chunks = -(-Kr // S8_MMA_CHUNK_K)
+    splits = max(1, n_sms // tiles, -(-chunks // (max_k_per_split // S8_MMA_CHUNK_K)))
+    k_per_split = -(-chunks // min(splits, chunks)) * S8_MMA_CHUNK_K
+    return -(-Kr // k_per_split), k_per_split
+
+
 @functools.cache
 def _lib():
     lib = _build.load("int8_matmul")
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.int8_matmul_w8a16.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I, P]
-    lib.int8_matmul_w8a8.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P]
+    lib.int8_matmul_w8a8.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I, P]
+    lib.int8_matmul_w8a8_mma.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P]
     lib.int8_matmul_w8a16_mma.argtypes = [P, P, P, P, I, I, I, P]
-    lib.int8_matmul_w8a16.restype = lib.int8_matmul_w8a8.restype = ctypes.c_int
-    lib.int8_matmul_w8a16_mma.restype = ctypes.c_int
+    for fn in (lib.int8_matmul_w8a16, lib.int8_matmul_w8a8, lib.int8_matmul_w8a8_mma,
+               lib.int8_matmul_w8a16_mma):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -217,10 +266,47 @@ def _launch_streaming(x, q, scale, layer: int,
     return out, err
 
 
+def _launch_w8a8_cluster(x, q, scale, layer: int,
+                         cluster: int | None = None) -> tuple[torch.Tensor, int]:
+    """The cluster split-K W8A8 design on layer `layer` of a checked stack:
+    one launch, no scratch; `cluster` forces a cluster size (chip_smoke.py
+    times them). -> (out, cudaError of the launch). Counts nothing."""
+    B, K, N = x.shape[0], q.shape[1], q.shape[2]
+    shape = w8a8_cluster_shape(B, K, N, cluster)
+    out = torch.empty((B, N), device=x.device, dtype=x.dtype)
+    err = _lib().int8_matmul_w8a8(
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), _DTYPES[x.dtype], B, K, N,
+        layer, shape.rows, shape.cluster, shape.k_per_cta,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    return out, err
+
+
+def _launch_w8a8_mma(x, q, scale, layer: int) -> tuple[torch.Tensor, int]:
+    """The s8 tensor-core W8A8 design (N % 128 == 0) on layer `layer` of a
+    checked stack: a quantise kernel writes xq and sx, then the mma kernel
+    (and the split-K pass). -> (out, cudaError of the launches). Counts
+    nothing."""
+    B, K, N = x.shape[0], q.shape[1], q.shape[2]
+    splits, k_per_split = s8_mma_shape(B, K, N, _build.n_sms(x.device), W8A8_MMA_MAX_K_PER_SPLIT)
+    out = torch.empty((B, N), device=x.device, dtype=x.dtype)
+    partial = (torch.empty((splits, B, N), device=x.device, dtype=torch.int32)
+               if splits > 1 else None)
+    xq = torch.empty((B, -(-K // S8_MMA_CHUNK_K) * S8_MMA_CHUNK_K), device=x.device,
+                     dtype=torch.int8)
+    sx = torch.empty((B,), device=x.device)
+    err = _lib().int8_matmul_w8a8_mma(
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        partial.data_ptr() if partial is not None else None, xq.data_ptr(), sx.data_ptr(),
+        _DTYPES[x.dtype], B, K, N, layer, splits, k_per_split,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    return out, err
+
+
 def _launch(name, x, q, scale, layer: int) -> torch.Tensor:
     """Launch a W8A16 kernel (the tensor-core design where uses_mma says
-    so), or the W8A8 kernels, which quantise x themselves, on layer `layer`
-    of the whole stack. Only torch.empty runs beside the kernels."""
+    so), or the W8A8 design that w8a8_uses_mma picks (its kernels quantise
+    x themselves), on layer `layer` of the whole stack. Only torch.empty
+    runs beside the kernels."""
     B, K, N = _check(name, x, q, scale, layer)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     mma = False
@@ -229,16 +315,8 @@ def _launch(name, x, q, scale, layer: int) -> torch.Tensor:
             raise ValueError(f"{name}: K must be a multiple of 4, got {K}")
         if x.data_ptr() % 16:
             raise ValueError(f"{name}: x must be 16-byte aligned")
-        rows, splits, k_per_split = launch_shape(B, K, N, _build.n_sms(x.device))
-        out = torch.empty((B, N), device=x.device, dtype=x.dtype)
-        partial = (torch.empty((splits, B, N), device=x.device, dtype=torch.int32)
-                   if splits > 1 else None)
-        sx = torch.empty((B,), device=x.device) if splits > 1 else None  # read by the split-K pass
-        err = _lib().int8_matmul_w8a8(
-            x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            partial.data_ptr() if partial is not None else None,
-            sx.data_ptr() if sx is not None else None, _DTYPES[x.dtype], B, K, N, layer, rows,
-            splits, k_per_split, stream)
+        mma = w8a8_uses_mma(B, N)
+        out, err = (_launch_w8a8_mma if mma else _launch_w8a8_cluster)(x, q, scale, layer)
     elif uses_mma(B, K, x.dtype,
                   x.data_ptr() % 16 == 0 and scale[layer].data_ptr() % 16 == 0):
         mma = True
@@ -253,7 +331,8 @@ def _launch(name, x, q, scale, layer: int) -> torch.Tensor:
                            f"cudaError {err}")
     _build.launch_counts[name] += 1
     if mma:
-        _build.launch_counts["int8_matmul_mma"] += 1
+        _build.launch_counts["int8_matmul_w8a8_mma" if name == "int8_matmul_w8a8"
+                             else "int8_matmul_mma"] += 1
     return out
 
 
@@ -272,8 +351,10 @@ def int8_matmul_stacked_cuda(x, q, scale, layer: int) -> torch.Tensor:
 
 
 def int8_matmul_w8a8_cuda(x, q, scale, layer: int) -> torch.Tensor:
-    """Launch the W8A8 kernel (and its split-K pass) on layer `layer` of
-    the whole stack; it quantises x per row itself."""
+    """Launch the W8A8 design that w8a8_uses_mma picks on layer `layer` of
+    the whole stack: one cluster split-K kernel at decode rows, else the
+    quantise kernel and the s8 tensor cores; x is quantised per row in
+    CUDA."""
     return _launch("int8_matmul_w8a8", x, q, scale, layer)
 
 

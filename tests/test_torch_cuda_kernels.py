@@ -40,7 +40,9 @@ from sonicscribe_tpu_torch.ops.int4_matmul import (
     w4a8_uses_mma,
     w4a16_uses_mma,
 )
+from sonicscribe_tpu_torch.ops import int8_matmul as im
 from sonicscribe_tpu_torch.ops.int8_matmul import (
+    W8A8_MMA_MIN_ROWS,
     div127,
     int8_matmul,
     int8_matmul_plain,
@@ -518,11 +520,24 @@ def test_quantize_tensor_on_the_card_equals_the_cpu(cuda, key):
     assert torch.equal(got["q"].cpu(), want["q"])
 
 
-@pytest.mark.parametrize("B", [1, 2, 3, 4, 5, 8])
+def _w8a8_designs(x, q, scale, layer):
+    """Both W8A8 designs forced through the private launchers."""
+    outs = []
+    for launch in (im._launch_w8a8_cluster, im._launch_w8a8_mma):
+        out, err = launch(x, q, scale, layer)
+        assert err == 0, (launch.__name__, err)
+        outs.append(out)
+    return outs
+
+
+@pytest.mark.parametrize("B", sorted({1, 2, 3, 4, 5, 8, W8A8_MMA_MIN_ROWS - 1, W8A8_MMA_MIN_ROWS,
+                                      64}))
 def test_int8_w8a8_equals_the_recipe(cuda, B):
     """W8A8 quantises x in the kernel: equal bits with the plain version
     (the JAX recipe) run on CPU copies, at nano's decode projections,
-    float32 and bf16 x."""
+    float32 and bf16 x, at decode rows and either side of the design
+    threshold, through the entry and both designs forced; the mma counter
+    rises exactly from W8A8_MMA_MIN_ROWS rows."""
     g = torch.Generator(device=cuda).manual_seed(B)
     for K, N in NANO_PROJECTIONS.values():
         if (K, N) in ((1024, 1024), (1024, 4096), (4096, 1024)):
@@ -530,8 +545,14 @@ def test_int8_w8a8_equals_the_recipe(cuda, B):
         qt = quantize_tensor(torch.randn((2, K, N), generator=g, device=cuda) * 0.02)
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn((B, K), generator=g, device=cuda).to(dtype)
+            before = _build.launch_counts["int8_matmul_w8a8_mma"]
             got = int8_matmul_w8a8(x, qt["q"], qt["scale"], 1)
-            assert torch.equal(got, _on_cpu(int8_matmul_w8a8_plain, x, qt["q"], qt["scale"], 1))
+            assert _build.launch_counts["int8_matmul_w8a8_mma"] - before == int(
+                B >= W8A8_MMA_MIN_ROWS)
+            want = _on_cpu(int8_matmul_w8a8_plain, x, qt["q"], qt["scale"], 1)
+            assert torch.equal(got, want)
+            for out in _w8a8_designs(x, qt["q"], qt["scale"], 1):
+                assert torch.equal(out, want)
 
 
 @pytest.mark.parametrize("B", [4, 8])
@@ -550,9 +571,11 @@ def test_int8_w8a8_crafted_rows(cuda, B):
     x[3] = torch.linspace(-1.0, 1.0, K, device=cuda) * 127.0  # both ends at +-127
     for dtype in (torch.float32, torch.bfloat16):
         xd = x.to(dtype)
-        got = int8_matmul_w8a8(xd, qt["q"], qt["scale"], 0)
-        assert torch.equal(got, _on_cpu(int8_matmul_w8a8_plain, xd, qt["q"], qt["scale"], 0))
-        assert not bool(got[0].any())  # a zero row stays zero
+        want = _on_cpu(int8_matmul_w8a8_plain, xd, qt["q"], qt["scale"], 0)
+        for got in [int8_matmul_w8a8(xd, qt["q"], qt["scale"], 0),
+                    *_w8a8_designs(xd, qt["q"], qt["scale"], 0)]:
+            assert torch.equal(got, want)
+            assert not bool(got[0].any())  # a zero row stays zero
 
 
 def _kernel_names(fn):
@@ -568,15 +591,18 @@ def _kernel_names(fn):
 
 
 def test_int8_w8a8_launches_only_its_own_kernels(cuda):
-    """A W8A8 call runs no PyTorch kernel: at B 1 (split-K: the kernel and
-    its second pass) and 8, every kernel on the card is a W8A8 kernel of
-    csrc/int8_matmul.cu."""
+    """A W8A8 call runs no PyTorch kernel: at B 1 exactly one kernel (the
+    cluster split-K kernel under its W8A8 policy, no split-K pass), and at
+    8, the threshold and 64 rows every kernel on the card is a W8A8 kernel
+    of csrc/int8_matmul.cu."""
     g = torch.Generator(device=cuda).manual_seed(0)
     qt = quantize_tensor(torch.randn((2, 2048, 3072), generator=g, device=cuda) * 0.02)
-    for B in (1, 8):
+    for B in (1, 8, W8A8_MMA_MIN_ROWS, 64):
         x = torch.randn((B, 2048), generator=g, device=cuda).to(torch.bfloat16)
         names = _kernel_names(lambda: int8_matmul_w8a8(x, qt["q"], qt["scale"], 1))
-        assert names and all("w8a8" in n for n in names), names
+        assert names and all("w8a8" in n.lower() for n in names), names
+        if B == 1:
+            assert len(names) == 1, names
 
 
 @pytest.mark.parametrize("B", [1, 2, 3, 4, 5, 8])

@@ -311,12 +311,12 @@ def test_library_path_hashes_the_included_headers(tmp_path, monkeypatch):
 
 def test_every_kernel_source_and_header_is_hashed():
     """The package's own sources: each kernel's digest covers the headers
-    it includes (act_quant.cuh, cluster_splitk.cuh, common.cuh)."""
+    it includes (act_quant.cuh, cluster_splitk.cuh, common.cuh, s8_mma.cuh)."""
     for name in _build.KERNELS:
         assert _build.sources(name)[0].name == f"{name}.cu"
     for name in ("int8_matmul", "int4_matmul"):
         assert {p.name for p in _build.sources(name)[1:]} == {
-            "act_quant.cuh", "cluster_splitk.cuh", "common.cuh"}
+            "act_quant.cuh", "cluster_splitk.cuh", "common.cuh", "s8_mma.cuh"}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
