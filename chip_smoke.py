@@ -67,28 +67,44 @@ exits non-zero on failure:
    int8_w8a8 and int4_w4a16 step.
    The int4 kernels serve no request: the JAX package serves no int4 mode,
    and its only path to them is this sweep.
-3. main path: build_runtime("nano-random") in bf16 at full width, then the
-   file-transcription path of POST /transcribe/file (decode_audio +
-   transcribe_file_stream) on three 16 kHz WAVs made from a seed: ~3 s,
-   ~12 s and ~35 s with silences (VAD splits it, one span is cut long).
-   The launch counters are set to 0 before each request and read after:
-   the mel kernel must have run once per segment and decode attention once
-   per layer per decode step. Then, in each int8 mode (int8, int8-decoder,
-   int8-decoder-a8), a runtime of its own serves the ~12 s request: the
-   stacked W8A16 kernel (W8A8 in -a8) runs 4 times per layer per decode
-   step (one launch each), the flat W8A16 kernel 4 times per layer per segment in prefill
-   (plus 6 per encoder layer in full int8), every one of them bf16 with
-   B > 8 and so on the tensor cores (int8_matmul_mma), and W8A8's one decode
-   row on its cluster design. Each runtime's peak memory is
-   read over its request, and a short profiled request splits its time
-   between host and card, as for the native runtime (in int8-decoder-a8
-   one W8A8 kernel per W8A8 call).
-4. reference: tiny() in float32 gives the same tokens on the card as on
-   the CPU (where the tests hold it against the JAX package), natively and
-   in each int8 mode (each tree quantized on its own device, as
-   build_runtime quantizes it), and nano's prefill logits are finite.
+3. main path: build_runtime("nano-random") in bf16 at full width; its
+   transcriber's CUDA graphs captured for every bucket and the budgets 15
+   and 256 (engine.warmup: the time of each key and of the grid, graphs,
+   memory with the grid warmed); then the file-transcription path of POST
+   /transcribe/file (decode_audio + transcribe_file_stream) on three 16 kHz
+   WAVs made from a seed: ~3 s, ~12 s and ~35 s with silences (VAD splits
+   it, one span is cut long). Each request runs captured (the main path:
+   graph replays) and eager (an engine of this script whose transcriber
+   runs assemble_prompt + greedy_generate op by op on the same weights):
+   tokens equal (for 3 s and 12 s a difference fails and prints its step
+   and both tokens' eager logits), wall, RTF, decode tokens/s, peak memory,
+   and from a profiled run at a 32-token budget the device busy time and
+   idle share. The launch counters are set to 0 before each request and
+   read after: the mel kernel must have run once per segment and decode
+   attention once per layer per decode step (replays counted by the
+   router). Then the steps per decode graph, k in 4, 8, 16, 32, on the
+   12 s request (tokens/s, twice each, tokens equal for every k). Then, in
+   each int8 mode (int8, int8-decoder, int8-decoder-a8), a runtime of its
+   own with its grid captured serves the ~3 s and ~12 s requests captured
+   and eager in the same way: the stacked W8A16 kernel (W8A8 in -a8) runs 4
+   times per layer per decode step (one launch each), the flat W8A16
+   kernel 4 times per layer per segment in prefill (plus 6 per encoder
+   layer in full int8), every one of them bf16 with B > 8 and so on the
+   tensor cores (int8_matmul_mma), and W8A8's one decode row on its
+   cluster design; in -a8 the eager profile shows one W8A8 kernel per W8A8
+   call (the captured one too where the profiler itemizes a replayed
+   graph's kernels).
+4. reference: tiny() in float32 gives the same tokens on the card (graph
+   replays) as on the CPU (where the tests hold it against the JAX
+   package), natively and in each int8 mode (each tree quantized on its
+   own device, as build_runtime quantizes it), with 1 and 8 decode steps
+   per graph and a budget of 21 (a tail graph); tiny graphs captured while
+   another thread resamples uploads on the card give the tokens of graphs
+   captured alone; and nano's prefill logits are finite.
 
-The line before the last is the kernels' JSON record (nine kernels, each
+A line `captured {...}` holds phase 3's numbers by mode (grid, requests
+eager and captured, the k A/B). The line before the last is the kernels'
+JSON record (nine kernels, each
 with the path its launches were counted on; the redesigned ones with their
 design; the flat W8A16, W8A8 and the four int4 entries with
 `mma_launches`, the launches that took the tensor cores); the last line is
@@ -124,6 +140,18 @@ INT8_F32_TOL = 1e-5
 SWEEP_TOL = 0.02
 INT8_MODES = ("int8", "int8-decoder", "int8-decoder-a8")
 SEED = 0
+GRID_BUDGETS = (15, 256)  # the interim and the file budget (config.py)
+PROFILE_BUDGET = 32  # decode tokens per segment in the profiled runs
+DECODE_K_AB = (4, 8, 16, 32)  # decode steps per graph in the A/B
+# EOS positions of the A/B's EOS traffic: ~12 s of speech at 2-7 tokens/s
+EOS_AT = (24, 32, 40, 48, 60, 80)
+# a profile's kernels by part of the model, by name
+KERNEL_PARTS = {
+    "attention": ("decode_attention",),
+    "projections": ("nvjet", "gemm", "splitk::", "w8a16", "w8a8", "cutlass", "sm90_xmma"),
+    "elementwise": ("at::native",),
+    "other": (),
+}
 
 
 def fail(msg: str) -> None:
@@ -1124,11 +1152,28 @@ def payloads() -> dict:
     }
 
 
-def serve_request(torch, engine, vad, config, name: str, audio: np.ndarray) -> dict:
+class Recording:
+    """The engine as transcribe_file_stream sees it: each transcribe call's
+    arguments and tokens are kept, in call order."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.calls = []
+
+    async def transcribe(self, audio, sample_rate, **kw):
+        r = await self.engine.transcribe(audio, sample_rate, **kw)
+        self.calls.append(dict(audio=audio, sample_rate=sample_rate, kw=kw, tokens=r.tokens))
+        return r
+
+
+def serve_request(torch, engine, vad, config, name: str, audio: np.ndarray,
+                  budget: int | None = None) -> dict:
     """One request through the file path (decode_audio +
     transcribe_file_stream), the launch counters set to 0 just before it
     and read just after. Checks the NDJSON stream, the mel launches (one per
-    segment) and the decode-attention launches (one per layer per step)."""
+    segment) and the decode-attention launches (one per layer per step:
+    through graph replays, the router's accounting). -> its numbers, the
+    counts and each segment's tokens."""
     from sonicscribe_tpu_torch.audio.wav import write_wav
     from sonicscribe_tpu_torch.ops import _build
     from sonicscribe_tpu_torch.serve.decode import decode_audio
@@ -1137,19 +1182,21 @@ def serve_request(torch, engine, vad, config, name: str, audio: np.ndarray) -> d
     n_layers = engine.transcriber.cfg.decoder.n_layers
     wav = write_wav(audio, SR)
     file_cfg = FileTranscriptionConfig.from_dict({}, default_threshold=config.vad_speech_threshold)
-    file_cfg.max_new_tokens = config.file_max_new_tokens
+    file_cfg.max_new_tokens = budget or config.file_max_new_tokens
     file_cfg.concurrency = engine.concurrency_hint
-    steps0 = engine.stats["decode_steps"]
+    steps0, tokens0 = engine.stats["decode_steps"], engine.stats["tokens"]
+    rec = Recording(engine)
     _build.reset_launch_counts()
     t0 = time.perf_counter()
     decoded = decode_audio(wav, f"{name}.wav", engine.transcriber.device)
     msgs = asyncio.run(_collect(
-        transcribe_file_stream(decoded, engine, vad, file_cfg, f"{name}.wav")
+        transcribe_file_stream(decoded, rec, vad, file_cfg, f"{name}.wav")
     ))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(_build.launch_counts)
     steps = engine.stats["decode_steps"] - steps0
+    tokens = engine.stats["tokens"] - tokens0
 
     n_seg = msgs[0].get("total_segments", 0)
     types = [m["type"] for m in msgs]
@@ -1162,15 +1209,307 @@ def serve_request(torch, engine, vad, config, name: str, audio: np.ndarray) -> d
     check(steps > 0 and counts["decode_attention"] == n_layers * steps,
           f"{name}: decode_attention launched {counts['decode_attention']} times "
           f"for {steps} decode steps x {n_layers} layers")
-    tokens = steps + n_seg  # each segment: one token from prefill + one per step
     duration = len(decoded) / SR
-    log(f"request {name}: {n_seg} segments, wall {wall:.3f} s, RTF "
-        f"{wall / duration:.4f}, {tokens} tokens, {tokens / wall:.1f} tokens/s, "
-        f"launches {counts}, text[:40]={msgs[-1]['full_text'][:40]!r}")
-    return dict(msgs=msgs, n_seg=n_seg, steps=steps, counts=counts)
+    # segments that decoded their whole budget without an EOS
+    at_budget = sum(len(c["tokens"]) == file_cfg.max_new_tokens for c in rec.calls)
+    if budget is None:
+        log(f"request {name}: {n_seg} segments ({at_budget} ran to the budget), wall "
+            f"{wall:.3f} s, RTF {wall / duration:.4f}, {tokens} tokens, "
+            f"{tokens / wall:.1f} tokens/s, {steps} decode steps, "
+            f"launches { {k: v for k, v in counts.items() if v} }, "
+            f"text[:40]={msgs[-1]['full_text'][:40]!r}")
+    return dict(msgs=msgs, n_seg=n_seg, steps=steps, counts=counts, wall=wall,
+                rtf=wall / duration, tokens=tokens, tokens_per_s=tokens / wall, calls=rec.calls,
+                at_budget=at_budget)
+
+
+def eager_transcriber(tr):
+    """A transcriber over `tr`'s weights and settings whose _generate runs
+    the eager oracle, assemble_prompt + greedy_generate op by op, in place
+    of the captured programs: the "before" of every comparison here and the
+    reference of the card tests. The package has no switch for it; this
+    subclass is the smoke test's own."""
+    import torch
+
+    from sonicscribe_tpu_torch.engine.transcriber import Transcriber, assemble_prompt
+    from sonicscribe_tpu_torch.models.glm_asr import greedy_generate
+
+    class EagerTranscriber(Transcriber):
+        def _generate(self, bucket, mel, frames, prefix_ids, suffix_ids, suffix_len, budget):
+            dev = self.device
+            buf, total = assemble_prompt(
+                self.params, self.cfg, mel.to(self.dtype),
+                torch.tensor([frames], dtype=torch.int32, device=dev),
+                torch.from_numpy(prefix_ids).to(dev), torch.from_numpy(suffix_ids).to(dev),
+                torch.tensor([suffix_len], dtype=torch.int32, device=dev),
+            )
+            toks, steps = greedy_generate(self.params, self.cfg, buf, total, budget,
+                                          logit_bias=self._bias)
+            return toks[0].cpu().numpy(), steps
+
+    return EagerTranscriber(tr.cfg, tr.params, tr.tokenizer, tr.mel_cfg, tr.buckets,
+                            tr.peak_normalize, tr.hotword_bias_strength)
+
+
+def eager_engine(engine):
+    """A ThreadedEngine over the same weights and VAD with the eager oracle."""
+    from sonicscribe_tpu_torch.serve.engine_async import ThreadedEngine
+
+    return ThreadedEngine(eager_transcriber(engine.transcriber), engine.vad)
+
+
+def check_same_tokens(name, captured, eager):
+    """Each segment's captured tokens equal the eager ones; at the first
+    difference, fail with the step and the two tokens there."""
+    check(len(captured["calls"]) == len(eager["calls"]) > 0,
+          f"{name}: {len(captured['calls'])} captured segments, {len(eager['calls'])} eager")
+    for i, (c, e) in enumerate(zip(captured["calls"], eager["calls"])):
+        if np.array_equal(c["tokens"], e["tokens"]):
+            continue
+        n = min(len(c["tokens"]), len(e["tokens"]))
+        diff = np.flatnonzero(c["tokens"][:n] != e["tokens"][:n])
+        step = int(diff[0]) if len(diff) else n
+        tc = int(c["tokens"][step]) if step < len(c["tokens"]) else "end"
+        te = int(e["tokens"][step]) if step < len(e["tokens"]) else "end"
+        fail(f"{name}: segment {i}: captured tokens differ from eager at step {step}: "
+             f"captured {tc}, eager {te} (end: EOS or pad); lengths {len(c['tokens'])}, {len(e['tokens'])}")
+
+
+def profile_request(torch, engine, vad, config, name: str, audio) -> dict:
+    """The request at a PROFILE_BUDGET-token budget: its wall unprofiled,
+    then a profiled run (torch.profiler, CUDA activity): device busy time
+    (kernels only) and idle share, the decode-attention and W8A8 kernels the
+    profiler saw beside the wrappers' counts, the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sonicscribe_tpu_torch.ops import _build
+
+    # the first run captures the budget's graphs (not in the grid)
+    serve_request(torch, engine, vad, config, name, audio, budget=PROFILE_BUDGET)
+    r = serve_request(torch, engine, vad, config, name, audio, budget=PROFILE_BUDGET)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        serve_request(torch, engine, vad, config, name, audio, budget=PROFILE_BUDGET)
+    counts = dict(_build.launch_counts)
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    check(busy_ms > 0, f"{name}: the profiler saw no device time")
+    w8a8 = [e for e in events if "w8a8" in e.key.lower()]
+    by_part = {part: 0.0 for part in KERNEL_PARTS}
+    for e in events:
+        part = next((p for p, keys in KERNEL_PARTS.items() if any(k in e.key for k in keys)),
+                    "other")
+        by_part[part] += dev_us(e) / 1e3
+    return dict(wall=r["wall"], busy_ms=busy_ms, idle=max(0.0, 1 - busy_ms / (r["wall"] * 1e3)),
+                events=events, w8a8_calls=counts["int8_matmul_w8a8"],
+                w8a8_kernels=sum(e.count for e in w8a8), w8a8_us=sum(dev_us(e) for e in w8a8),
+                attn_calls=counts["decode_attention"],
+                attn_split=sum(e.count for e in events
+                               if "decode_attention_split_kernel" in e.key),
+                attn_merge=sum(e.count for e in events
+                               if "decode_attention_merge_kernel" in e.key),
+                n_kernels=sum(e.count for e in events), by_part=by_part, steps=r["steps"])
+
+
+def dev_us(e) -> float:
+    return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+
+def compare_requests(torch, engine, eager, vad, config, mode: str, names) -> dict:
+    """Each named request through the captured engine and the eager one:
+    tokens equal (for 3s and 12s a mismatch fails), then wall, RTF,
+    tokens/s, peak memory and, from a profile at a PROFILE_BUDGET-token
+    budget, the idle share, side by side. -> {name: {label: numbers}}."""
+    engines = (("captured", engine), ("eager", eager))
+    served = {}
+    for name in names:
+        for label, eng in engines:
+            torch.cuda.reset_peak_memory_stats()
+            r = serve_request(torch, eng, vad, config, f"{name} {mode} {label}", payloads()[name])
+            served[name, label] = dict(r, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    rows = {}
+    for name in names:  # the profiles after every unprofiled run
+        runs = {label: dict(served[name, label], profile=profile_request(
+            torch, eng, vad, config, f"{name} {mode} {label} profiled", payloads()[name]))
+            for label, eng in engines}
+        same = len(runs["captured"]["calls"]) == len(runs["eager"]["calls"]) and all(
+            np.array_equal(c["tokens"], e["tokens"])
+            for c, e in zip(runs["captured"]["calls"], runs["eager"]["calls"]))
+        if name in ("3s", "12s"):
+            check_same_tokens(f"{name} {mode}", runs["captured"], runs["eager"])
+        log(f"captured vs eager, {name} {mode}: tokens "
+            f"{'equal' if same else 'DIFFER'} ({runs['captured']['tokens']} tokens, "
+            f"{runs['captured']['n_seg']} segments)")
+        for label, r in runs.items():
+            p = r["profile"]
+            log(f"  {label:8s}: wall {r['wall']:.3f} s, RTF {r['rtf']:.4f}, "
+                f"{r['tokens_per_s']:.1f} tokens/s, peak {r['peak_gib']:.2f} GiB; "
+                f"{PROFILE_BUDGET}-token profile: wall {p['wall'] * 1e3:.1f} ms, device busy "
+                f"{p['busy_ms']:.1f} ms, idle share {p['idle']:.3f}, {p['n_kernels']} kernels "
+                f"({p['steps']} decode steps); busy ms by part: "
+                + ", ".join(f"{k} {v:.1f}" for k, v in p["by_part"].items()))
+        rows[name] = {k: {f: v[f] for f in ("wall", "rtf", "tokens", "tokens_per_s", "peak_gib",
+                                            "steps", "counts", "n_seg", "at_budget")}
+                      | {"idle": v["profile"]["idle"], "busy_ms": v["profile"]["busy_ms"],
+                         "busy_by_part_ms": v["profile"]["by_part"],
+                         "profile_kernels": v["profile"]["n_kernels"],
+                         "profile_wall": v["profile"]["wall"],
+                         "long_segment": any(m["is_long_segment"]
+                                             for m in v["msgs"][1]["segments"])}
+                      for k, v in runs.items()}
+        rows[name]["tokens_equal"] = same
+        top_profiles(mode, name, runs)
+    return rows
+
+
+def top_profiles(mode, name, runs) -> None:
+    """The top kernels of each profile, and the kernels the profiler saw
+    against the wrappers' counts: in the captured profile, whose counts the
+    router adds at each replay, one split and one merge kernel per
+    decode-attention call; in both, one W8A8 kernel per W8A8 call (B=1).
+    The eager profile's decode-attention kernels are printed, not checked:
+    the eager 35 s request's profile (~170k kernels and as many launch
+    records) has reported 4 fewer of both kernels than the calls."""
+    for label, r in runs.items():
+        p = r["profile"]
+        if name == "3s":
+            for e in sorted(p["events"], key=dev_us, reverse=True)[:6]:
+                log(f"    {label} {dev_us(e) / 1e3:9.3f} ms {e.count:6d} calls  {e.key[:80]}")
+        if label == "captured":
+            check(p["attn_calls"] > 0 and p["attn_split"] == p["attn_merge"] == p["attn_calls"],
+                  f"{label} profile {name} {mode}: {p['attn_split']} decode-attention split and "
+                  f"{p['attn_merge']} merge kernels for {p['attn_calls']} calls")
+        check(p["w8a8_kernels"] == p["w8a8_calls"],
+              f"{label} profile {name} {mode}: {p['w8a8_kernels']} W8A8 kernels for "
+              f"{p['w8a8_calls']} W8A8 calls")
+        log(f"  {label} profile {name} {mode}: {p['attn_calls']} decode-attention calls, "
+            f"{p['attn_split']} + {p['attn_merge']} kernels; {p['w8a8_calls']} W8A8 calls, "
+            f"{p['w8a8_kernels']} kernels"
+            + (f", {p['w8a8_us'] / p['w8a8_kernels']:.2f} us each" if p["w8a8_kernels"] else ""))
+
+
+def warm_grid(torch, engine, mode: str) -> dict:
+    """Capture the transcriber's graphs for every bucket and GRID_BUDGETS:
+    time per key and in all, graphs, and memory with the grid warmed."""
+    from sonicscribe_tpu_torch.engine import transcriber as transcriber_module
+
+    tr = engine.transcriber
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.warmup(budgets=GRID_BUDGETS)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    st = tr.router.stats
+    for key, sec in st["capture_s"].items():
+        log(f"  capture {mode} {key}: {sec:.3f} s")
+    out = dict(grid_s=total, graphs=st["graphs"],
+               max_gib=torch.cuda.max_memory_allocated() / 2**30,
+               resident_gib=torch.cuda.memory_allocated() / 2**30,
+               capture_s={str(k): v for k, v in st["capture_s"].items()})
+    log(f"grid {mode}: {out['graphs']} graphs (buckets {tr.buckets}, budgets {GRID_BUDGETS}, "
+        f"{transcriber_module.DECODE_STEPS} steps per decode graph) captured in {total:.2f} s; "
+        f"max_memory_allocated {out['max_gib']:.2f} GiB, resident {out['resident_gib']:.2f} GiB")
+    return out
+
+
+def decode_k_ab(torch, engine) -> dict:
+    """Decode steps per graph, k in DECODE_K_AB, on the 12 s request
+    (bucket 2048, budget 256), in two kinds of traffic:
+
+    - to the budget: the random weights never emit EOS, so every run
+      decodes all 256 steps (tokens/s);
+    - ending in EOS: the EOS id of a copy of the config is made the token
+      that the free run first emits nearest each position of EOS_AT, so
+      each run stops after the chunk of that step, as a segment of real
+      speech does (the wall of each request, summed over the positions).
+
+    Each k of a transcriber is captured and run once untimed, then timed
+    in three rounds in alternating order (4, 8, 16, 32, then back); tokens
+    equal for every k, and the EOS runs' decode steps are the chunk-rounded
+    ones. DECODE_STEPS ships the k with the least EOS-traffic wall."""
+    from dataclasses import replace
+
+    from sonicscribe_tpu_torch.engine import transcriber as tm
+
+    tr = engine.transcriber
+    audio = payloads()["12s"]
+    shipped = tm.DECODE_STEPS
+
+    def rounds(t, label: str) -> tuple[dict, np.ndarray]:
+        out = {k: dict(wall=[], tokens=[], steps=[]) for k in DECODE_K_AB}
+        for k in DECODE_K_AB:
+            tm.DECODE_STEPS = k
+            t0 = time.perf_counter()
+            t.warmup(buckets=(2048,), budgets=(256,))
+            out[k]["capture_s"] = time.perf_counter() - t0
+            t.transcribe(audio, SR, max_new_tokens=256)
+        want = None
+        for k in DECODE_K_AB + DECODE_K_AB[::-1] + DECODE_K_AB:
+            tm.DECODE_STEPS = k
+            tok0, steps0 = t.stats["tokens"], t.stats["decode_steps"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = t.transcribe(audio, SR, max_new_tokens=256)
+            out[k]["wall"].append(time.perf_counter() - t0)
+            out[k]["tokens"].append(t.stats["tokens"] - tok0)
+            out[k]["steps"].append(t.stats["decode_steps"] - steps0)
+            want = r.tokens if want is None else want
+            check(np.array_equal(r.tokens, want), f"decode k={k} ({label}): tokens differ")
+        for k, v in out.items():
+            log(f"decode k={k} {label}: walls " + ", ".join(f"{w:.4f}" for w in v["wall"])
+                + f" s, {v['tokens'][0]} tokens, {v['steps'][0]} steps, "
+                f"{v['tokens'][0] / np.median(v['wall']):.1f} tokens/s (median), "
+                f"capture {v['capture_s']:.3f} s")
+        return out, want
+
+    try:
+        budget_runs, free = rounds(tr, "to the budget")
+        first: dict = {}
+        for i, t in enumerate(free.tolist()):
+            first.setdefault(t, i)
+        starts = sorted(p for t, p in first.items() if p > 0 and t != tr.cfg.pad_id)
+        at = []
+        for target in EOS_AT:
+            p = min((p for p in starts if p not in at), key=lambda p: abs(p - target),
+                    default=None)
+            if p is not None:
+                at.append(p)
+        check(len(at) >= 2, f"decode k A/B: EOS positions {at} from the free run's tokens")
+        eos_runs = {}
+        for p in sorted(at):
+            t = tm.Transcriber(replace(tr.cfg, eos_id=int(free[p])), tr.params, tr.tokenizer,
+                               tr.mel_cfg, tr.buckets)
+            eos_runs[p], toks = rounds(t, f"EOS at {p}")
+            check(np.array_equal(toks, free[:p]),
+                  f"decode k A/B: EOS at {p} cut the tokens at {len(toks)}")
+            for k, v in eos_runs[p].items():
+                want = min(256, (p // k + 1) * k)
+                check(set(v["steps"]) == {want},
+                      f"decode k={k}, EOS at {p}: {v['steps']} steps, want {want}")
+            del t
+            release_memory(torch)
+    finally:
+        tm.DECODE_STEPS = shipped
+    eos_wall = {k: sum(float(np.median(eos_runs[p][k]["wall"])) for p in eos_runs)
+                for k in DECODE_K_AB}
+    budget_tps = {k: v["tokens"][0] / float(np.median(v["wall"])) for k, v in budget_runs.items()}
+    best_eos = min(DECODE_K_AB, key=eos_wall.get)
+    best_budget = max(DECODE_K_AB, key=budget_tps.get)
+    log(f"decode k A/B: EOS at {sorted(eos_runs)}; summed median wall by k: "
+        + ", ".join(f"k={k} {w:.4f} s" for k, w in eos_wall.items())
+        + f"; least k={best_eos}. To the budget, median tokens/s: "
+        + ", ".join(f"k={k} {v:.1f}" for k, v in budget_tps.items())
+        + f"; most k={best_budget}. Shipped DECODE_STEPS={shipped}")
+    return dict(to_budget={str(k): v for k, v in budget_runs.items()},
+                eos={str(p): {str(k): v for k, v in r.items()} for p, r in eos_runs.items()},
+                eos_wall_s={str(k): w for k, w in eos_wall.items()},
+                budget_tokens_per_s={str(k): v for k, v in budget_tps.items()},
+                best_eos=best_eos, best_budget=best_budget, shipped=shipped)
 
 
 def main_path_phase(torch):
+    """nano-random native: the grid captured, then the three requests
+    captured (counted: the main path) and eager, and the k A/B."""
     from sonicscribe_tpu_torch.config import AppConfig
     from sonicscribe_tpu_torch.serve.runtime import build_runtime
 
@@ -1181,27 +1520,31 @@ def main_path_phase(torch):
     log(f"nano-random on {info['device_name']}: {info['params']} params, "
         f"init {time.perf_counter() - t0:.1f} s, resident "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-
-    launches = {"decode_attention": 0, "log_mel": 0}
-    torch.cuda.reset_peak_memory_stats()
+    eager = eager_engine(engine)
     try:
-        for name, audio in payloads().items():
-            r = serve_request(torch, engine, vad, config, name, audio)
-            if name == "35s":
-                check(r["n_seg"] >= 3 and any(m["is_long_segment"] for m in r["msgs"][1]["segments"]),
-                      f"35s: expected a VAD split and a long-segment cut, got {r['msgs'][1]}")
+        torch.cuda.reset_peak_memory_stats()
+        grid = warm_grid(torch, engine, "native")
+        launches = {"decode_attention": 0, "log_mel": 0}
+        rows = compare_requests(torch, engine, eager, vad, config, "native", ("3s", "12s", "35s"))
+        for name, row in rows.items():
             for kname in launches:
-                launches[kname] += r["counts"][kname]
-        log(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        return engine, launches
+                launches[kname] += row["captured"]["counts"][kname]
+        r35 = rows["35s"]["captured"]
+        check(r35["n_seg"] >= 3 and r35["long_segment"],
+              f"35s: expected a VAD split and a long-segment cut, got {r35['n_seg']} segments")
+        k_ab = decode_k_ab(torch, engine)
+        return engine, launches, dict(grid=grid, requests=rows, k_ab=k_ab)
     except BaseException:
         engine.shutdown()
         raise
+    finally:
+        eager.shutdown()
 
 
-def int8_main_path_phase(torch, mode: str) -> dict:
-    """build_runtime in one int8 mode, then the ~12 s request; checks the
-    int8 kernels' launch counts. -> the request's launch counts."""
+def int8_main_path_phase(torch, mode: str) -> tuple[dict, dict]:
+    """build_runtime in one int8 mode, its grid captured, then the ~3 s and
+    ~12 s requests captured and eager; checks the int8 kernels' launch
+    counts in both. -> (the captured 12 s request's launch counts, numbers)."""
     from sonicscribe_tpu_torch.config import AppConfig
     from sonicscribe_tpu_torch.serve.runtime import build_runtime
 
@@ -1212,91 +1555,85 @@ def int8_main_path_phase(torch, mode: str) -> dict:
     torch.cuda.synchronize()
     log(f"nano-random {mode}: {info['params']} params, init {time.perf_counter() - t0:.1f} s, "
         f"resident {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    torch.cuda.reset_peak_memory_stats()
+    eager = eager_engine(engine)
     try:
+        torch.cuda.reset_peak_memory_stats()
+        grid = warm_grid(torch, engine, mode)
+        rows = compare_requests(torch, engine, eager, vad, config, mode, ("3s", "12s"))
         cfg = engine.transcriber.cfg
-        r = serve_request(torch, engine, vad, config, f"12s {mode}", payloads()["12s"])
-        counts, steps, n_seg = r["counts"], r["steps"], r["n_seg"]
         n_dec, n_enc = cfg.decoder.n_layers, cfg.encoder.n_layers
         decode_entry = "int8_matmul_w8a8" if mode == "int8-decoder-a8" else "int8_matmul_stacked"
         other = "int8_matmul_stacked" if mode == "int8-decoder-a8" else "int8_matmul_w8a8"
-        check(counts[decode_entry] == 4 * n_dec * steps and counts[other] == 0,
-              f"{mode}: {decode_entry} launched {counts[decode_entry]} times for {steps} "
-              f"decode steps x {n_dec} layers x 4 ({other}: {counts[other]})")
-        flat = n_seg * (4 * n_dec + (6 * n_enc if mode == "int8" else 0))
-        check(counts["int8_matmul"] == flat,
-              f"{mode}: int8_matmul launched {counts['int8_matmul']} times, want {flat}")
-        # every flat launch here is bf16 prefill or encoder rows (B > 8); the
-        # decode step's one row takes W8A8's cluster design
-        check(counts["int8_matmul_mma"] == flat,
-              f"{mode}: int8_matmul_mma launched {counts['int8_matmul_mma']} times, want {flat}")
-        check(counts["int8_matmul_w8a8_mma"] == 0,
-              f"{mode}: W8A8 took the tensor cores {counts['int8_matmul_w8a8_mma']} times at B=1")
-        log(f"  {mode}: max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        profile_phase(torch, engine, mode)
-        return counts
+        for label in ("captured", "eager"):
+            r = rows["12s"][label]
+            counts, steps, n_seg = r["counts"], r["steps"], r["counts"]["log_mel"]
+            check(counts[decode_entry] == 4 * n_dec * steps and counts[other] == 0,
+                  f"{mode} {label}: {decode_entry} launched {counts[decode_entry]} times for "
+                  f"{steps} decode steps x {n_dec} layers x 4 ({other}: {counts[other]})")
+            flat = n_seg * (4 * n_dec + (6 * n_enc if mode == "int8" else 0))
+            check(counts["int8_matmul"] == flat,
+                  f"{mode} {label}: int8_matmul launched {counts['int8_matmul']} times, "
+                  f"want {flat}")
+            # every flat launch here is bf16 prefill or encoder rows (B > 8); the
+            # decode step's one row takes W8A8's cluster design
+            check(counts["int8_matmul_mma"] == flat,
+                  f"{mode} {label}: int8_matmul_mma launched {counts['int8_matmul_mma']} times, "
+                  f"want {flat}")
+            check(counts["int8_matmul_w8a8_mma"] == 0,
+                  f"{mode} {label}: W8A8 took the tensor cores {counts['int8_matmul_w8a8_mma']} "
+                  f"times at B=1")
+        return rows["12s"]["captured"]["counts"], dict(grid=grid, requests=rows)
     finally:
+        eager.shutdown()
         engine.shutdown()
 
 
-def profile_phase(torch, engine, mode: str = "native"):
-    """Where a request's time goes: host wall vs device busy time for one
-    3 s request with a 32-token budget, and the top kernels by device time
-    (torch.profiler; informational, after the counted request)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def concurrent_capture_phase(torch) -> None:
+    """/transcribe/file resamples uploads on the card in another thread
+    while the engine thread may capture: tiny f32 graphs captured while a
+    thread resamples on the card give the tokens of graphs captured alone."""
+    import threading
 
-    from sonicscribe_tpu_torch.ops import _build
+    from sonicscribe_tpu_torch.audio.resample import resample
 
-    tr = engine.transcriber
-    audio = speech(3.0, 40)
-    tr.transcribe(audio, SR, max_new_tokens=32)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    r = tr.transcribe(audio, SR, max_new_tokens=32)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    _build.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        tr.transcribe(audio, SR, max_new_tokens=32)
-        torch.cuda.synchronize()
-    w8a8_calls = _build.launch_counts["int8_matmul_w8a8"]
-    # kernels only: an operator's own entry repeats its kernels' device time
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    alone, busy = (tiny_transcriber(torch, "cuda") for _ in range(2))
+    audio = speech(2.2, seed=21)
+    want = alone.transcribe(audio, SR, max_new_tokens=24).tokens
+    stop, errors, runs = threading.Event(), [], [0]
+    upload = torch.from_numpy(speech(3.0, seed=22))
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+    def resampling():
+        try:
+            while not stop.is_set():
+                resample(upload.cuda(), 44100, SR).cpu()
+                runs[0] += 1
+        except Exception as e:  # reported below
+            errors.append(e)
 
-    busy_ms = sum(dev_us(e) for e in events) / 1e3
-    check(busy_ms > 0, "the profiler saw no device time")
-    attn_ms = sum(dev_us(e) for e in events if "decode_attention" in e.key) / 1e3
-    mma_ms = sum(dev_us(e) for e in events if "w8a16_mma" in e.key) / 1e3
-    log(f"profile {mode}: 3 s request, 32-token budget: wall {wall * 1e3:.1f} ms (unprofiled), "
-        f"mel {r.timings['mel_s'] * 1e3:.1f} ms host, device busy {busy_ms:.1f} ms "
-        f"(idle share {max(0.0, 1 - busy_ms / (wall * 1e3)):.3f}); decode attention "
-        f"{attn_ms:.1f} ms ({attn_ms / busy_ms:.3f} of busy), flat W8A16 mma {mma_ms:.1f} ms")
-    for e in sorted(events, key=dev_us, reverse=True)[:8]:
-        log(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
-    if w8a8_calls:  # one W8A8 kernel per projection per step: one per call
-        w8a8 = [e for e in events if "w8a8" in e.key.lower()]
-        n_kernels = sum(e.count for e in w8a8)
-        check(n_kernels == w8a8_calls, f"profile {mode}: {n_kernels} W8A8 kernels for "
-              f"{w8a8_calls} W8A8 calls: {[(e.key[:60], e.count) for e in w8a8]}")
-        log(f"profile {mode}: {w8a8_calls} W8A8 calls ran {n_kernels} W8A8 kernels, "
-            f"{sum(dev_us(e) for e in w8a8) / n_kernels:.2f} us of device time per call")
+    thread = threading.Thread(target=resampling)
+    thread.start()
+    try:
+        busy.warmup(budgets=(24,))
+        got = busy.transcribe(audio, SR, max_new_tokens=24).tokens
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+    check(not thread.is_alive() and not errors and runs[0] > 0,
+          f"the resampling thread: alive {thread.is_alive()}, errors {errors}, runs {runs[0]}")
+    check(len(want) > 0 and np.array_equal(got, want),
+          f"tiny graphs captured beside a resampling thread: tokens {got}, alone {want}")
+    log(f"captured {busy.router.stats['graphs']} tiny graphs while another thread resampled "
+        f"{runs[0]} uploads on the card: tokens equal to graphs captured alone")
 
 
-def tiny_tokens_phase(torch, mode: str = "native"):
-    """tiny() f32 in `mode` gives the same tokens on the card (kernels) as
-    on the CPU (plain versions), from the same float32 tree, quantized on
-    each device as build_runtime quantizes it (after moving it there)."""
+def tiny_params(torch, mode: str = "native"):
+    """tiny() f32 from seed SEED + 1, x4 so the random model's tokens vary,
+    on the CPU and on the card; in an int8 mode each tree quantized on its
+    own device, as build_runtime quantizes it. -> (cfg, {device: tree})."""
     from dataclasses import replace
 
-    from sonicscribe_tpu_torch.engine.transcriber import Transcriber
     from sonicscribe_tpu_torch.models.config import tiny
-    from sonicscribe_tpu_torch.models.tokenizer import ByteTokenizer
     from sonicscribe_tpu_torch.models.weights import init_random
-    from sonicscribe_tpu_torch.ops import _build
     from sonicscribe_tpu_torch.ops.quant import quantize_params_int8
 
     cfg = tiny()
@@ -1306,7 +1643,6 @@ def tiny_tokens_phase(torch, mode: str = "native"):
             return {k: mapped(v, fn) for k, v in tree.items()}
         return fn(tree)
 
-    # x4 so the random model's tokens vary
     params = mapped(init_random(cfg, seed=SEED + 1, dtype=torch.float32, device="cpu"),
                     lambda t: t * 4.0)
     trees = {d: mapped(params, lambda t, d=d: t.to(d)) for d in ("cpu", "cuda")}
@@ -1314,16 +1650,47 @@ def tiny_tokens_phase(torch, mode: str = "native"):
         trees = {d: quantize_params_int8(t, decoder_only=mode != "int8") for d, t in trees.items()}
         if mode == "int8-decoder-a8":
             cfg = replace(cfg, decoder=replace(cfg.decoder, act_int8_decode=True))
+    return cfg, trees
+
+
+def tiny_transcriber(torch, device: str, mode: str = "native"):
+    from sonicscribe_tpu_torch.engine.transcriber import Transcriber
+    from sonicscribe_tpu_torch.models.tokenizer import ByteTokenizer
+
+    cfg, trees = tiny_params(torch, mode)
+    return Transcriber(cfg, trees[device], ByteTokenizer(cfg), prefill_buckets=(128, 256))
+
+
+def tiny_tokens_phase(torch, mode: str = "native"):
+    """tiny() f32 in `mode` gives the same tokens on the card (the captured
+    graphs, kernels) as on the CPU (the same programs run eagerly, plain
+    versions), from the same float32 tree, with k = 1 and 8 decode steps
+    per graph and a budget of 21 (no multiple of 8: a tail graph)."""
+    from sonicscribe_tpu_torch.engine import transcriber as tm
+    from sonicscribe_tpu_torch.engine.transcriber import Transcriber
+    from sonicscribe_tpu_torch.models.tokenizer import ByteTokenizer
+    from sonicscribe_tpu_torch.ops import _build
+
+    cfg, trees = tiny_params(torch, mode)
     trs = {d: Transcriber(cfg, t, ByteTokenizer(cfg), prefill_buckets=(128, 256))
            for d, t in trees.items()}
     _build.reset_launch_counts()
-    for sec, sr in ((1.3, 16000), (2.2, 16000)):
-        audio = speech(sec, seed=20)
-        a = trs["cpu"].transcribe(audio, sr, max_new_tokens=24)
-        b = trs["cuda"].transcribe(audio, sr, max_new_tokens=24)
-        check(len(a.tokens) > 0 and np.array_equal(a.tokens, b.tokens),
-              f"tiny f32 {mode} tokens differ: cpu {a.tokens} cuda {b.tokens}")
-        log(f"reference: tiny f32 {mode} {sec} s, {len(a.tokens)} tokens equal on cuda and cpu")
+    shipped = tm.DECODE_STEPS
+    try:
+        for k in (1, 8):
+            tm.DECODE_STEPS = k
+            for sec, sr in ((1.3, 16000), (2.2, 16000)):
+                audio = speech(sec, seed=20)
+                a = trs["cpu"].transcribe(audio, sr, max_new_tokens=21)
+                b = trs["cuda"].transcribe(audio, sr, max_new_tokens=21)
+                check(len(a.tokens) > 0 and np.array_equal(a.tokens, b.tokens),
+                      f"tiny f32 {mode} k={k} tokens differ: cpu {a.tokens} cuda {b.tokens}")
+                log(f"reference: tiny f32 {mode} {sec} s, k={k}, budget 21: {len(a.tokens)} "
+                    f"tokens equal on cuda (captured) and cpu")
+    finally:
+        tm.DECODE_STEPS = shipped
+    keys = sorted(k for k in trs["cuda"].router.entries if k[0] == "decode")
+    check(("decode", 256, 21, 5, 3) in keys, f"tiny {mode}: no tail graph among {keys}")
     if mode != "native":
         decode_entry = "int8_matmul_w8a8" if mode == "int8-decoder-a8" else "int8_matmul_stacked"
         check(_build.launch_counts[decode_entry] > 0 and _build.launch_counts["int8_matmul"] > 0,
@@ -1338,6 +1705,7 @@ def reference_phase(torch, engine):
     from sonicscribe_tpu_torch.models.tokenizer import build_prompt
 
     tiny_tokens_phase(torch)
+    concurrent_capture_phase(torch)
     tr = engine.transcriber
     x = torch.from_numpy(speech(3.0, 30)).cuda()
     mel = log_mel_spectrogram(x, tr.mel_cfg, pad_to_frames=512)[None].to(tr.dtype)
@@ -1346,8 +1714,9 @@ def reference_phase(torch, engine):
     suffix[: len(prompt.suffix_ids)] = prompt.suffix_ids
     with torch.inference_mode():
         buf, total = assemble_prompt(
-            tr.params, tr.cfg, mel, 300, torch.from_numpy(prompt.prefix_ids).cuda(),
-            torch.from_numpy(suffix).cuda(), len(prompt.suffix_ids),
+            tr.params, tr.cfg, mel, torch.tensor([300], dtype=torch.int32, device="cuda"),
+            torch.from_numpy(prompt.prefix_ids).cuda(), torch.from_numpy(suffix).cuda(),
+            torch.tensor([len(prompt.suffix_ids)], dtype=torch.int32, device="cuda"),
         )
         _, _, logits = prefill_kv(tr.params, tr.cfg, buf, total)
     check(tuple(logits.shape) == (1, tr.cfg.decoder.vocab_size) and logits.dtype == torch.float32,
@@ -1444,20 +1813,21 @@ def main() -> None:
     int8_rows["int8_matmul_stacked"]["slice_table_steps"] = slice_steps
     release_memory(torch)
 
-    engine, launches = main_path_phase(torch)
+    engine, launches, native = main_path_phase(torch)
     try:
-        profile_phase(torch, engine)
         reference_phase(torch, engine)
     finally:
         engine.shutdown()
     del engine
+    captured = {"native": native}
     for mode in INT8_MODES:
         release_memory(torch)
-        counts = int8_main_path_phase(torch, mode)
+        counts, captured[mode] = int8_main_path_phase(torch, mode)
         for name in (*int8_errs, "int8_matmul_mma", "int8_matmul_w8a8_mma"):
             launches[name] = launches.get(name, 0) + counts[name]
     for mode in INT8_MODES:
         tiny_tokens_phase(torch, mode)
+    log("captured " + json.dumps(captured, default=float))
 
     kernels = [
         dict(name="decode_attention", route="cuda",

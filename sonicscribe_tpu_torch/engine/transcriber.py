@@ -8,12 +8,28 @@ offset and the suffix at the true audio-token count, greedy decode with an
 additive hotword logit bias, then the EOS/pad cut.
 
 The buckets keep the prompt shapes of the JAX package, so both produce the
-same tokens for the same weights. The serialized-executable store of the
-JAX package has no counterpart yet.
+same tokens for the same weights. JAX runs a request as one compiled
+program per (mel bucket, budget, prefix length), ``_transcribe_program``.
+Here it is two programs over static buffers, because the host has to see
+EOS between decode chunks and a CUDA graph cannot branch on it:
+
+- ``_prompt_program``: encoder and adapter on the mel bucket, prompt
+  assembly (the suffix written at a device offset), prefill and the first
+  token; one per (bucket, prefix length);
+- ``_decode_k_program``: k greedy steps (the JAX batcher's
+  ``_decode_k_program``) on a static cache, token, done flag, step count
+  and output row; one per (bucket, budget, k), and a tail of budget % k
+  steps where k does not divide the budget. The host reads the done flag
+  once per chunk.
+
+``engine/exec_store.py``'s ``GraphRouter`` captures each as a CUDA graph
+on the card and replays it, or runs it eagerly on the CPU. The mel, the
+resampling and the peak normalisation run before the programs, as in JAX.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
@@ -28,49 +44,111 @@ from sonicscribe_tpu_torch.audio.mel import (
     log_mel_spectrogram,
 )
 from sonicscribe_tpu_torch.audio.resample import resample
+from sonicscribe_tpu_torch.engine.exec_store import GraphRouter
 from sonicscribe_tpu_torch.models.config import GlmAsrConfig
 from sonicscribe_tpu_torch.models.glm_asr import (
     Params,
+    decode_step,
     embed_tokens,
     encode_audio,
-    greedy_generate,
+    init_cache,
+    prefill_kv,
 )
 from sonicscribe_tpu_torch.models.tokenizer import DEFAULT_INSTRUCTION, build_prompt
 
 # fixed host-side prompt-layout constants (token counts, not samples)
 MAX_SUFFIX_TOKENS = 160  # instruction + hotword suffix, padded to this
+# decode steps per graph: the least wall of chip_smoke.py's A/B (k 4, 8, 16,
+# 32) on segments that end in EOS (PERF.md). A segment runs up to k - 1
+# steps past its EOS, to the end of its chunk; each chunk costs a graph
+# launch and a host read of the done flag.
+DECODE_STEPS = 4
 
 
 def assemble_prompt(
     params: Params,
     cfg: GlmAsrConfig,
     mel: torch.Tensor,  # [1, T_bucket, n_mels]
-    n_frames: int,
+    n_frames: torch.Tensor,  # [1] int32
     prefix_ids: torch.Tensor,  # [P]
     suffix_ids: torch.Tensor,  # [MAX_SUFFIX_TOKENS] pad-filled
-    suffix_len: int,
+    suffix_len: torch.Tensor,  # [1] int32
 ):
-    """mel -> (prompt embeddings buffer [1, P+A_max+S, D], total_len [1]).
+    """mel -> (prompt embeddings buffer [1, P+A_max+S, D], total_len [1] int32).
 
-    The audio slot is written at a static offset, the instruction suffix
-    right after the true audio-token count.
+    The audio slot is written at a static offset, the instruction suffix at
+    P + the true audio-token count, a device tensor (JAX's traced
+    dynamic_update_slice), so one captured program serves every audio
+    length within a bucket.
     """
-    device = mel.device
-    audio_embeds, n_tok = encode_audio(
-        params, cfg, mel, torch.tensor([n_frames], device=device)
-    )
-    n_tok = int(n_tok[0])
+    audio_embeds, n_tok = encode_audio(params, cfg, mel, n_frames)
     A_max = audio_embeds.shape[1]
     P = prefix_ids.shape[0]
     S = suffix_ids.shape[0]
     D = audio_embeds.shape[-1]
+    device = mel.device
 
     buf = torch.zeros((1, P + A_max + S, D), dtype=audio_embeds.dtype, device=device)
     buf[0, :P] = embed_tokens(params, prefix_ids)
     buf[:, P : P + A_max] = audio_embeds
-    buf[0, P + n_tok : P + n_tok + S] = embed_tokens(params, suffix_ids)
-    total_len = torch.tensor([P + n_tok + suffix_len], dtype=torch.int32, device=device)
-    return buf, total_len
+    at = P + n_tok.long() + torch.arange(S, device=device)
+    buf[0].index_copy_(0, at, embed_tokens(params, suffix_ids))
+    return buf, P + n_tok + suffix_len
+
+
+def _pick(cfg: GlmAsrConfig, logits, bias, done=None) -> torch.Tensor:
+    """Greedy token of biased logits [B, V]; a pad where `done`."""
+    tok = torch.argmax(logits + bias, dim=-1).to(torch.int32)
+    if done is None:
+        return tok
+    return torch.where(done, cfg.pad_id, tok).to(torch.int32)
+
+
+def _prompt_program(params: Params, cfg: GlmAsrConfig, bufs: dict) -> dict:
+    """mel bucket -> prefill K/V [L, 1, S_prompt, nkv, hd], the prompt's
+    true length [1] and its first token [1]."""
+    buf, total_len = assemble_prompt(
+        params, cfg, bufs["mel"], bufs["n_frames"], bufs["prefix_ids"],
+        bufs["suffix_ids"], bufs["suffix_len"],
+    )
+    ks, vs, logits = prefill_kv(params, cfg, buf, total_len)
+    return {"k": ks, "v": vs, "len": total_len, "tok": _pick(cfg, logits, bufs["bias"])}
+
+
+def _decode_k_program(params: Params, cfg: GlmAsrConfig, bufs: dict, k: int) -> dict:
+    """k greedy steps on the decode buffers, in place. Each step is a step
+    of the JAX package's greedy_generate scan: it marks the row done at
+    EOS, writes the current token at the step count (nothing once the
+    count reaches the budget), runs the decode step and picks the next
+    token (a pad once done)."""
+    cache = {"k": bufs["k"], "v": bufs["v"], "len": bufs["len"]}
+    tok, done, n, out = bufs["tok"], bufs["done"], bufs["n"], bufs["out"]
+    budget = out.shape[1]
+    for _ in range(k):
+        done |= tok == cfg.eos_id
+        at = torch.clamp(n, max=budget - 1).long()[:, None]
+        out.scatter_(1, at, torch.where((n < budget)[:, None], tok[:, None], out.gather(1, at)))
+        _, logits = decode_step(params, cfg, cache, tok, active=~done)
+        tok.copy_(_pick(cfg, logits, bufs["bias"], done))
+        n += 1
+    return {}
+
+
+def start_decode(cfg: GlmAsrConfig, bufs: dict, prompt: dict) -> None:
+    """Load _prompt_program's outputs into the decode buffers."""
+    S = prompt["k"].shape[2]
+    bufs["k"][:, :, :S].copy_(prompt["k"])
+    bufs["v"][:, :, :S].copy_(prompt["v"])
+    bufs["len"].copy_(prompt["len"])
+    bufs["tok"].copy_(prompt["tok"])
+    bufs["done"].zero_()
+    bufs["n"].zero_()
+    bufs["out"].fill_(cfg.pad_id)
+
+
+def chunk_sizes(budget: int, k: int) -> list[int]:
+    """The decode graphs' step counts for a budget, in order."""
+    return [k] * (budget // k) + ([budget % k] if budget % k else [])
 
 
 @dataclass
@@ -82,9 +160,13 @@ class TranscribeResult:
 
 
 class Transcriber:
-    """Owns params on one device; transcribes one request at a time.
+    """Owns params on one device; transcribes one request at a time, on
+    one thread (the graphs share their buffers and memory pool).
 
-    `stats` counts requests and the decode steps they ran.
+    `stats` counts requests, the decode steps they ran on the device (every
+    step of every replayed chunk) and the tokens they generated (up to EOS,
+    EOS included);
+    `router.stats` counts graphs, replays and capture seconds.
     """
 
     def __init__(
@@ -107,8 +189,15 @@ class Transcriber:
         embed = params["decoder"]["embed"]
         self.device = embed.device
         self.dtype = embed.dtype
-        self.stats = {"requests": 0, "decode_steps": 0}
+        self.stats = {"requests": 0, "decode_steps": 0, "tokens": 0}
         device_tables(self.mel_cfg, self.device)  # a front end the card cannot run raises here
+        self.router = GraphRouter(self.device)
+        # the hotword logit bias every program reads: zero without hotwords,
+        # as JAX's _zero_bias (adding 0.0 leaves each logit as it was)
+        self._bias = torch.zeros((cfg.decoder.vocab_size,), dtype=torch.float32,
+                                 device=self.device)
+        self._bufs: dict = {}  # static buffers by key
+        self._prompt_fn = functools.partial(_prompt_program, params, cfg)
 
     # ---- host-side helpers ----
 
@@ -118,14 +207,16 @@ class Transcriber:
                 return b
         return self.buckets[-1]
 
-    def _hotword_logit_bias(self, hotwords: Optional[list[str]]) -> torch.Tensor | None:
+    def _set_logit_bias(self, hotwords: Optional[list[str]]) -> None:
+        """Write the hotword logit bias into the static bias buffer."""
         if not hotwords or self.hotword_bias_strength == 0.0:
-            return None
+            self._bias.zero_()
+            return
         bias = np.zeros((self.cfg.decoder.vocab_size,), np.float32)
         for w in hotwords[:10]:
             for tid in self.tokenizer.encode(str(w).strip().lower()):
                 bias[tid] = self.hotword_bias_strength
-        return torch.from_numpy(bias).to(self.device)
+        self._bias.copy_(torch.from_numpy(bias))
 
     def prepare_audio(self, audio: np.ndarray, sample_rate: int) -> torch.Tensor:
         """Resample to the model rate + optional peak normalization
@@ -137,6 +228,65 @@ class Transcriber:
             peak = x.abs().max()
             x = torch.where(peak > 1e-8, x / torch.clamp(peak, min=1e-8), x)
         return x
+
+    # ---- static buffers and programs ----
+
+    def _prompt_bufs(self, bucket: int, prefix_len: int) -> dict:
+        """Static inputs of _prompt_program for one (bucket, prefix length)."""
+        key = ("prompt", bucket, prefix_len)
+        if key not in self._bufs:
+            dev, i32, pad = self.device, torch.int32, self.cfg.pad_id
+            self._bufs[key] = {
+                "mel": torch.zeros((1, bucket, self.mel_cfg.n_mels), dtype=self.dtype, device=dev),
+                "n_frames": torch.ones((1,), dtype=i32, device=dev),
+                "prefix_ids": torch.full((prefix_len,), pad, dtype=i32, device=dev),
+                "suffix_ids": torch.full((MAX_SUFFIX_TOKENS,), pad, dtype=i32, device=dev),
+                "suffix_len": torch.zeros((1,), dtype=i32, device=dev),
+                "bias": self._bias,
+            }
+        return self._bufs[key]
+
+    def _decode_bufs(self, bucket: int, budget: int, prefix_len: int, prompt_len: int) -> dict:
+        """Static state of _decode_k_program for one (bucket, budget, prefix
+        length): a cache of prompt_len + budget positions (greedy_generate's),
+        the current token, done flag, step count and output row."""
+        key = ("decode", bucket, budget, prefix_len)
+        if key not in self._bufs:
+            dev, i32 = self.device, torch.int32
+            self._bufs[key] = {
+                **init_cache(self.cfg, 1, prompt_len + budget, dtype=self.dtype, device=dev),
+                "tok": torch.zeros((1,), dtype=i32, device=dev),
+                "done": torch.zeros((1,), dtype=torch.bool, device=dev),
+                "n": torch.zeros((1,), dtype=i32, device=dev),
+                "out": torch.full((1, budget), self.cfg.pad_id, dtype=i32, device=dev),
+                "bias": self._bias,
+            }
+        return self._bufs[key]
+
+    def _decode_fn(self, k: int):
+        return functools.partial(_decode_k_program, self.params, self.cfg, k=k)
+
+    def _generate(self, bucket: int, mel: torch.Tensor, frames: int, prefix_ids: np.ndarray,
+                  suffix_ids: np.ndarray, suffix_len: int, budget: int) -> tuple[np.ndarray, int]:
+        """The two programs through the router, with the bias buffer set.
+        -> (tokens [budget], pad-filled after EOS; decode steps run)."""
+        P = len(prefix_ids)
+        p = self._prompt_bufs(bucket, P)
+        p["mel"].copy_(mel)
+        p["n_frames"].fill_(frames)
+        p["prefix_ids"].copy_(torch.from_numpy(prefix_ids))
+        p["suffix_ids"].copy_(torch.from_numpy(suffix_ids))
+        p["suffix_len"].fill_(suffix_len)
+        prompt = self.router.run(("prompt", bucket, P), self._prompt_fn, p)
+        d = self._decode_bufs(bucket, budget, P, prompt["k"].shape[2])
+        start_decode(self.cfg, d, prompt)
+        steps = 0
+        for k in chunk_sizes(budget, DECODE_STEPS):
+            self.router.run(("decode", bucket, budget, k, P), self._decode_fn(k), d)
+            steps += k
+            if steps < budget and bool(d["done"].all()):  # the host's one read per chunk
+                break
+        return d["out"][0].cpu().numpy(), steps
 
     # ---- main entry ----
 
@@ -166,23 +316,10 @@ class Transcriber:
         suffix[: len(s)] = s
 
         with torch.inference_mode():
-            buf, total_len = assemble_prompt(
-                self.params,
-                self.cfg,
-                mel.to(self.dtype),
-                frames,
-                torch.from_numpy(prompt.prefix_ids).to(self.device),
-                torch.from_numpy(suffix).to(self.device),
-                len(s),
-            )
-            toks, steps = greedy_generate(
-                self.params, self.cfg, buf, total_len, max_new_tokens,
-                logit_bias=self._hotword_logit_bias(hotwords),
-            )
-        toks = toks[0].cpu().numpy()
+            self._set_logit_bias(hotwords)
+            toks, steps = self._generate(bucket, mel, frames, prompt.prefix_ids, suffix,
+                                         len(s), max_new_tokens)
         t_gen = time.perf_counter()
-        self.stats["requests"] += 1
-        self.stats["decode_steps"] += steps
 
         # cut at EOS / pads
         out = []
@@ -191,6 +328,10 @@ class Transcriber:
                 break
             out.append(int(t))
         text = self.tokenizer.decode(out)
+        eos = np.flatnonzero(toks == self.cfg.eos_id)
+        self.stats["requests"] += 1
+        self.stats["decode_steps"] += steps
+        self.stats["tokens"] += int(eos[0]) + 1 if len(eos) else len(toks)
 
         return TranscribeResult(
             text=text,
@@ -207,10 +348,18 @@ class Transcriber:
 
     def warmup(self, buckets: Optional[Sequence[int]] = None,
                budgets: Sequence[int] = (256,)) -> None:
-        """Run each (bucket, budget) once: builds the CUDA kernels and
-        warms PyTorch's allocator and library handles."""
-        sr = self.mel_cfg.sampling_rate
-        for b in buckets or self.buckets:
-            n = b * self.mel_cfg.hop_length
-            for budget in budgets:
-                self.transcribe(np.zeros(n, np.float32), sr, max_new_tokens=budget)
+        """Capture the graphs of the (bucket, budget) grid: each bucket's
+        prompt graph, and for each budget its decode graphs (k steps and
+        the budget % k tail). Without it each key is captured by its first
+        request. On the CPU there is nothing to capture."""
+        if self.device.type == "cpu":
+            return
+        P = len(build_prompt(self.tokenizer, self.cfg).prefix_ids)
+        with torch.inference_mode():
+            for b in buckets or self.buckets:
+                prompt = self.router.prepare(("prompt", b, P), self._prompt_fn,
+                                             self._prompt_bufs(b, P)).outputs
+                for budget in budgets:
+                    d = self._decode_bufs(b, budget, P, prompt["k"].shape[2])
+                    for k in sorted(set(chunk_sizes(budget, DECODE_STEPS))):
+                        self.router.prepare(("decode", b, budget, k, P), self._decode_fn(k), d)

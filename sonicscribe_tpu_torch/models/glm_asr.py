@@ -24,11 +24,14 @@ in the decode step, which hands the kernel the whole stack and a layer
 index.
 
 Unlike JAX, the port updates the KV cache IN PLACE: `prefill` and
-`decode_step` write into the cache tensors they are given.
+`decode_step` write into the cache tensors they are given, its length
+included, so a CUDA graph of the decode step reads and writes the same
+cache on every replay (engine/exec_store.py).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Tuple
 
@@ -91,6 +94,13 @@ def _sinusoids(length: int, channels: int) -> np.ndarray:
     inv = np.exp(-log_timescale * np.arange(channels // 2))
     ang = np.arange(length)[:, None] * inv[None, :]
     return np.concatenate([np.sin(ang), np.cos(ang)], axis=1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _sinusoid_table(length: int, channels: int, device: torch.device, dtype) -> torch.Tensor:
+    """_sinusoids on `device` in `dtype`, built once: a host-to-device copy
+    cannot run inside a CUDA graph capture, so encode_audio reads this."""
+    return torch.from_numpy(_sinusoids(length, channels)).to(device, dtype)
 
 
 def _rope_tables(cfg: DecoderConfig, positions: torch.Tensor):
@@ -176,8 +186,7 @@ def encode_audio(
     x = _gelu(_conv1d(x, p["conv2"]["w"], p["conv2"]["b"], 2))
     S = x.shape[1]  # T // 2
 
-    pos = torch.from_numpy(_sinusoids(S, enc.d_model)).to(x.device, x.dtype)
-    x = x + pos[None]
+    x = x + _sinusoid_table(S, enc.d_model, x.device, x.dtype)[None]
 
     # padding mask over subsampled frames
     n_frames = n_frames.to(x.device)
@@ -327,7 +336,7 @@ def prefill(
     ks, vs, last_logits = prefill_kv(params, cfg, embeds, length)
     cache["k"][:, :, :S] = ks.to(cache["k"].dtype)
     cache["v"][:, :, :S] = vs.to(cache["v"].dtype)
-    cache["len"] = length.to(cache["len"].device, torch.int32)
+    cache["len"].copy_(length)
     return cache, last_logits
 
 
@@ -384,7 +393,8 @@ def decode_step(
         h = h + mm(ctx, lp["o_w"])
         h = _decoder_layer_mlp(h, lp, dec, mm)
 
-    cache["len"] = torch.where(active, torch.clamp(pos + 1, max=max_len), pos)
+    # in place: a CUDA graph of the step carries len from one replay to the next
+    cache["len"].copy_(torch.where(active, torch.clamp(pos + 1, max=max_len), pos))
     return cache, _lm_logits(params, cfg, h)
 
 

@@ -217,7 +217,8 @@ def main(argv=None):
     parser.add_argument("--device", default=None,
                         help="'cuda' (default; fails without a card) | 'cpu'")
     parser.add_argument("--no-warmup", action="store_true",
-                        help="skip the startup run that builds the CUDA kernels")
+                        help="skip the startup capture of the CUDA graphs: the first "
+                             "request of each (bucket, budget) captures its own")
     args = parser.parse_args(argv)
 
     config = AppConfig()
@@ -234,7 +235,8 @@ def main(argv=None):
     engine, vad, info = build_runtime(args.model, args.vad, config, device=args.device)
     if not args.no_warmup:
         t0 = time.perf_counter()
-        engine.warmup(budgets=(config.interim_max_new_tokens,))
+        # the JAX app's grid less the streaming final budget (not ported yet)
+        engine.warmup(budgets=(config.interim_max_new_tokens, config.file_max_new_tokens))
         info["warmup_s"] = round(time.perf_counter() - t0, 1)
     logger.info("runtime ready: %s", info)
     web.run_app(build_app(config, engine, vad, info), host=config.host, port=config.port)

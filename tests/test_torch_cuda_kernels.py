@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked `cuda`: without a card every test skips. The file imports neither
-JAX nor the JAX package, so it also runs where JAX is absent:
+JAX nor the JAX package, so it also runs where JAX is absent. Its eager
+oracle of the transcriber is chip_smoke.py's, imported from the repo root,
+from which it runs:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 """
@@ -17,8 +19,12 @@ from sonicscribe_tpu_torch.audio.mel import (
     reflect_pad,
 )
 from sonicscribe_tpu_torch.device import resolve_device
+from chip_smoke import eager_transcriber
+from sonicscribe_tpu_torch.engine import transcriber as transcriber_module
+from sonicscribe_tpu_torch.engine.transcriber import DECODE_STEPS, Transcriber, chunk_sizes
 from sonicscribe_tpu_torch.models import glm_asr as tm
 from sonicscribe_tpu_torch.models.config import tiny
+from sonicscribe_tpu_torch.models.tokenizer import ByteTokenizer
 from sonicscribe_tpu_torch.models.weights import init_random
 from sonicscribe_tpu_torch.ops import _build
 from sonicscribe_tpu_torch.ops import mel as tmel
@@ -249,6 +255,79 @@ def test_greedy_generate_card_matches_cpu(cuda):
     want, _ = tm.greedy_generate(on_cpu, cfg, embeds, length, 16)
     got, _ = tm.greedy_generate(on_card, cfg, embeds.to(cuda), length.to(cuda), 16)
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+def _tiny_transcribers(device, seed=3):
+    """(captured on `device`, chip_smoke.py's eager oracle on `device`) over
+    one tiny() f32 tree x4."""
+    cfg = tiny()
+    params = init_random(cfg, seed=seed, dtype=torch.float32, device="cpu")
+
+    def scaled(tree):
+        if isinstance(tree, dict):
+            return {k: scaled(v) for k, v in tree.items()}
+        return (tree * 4.0).to(device)
+
+    captured = Transcriber(cfg, scaled(params), ByteTokenizer(cfg), prefill_buckets=(128, 256))
+    return captured, eager_transcriber(captured)
+
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_captured_tokens_equal_greedy_generate(cuda, k, monkeypatch):
+    """The transcriber's graphs replayed on the card give greedy_generate's
+    tokens on the card (budget 21, not a multiple of k), and the replays
+    count the decode attention launches of every step they ran."""
+    captured, eager = _tiny_transcribers(cuda)
+    monkeypatch.setattr(transcriber_module, "DECODE_STEPS", k)
+    for sec, hotwords in ((1.0, None), (2.2, ["hi"])):
+        audio = _speech(sec, seed=20)
+        want = eager.transcribe(audio, 16000, max_new_tokens=21, hotwords=hotwords)
+        steps0 = captured.stats["decode_steps"]
+        _build.reset_launch_counts()
+        got = captured.transcribe(audio, 16000, max_new_tokens=21, hotwords=hotwords)
+        steps = captured.stats["decode_steps"] - steps0
+        assert len(want.tokens) > 0
+        np.testing.assert_array_equal(got.tokens, want.tokens)
+        assert _build.launch_counts["decode_attention"] == tiny().decoder.n_layers * steps
+    keys = set(captured.router.entries)
+    assert ("prompt", 128, 3) in keys and ("decode", 256, 21, k, 3) in keys
+    assert (("decode", 256, 21, 21 % k, 3) in keys) == bool(21 % k)
+
+
+def test_capture_holds_while_another_thread_resamples(cuda):
+    """/transcribe/file resamples uploads on the card in another thread
+    while the engine thread may capture: the graphs captured meanwhile give
+    the tokens of graphs captured alone."""
+    import threading
+
+    from sonicscribe_tpu_torch.audio.resample import resample
+
+    alone, _ = _tiny_transcribers(cuda)
+    busy, _ = _tiny_transcribers(cuda)
+    audio = _speech(2.2, seed=21)
+    want = alone.transcribe(audio, 16000, max_new_tokens=24).tokens
+    stop, errors, runs = threading.Event(), [], [0]
+    upload = torch.from_numpy(_speech(3.0, seed=22))
+
+    def resampling():
+        try:
+            while not stop.is_set():
+                resample(upload.to(cuda), 44100, 16000).cpu()
+                runs[0] += 1
+        except Exception as e:  # reported by the main thread
+            errors.append(e)
+
+    thread = threading.Thread(target=resampling)
+    thread.start()
+    try:
+        busy.warmup(budgets=(24,))
+        got = busy.transcribe(audio, 16000, max_new_tokens=24).tokens
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+    assert not thread.is_alive() and not errors and runs[0] > 0
+    assert busy.router.stats["graphs"] == 2 * (1 + len(set(chunk_sizes(24, DECODE_STEPS))))
+    np.testing.assert_array_equal(got, want)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
