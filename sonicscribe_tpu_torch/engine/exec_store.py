@@ -22,6 +22,10 @@ Capture, per key:
    that another thread's work on the card (``/transcribe/file`` resamples
    uploads on it) neither fails nor invalidates the capture.
 
+A graph's cuBLAS products write into the workspace PyTorch keeps for the
+capture stream; ``torch._C._cuda_clearCublasWorkspaces()`` frees it, and a
+replay after that writes into freed memory. Nothing in the package calls it.
+
 ``run`` then replays the graph; ``prepare`` (the transcriber's warmup)
 replays it once more, uncounted, so that the graph is uploaded to the
 device before the first request. A capture or replay that fails raises: on

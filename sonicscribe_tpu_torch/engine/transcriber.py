@@ -17,10 +17,17 @@ EOS between decode chunks and a CUDA graph cannot branch on it:
   assembly (the suffix written at a device offset), prefill and the first
   token; one per (bucket, prefix length);
 - ``_decode_k_program``: k greedy steps (the JAX batcher's
-  ``_decode_k_program``) on a static cache, token, done flag, step count
-  and output row; one per (bucket, budget, k), and a tail of budget % k
-  steps where k does not divide the budget. The host reads the done flag
-  once per chunk.
+  ``_decode_k_program``) on a static cache, token, done flag, step count,
+  budget and output row; one per (bucket, budget ceiling, k). The host
+  reads the done flag once per chunk.
+
+Budget ceilings. A request of budget b runs on the buffers and graph of
+the smallest ceiling of ``BUDGET_CEILINGS`` that is >= b (a budget above
+them all is its own ceiling): b sits in a static buffer that the graph
+reads, the host replays the graph ceil(b / k) times, and the at most
+k - 1 steps past b write nothing. So a streaming final, whose budget
+follows its duration, captures no graph on its request path and leaves
+no buffer behind. The JAX package compiles one program per exact budget.
 
 ``engine/exec_store.py``'s ``GraphRouter`` captures each as a CUDA graph
 on the card and replays it, or runs it eagerly on the CPU. The mel, the
@@ -63,6 +70,9 @@ MAX_SUFFIX_TOKENS = 160  # instruction + hotword suffix, padded to this
 # steps past its EOS, to the end of its chunk; each chunk costs a graph
 # launch and a host read of the done flag.
 DECODE_STEPS = 4
+# the app's budget grid (config.py: interim, final maximum, file): the
+# decode buffers and graphs are kept per ceiling, not per exact budget
+BUDGET_CEILINGS = (15, 200, 256)
 
 
 def assemble_prompt(
@@ -119,23 +129,25 @@ def _decode_k_program(params: Params, cfg: GlmAsrConfig, bufs: dict, k: int) -> 
     """k greedy steps on the decode buffers, in place. Each step is a step
     of the JAX package's greedy_generate scan: it marks the row done at
     EOS, writes the current token at the step count (nothing once the
-    count reaches the budget), runs the decode step and picks the next
-    token (a pad once done)."""
+    count reaches the request's budget, a buffer the graph reads), runs the
+    decode step and picks the next token (a pad once done)."""
     cache = {"k": bufs["k"], "v": bufs["v"], "len": bufs["len"]}
     tok, done, n, out = bufs["tok"], bufs["done"], bufs["n"], bufs["out"]
-    budget = out.shape[1]
+    last = out.shape[1] - 1
     for _ in range(k):
         done |= tok == cfg.eos_id
-        at = torch.clamp(n, max=budget - 1).long()[:, None]
-        out.scatter_(1, at, torch.where((n < budget)[:, None], tok[:, None], out.gather(1, at)))
+        at = torch.clamp(n, max=last).long()[:, None]
+        out.scatter_(1, at, torch.where((n < bufs["budget"])[:, None], tok[:, None],
+                                        out.gather(1, at)))
         _, logits = decode_step(params, cfg, cache, tok, active=~done)
         tok.copy_(_pick(cfg, logits, bufs["bias"], done))
         n += 1
     return {}
 
 
-def start_decode(cfg: GlmAsrConfig, bufs: dict, prompt: dict) -> None:
-    """Load _prompt_program's outputs into the decode buffers."""
+def start_decode(cfg: GlmAsrConfig, bufs: dict, prompt: dict, budget: int) -> None:
+    """Load _prompt_program's outputs and the request's budget into the
+    decode buffers."""
     S = prompt["k"].shape[2]
     bufs["k"][:, :, :S].copy_(prompt["k"])
     bufs["v"][:, :, :S].copy_(prompt["v"])
@@ -143,12 +155,14 @@ def start_decode(cfg: GlmAsrConfig, bufs: dict, prompt: dict) -> None:
     bufs["tok"].copy_(prompt["tok"])
     bufs["done"].zero_()
     bufs["n"].zero_()
+    bufs["budget"].fill_(budget)
     bufs["out"].fill_(cfg.pad_id)
 
 
-def chunk_sizes(budget: int, k: int) -> list[int]:
-    """The decode graphs' step counts for a budget, in order."""
-    return [k] * (budget // k) + ([budget % k] if budget % k else [])
+def budget_ceiling(budget: int) -> int:
+    """The smallest of BUDGET_CEILINGS that is >= budget, or the budget
+    itself above them all."""
+    return min((c for c in BUDGET_CEILINGS if c >= budget), default=budget)
 
 
 @dataclass
@@ -246,19 +260,21 @@ class Transcriber:
             }
         return self._bufs[key]
 
-    def _decode_bufs(self, bucket: int, budget: int, prefix_len: int, prompt_len: int) -> dict:
-        """Static state of _decode_k_program for one (bucket, budget, prefix
-        length): a cache of prompt_len + budget positions (greedy_generate's),
-        the current token, done flag, step count and output row."""
-        key = ("decode", bucket, budget, prefix_len)
+    def _decode_bufs(self, bucket: int, ceiling: int, prefix_len: int, prompt_len: int) -> dict:
+        """Static state of _decode_k_program for one (bucket, budget ceiling,
+        prefix length): a cache of prompt_len + ceiling positions, the
+        current token, done flag, step count, the request's budget and an
+        output row of `ceiling` tokens."""
+        key = ("decode", bucket, ceiling, prefix_len)
         if key not in self._bufs:
             dev, i32 = self.device, torch.int32
             self._bufs[key] = {
-                **init_cache(self.cfg, 1, prompt_len + budget, dtype=self.dtype, device=dev),
+                **init_cache(self.cfg, 1, prompt_len + ceiling, dtype=self.dtype, device=dev),
                 "tok": torch.zeros((1,), dtype=i32, device=dev),
                 "done": torch.zeros((1,), dtype=torch.bool, device=dev),
                 "n": torch.zeros((1,), dtype=i32, device=dev),
-                "out": torch.full((1, budget), self.cfg.pad_id, dtype=i32, device=dev),
+                "budget": torch.full((1,), ceiling, dtype=i32, device=dev),
+                "out": torch.full((1, ceiling), self.cfg.pad_id, dtype=i32, device=dev),
                 "bias": self._bias,
             }
         return self._bufs[key]
@@ -268,8 +284,10 @@ class Transcriber:
 
     def _generate(self, bucket: int, mel: torch.Tensor, frames: int, prefix_ids: np.ndarray,
                   suffix_ids: np.ndarray, suffix_len: int, budget: int) -> tuple[np.ndarray, int]:
-        """The two programs through the router, with the bias buffer set.
-        -> (tokens [budget], pad-filled after EOS; decode steps run)."""
+        """The two programs through the router, with the bias buffer set;
+        the decode graph of the budget's ceiling replayed until EOS or
+        `budget` steps. -> (tokens [budget], pad-filled after EOS; decode
+        steps run)."""
         P = len(prefix_ids)
         p = self._prompt_bufs(bucket, P)
         p["mel"].copy_(mel)
@@ -278,15 +296,16 @@ class Transcriber:
         p["suffix_ids"].copy_(torch.from_numpy(suffix_ids))
         p["suffix_len"].fill_(suffix_len)
         prompt = self.router.run(("prompt", bucket, P), self._prompt_fn, p)
-        d = self._decode_bufs(bucket, budget, P, prompt["k"].shape[2])
-        start_decode(self.cfg, d, prompt)
+        ceiling, k = budget_ceiling(budget), DECODE_STEPS
+        d = self._decode_bufs(bucket, ceiling, P, prompt["k"].shape[2])
+        start_decode(self.cfg, d, prompt, budget)
         steps = 0
-        for k in chunk_sizes(budget, DECODE_STEPS):
-            self.router.run(("decode", bucket, budget, k, P), self._decode_fn(k), d)
+        while steps < budget:
+            self.router.run(("decode", bucket, ceiling, k, P), self._decode_fn(k), d)
             steps += k
             if steps < budget and bool(d["done"].all()):  # the host's one read per chunk
                 break
-        return d["out"][0].cpu().numpy(), steps
+        return d["out"][0, :budget].cpu().numpy(), steps
 
     # ---- main entry ----
 
@@ -349,9 +368,9 @@ class Transcriber:
     def warmup(self, buckets: Optional[Sequence[int]] = None,
                budgets: Sequence[int] = (256,)) -> None:
         """Capture the graphs of the (bucket, budget) grid: each bucket's
-        prompt graph, and for each budget its decode graphs (k steps and
-        the budget % k tail). Without it each key is captured by its first
-        request. On the CPU there is nothing to capture."""
+        prompt graph, and the decode graph of each budget's ceiling. Without
+        it each key is captured by its first request. On the CPU there is
+        nothing to capture."""
         if self.device.type == "cpu":
             return
         P = len(build_prompt(self.tokenizer, self.cfg).prefix_ids)
@@ -359,7 +378,7 @@ class Transcriber:
             for b in buckets or self.buckets:
                 prompt = self.router.prepare(("prompt", b, P), self._prompt_fn,
                                              self._prompt_bufs(b, P)).outputs
-                for budget in budgets:
-                    d = self._decode_bufs(b, budget, P, prompt["k"].shape[2])
-                    for k in sorted(set(chunk_sizes(budget, DECODE_STEPS))):
-                        self.router.prepare(("decode", b, budget, k, P), self._decode_fn(k), d)
+                for ceiling in sorted({budget_ceiling(x) for x in budgets}):
+                    d = self._decode_bufs(b, ceiling, P, prompt["k"].shape[2])
+                    self.router.prepare(("decode", b, ceiling, DECODE_STEPS, P),
+                                        self._decode_fn(DECODE_STEPS), d)

@@ -1,15 +1,18 @@
-"""aiohttp application: the file-transcription API surface.
+"""aiohttp application: the REST + WebSocket API surface.
 
-Port of the JAX package's ``serve/app.py`` for the file path (reference
-FastAPI app, backend/main.py:150,171,193; wire schema SURVEY.md §2.7):
+Port of the JAX package's ``serve/app.py`` (reference FastAPI app,
+backend/main.py:150,171,193,651,701; wire schema SURVEY.md §2.7), on
+``ThreadedEngine``:
 
-    GET  /health            model state, engine counters, device memory
+    GET  /health            model state, sessions, engine counters, device memory
     GET  /debug/config      derived protocol constants
+    GET  /debug/profile     a torch.profiler trace of the next N seconds
+    POST /vad/config        runtime VAD reconfiguration, live sessions included
     POST /transcribe/file   multipart upload -> NDJSON stream (or aggregate)
+    WS   /ws/audio          64 ms PCM ingest, tentative/committed results
+    GET  /, /static         the web UI (frontend/)
 
-``/ws/audio``, ``/vad/config`` and ``/debug/profile`` come with the
-streaming slice. This is the only module of the package that imports
-aiohttp.
+This is the only module of the package that imports aiohttp.
 """
 
 from __future__ import annotations
@@ -18,20 +21,30 @@ import argparse
 import asyncio
 import json
 import logging
+import os
+import ssl
 import time
+import uuid
+from pathlib import Path
 from typing import Optional
 
 import torch
-from aiohttp import web
+from aiohttp import WSMsgType, web
 
 from sonicscribe_tpu_torch.config import AppConfig
+from sonicscribe_tpu_torch.serve.debug_tap import DebugAudioTap
 from sonicscribe_tpu_torch.serve.decode import UnsupportedFormat, decode_audio
 from sonicscribe_tpu_torch.serve.files import FileTranscriptionConfig, transcribe_file_stream
 from sonicscribe_tpu_torch.serve.runtime import build_runtime
+from sonicscribe_tpu_torch.serve.session import StreamSession
 
 logger = logging.getLogger(__name__)
 
+RECEIVE_TIMEOUT_S = 5.0  # reference main.py:782
+INACTIVITY_DISCONNECT_S = 30.0  # reference main.py:790-800
 MAX_UPLOAD_BYTES = 100 * 1024 * 1024  # reference FileAnalyzer.js:632
+RESUME_WINDOW_S = 60.0  # detached sessions stay resumable this long
+FRONTEND_DIR = Path(__file__).resolve().parents[2] / "frontend"
 
 
 @web.middleware
@@ -77,7 +90,7 @@ async def health(request: web.Request) -> web.Response:
             "model_loaded": engine is not None,
             "vad_loaded": app.get("vad") is not None,
             "model_info": app.get("model_info", {}),
-            "active_sessions": 0,
+            "active_sessions": len(app["sessions"]),
             "engine_stats": {
                 k: v
                 for k, v in getattr(engine, "stats", {}).items()
@@ -87,6 +100,26 @@ async def health(request: web.Request) -> web.Response:
             "config": app["config"].protocol_constants(),
         }
     )
+
+
+async def debug_profile(request: web.Request) -> web.Response:
+    """A torch.profiler trace (host ops, and the card's kernels where one is
+    in use) of the next `seconds` (at most 30), written as a Chrome trace
+    into `dir` (default ./profile_traces). Fetch with
+    curl 'http://host/debug/profile?seconds=3', open in Perfetto."""
+    from torch.profiler import ProfilerActivity, profile
+
+    seconds = min(float(request.query.get("seconds", "3")), 30.0)
+    trace_dir = request.query.get("dir", os.path.join(os.getcwd(), "profile_traces"))
+    os.makedirs(trace_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        await asyncio.sleep(seconds)
+    path = os.path.join(trace_dir, f"trace_{time.strftime('%Y%m%d_%H%M%S')}_{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    return web.json_response({"trace_dir": trace_dir, "trace": path, "seconds": seconds})
 
 
 async def debug_config(request: web.Request) -> web.Response:
@@ -104,6 +137,41 @@ async def debug_config(request: web.Request) -> web.Response:
             "quant_mode": cfg.quant_mode,
         }
     )
+
+
+async def vad_config(request: web.Request) -> web.Response:
+    """Runtime VAD reconfiguration (reference main.py:651-668), applied to
+    the server's config and to every live session."""
+    cfg: AppConfig = request.app["config"]
+    try:
+        body = await request.json()
+        threshold = float(body["threshold"]) if "threshold" in body else None
+        window = int(body["smoothing_window"]) if "smoothing_window" in body else None
+    except (ValueError, TypeError):
+        raise web.HTTPBadRequest(text=json.dumps({"error": "invalid JSON body"}))
+    if threshold is not None and not 0.05 <= threshold <= 0.95:
+        raise web.HTTPBadRequest(text=json.dumps({"error": "threshold must be in [0.05, 0.95]"}))
+    if window is not None and not 1 <= window <= 10:
+        raise web.HTTPBadRequest(text=json.dumps({"error": "smoothing_window must be in [1, 10]"}))
+    updated = {}
+    if threshold is not None:
+        cfg.vad_speech_threshold = updated["threshold"] = threshold
+    if window is not None:
+        cfg.vad_smoothing_window = updated["smoothing_window"] = window
+    # scoped to this server's sessions, unlike the reference's global class
+    # mutation (main.py:658), with the same effect on open streams
+    for session in request.app["sessions"].values():
+        if "smoothing_window" in updated:
+            session.gate.cfg.smoothing_window = updated["smoothing_window"]
+        if "threshold" in updated:
+            t = updated["threshold"]
+            session.gate.cfg.base_threshold = t
+            if session.gate.is_speaking:
+                # mid-speech: never lower the dynamic threshold below base
+                session.gate.threshold = max(session.gate.threshold, t)
+            else:
+                session.gate.threshold = t
+    return web.json_response({"status": "updated", "config": updated})
 
 
 async def transcribe_file(request: web.Request) -> web.StreamResponse:
@@ -189,15 +257,227 @@ async def transcribe_file(request: web.Request) -> web.StreamResponse:
     )
 
 
+# ---------------------------------------------------------------------
+# WebSocket
+# ---------------------------------------------------------------------
+
+
+def _repair_frames(data: bytes, chunk_size: int) -> list[bytes]:
+    """Split oversized / zero-pad undersized frames to exactly `chunk_size`
+    (reference main.py:813-838)."""
+    frames = []
+    for off in range(0, len(data), chunk_size):
+        piece = data[off : off + chunk_size]
+        if len(piece) < chunk_size:
+            piece = piece + b"\x00" * (chunk_size - len(piece))
+        frames.append(piece)
+    return frames or [b"\x00" * chunk_size]
+
+
+def _sweep_detached(app) -> None:
+    """Clean up the detached sessions whose resume window has passed."""
+    window = app.get("resume_window_s", RESUME_WINDOW_S)
+    now = time.monotonic()
+    cleanups = app["sweeper"].setdefault("cleanups", set())  # awaited at shutdown
+    for cid in [c for c, (t, _) in app["detached"].items() if now - t > window]:
+        _, sess = app["detached"].pop(cid)
+        task = asyncio.ensure_future(sess.cleanup())
+        cleanups.add(task)
+        task.add_done_callback(cleanups.discard)
+
+
+async def _periodic_sweep(app) -> None:
+    """Expire detached sessions on a timer, not only on new WS connects, so
+    that a disconnect with no later traffic still releases its session.
+    Interval = window / 4 keeps the worst-case overstay under 1.25x."""
+    window = app.get("resume_window_s", RESUME_WINDOW_S)
+    while True:
+        await asyncio.sleep(max(0.05, window / 4))
+        _sweep_detached(app)
+
+
+async def _start_sweeper(app) -> None:
+    # inner-dict mutation: aiohttp deprecates app[...] writes after startup
+    app["sweeper"]["task"] = asyncio.ensure_future(_periodic_sweep(app))
+
+
+async def _stop_sweeper(app) -> None:
+    task = app["sweeper"].pop("task", None)
+    if task is not None:
+        task.cancel()
+        try:
+            await task
+        except asyncio.CancelledError:
+            pass
+    cleanups = app["sweeper"].pop("cleanups", set())
+    if cleanups:
+        await asyncio.gather(*cleanups, return_exceptions=True)
+
+
+async def ws_audio(request: web.Request) -> web.WebSocketResponse:
+    app = request.app
+    cfg: AppConfig = app["config"]
+    ws = web.WebSocketResponse(heartbeat=None)
+    await ws.prepare(request)
+
+    async def send_json(msg: dict) -> None:
+        if not ws.closed:
+            await ws.send_str(json.dumps(msg, ensure_ascii=False))
+
+    # ?resume=<client_id> re-attaches a recently disconnected session's
+    # buffer, gate and hotwords (the reference always started afresh)
+    _sweep_detached(app)
+    resume_id = request.query.get("resume", "")
+    resumed = False
+    if resume_id and resume_id in app["detached"]:
+        _, session = app["detached"].pop(resume_id)
+        client_id = resume_id
+        session.send = send_json
+        session.active = True
+        resumed = True
+    else:
+        client_id = uuid.uuid4().hex[:12]
+        session = StreamSession(client_id, cfg, app["engine"], send_json)
+    app["sessions"][client_id] = session
+    logger.info("[%s] ws connected%s", client_id, " (resumed)" if resumed else "")
+
+    tap = None
+    if cfg.debug_audio_enabled:
+        tap = DebugAudioTap(cfg.debug_audio_base_dir, client_id, cfg.audio_sample_rate)
+        await send_json({"type": "debug_audio_info", "enabled": True, "path": tap.path})
+
+    await send_json(
+        {
+            "type": "connection_established",
+            "client_id": client_id,
+            "resumed": resumed,
+            "config": cfg.protocol_constants(),
+            "capabilities": [
+                "tentative_output", "committed_output", "hotwords",
+                "vad_config", "resume",
+            ],
+        }
+    )
+
+    last_activity = time.monotonic()
+    explicit_close = False
+    try:
+        while not ws.closed:
+            try:
+                msg = await ws.receive(timeout=RECEIVE_TIMEOUT_S)
+            except asyncio.TimeoutError:
+                if time.monotonic() - last_activity > INACTIVITY_DISCONNECT_S:
+                    await send_json(
+                        {"type": "error", "code": "inactivity_timeout",
+                         "message": "no audio for 30s, closing"}
+                    )
+                    explicit_close = True
+                    break
+                continue
+
+            if msg.type == WSMsgType.BINARY:
+                last_activity = time.monotonic()
+                if tap is not None:
+                    tap.write(msg.data)
+                for frame in _repair_frames(msg.data, cfg.audio_chunk_size):
+                    await session.on_audio(frame)
+            elif msg.type == WSMsgType.TEXT:
+                last_activity = time.monotonic()
+                try:
+                    ctrl = json.loads(msg.data)
+                except json.JSONDecodeError:
+                    await send_json(
+                        {"type": "error", "code": "bad_json",
+                         "message": "unparseable control message"}
+                    )
+                    continue
+                await _handle_control(ctrl, session, send_json)
+                if ctrl.get("type") == "close":
+                    explicit_close = True
+                    break
+            elif msg.type in (WSMsgType.CLOSE, WSMsgType.CLOSING, WSMsgType.CLOSED,
+                              WSMsgType.ERROR):
+                break
+    finally:
+        app["sessions"].pop(client_id, None)
+        if tap is not None:
+            tap.close()
+        if explicit_close:
+            try:
+                await asyncio.wait_for(session.flush(), timeout=10.0)
+            except Exception:
+                logger.exception("[%s] flush on close failed", client_id)
+            await session.cleanup()
+        else:
+            # abnormal disconnect: park the session for a resume
+            session.active = False
+            app["detached"][client_id] = (time.monotonic(), session)
+        if not ws.closed:
+            await ws.close()
+        logger.info("[%s] ws closed%s", client_id, "" if explicit_close else " (resumable)")
+    return ws
+
+
+async def _handle_control(ctrl: dict, session: StreamSession, send_json) -> None:
+    """Dispatch WS control messages (reference main.py:841-917)."""
+    mtype = ctrl.get("type")
+    if mtype == "ping":
+        await send_json({"type": "pong", "t": time.time()})
+    elif mtype == "get_state":
+        await send_json(session.state_snapshot())
+    elif mtype == "vad_config":
+        if "vad_enabled" in ctrl:
+            session.vad_enabled = bool(ctrl["vad_enabled"])
+        if "threshold" in ctrl:
+            t = float(ctrl["threshold"])
+            if 0.05 <= t <= 0.95:
+                session.gate.cfg.base_threshold = t
+                session.gate.threshold = max(session.gate.threshold, t)
+        await send_json(
+            {"type": "config_updated",
+             "vad_enabled": session.vad_enabled,
+             "threshold": session.gate.cfg.base_threshold}
+        )
+    elif mtype == "hotwords_config":
+        words = ctrl.get("hotwords", [])
+        if not isinstance(words, list):
+            await send_json({"type": "error", "code": "bad_hotwords",
+                             "message": "hotwords must be a list"})
+            return
+        session.hotwords = [str(w).strip() for w in words if str(w).strip()][:10]
+        await send_json({"type": "hotwords_updated", "hotwords": session.hotwords})
+    elif mtype != "close":  # close: handled by the caller
+        await send_json({"type": "error", "code": "unknown_message",
+                         "message": f"unknown control type: {mtype!r}"})
+
+
 def build_app(config: AppConfig, engine, vad, model_info: dict | None = None) -> web.Application:
     app = web.Application(middlewares=[cors_middleware], client_max_size=MAX_UPLOAD_BYTES + 1024)
     app["config"] = config
     app["engine"] = engine
     app["vad"] = vad
     app["model_info"] = model_info or {}
+    app["sessions"] = {}
+    app["detached"] = {}  # client_id -> (detach time, session), resumable
+    app["sweeper"] = {}  # the periodic sweep task once started, and its cleanups
+    app.on_startup.append(_start_sweeper)
+    app.on_cleanup.append(_stop_sweeper)
     app.router.add_get("/health", health)
     app.router.add_get("/debug/config", debug_config)
+    app.router.add_get("/debug/profile", debug_profile)
+    app.router.add_post("/vad/config", vad_config)
     app.router.add_post("/transcribe/file", transcribe_file)
+    app.router.add_get("/ws/audio", ws_audio)
+
+    # the web UI: vanilla ES modules, no build step
+    if FRONTEND_DIR.is_dir():
+        index_path = FRONTEND_DIR / "index.html"
+
+        async def index(_request):
+            return web.FileResponse(index_path)
+
+        app.router.add_get("/", index)
+        app.router.add_static("/static", FRONTEND_DIR)
     return app
 
 
@@ -235,8 +515,14 @@ def main(argv=None):
     engine, vad, info = build_runtime(args.model, args.vad, config, device=args.device)
     if not args.no_warmup:
         t0 = time.perf_counter()
-        # the JAX app's grid less the streaming final budget (not ported yet)
-        engine.warmup(budgets=(config.interim_max_new_tokens, config.file_max_new_tokens))
+        # the JAX app's grid: each budget's ceiling serves every budget below it
+        engine.warmup(budgets=(config.interim_max_new_tokens, config.final_max_tokens,
+                               config.file_max_new_tokens))
         info["warmup_s"] = round(time.perf_counter() - t0, 1)
     logger.info("runtime ready: %s", info)
-    web.run_app(build_app(config, engine, vad, info), host=config.host, port=config.port)
+    ssl_ctx = None
+    if config.use_https and config.ssl_certfile:
+        ssl_ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+        ssl_ctx.load_cert_chain(config.ssl_certfile, config.ssl_keyfile or None)
+    web.run_app(build_app(config, engine, vad, info), host=config.host, port=config.port,
+                ssl_context=ssl_ctx)

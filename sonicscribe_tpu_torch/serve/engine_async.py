@@ -3,8 +3,8 @@
 Port of the JAX package's ``ThreadedEngine`` (the reference ran its ASR
 call on the asyncio loop, backend/transcription_manager.py:58, stalling
 every session). Here every device call goes through one worker thread and
-the serving layer only awaits. The streaming path's ``vad_window_prob``
-comes with the streaming slice.
+the serving layer only awaits: a stream's VAD windows queue behind its
+decodes on that thread, as in JAX.
 """
 
 from __future__ import annotations
@@ -14,8 +14,10 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
+import torch
 
 from sonicscribe_tpu_torch.engine.transcriber import Transcriber, TranscribeResult
+from sonicscribe_tpu_torch.vad.model import WINDOW_SAMPLES, gate_on_host
 
 
 class ThreadedEngine:
@@ -40,7 +42,11 @@ class ThreadedEngine:
         sample_rate: int,
         max_new_tokens: int,
         hotwords: Optional[list[str]] = None,
+        draft_tokens=None,  # accepted for the session's interface, as in JAX:
+        # one sequential decode gains nothing from speculation
+        speculative: bool = False,  # ditto (no k scheduling to protect)
     ) -> TranscribeResult:
+        del draft_tokens, speculative
         loop = asyncio.get_running_loop()
         return await loop.run_in_executor(
             self._pool,
@@ -48,6 +54,24 @@ class ThreadedEngine:
                 audio, sample_rate, max_new_tokens=max_new_tokens, hotwords=hotwords
             ),
         )
+
+    async def vad_window_prob(self, audio: np.ndarray, state) -> tuple[float, object]:
+        """Max speech probability over the 512-sample sub-windows of one
+        gate window, and the stream's VAD state after them (None: a fresh
+        stream). Runs on the device thread."""
+        loop = asyncio.get_running_loop()
+        return await loop.run_in_executor(self._pool, self._vad_window, audio, state)
+
+    def _vad_window(self, audio: np.ndarray, state) -> tuple[float, object]:
+        """Every sub-window's band energy in one matmul on the VAD's device
+        and one copy back, then the noise-floor recursion on the host (JAX
+        scans forward over the sub-windows in one program)."""
+        n_win = max(1, len(audio) // WINDOW_SAMPLES)
+        x = np.asarray(audio[: n_win * WINDOW_SAMPLES], np.float32).reshape(n_win, WINDOW_SAMPLES)
+        with torch.inference_mode():
+            energies = self.vad.band_energy(torch.from_numpy(x).to(self.vad.device)).cpu()
+        probs, state = gate_on_host(self.vad, energies, state)
+        return float(probs.max()), state
 
     def warmup(self, budgets=(15, 200, 256)) -> None:
         self.transcriber.warmup(budgets=budgets)

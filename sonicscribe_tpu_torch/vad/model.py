@@ -5,9 +5,12 @@ Port of ``EnergyVad`` and ``window_probs`` from the JAX package's
 energy of each 512-sample window (16 kHz) over an adaptive noise floor. No
 weights. The Silero network comes with a later slice.
 
-For a whole file, ``window_probs`` computes every window's band energy in
-one matmul on the device and runs the noise-floor recursion, which is
-sequential, on the host (``EnergyVad.gate``, one window per step).
+For a whole file (``window_probs``) and for a stream's gate window
+(``ThreadedEngine.vad_window_prob``), every 512-sample window's band energy
+comes from one matmul on the device and one copy to the host, where the
+noise-floor recursion, which is sequential, runs (``gate_on_host``:
+``EnergyVad.gate``, one window per step). ``EnergyVad.forward`` is the JAX
+package's per-window step, both halves on the windows' device.
 """
 
 from __future__ import annotations
@@ -43,9 +46,11 @@ class EnergyVad:
     window_samples = WINDOW_SAMPLES
 
     def __init__(self, snr_low_db: float = 3.0, snr_high_db: float = 12.0, device=None):
+        self.params = None  # no weights; forward's signature is the Silero net's
         self.snr_low = snr_low_db
         self.snr_high = snr_high_db
         self.device = resolve_device(device)
+        self._tables: dict = {}  # (W, device) -> (DFT basis, band mask) on that device
 
     def init_state(self, batch: int):
         return {
@@ -56,12 +61,15 @@ class EnergyVad:
     def band_energy(self, windows: torch.Tensor) -> torch.Tensor:
         """windows [B, W] f32 -> mean-square speech-band energy [B]."""
         W = windows.shape[1]
-        basis, band = _band_basis(W)
-        basis = torch.from_numpy(basis).to(windows.device)
+        key = (W, windows.device)
+        if key not in self._tables:  # uploaded once, not per window
+            self._tables[key] = tuple(torch.from_numpy(t).to(windows.device)
+                                      for t in _band_basis(W))
+        basis, band = self._tables[key]
         spec = windows.float() @ basis.T
         nb = band.shape[0]
         power = (spec[:, :nb] ** 2 + spec[:, nb:] ** 2) / (W * W)
-        return torch.sum(power * torch.from_numpy(band).to(windows.device)[None], dim=1)
+        return torch.sum(power * band[None], dim=1)
 
     def gate(self, band_e: torch.Tensor, state):
         """One step of the noise-floor tracker: (band energy [B], state) ->
@@ -84,6 +92,25 @@ class EnergyVad:
         new_noise = torch.clamp(new_noise, min=1e-10)
         return prob, {"noise": new_noise, "init": torch.ones_like(state["init"])}
 
+    def forward(self, params, windows: torch.Tensor, state):
+        """One window per stream: (windows [B, W], state) -> (probs [B],
+        new_state), the JAX package's EnergyVad.forward."""
+        del params
+        return self.gate(self.band_energy(windows), state)
+
+
+def gate_on_host(vad: EnergyVad, energies: torch.Tensor, state) -> tuple[np.ndarray, dict]:
+    """The noise-floor recursion of one stream over its windows' band
+    energies [n] on the CPU, from `state` (None: a fresh stream).
+    -> (probs [n], the state after the last window, on the CPU)."""
+    if state is None:
+        state = {k: v.cpu() for k, v in vad.init_state(1).items()}
+    probs = np.zeros(len(energies), np.float32)
+    for i in range(len(energies)):
+        p, state = vad.gate(energies[i : i + 1], state)
+        probs[i] = float(p[0])
+    return probs, state
+
 
 def window_probs(vad: EnergyVad, audio: np.ndarray) -> np.ndarray:
     """Run a whole mono 16 kHz signal through `vad`, one stream.
@@ -93,10 +120,4 @@ def window_probs(vad: EnergyVad, audio: np.ndarray) -> np.ndarray:
     padded = np.zeros(n_win * WINDOW_SAMPLES, np.float32)
     padded[:n] = audio
     windows = torch.from_numpy(padded.reshape(n_win, WINDOW_SAMPLES)).to(vad.device)
-    energies = vad.band_energy(windows).cpu()
-    state = {k: v.cpu() for k, v in vad.init_state(1).items()}
-    probs = np.zeros(n_win, np.float32)
-    for i in range(n_win):
-        p, state = vad.gate(energies[i : i + 1], state)
-        probs[i] = float(p[0])
-    return probs
+    return gate_on_host(vad, vad.band_energy(windows).cpu(), None)[0]

@@ -19,9 +19,10 @@ from sonicscribe_tpu_torch.audio.mel import (
     reflect_pad,
 )
 from sonicscribe_tpu_torch.device import resolve_device
-from chip_smoke import eager_transcriber
+from chip_smoke import TINY_STREAM_SPANS, drive_stepped, eager_transcriber, stream_frames
+from sonicscribe_tpu_torch.config import AppConfig
 from sonicscribe_tpu_torch.engine import transcriber as transcriber_module
-from sonicscribe_tpu_torch.engine.transcriber import DECODE_STEPS, Transcriber, chunk_sizes
+from sonicscribe_tpu_torch.engine.transcriber import BUDGET_CEILINGS, Transcriber
 from sonicscribe_tpu_torch.models import glm_asr as tm
 from sonicscribe_tpu_torch.models.config import tiny
 from sonicscribe_tpu_torch.models.tokenizer import ByteTokenizer
@@ -275,8 +276,9 @@ def _tiny_transcribers(device, seed=3):
 @pytest.mark.parametrize("k", [1, 8])
 def test_captured_tokens_equal_greedy_generate(cuda, k, monkeypatch):
     """The transcriber's graphs replayed on the card give greedy_generate's
-    tokens on the card (budget 21, not a multiple of k), and the replays
-    count the decode attention launches of every step they ran."""
+    tokens on the card (budget 21, not a multiple of k, on ceiling 200's
+    graph), and the replays count the decode attention launches of every
+    step they ran."""
     captured, eager = _tiny_transcribers(cuda)
     monkeypatch.setattr(transcriber_module, "DECODE_STEPS", k)
     for sec, hotwords in ((1.0, None), (2.2, ["hi"])):
@@ -290,8 +292,8 @@ def test_captured_tokens_equal_greedy_generate(cuda, k, monkeypatch):
         np.testing.assert_array_equal(got.tokens, want.tokens)
         assert _build.launch_counts["decode_attention"] == tiny().decoder.n_layers * steps
     keys = set(captured.router.entries)
-    assert ("prompt", 128, 3) in keys and ("decode", 256, 21, k, 3) in keys
-    assert (("decode", 256, 21, 21 % k, 3) in keys) == bool(21 % k)
+    assert ("prompt", 128, 3) in keys and ("decode", 256, 200, k, 3) in keys
+    assert not any(key[0] == "decode" and key[2] != 200 for key in keys)  # no tail graph
 
 
 def test_capture_holds_while_another_thread_resamples(cuda):
@@ -326,8 +328,45 @@ def test_capture_holds_while_another_thread_resamples(cuda):
         stop.set()
         thread.join(timeout=60)
     assert not thread.is_alive() and not errors and runs[0] > 0
-    assert busy.router.stats["graphs"] == 2 * (1 + len(set(chunk_sizes(24, DECODE_STEPS))))
+    assert busy.router.stats["graphs"] == 2 * 2  # per bucket: prompt, ceiling 200's decode
     np.testing.assert_array_equal(got, want)
+
+
+def test_a_final_at_an_unwarmed_budget_captures_no_graph(cuda):
+    """With the app's grid warmed, finals at budgets that were never warmed
+    run on their ceiling's graphs: no capture, greedy_generate's tokens."""
+    captured, eager = _tiny_transcribers(cuda)
+    captured.warmup(budgets=BUDGET_CEILINGS)
+    graphs = captured.router.stats["graphs"]
+    assert graphs == 2 * (1 + len(BUDGET_CEILINGS))
+    for budget in (57, 113):
+        audio = _speech(1.7, seed=23)
+        want = eager.transcribe(audio, 16000, max_new_tokens=budget)
+        got = captured.transcribe(audio, 16000, max_new_tokens=budget)
+        np.testing.assert_array_equal(got.tokens, want.tokens)
+    assert captured.router.stats["graphs"] == graphs
+
+
+def test_tiny_stream_on_the_card_equals_the_cpu(cuda):
+    """A StreamSession on a tiny f32 engine on the card sends the messages
+    of one on the CPU, on a stepped clock with every VAD window awaited."""
+    import asyncio
+
+    from sonicscribe_tpu_torch.serve.engine_async import ThreadedEngine
+    from sonicscribe_tpu_torch.vad.model import EnergyVad
+
+    frames, _, _ = stream_frames(TINY_STREAM_SPANS, seed=50)
+    got = {}
+    for device in ("cpu", cuda):
+        tr, _ = _tiny_transcribers(device)
+        engine = ThreadedEngine(tr, EnergyVad(device=device))
+        try:
+            got[str(device)] = asyncio.run(drive_stepped(AppConfig(), engine, frames))
+        finally:
+            engine.shutdown()
+    kinds = [m["type"] for m in got["cpu"]]
+    assert kinds.count("committed_output") == 2 and "tentative_output" in kinds
+    assert got[str(cuda)] == got["cpu"]
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):

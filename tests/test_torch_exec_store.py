@@ -1,7 +1,8 @@
 """Port parity: the transcriber's two programs (prompt, then k-step decode
-chunks) vs the JAX package's one `_transcribe_program`, on tiny() f32 with
-the JAX tree scaled by 4 and carried over bit-exact; and the graph router's
-keying and launch-count accounting, with a fake graph."""
+chunks on the buffers of the budget's ceiling) vs the JAX package's one
+`_transcribe_program` at the exact budget, on tiny() f32 with the JAX tree
+scaled by 4 and carried over bit-exact; and the graph router's keying and
+launch-count accounting, with fake graphs."""
 
 from dataclasses import replace
 
@@ -55,17 +56,27 @@ def _jax_tokens(setup, cfg_j, bias, budget):
     return np.asarray(toks)[0]
 
 
-def _port_tokens(setup, cfg, bias, budget, k):
+def _generate(tr, x, budget):
+    return tr._generate(BUCKET, torch.from_numpy(x["mel"]), N_FRAMES, x["prefix"],
+                        x["suffix"], x["suffix_len"], budget)
+
+
+def _port_tokens(setup, cfg, bias, budget, k, tr=None):
     """The two programs as the transcriber runs them on the CPU (its
-    _generate: static buffers, chunks of k steps, the host's read of the
-    done flag after each): -> (tokens [budget], decode steps run)."""
+    _generate: static buffers of the budget's ceiling, chunks of k steps,
+    the host's read of the done flag after each): -> (tokens [budget],
+    decode steps run)."""
     _, _, _, params_t, x = setup
-    tr = tt.Transcriber(cfg, params_t, ByteTokenizer(cfg), prefill_buckets=(BUCKET,))
+    tr = tr or tt.Transcriber(cfg, params_t, ByteTokenizer(cfg), prefill_buckets=(BUCKET,))
     tr._bias.copy_(torch.from_numpy(bias))
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tt, "DECODE_STEPS", k)
-        return tr._generate(BUCKET, torch.from_numpy(x["mel"]), N_FRAMES, x["prefix"],
-                            x["suffix"], x["suffix_len"], budget)
+        return _generate(tr, x, budget)
+
+
+def _chunked(steps, k):
+    """Steps rounded up to whole chunks of k."""
+    return -(-steps // k) * k
 
 
 @pytest.fixture(scope="module")
@@ -80,10 +91,7 @@ def free_run(setup):
     return toks, p
 
 
-@pytest.mark.parametrize("budget", [12, 15])
-@pytest.mark.parametrize("k", [1, 3, 8])
-@pytest.mark.parametrize("eos", ["none", "first", "mid"])
-def test_programs_match_jax_transcribe_program(setup, free_run, eos, k, budget):
+def _assert_tokens_match_jax(setup, free_run, eos, k, budget):
     cfg_j, cfg, _, _, _ = setup
     bias = np.zeros(cfg.decoder.vocab_size, np.float32)
     bias[100] = 2.0
@@ -94,13 +102,32 @@ def test_programs_match_jax_transcribe_program(setup, free_run, eos, k, budget):
         cfg_j = replace(cfg_j, eos_id=int(free_run[0][eos_at]))
         cfg = replace(cfg, eos_id=cfg_j.eos_id)
     want = _jax_tokens(setup, cfg_j, bias, budget)
-    got, steps = _port_tokens(setup, cfg, bias, budget, k)
+    tr = tt.Transcriber(cfg, setup[3], ByteTokenizer(cfg), prefill_buckets=(BUCKET,))
+    got, steps = _port_tokens(setup, cfg, bias, budget, k, tr)
     np.testing.assert_array_equal(got, want)
-    if eos_at is None:
-        assert steps == budget and cfg.eos_id not in want
+    P = len(setup[4]["prefix"])
+    assert [key for key in tr._bufs if key[0] == "decode"] == [
+        ("decode", BUCKET, tt.budget_ceiling(budget), P)]
+    if eos_at is None:  # whole chunks up to the budget; the steps past it wrote nothing
+        assert steps == _chunked(budget, k) and cfg.eos_id not in want
     else:  # the host stops after the chunk in which EOS was emitted
         assert want[eos_at] == cfg.eos_id and (want[eos_at + 1:] == cfg.pad_id).all()
-        assert steps == min(budget, (eos_at // k + 1) * k)
+        assert steps == min(_chunked(budget, k), (eos_at // k + 1) * k)
+
+
+@pytest.mark.parametrize("budget", [12, 15])
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("eos", ["none", "first", "mid"])
+def test_programs_match_jax_transcribe_program(setup, free_run, eos, k, budget):
+    _assert_tokens_match_jax(setup, free_run, eos, k, budget)
+
+
+@pytest.mark.parametrize("budget", [13, 57, 150])
+@pytest.mark.parametrize("eos", ["none", "first", "mid"])
+def test_budgets_under_a_ceiling_match_jax_at_the_exact_budget(setup, free_run, eos, budget):
+    """Budgets below ceilings 15 and 200 run on that ceiling's buffers and
+    graph (the shipped k) and give JAX's tokens at the exact budget."""
+    _assert_tokens_match_jax(setup, free_run, eos, tt.DECODE_STEPS, budget)
 
 
 def test_steps_past_the_budget_write_nothing(setup):
@@ -111,13 +138,13 @@ def test_steps_past_the_budget_write_nothing(setup):
     want, _ = _port_tokens(setup, cfg, bias, 5, 5)
     tr = tt.Transcriber(cfg, params_t, ByteTokenizer(cfg), prefill_buckets=(BUCKET,))
     x = setup[4]
-    tr._generate(BUCKET, torch.from_numpy(x["mel"]), N_FRAMES, x["prefix"], x["suffix"],
-                 x["suffix_len"], 5)
-    d = tr._bufs[("decode", BUCKET, 5, len(x["prefix"]))]
+    _generate(tr, x, 5)
+    d = tr._bufs[("decode", BUCKET, 15, len(x["prefix"]))]
     p = tr._bufs[("prompt", BUCKET, len(x["prefix"]))]
-    tt.start_decode(cfg, d, tt._prompt_program(params_t, cfg, p))
+    tt.start_decode(cfg, d, tt._prompt_program(params_t, cfg, p), 5)
     tt._decode_k_program(params_t, cfg, d, 8)
-    np.testing.assert_array_equal(d["out"][0].numpy(), want)
+    np.testing.assert_array_equal(d["out"][0, :5].numpy(), want)
+    assert (d["out"][0, 5:] == cfg.pad_id).all()
     assert int(d["n"][0]) == 8 and len(set(want.tolist())) > 1
 
 
@@ -146,18 +173,20 @@ def test_transcriber_tokens_do_not_depend_on_k(setup, k, monkeypatch):
     rng = np.random.default_rng(5)
     audio = (0.3 * np.sin(np.arange(17000) / 9.0) + 0.01 * rng.standard_normal(17000))
     want = tr.transcribe(audio.astype(np.float32), 16000, max_new_tokens=13)
+    shipped = tt.DECODE_STEPS
     monkeypatch.setattr(tt, "DECODE_STEPS", k)
     got = tr.transcribe(audio.astype(np.float32), 16000, max_new_tokens=13)
     np.testing.assert_array_equal(got.tokens, want.tokens)
-    assert tr.stats["decode_steps"] == 2 * 13
+    # every step replayed counts, the ones past the budget too
+    assert tr.stats["decode_steps"] == _chunked(13, shipped) + _chunked(13, k)
     assert 2 * len(want.tokens) <= tr.stats["tokens"] <= 2 * 13
     assert tr.router.stats["graphs"] == 0  # the CPU runs the programs eagerly
 
 
-@pytest.mark.parametrize("budget,k,want", [(15, 8, [8, 7]), (16, 8, [8, 8]), (5, 8, [5]),
-                                           (12, 1, [1] * 12), (12, 5, [5, 5, 2])])
-def test_chunk_sizes(budget, k, want):
-    assert tt.chunk_sizes(budget, k) == want
+@pytest.mark.parametrize("budget,want", [(1, 15), (15, 15), (16, 200), (57, 200), (200, 200),
+                                         (201, 256), (256, 256), (300, 300)])
+def test_budget_ceiling(budget, want):
+    assert tt.budget_ceiling(budget) == want
 
 
 class FakeGraph:
@@ -177,6 +206,60 @@ class FakeRouter(GraphRouter):
 
     def _record(self, program, bufs):
         return FakeGraph(), program(bufs)
+
+
+class ReplayGraph:
+    """A graph whose replay runs its program on the buffers it was
+    recorded on and writes the results into the recorded outputs, as a
+    CUDA graph writes its static outputs."""
+
+    def __init__(self, program, bufs, outputs):
+        self.program, self.bufs, self.outputs = program, bufs, outputs
+
+    def replay(self):
+        for name, value in self.program(self.bufs).items():
+            self.outputs[name].copy_(value)
+
+
+class ReplayRouter(GraphRouter):
+    """A router for the card whose recording, like a capture, leaves the
+    buffers as they were, and whose graphs run their program at each
+    replay, on the CPU."""
+
+    def _warm(self, program, bufs):
+        program({k: v.clone() for k, v in bufs.items()})
+
+    def _record(self, program, bufs):
+        outputs = program({k: v.clone() for k, v in bufs.items()})
+        return ReplayGraph(program, bufs, outputs), outputs
+
+
+def test_a_budget_below_the_ladder_captures_no_graph(setup):
+    """Once ceilings 15 and 200 are captured, budgets 12, 13, 57 and 150
+    capture nothing and allocate no buffer, and give the tokens of the
+    eager run; a budget above the ladder gets its own key."""
+    _, cfg, _, params_t, x = setup
+    P, k = len(x["prefix"]), tt.DECODE_STEPS
+    eager = tt.Transcriber(cfg, params_t, ByteTokenizer(cfg), prefill_buckets=(BUCKET,))
+    tr = tt.Transcriber(cfg, params_t, ByteTokenizer(cfg), prefill_buckets=(BUCKET,))
+    tr.router = ReplayRouter(torch.device("cuda"))
+    for budget in (15, 200):
+        _generate(tr, x, budget)
+    keys, graphs = set(tr._bufs), tr.router.stats["graphs"]
+    assert graphs == 3 and set(tr.router.entries) == {
+        ("prompt", BUCKET, P), ("decode", BUCKET, 15, k, P), ("decode", BUCKET, 200, k, P)}
+    replays = tr.router.stats["replays"]
+    for budget in (12, 13, 57, 150):
+        got, steps = _generate(tr, x, budget)
+        want, want_steps = _generate(eager, x, budget)
+        np.testing.assert_array_equal(got, want)
+        assert steps == want_steps == _chunked(budget, k)
+        replays += 1 + steps // k
+    assert set(tr._bufs) == keys and tr.router.stats["graphs"] == graphs
+    assert tr.router.stats["replays"] == replays
+    _generate(tr, x, 300)
+    assert ("decode", BUCKET, 300, P) in tr._bufs
+    assert ("decode", BUCKET, 300, k, P) in tr.router.entries
 
 
 def _fake_program(scale):

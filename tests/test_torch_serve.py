@@ -217,10 +217,12 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
 
+BLOCKED = ["jax", "jaxlib", "sonicscribe_tpu"]
+
 class Block:
     def find_spec(self, name, path=None, target=None):
         root = name.split(".")[0]
-        if root in ("jax", "jaxlib", "sonicscribe_tpu"):
+        if root in BLOCKED:
             raise ImportError(f"blocked import of {name}")
         return None
 
@@ -244,4 +246,34 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         timeout=240, cwd=Path(__file__).resolve().parents[1],
     )
     assert out.returncode == 0, out.stderr[-2000:]
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 26
+
+
+# every module but serve/app.py (and serve/__main__.py, which runs it)
+# imports with aiohttp, jax and the JAX package blocked: the card machine
+# has no aiohttp, and chip_smoke.py drives the stream without it
+_IMPORT_WITHOUT_AIOHTTP = _IMPORT_ALL.replace(
+    'BLOCKED = ["jax", "jaxlib", "sonicscribe_tpu"]',
+    'BLOCKED = ["jax", "jaxlib", "sonicscribe_tpu", "aiohttp"]',
+).split('importlib.import_module("sonicscribe_tpu_torch.serve.app")')[0] + r"""
+for name in ("sonicscribe_tpu_torch.serve.session", "sonicscribe_tpu_torch.stream.buffer",
+             "sonicscribe_tpu_torch.vad.gate", "sonicscribe_tpu_torch.native",
+             "sonicscribe_tpu_torch.serve.debug_tap"):
+    assert name in sys.modules, name
+try:
+    importlib.import_module("sonicscribe_tpu_torch.serve.app")
+except ImportError as e:
+    assert "aiohttp" in str(e), e
+else:
+    raise AssertionError("serve/app.py imported with aiohttp blocked")
+print(len(names))
+"""
+
+
+def test_port_imports_no_aiohttp_outside_the_app():
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_WITHOUT_AIOHTTP], capture_output=True, text=True,
+        timeout=240, cwd=Path(__file__).resolve().parents[1],
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert int(out.stdout.strip()) >= 26
