@@ -67,8 +67,9 @@ exits non-zero on failure:
    int8_w8a8 and int4_w4a16 step.
    The int4 kernels serve no request: the JAX package serves no int4 mode,
    and its only path to them is this sweep.
-3. main path: build_runtime("nano-random") in bf16 at full width; its
-   transcriber's CUDA graphs captured for every bucket and the budgets 15,
+3. main path: build_runtime("nano-random", engine_kind="threaded") in bf16
+   at full width; its transcriber's CUDA graphs captured for every bucket
+   and the budgets 15,
    200 and 256 (engine.warmup: one decode graph per budget ceiling; the
    time of each key and of the grid, graphs, memory with the grid warmed);
    then the file-transcription path of POST
@@ -83,8 +84,7 @@ exits non-zero on failure:
    idle share. The launch counters are set to 0 before each request and
    read after: the mel kernel must have run once per segment and decode
    attention once per layer per decode step (replays counted by the
-   router). Then the steps per decode graph, k in 4, 8, 16, 32, on the
-   12 s request (tokens/s, twice each, tokens equal for every k). Then, in
+   router). Then, in
    each int8 mode (int8, int8-decoder, int8-decoder-a8), a runtime of its
    own with its grid captured serves the ~3 s and ~12 s requests captured
    and eager in the same way: the stacked W8A16 kernel (W8A8 in -a8) runs 4
@@ -120,14 +120,41 @@ exits non-zero on failure:
    StreamSession on the card sends the messages of one on the CPU (a
    stepped clock, each VAD window awaited); tiny graphs captured while
    another thread resamples uploads on the card give the tokens of graphs
-   captured alone; and nano's prefill logits are finite.
+   captured alone; and nano's prefill logits are finite. Then tiny f32 on
+   the batched engine: five concurrent requests (mixed budgets, hotwords)
+   give the same tokens on the card (warmup's graphs) as on the CPU, and a
+   stepped StreamSession on the ring the same messages.
+5. batched: the kernels at the batcher's shapes first (after phase 2):
+   decode attention at S 33, M 803 and S 65, M = the short pool's length,
+   lens mixed with empty slots; the log-mel kernel over a batch of rows in
+   one launch (B 1, 4, 32 x 128 frames, B 4 x 3072), each row normalized
+   on its own; the stacked W8A16 entry at 16, 33 and 65 rows and W8A8 at
+   4, 16, 33 and 65 against their plain versions; with times. Then, in
+   native and in int8-decoder-a8, build_runtime's default engine (the
+   continuous batcher, engine/batcher.py): its grid captured (graphs,
+   seconds by kind, memory); the ~3 s, ~12 s and ~35 s requests submitted
+   at once through the file path (walls, RTF, aggregate tokens/s, peak
+   memory; tokens beside phase 3's threaded ones, the first divergence
+   printed); then 8 StreamSessions on the device ring, real-time frames of
+   STREAM_SPANS 0.25 s apart, beside the ~12 s file request: each commits
+   what the gate implies, no graph is captured, no call fails (tentative
+   delay, speech end -> committed, interims sent and dropped, the ring VAD
+   program's time); in native, 1, 4, 16 and 32 concurrent requests at a
+   128-token budget (wall, tokens/s, and a profiled run's device busy and
+   idle share). The launch counters are set to 0 before the files and
+   before the streams, and read after: log_mel once per prepared host
+   request and per ring prefill program, decode attention once per layer
+   per pool decode step; over both modes W8A8 ran in both designs.
 
 A line `captured {...}` holds phase 3's numbers by mode (grid, requests
-eager and captured, the k A/B). The line before the last is the kernels'
-JSON record (nine kernels, each
-with the path its launches were counted on, decode attention and log_mel
-also with their launches on the stream (`stream_launches`); the redesigned ones with their
-design; the flat W8A16, W8A8 and the four int4 entries with
+eager and captured), `batched {...}` phase 5's. The line before the last
+is the kernels' JSON record (nine kernels, each with the path its
+launches were counted on, decode attention and log_mel also with their
+launches on the stream (`stream_launches`), every one with its launches
+on the batched paths (`batched_launches`), decode attention, log_mel and the
+stacked W8A16 and W8A8 entries also with
+their batched shapes' numbers (`batched_shapes`); the redesigned ones with
+their design; the flat W8A16, W8A8 and the four int4 entries with
 `mma_launches`, the launches that took the tensor cores); the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no result.
 """
@@ -165,9 +192,15 @@ SEED = 0
 GRID_BUDGETS = (15, 200, 256)  # the interim, final maximum and file budgets (config.py)
 PROFILE_BUDGET = 32  # decode tokens per segment in the profiled runs
 PROFILE_TRIES = 6  # profiles of a request at most, while records are missing
-DECODE_K_AB = (4, 8, 16, 32)  # decode steps per graph in the A/B
-# EOS positions of the A/B's EOS traffic: ~12 s of speech at 2-7 tokens/s
-EOS_AT = (24, 32, 40, 48, 60, 80)
+# the batched phase: its modes, realtime streams, their staggered starts,
+# and the active long slots of the profiled decode runs (at a budget)
+BATCHED_MODES = ("native", "int8-decoder-a8")
+BATCHED_STREAMS = 8
+STREAM_STAGGER_S = 0.25
+TICK_SLOTS = (1, 4, 16, 32)
+TICK_BUDGET = 128
+# each captured request's segment tokens on the threaded engine, by (mode, request)
+THREADED_TOKENS: dict = {}
 # a profile's kernels by part of the model, by name
 KERNEL_PARTS = {
     "attention": ("decode_attention",),
@@ -260,16 +293,24 @@ def bound_ms(n_bytes: float, flops: float, peak: float = F32_FLOPS_PER_S) -> tup
 
 
 def kernel_names(torch, fn) -> list[str]:
-    """The kernels one call of fn runs on the card (built and loaded first)."""
+    """The kernels one call of fn runs on the card (built and loaded first).
+    A call launches at least one kernel, so a profile with none lost its
+    records (the profiler has returned an empty first profile of a process
+    on the H100): it is taken again, at most PROFILE_TRIES times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+        log("kernel_names: an empty profile; profiling again")
+    return names
 
 
 def kernel_phase(torch, timer):
@@ -1394,6 +1435,7 @@ def compare_requests(torch, engine, eager, vad, config, mode: str, names) -> dic
                                              for m in v["msgs"][1]["segments"])}
                       for k, v in runs.items()}
         rows[name]["tokens_equal"] = same
+        THREADED_TOKENS[mode, name] = [c["tokens"] for c in runs["captured"]["calls"]]
         top_profiles(mode, name, runs)
     return rows
 
@@ -1450,113 +1492,16 @@ def warm_grid(torch, engine, mode: str) -> dict:
     return out
 
 
-def decode_k_ab(torch, engine) -> dict:
-    """Decode steps per graph, k in DECODE_K_AB, on the 12 s request
-    (bucket 2048, budget 256), in two kinds of traffic:
-
-    - to the budget: the random weights never emit EOS, so every run
-      decodes all 256 steps (tokens/s);
-    - ending in EOS: the EOS id of a copy of the config is made the token
-      that the free run first emits nearest each position of EOS_AT, so
-      each run stops after the chunk of that step, as a segment of real
-      speech does (the wall of each request, summed over the positions).
-
-    Each k of a transcriber is captured and run once untimed, then timed
-    in three rounds in alternating order (4, 8, 16, 32, then back); tokens
-    equal for every k, and the EOS runs' decode steps are the chunk-rounded
-    ones. DECODE_STEPS ships the k with the least EOS-traffic wall."""
-    from dataclasses import replace
-
-    from sonicscribe_tpu_torch.engine import transcriber as tm
-
-    tr = engine.transcriber
-    audio = payloads()["12s"]
-    shipped = tm.DECODE_STEPS
-
-    def rounds(t, label: str) -> tuple[dict, np.ndarray]:
-        out = {k: dict(wall=[], tokens=[], steps=[]) for k in DECODE_K_AB}
-        for k in DECODE_K_AB:
-            tm.DECODE_STEPS = k
-            t0 = time.perf_counter()
-            t.warmup(buckets=(2048,), budgets=(256,))
-            out[k]["capture_s"] = time.perf_counter() - t0
-            t.transcribe(audio, SR, max_new_tokens=256)
-        want = None
-        for k in DECODE_K_AB + DECODE_K_AB[::-1] + DECODE_K_AB:
-            tm.DECODE_STEPS = k
-            tok0, steps0 = t.stats["tokens"], t.stats["decode_steps"]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            r = t.transcribe(audio, SR, max_new_tokens=256)
-            out[k]["wall"].append(time.perf_counter() - t0)
-            out[k]["tokens"].append(t.stats["tokens"] - tok0)
-            out[k]["steps"].append(t.stats["decode_steps"] - steps0)
-            want = r.tokens if want is None else want
-            check(np.array_equal(r.tokens, want), f"decode k={k} ({label}): tokens differ")
-        for k, v in out.items():
-            log(f"decode k={k} {label}: walls " + ", ".join(f"{w:.4f}" for w in v["wall"])
-                + f" s, {v['tokens'][0]} tokens, {v['steps'][0]} steps, "
-                f"{v['tokens'][0] / np.median(v['wall']):.1f} tokens/s (median), "
-                f"capture {v['capture_s']:.3f} s")
-        return out, want
-
-    try:
-        budget_runs, free = rounds(tr, "to the budget")
-        first: dict = {}
-        for i, t in enumerate(free.tolist()):
-            first.setdefault(t, i)
-        starts = sorted(p for t, p in first.items() if p > 0 and t != tr.cfg.pad_id)
-        at = []
-        for target in EOS_AT:
-            p = min((p for p in starts if p not in at), key=lambda p: abs(p - target),
-                    default=None)
-            if p is not None:
-                at.append(p)
-        check(len(at) >= 2, f"decode k A/B: EOS positions {at} from the free run's tokens")
-        eos_runs = {}
-        for p in sorted(at):
-            t = tm.Transcriber(replace(tr.cfg, eos_id=int(free[p])), tr.params, tr.tokenizer,
-                               tr.mel_cfg, tr.buckets)
-            eos_runs[p], toks = rounds(t, f"EOS at {p}")
-            check(np.array_equal(toks, free[:p]),
-                  f"decode k A/B: EOS at {p} cut the tokens at {len(toks)}")
-            for k, v in eos_runs[p].items():
-                want = min(256, (p // k + 1) * k)
-                check(set(v["steps"]) == {want},
-                      f"decode k={k}, EOS at {p}: {v['steps']} steps, want {want}")
-            del t
-            # not release_memory: the engine's graphs, replayed by the stream
-            # phase, write into the cuBLAS workspaces it would free
-            gc.collect()
-            torch.cuda.empty_cache()
-    finally:
-        tm.DECODE_STEPS = shipped
-    eos_wall = {k: sum(float(np.median(eos_runs[p][k]["wall"])) for p in eos_runs)
-                for k in DECODE_K_AB}
-    budget_tps = {k: v["tokens"][0] / float(np.median(v["wall"])) for k, v in budget_runs.items()}
-    best_eos = min(DECODE_K_AB, key=eos_wall.get)
-    best_budget = max(DECODE_K_AB, key=budget_tps.get)
-    log(f"decode k A/B: EOS at {sorted(eos_runs)}; summed median wall by k: "
-        + ", ".join(f"k={k} {w:.4f} s" for k, w in eos_wall.items())
-        + f"; least k={best_eos}. To the budget, median tokens/s: "
-        + ", ".join(f"k={k} {v:.1f}" for k, v in budget_tps.items())
-        + f"; most k={best_budget}. Shipped DECODE_STEPS={shipped}")
-    return dict(to_budget={str(k): v for k, v in budget_runs.items()},
-                eos={str(p): {str(k): v for k, v in r.items()} for p, r in eos_runs.items()},
-                eos_wall_s={str(k): w for k, w in eos_wall.items()},
-                budget_tokens_per_s={str(k): v for k, v in budget_tps.items()},
-                best_eos=best_eos, best_budget=best_budget, shipped=shipped)
-
-
 def main_path_phase(torch):
     """nano-random native: the grid captured, then the three requests
-    captured (counted: the main path) and eager, and the k A/B."""
+    captured (counted: the main path) and eager."""
     from sonicscribe_tpu_torch.config import AppConfig
     from sonicscribe_tpu_torch.serve.runtime import build_runtime
 
     config = AppConfig()
     t0 = time.perf_counter()
-    engine, vad, info = build_runtime("nano-random", "energy", config, seed=SEED)
+    engine, vad, info = build_runtime("nano-random", "energy", config, seed=SEED,
+                                      engine_kind="threaded")
     torch.cuda.synchronize()
     log(f"nano-random on {info['device_name']}: {info['params']} params, "
         f"init {time.perf_counter() - t0:.1f} s, resident "
@@ -1573,8 +1518,7 @@ def main_path_phase(torch):
         r35 = rows["35s"]["captured"]
         check(r35["n_seg"] >= 3 and r35["long_segment"],
               f"35s: expected a VAD split and a long-segment cut, got {r35['n_seg']} segments")
-        k_ab = decode_k_ab(torch, engine)
-        return engine, launches, dict(grid=grid, requests=rows, k_ab=k_ab)
+        return engine, launches, dict(grid=grid, requests=rows)
     except BaseException:
         engine.shutdown()
         raise
@@ -1592,7 +1536,8 @@ def int8_main_path_phase(torch, mode: str) -> tuple[dict, dict]:
     config = AppConfig()
     config.quant_mode = mode
     t0 = time.perf_counter()
-    engine, vad, info = build_runtime("nano-random", "energy", config, seed=SEED)
+    engine, vad, info = build_runtime("nano-random", "energy", config, seed=SEED,
+                                      engine_kind="threaded")
     torch.cuda.synchronize()
     log(f"nano-random {mode}: {info['params']} params, init {time.perf_counter() - t0:.1f} s, "
         f"resident {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
@@ -1854,25 +1799,35 @@ def gate_commits(window_p: np.ndarray, config) -> list[dict]:
 
 class Tracked:
     """An engine as a session sees it, counting its calls in flight, so that
-    the caller can wait until the session is idle."""
+    the caller can wait until the session is idle. Everything else (the
+    ring's alloc_stream, ingest, free_stream, interim_stagger, has_ring on
+    a ring engine) is the engine's own."""
 
     def __init__(self, engine):
         self.engine = engine
         self.busy = 0
 
-    async def vad_window_prob(self, audio, state):
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+    async def _counted(self, call):
         self.busy += 1
         try:
-            return await self.engine.vad_window_prob(audio, state)
+            return await call
         finally:
             self.busy -= 1
 
+    async def vad_window_prob(self, audio, state):
+        return await self._counted(self.engine.vad_window_prob(audio, state))
+
     async def transcribe(self, audio, sample_rate, **kw):
-        self.busy += 1
-        try:
-            return await self.engine.transcribe(audio, sample_rate, **kw)
-        finally:
-            self.busy -= 1
+        return await self._counted(self.engine.transcribe(audio, sample_rate, **kw))
+
+    async def vad_window_ring(self, stream_idx, start_chunk):
+        return await self._counted(self.engine.vad_window_ring(stream_idx, start_chunk))
+
+    async def transcribe_ring(self, *args, **kw):
+        return await self._counted(self.engine.transcribe_ring(*args, **kw))
 
 
 async def settle(session, engine: Tracked) -> None:
@@ -2115,6 +2070,534 @@ def stream_phase(torch, engine, grid: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------
+# the batched engine: kernels at its shapes, files, streams, decode runs
+# ---------------------------------------------------------------------
+
+
+def short_pool_len() -> int:
+    """The nano short pool's cache length: 3 prefix + 128 / 8 audio tokens
+    + the default suffix bucket + a 16-token budget (engine/batcher.py)."""
+    from sonicscribe_tpu_torch.engine.transcriber import MAX_SUFFIX_TOKENS
+    from sonicscribe_tpu_torch.models.config import nano
+    from sonicscribe_tpu_torch.models.tokenizer import ByteTokenizer, build_prompt
+
+    cfg = nano()
+    n = len(build_prompt(ByteTokenizer(cfg), cfg).suffix_ids)
+    return 3 + 128 // cfg.frames_per_audio_token + min(MAX_SUFFIX_TOKENS, (n + 9) // 8 * 8) + 16
+
+
+def batched_kernel_phase(torch, timer) -> dict:
+    """The kernels at the shapes the batcher gives them, against their plain
+    versions: decode attention at S 33, M 803 (the full long pool) and S 65,
+    M = the short pool's length, lens mixed with 0 for empty slots (f32 and
+    bf16, ATTN_TOL), and timed there in bf16 beside the plain version, SDPA
+    with a mask and the bound; the batched log-mel (one launch for B rows) at
+    B 1, 4 and 32 rows of 20 chunks (the interim ring prefill) and 4 rows of
+    480 (the largest chunk bucket), each row normalized on its own, within
+    MEL_TOL, timed at B 32; the stacked W8A16 entry at B 16, 33 and 65 (bf16:
+    the tensor-core design) within its tolerance, and W8A8 at B 4, 16, 33 and
+    65 equal to the recipe on CPU copies. -> {kernel: numbers}."""
+    import torch.nn.functional as F
+
+    from sonicscribe_tpu_torch.audio.mel import MelConfig, device_tables
+    from sonicscribe_tpu_torch.models.config import nano
+    from sonicscribe_tpu_torch.ops import _build
+    from sonicscribe_tpu_torch.ops import int8_matmul as im
+    from sonicscribe_tpu_torch.ops.decode_attention import (
+        decode_attention_cuda,
+        decode_attention_plain,
+    )
+    from sonicscribe_tpu_torch.ops.mel import log_mel_frames_cuda, log_mel_frames_plain
+    from sonicscribe_tpu_torch.ops.quant import quantize_tensor
+
+    dec = nano().decoder
+    nh, nkv, hd = dec.n_heads, dec.n_kv_heads, dec.head_dim
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 11)
+    out = {}
+
+    # ---- decode attention at the pools' shapes ----
+    attn_err, attn = 0.0, {}
+    for S, M in ((33, 803), (65, short_pool_len())):
+        lens_list = torch.randint(0, M, (S,), generator=gen, device="cuda")
+        lens_list[::3] = 0  # empty slots
+        lens_list[1] = M - 1
+        lens = lens_list.to(torch.int32)
+        for dtype in (torch.float32, torch.bfloat16):
+            k = torch.randn((2, S, M, nkv, hd), generator=gen, device="cuda").to(dtype)[1]
+            v = torch.randn((2, S, M, nkv, hd), generator=gen, device="cuda").to(dtype)[1]
+            q = torch.randn((S, nh, hd), generator=gen, device="cuda").to(dtype)
+            err = (decode_attention_cuda(q, k, v, lens) - decode_attention_plain(q, k, v, lens)
+                   ).abs().max().item()
+            check(np.isfinite(err) and err <= ATTN_TOL,
+                  f"decode_attention S={S} M={M} {dtype} mixed lens: max err {err} > {ATTN_TOL}")
+            attn_err = max(attn_err, err)
+        kq, vq = k.transpose(1, 2), v.transpose(1, 2)  # [S, nkv, M, hd] views
+        mask = (torch.arange(M, device="cuda")[None, :] <= lens[:, None])[:, None, None, :]
+        ms = timer.ms(lambda: decode_attention_cuda(q, k, v, lens))
+        plain_ms = timer.ms(lambda: decode_attention_plain(q, k, v, lens))
+        lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None, :], kq, vq, attn_mask=mask, enable_gqa=True))
+        pos = float((lens.long() + 1).sum())
+        n_bytes = S * (nh * hd * 2 + nh * hd * 4 + 4) + pos * 2 * nkv * hd * 2
+        b_ms, b_by = bound_ms(n_bytes, 4 * nh * hd * pos)
+        log(f"decode_attention S={S} M={M} mixed lens ({int((lens == 0).sum())} empty, "
+            f"{int(pos)} positions) bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+            f"(masked) {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+        attn[f"S{S}_M{M}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                                  bound_by=b_by)
+    out["decode_attention"] = dict(max_abs_err=attn_err, shapes=attn)
+
+    # ---- the batched log-mel ----
+    cfg = MelConfig()
+    basis, fb = device_tables(cfg, torch.device("cuda"))
+
+    def normalized(raw):  # log_mel_batch's per-row clamp and scaling (full rows)
+        top = raw.amax(dim=(1, 2), keepdim=True)
+        return (torch.maximum(raw, top - cfg.dynamic_range_db_factor) + 4.0) / 4.0
+
+    mel_err, mel = 0.0, {}
+    for B, chunks in ((1, 20), (4, 20), (32, 20), (4, 480)):
+        x = torch.from_numpy(np.stack([speech(chunks * CHUNK_SAMPLES / SR, seed=90 + i)
+                                       * (0.05 + 0.03 * i) for i in range(B)])).cuda()
+        padded = F.pad(x[:, None], (200, 200), mode="reflect")[:, 0]
+        nf = chunks * CHUNK_SAMPLES // cfg.hop_length
+        before = _build.launch_counts["log_mel"]
+        raw = log_mel_frames_cuda(padded, basis, fb, nf, cfg.hop_length)
+        check(_build.launch_counts["log_mel"] - before == 1,
+              f"log_mel B={B}: {_build.launch_counts['log_mel'] - before} launches")
+        err = (normalized(raw) - normalized(log_mel_frames_plain(padded, basis, fb, nf,
+                                                                 cfg.hop_length))
+               ).abs().max().item()
+        check(raw.shape == (B, nf, cfg.n_mels) and np.isfinite(err) and err <= MEL_TOL,
+              f"log_mel B={B} x {nf} frames: max err {err} > {MEL_TOL}")
+        mel_err = max(mel_err, err)
+        if B == 32:
+            window = torch.hann_window(cfg.n_fft, periodic=True, device="cuda")
+
+            def library():
+                spec = torch.stft(x, cfg.n_fft, cfg.hop_length, window=window, center=True,
+                                  pad_mode="reflect", return_complex=True)[:, :, :nf]
+                return torch.log10(torch.clamp(spec.abs().transpose(1, 2) ** 2 @ fb, min=1e-10))
+
+            ms = timer.ms(lambda: log_mel_frames_cuda(padded, basis, fb, nf, cfg.hop_length))
+            plain_ms = timer.ms(lambda: log_mel_frames_plain(padded, basis, fb, nf,
+                                                             cfg.hop_length))
+            lib_ms = timer.ms(library)
+            n_bins = cfg.n_freq_bins
+            n_bytes = 4 * (padded.numel() + basis.numel() + fb.numel() + B * nf * cfg.n_mels)
+            flops = B * nf * (2 * cfg.n_fft * 2 * n_bins + 3 * n_bins + 2 * n_bins * cfg.n_mels)
+            b_ms, b_by = min(bound_ms(n_bytes, flops),
+                             bound_ms(n_bytes, 3 * flops, TF32_FLOPS_PER_S))
+            log(f"log_mel batched B={B} x {nf} frames (one launch): kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, stft+matmul {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+            mel = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    log(f"log_mel batched: max abs err {mel_err:.3g} <= {MEL_TOL} at B 1, 4, 32 x 128 frames "
+        f"and B 4 x 3072 frames, one launch each")
+    out["log_mel"] = dict(max_abs_err=mel_err, B32=mel)
+
+    # ---- the int8 decode kernels at the batcher's rows ----
+    shapes = {"qkv": (dec.d_model, (nh + 2 * nkv) * hd), "o": (nh * hd, dec.d_model),
+              "gate_up": (dec.d_model, 2 * dec.ffn_hidden), "down": (dec.ffn_hidden, dec.d_model)}
+    w16_err, w8a8_rows = 0.0, []
+    for p, (K, N) in shapes.items():
+        qt = quantize_tensor(torch.randn((2, K, N), generator=gen, device="cuda") * 0.02)
+        q, sc = qt["q"], qt["scale"]
+        for B in (4, 16, 33, 65):
+            x = torch.randn((B, K), generator=gen, device="cuda").to(torch.bfloat16)
+            if B >= 16:
+                before = _build.launch_counts["int8_matmul_mma"]
+                got = im.int8_matmul_stacked_cuda(x, q, sc, 1)
+                check(_build.launch_counts["int8_matmul_mma"] - before == 1,
+                      f"int8_matmul_stacked {p} B={B}: not on the tensor cores")
+                w16_err = max(w16_err, check_w16(torch, "int8_matmul_stacked", got,
+                                                 im.int8_matmul_stacked_plain(x, q, sc, 1),
+                                                 f"{p} B={B}"))
+            got = im.int8_matmul_w8a8_cuda(x, q, sc, 1)
+            want = im.int8_matmul_w8a8_plain(x.cpu(), q.cpu(), sc.cpu(), 1).cuda()
+            check(torch.equal(got, want), f"int8_matmul_w8a8 {p} B={B}: differs from the recipe")
+            w8a8_rows.append(B)
+    log(f"int8 at the batcher's rows: stacked W8A16 (tensor cores) B 16, 33, 65 max abs err "
+        f"{w16_err:.3g}; W8A8 B 4, 16, 33, 65 equal to the recipe (qkv/o/gate_up/down)")
+    out["int8_matmul_stacked"] = dict(max_abs_err=w16_err, rows=[16, 33, 65])
+    out["int8_matmul_w8a8"] = dict(max_abs_err=0.0, rows=sorted(set(w8a8_rows)))
+    return out
+
+
+def first_divergence(got: list, want: list) -> str:
+    """Where two lists of per-segment tokens first differ: (segment, step,
+    both tokens), or 'equal'."""
+    if len(got) != len(want):
+        return f"{len(got)} segments vs {len(want)}"
+    for i, (g, w) in enumerate(zip(got, want)):
+        n = min(len(g), len(w))
+        diff = np.flatnonzero(np.asarray(g[:n]) != np.asarray(w[:n]))
+        if len(diff) or len(g) != len(w):
+            step = int(diff[0]) if len(diff) else n
+            tg = int(g[step]) if step < len(g) else "end"
+            tw = int(w[step]) if step < len(w) else "end"
+            return f"segment {i} step {step}: batched {tg}, threaded {tw}"
+    return "equal"
+
+
+def batched_files(torch, engine, vad, mode: str) -> dict:
+    """The 3 s, 12 s and 35 s WAVs submitted at once through the file path
+    (transcribe_file_stream) on the batched engine, launch counters set to
+    0 just before and read just after: each request's wall and RTF,
+    aggregate decode tokens/s and peak memory; log_mel once per prepared
+    host request and decode attention once per layer per decode step of
+    each pool; tokens beside the threaded engine's (captured in phase 3 on
+    the same weights; the first divergence printed, not checked)."""
+    from sonicscribe_tpu_torch.audio.wav import write_wav
+    from sonicscribe_tpu_torch.config import AppConfig
+    from sonicscribe_tpu_torch.ops import _build
+    from sonicscribe_tpu_torch.serve.decode import decode_audio
+    from sonicscribe_tpu_torch.serve.files import FileTranscriptionConfig, transcribe_file_stream
+
+    config = AppConfig()
+    n_layers = engine.transcriber.cfg.decoder.n_layers
+    decoded = {name: decode_audio(write_wav(a, SR), f"{name}.wav", engine.transcriber.device)
+               for name, a in payloads().items()}
+    torch.cuda.synchronize()
+    recs = {name: Recording(engine) for name in decoded}
+
+    async def one(name):
+        file_cfg = FileTranscriptionConfig.from_dict(
+            {}, default_threshold=config.vad_speech_threshold)
+        file_cfg.max_new_tokens = config.file_max_new_tokens
+        file_cfg.concurrency = engine.concurrency_hint
+        t0 = time.perf_counter()
+        msgs = await _collect(transcribe_file_stream(decoded[name], recs[name], vad, file_cfg,
+                                                     f"{name}.wav"))
+        return name, msgs, time.perf_counter() - t0
+
+    async def all_at_once():
+        return await asyncio.gather(*[one(name) for name in decoded])
+
+    stats0 = dict(engine.stats)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = asyncio.run(all_at_once())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.launch_counts)
+    delta = {k: engine.stats[k] - stats0.get(k, 0) for k in
+             ("decode_steps", "tokens", "requests", "mel_preps", "prefill_programs")}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out = dict(wall_s=wall, peak_gib=peak, tokens=delta["tokens"],
+               tokens_per_s=delta["tokens"] / wall, decode_steps=delta["decode_steps"],
+               prefill_programs=delta["prefill_programs"], requests={},
+               launches={k: v for k, v in counts.items() if v})
+    for name, msgs, req_wall in done:
+        n_seg = msgs[0]["total_segments"]
+        check([m["type"] for m in msgs] == ["initialization", "segments_summary"]
+              + ["segment_result"] * n_seg + ["final_summary"],
+              f"batched {mode} {name}: NDJSON {[m['type'] for m in msgs]}")
+        tokens = [c["tokens"] for c in recs[name].calls]
+        threaded = THREADED_TOKENS.get((mode, name))
+        div = first_divergence(tokens, threaded) if threaded is not None else "not run"
+        out["requests"][name] = dict(wall_s=req_wall, rtf=req_wall * SR / len(decoded[name]),
+                                     segments=n_seg, vs_threaded=div)
+        log(f"batched {mode} {name}: {n_seg} segments, wall {req_wall:.3f} s, RTF "
+            f"{out['requests'][name]['rtf']:.4f}; tokens vs the threaded engine: {div}")
+    check(delta["requests"] == sum(len(r.calls) for r in recs.values()),
+          f"batched {mode} files: {delta['requests']} finished for "
+          f"{sum(len(r.calls) for r in recs.values())} segments")
+    check(counts["log_mel"] == delta["mel_preps"] > 0,
+          f"batched {mode} files: log_mel launched {counts['log_mel']} times for "
+          f"{delta['mel_preps']} prepared requests")
+    check(counts["decode_attention"] == n_layers * delta["decode_steps"] > 0,
+          f"batched {mode} files: decode_attention launched {counts['decode_attention']} times "
+          f"for {delta['decode_steps']} pool decode steps x {n_layers} layers")
+    log(f"batched {mode} files at once: wall {wall:.3f} s, {delta['tokens']} tokens, "
+        f"{out['tokens_per_s']:.1f} tokens/s, {delta['decode_steps']} pool decode steps, "
+        f"{delta['prefill_programs']} prefill programs, peak {peak:.2f} GiB, launches "
+        f"{out['launches']}")
+    return out
+
+
+def batched_streams(torch, engine, vad, mode: str) -> dict:
+    """BATCHED_STREAMS StreamSessions on the ring, each a real-time stream
+    of STREAM_SPANS (its own seed) starting STREAM_STAGGER_S after the one
+    before, while the 12 s file request is served; launch counters set to 0
+    just before and read just after. Checks: each session's committed
+    segments and parts are the ones the gate implies on window_probs of its
+    samples; no graph captured; no call failed; log_mel once per ring
+    prefill program and prepared host request; decode attention once per
+    layer per pool decode step. -> tentative delay p50/p95, speech end ->
+    committed p50/max, interims sent and dropped, the ring VAD program's
+    device time, launch counts."""
+    from sonicscribe_tpu_torch.audio.wav import write_wav
+    from sonicscribe_tpu_torch.config import AppConfig
+    from sonicscribe_tpu_torch.ops import _build
+    from sonicscribe_tpu_torch.serve.decode import decode_audio
+    from sonicscribe_tpu_torch.serve.files import FileTranscriptionConfig, transcribe_file_stream
+    from sonicscribe_tpu_torch.serve.session import StreamSession
+    from sonicscribe_tpu_torch.vad.model import WINDOW_SAMPLES, window_probs
+
+    config = AppConfig()
+    n_layers = engine.transcriber.cfg.decoder.n_layers
+    w = config.vad_process_window
+    streams = []
+    for i in range(BATCHED_STREAMS):
+        frames, samples, ends = stream_frames(STREAM_SPANS, seed=40 + 10 * i)
+        n_win, per = len(frames) // w, w * CHUNK_SAMPLES // WINDOW_SAMPLES
+        sub = window_probs(vad, samples)[: n_win * per].reshape(n_win, per)
+        streams.append(dict(frames=frames, ends=ends, want=gate_commits(sub.max(axis=1), config),
+                            msgs=[], arrivals=[], sent=[], attempts=[0]))
+    wav = decode_audio(write_wav(payloads()["12s"], SR), "12s.wav", engine.transcriber.device)
+    torch.cuda.synchronize()
+    errors = ErrorCount()
+    session_log = logging.getLogger("sonicscribe_tpu_torch.serve.session")
+
+    async def feed(i, st, t0):
+        async def send(m):
+            st["msgs"].append(m)
+            st["arrivals"].append(time.perf_counter())
+
+        session = StreamSession(f"s{i}", config, engine, send)
+        run_interim = session._run_interim
+
+        async def counted(*a):
+            st["attempts"][0] += 1
+            await run_interim(*a)
+
+        session._run_interim = counted
+        start = t0 + i * STREAM_STAGGER_S
+        for j, frame in enumerate(st["frames"]):
+            await asyncio.sleep(max(0.0, start + j * 0.064 - time.perf_counter()))
+            st["sent"].append(time.perf_counter())
+            await session.on_audio(frame)
+        for _ in range(1200):  # the last final: at most 60 s more
+            if sum(m["type"] == "committed_output" for m in st["msgs"]) >= len(st["want"]):
+                break
+            await asyncio.sleep(0.05)
+        await session.flush()
+        await session.cleanup()
+
+    async def run():
+        t0 = time.perf_counter()
+        file_cfg = FileTranscriptionConfig.from_dict(
+            {}, default_threshold=config.vad_speech_threshold)
+        file_cfg.concurrency = engine.concurrency_hint
+        file_task = asyncio.ensure_future(_collect(transcribe_file_stream(
+            wav, engine, vad, file_cfg, "12s.wav")))
+        await asyncio.gather(*[feed(i, st, t0) for i, st in enumerate(streams)])
+        file_msgs = await file_task
+        return time.perf_counter() - t0, file_msgs
+
+    graphs0 = engine.router.stats["graphs"]
+    stats0 = dict(engine.stats)
+    session_log.addHandler(errors)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    try:
+        wall, file_msgs = asyncio.run(run())
+        torch.cuda.synchronize()
+    finally:
+        session_log.removeHandler(errors)
+    counts = dict(_build.launch_counts)
+    captured = engine.router.stats["graphs"] - graphs0
+    delta = {k: engine.stats[k] - stats0.get(k, 0) for k in
+             ("decode_steps", "mel_preps", "ring_prefill_programs", "prefill_programs",
+              "vad_batches", "requests")}
+    check(not errors.records, f"batched {mode} streams: {len(errors.records)} failed calls")
+    check(captured == 0, f"batched {mode} streams: {captured} graphs captured during the run")
+    check(file_msgs[-1]["type"] == "final_summary" and file_msgs[-1]["failed_segments"] == 0,
+          f"batched {mode} streams: the 12 s file request ended {file_msgs[-1]}")
+    delays, end_to_commit, sent_n, dropped = [], [], 0, 0
+    for i, st in enumerate(streams):
+        committed = [m for m in st["msgs"] if m["type"] == "committed_output"]
+        tentative = [m for m in st["msgs"] if m["type"] == "tentative_output"]
+        got = [(m["segment_id"], m["start_chunk_id"], m["end_chunk_id"]) for m in committed]
+        want = [(c["segment_id"], c["start"], c["end"]) for c in st["want"]]
+        check(got == want, f"batched {mode} stream {i}: committed {got}, the gate implies {want}")
+        delays += [m["processing_delay"] for m in tentative]
+        for m in committed:
+            c = next(c for c in st["want"] if c["segment_id"] == m["segment_id"])
+            end = next(e for e in st["ends"] if e >= c["start"])
+            end_to_commit.append(st["arrivals"][st["msgs"].index(m)] - st["sent"][end])
+        sent_n += len(tentative)
+        dropped += st["attempts"][0] - len(tentative)
+    check(counts["log_mel"] == delta["ring_prefill_programs"] + delta["mel_preps"],
+          f"batched {mode} streams: log_mel launched {counts['log_mel']} times for "
+          f"{delta['ring_prefill_programs']} ring prefill programs + {delta['mel_preps']} host "
+          f"requests")
+    check(counts["decode_attention"] == n_layers * delta["decode_steps"] > 0,
+          f"batched {mode} streams: decode_attention launched {counts['decode_attention']} "
+          f"times for {delta['decode_steps']} pool decode steps x {n_layers} layers")
+
+    # the ring VAD program of this run's batch bucket, replayed alone
+    B = next(b for b in (1, 4, 16, 64) if b >= BATCHED_STREAMS)
+    key, fn, bufs = engine._vad_ring_entry(B)
+    times = []
+    for _ in range(20):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        engine.router.run(key, fn, bufs)
+        b.record()
+        times.append((a, b))
+    torch.cuda.synchronize()
+    vad_ms = float(np.median([a.elapsed_time(b) for a, b in times]))
+
+    def pct(xs, q):
+        return float(np.percentile(xs, q)) if len(xs) else None
+
+    out = dict(sessions=BATCHED_STREAMS, stagger_s=STREAM_STAGGER_S, wall_s=wall,
+               graphs_captured=captured, interims_sent=sent_n, interims_dropped=dropped,
+               tentative_delay_p50_s=pct(delays, 50), tentative_delay_p95_s=pct(delays, 95),
+               speech_end_to_committed_p50_s=pct(end_to_commit, 50),
+               speech_end_to_committed_max_s=max(end_to_commit),
+               vad_ring_ms=vad_ms, vad_ring_batch=B, peak_gib=torch.cuda.max_memory_allocated()
+               / 2**30, file_rtf=file_msgs[-1]["rtf"], engine=delta,
+               launches={k: v for k, v in counts.items() if v})
+    log(f"batched {mode} streams: {BATCHED_STREAMS} sessions + the 12 s file in {wall:.2f} s, "
+        f"committed as the gate implies, 0 graphs captured; {sent_n} interims sent, {dropped} "
+        f"dropped; tentative delay p50 {out['tentative_delay_p50_s']:.3f} s p95 "
+        f"{out['tentative_delay_p95_s']:.3f} s; speech end -> committed p50 "
+        f"{out['speech_end_to_committed_p50_s']:.3f} s max "
+        f"{out['speech_end_to_committed_max_s']:.3f} s; ring VAD program (B={B}) "
+        f"{vad_ms:.4f} ms; file RTF {out['file_rtf']}; {delta}")
+    return out
+
+
+def batched_ticks(torch, engine) -> dict:
+    """Decode at 1, 4, 16 and 32 active long slots: n concurrent 3 s
+    requests at a TICK_BUDGET-token budget (the random weights run to the
+    budget), once for the wall and tokens/s, once under torch.profiler for
+    the device busy time and idle share of the run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    audio = payloads()["3s"]
+
+    async def run(n):
+        rs = await asyncio.gather(*[engine.transcribe(audio, SR, max_new_tokens=TICK_BUDGET)
+                                    for _ in range(n)])
+        return sum(len(r.tokens) for r in rs)
+
+    out = {}
+    for n in TICK_SLOTS:
+        tokens0, steps0 = engine.stats["tokens"], engine.stats["decode_steps"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        asyncio.run(run(n))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tokens = engine.stats["tokens"] - tokens0
+        steps = engine.stats["decode_steps"] - steps0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            asyncio.run(run(n))
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t1
+        busy = sum(dev_us(e) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA) / 1e3
+        check(busy > 0, f"batched decode at {n} slots: the profiler saw no device time")
+        out[str(n)] = dict(wall_s=wall, tokens=tokens, tokens_per_s=tokens / wall,
+                           decode_steps=steps, profiled_wall_s=pwall, busy_ms=busy,
+                           idle=max(0.0, 1 - busy / (pwall * 1e3)))
+        log(f"batched decode, {n} active long slots x {TICK_BUDGET} tokens: wall {wall:.3f} s, "
+            f"{tokens} tokens, {tokens / wall:.1f} tokens/s, {steps} pool decode steps; "
+            f"profiled: wall {pwall:.3f} s, device busy {busy:.1f} ms, idle share "
+            f"{out[str(n)]['idle']:.3f}")
+    return out
+
+
+def batched_phase(torch, mode: str) -> tuple[dict, dict]:
+    """build_runtime("nano-random") in `mode` on the batched engine (the
+    default): the grid captured (graphs, seconds, memory), the files at
+    once, the streams beside the 12 s file; in native also the decode runs
+    by active slots. -> (launch counts summed over the files and streams,
+    numbers)."""
+    from sonicscribe_tpu_torch.config import AppConfig
+    from sonicscribe_tpu_torch.engine.batcher import BatchedEngine
+    from sonicscribe_tpu_torch.serve.runtime import build_runtime
+
+    config = AppConfig()
+    config.quant_mode = mode
+    engine, vad, info = build_runtime("nano-random", "energy", config, seed=SEED)
+    check(isinstance(engine, BatchedEngine) and info["engine"] == "batched",
+          f"build_runtime built {type(engine).__name__} by default")
+    try:
+        torch.cuda.synchronize()
+        resident0 = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        w = engine.warmup(budgets=GRID_BUDGETS)
+        cap = engine.router.stats["capture_s"]
+        kinds: dict = {}
+        for key, sec in cap.items():
+            kinds.setdefault(key[0], []).append(sec)
+        k64 = cap.get(("decode", "long", 64, None))
+        grid = dict(graphs=w["graphs"], grid_s=w["seconds"], resident_before_gib=resident0,
+                    resident_gib=torch.cuda.memory_allocated() / 2**30,
+                    max_gib=torch.cuda.max_memory_allocated() / 2**30,
+                    by_kind={k: dict(graphs=len(v), seconds=sum(v), max_s=max(v))
+                             for k, v in kinds.items()},
+                    decode_long_k64_full_s=k64,
+                    pools_gib={p.name: sum(t.numel() * t.element_size()
+                                           for t in p.state.values()) / 2**30
+                               for p in engine.pools},
+                    ring_gib=engine.ring.numel() * 2 / 2**30)
+        log(f"batched {mode}: {w['graphs']} graphs captured in {w['seconds']:.1f} s ("
+            + ", ".join(f"{k} {v['graphs']} in {v['seconds']:.1f} s, max {v['max_s']:.2f}"
+                        for k, v in grid["by_kind"].items())
+            + f"); long decode k=64 full {k64 and round(k64, 2)} s; resident "
+            f"{resident0:.2f} -> {grid['resident_gib']:.2f} GiB, max {grid['max_gib']:.2f} GiB; "
+            f"pools {grid['pools_gib']} GiB, ring {grid['ring_gib']:.3f} GiB")
+        files = batched_files(torch, engine, vad, mode)
+        streams = batched_streams(torch, engine, vad, mode)
+        ticks = batched_ticks(torch, engine) if mode == "native" else None
+        launches = {k: files["launches"].get(k, 0) + streams["launches"].get(k, 0)
+                    for k in set(files["launches"]) | set(streams["launches"])}
+        return launches, dict(grid=grid, files=files, streams=streams, ticks=ticks)
+    finally:
+        engine.shutdown()
+
+
+def tiny_batched_phase(torch) -> None:
+    """tiny() f32 on the batched engine: the card (graphs captured by
+    warmup, kernels) gives the tokens of the CPU (the same programs run
+    eagerly, plain versions) for five concurrent requests, and a stepped
+    stream session the same messages."""
+    from sonicscribe_tpu_torch.config import AppConfig
+    from sonicscribe_tpu_torch.engine.batcher import BatchedEngine
+    from sonicscribe_tpu_torch.vad.model import EnergyVad
+
+    reqs = [(speech(0.8 + 0.5 * i, seed=23 + i), budget, hot) for i, (budget, hot) in
+            enumerate([(8, None), (24, ["gpu"]), (15, None), (40, None), (21, ["a", "b"])])]
+    frames, _, _ = stream_frames(TINY_STREAM_SPANS, seed=50)
+    tokens, msgs = {}, {}
+    for device in ("cpu", "cuda"):
+        engine = BatchedEngine(tiny_transcriber(torch, device), EnergyVad(device=device),
+                               slots=4, max_decode_tokens=64, n_streams=4)
+        engine.warmup()
+
+        async def run(engine=engine):
+            rs = await asyncio.gather(*[engine.transcribe(a, SR, max_new_tokens=b, hotwords=h)
+                                        for a, b, h in reqs])
+            return [r.tokens for r in rs]
+
+        try:
+            tokens[device] = asyncio.run(run())
+            msgs[device] = asyncio.run(drive_stepped(AppConfig(), engine, frames))
+        finally:
+            engine.shutdown()
+    check(all(np.array_equal(a, b) for a, b in zip(tokens["cuda"], tokens["cpu"]))
+          and any(len(t) for t in tokens["cpu"]),
+          f"tiny f32 batched: tokens differ: cuda {tokens['cuda']} cpu {tokens['cpu']}")
+    kinds = [m["type"] for m in msgs["cpu"]]
+    check(msgs["cuda"] == msgs["cpu"], "tiny f32 batched stream: the card's messages differ "
+          f"from the CPU's:\n  cuda {msgs['cuda']}\n  cpu  {msgs['cpu']}")
+    check(kinds.count("committed_output") == 2 and "tentative_output" in kinds,
+          f"tiny f32 batched stream: messages {kinds}")
+    log(f"reference: tiny f32 batched, 5 concurrent requests: tokens equal on cuda (graphs) and "
+        f"cpu; stream: {kinds.count('tentative_output')} tentative and "
+        f"{kinds.count('committed_output')} committed messages equal")
+
+
 def weight_scale_phase(torch) -> None:
     """Weights quantized on the card (build_runtime's path) against the same
     weights quantized on the CPU, at nano's projection shapes (two layers,
@@ -2199,6 +2682,7 @@ def main() -> None:
     attn_err, attn_row, mel_err, mel_row = kernel_phase(torch, timer)
     int8_errs, int8_rows = int8_kernel_phase(torch, timer)
     int4_errs, int4_rows, int4_launches = int4_kernel_phase(torch, timer)
+    batched_rows = batched_kernel_phase(torch, timer)
     del timer
     bench_launches, slice_steps = bench_phase(torch)
     int4_launches.update(bench_launches)
@@ -2220,8 +2704,21 @@ def main() -> None:
             launches[name] = launches.get(name, 0) + counts[name]
     for mode in INT8_MODES:
         tiny_tokens_phase(torch, mode)
+    tiny_batched_phase(torch)
+    batched, batched_launches = {}, {}
+    for mode in BATCHED_MODES:
+        release_memory(torch)
+        counts, batched[mode] = batched_phase(torch, mode)
+        for name, n in counts.items():
+            batched_launches[name] = batched_launches.get(name, 0) + n
     log("captured " + json.dumps(captured, default=float))
     log("stream " + json.dumps(stream, default=float))
+    log("batched " + json.dumps(batched, default=float))
+    for name in ("decode_attention", "log_mel", "int8_matmul", "int8_matmul_w8a8",
+                 "int8_matmul_w8a8_mma"):
+        check(batched_launches.get(name, 0) > 0, f"{name} never launched on the batched paths")
+    check(batched_launches["int8_matmul_w8a8"] > batched_launches["int8_matmul_w8a8_mma"],
+          "W8A8's cluster design never ran on the batched paths")
 
     kernels = [
         dict(name="decode_attention", route="cuda",
@@ -2264,6 +2761,11 @@ def main() -> None:
     kernels[-3]["mma_launches"] = int4_launches["int4_matmul_stacked_mma"]
     kernels[-2]["mma_launches"] = int4_launches["int4_matmul_w4a8_mma"]
     kernels[-1]["mma_launches"] = int4_launches["int4_matmul_w4a8_stacked_mma"]
+    for k in kernels:
+        k["batched_launches"] = batched_launches.get(k["name"], 0)
+        if k["name"] in batched_rows:
+            k["batched_shapes"] = batched_rows[k["name"]]
+    kernels[4]["batched_mma_launches"] = batched_launches.get("int8_matmul_w8a8_mma", 0)
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on the main path")
         check(k.get("stream_launches", 1) > 0, f"{k['name']} never launched on the stream")

@@ -10,7 +10,9 @@ The spectral chain (framing, windowed DFT, power, mel projection, log10)
 is ``ops.mel.log_mel_frames``: a hand-written CUDA kernel for a tensor on
 the card, its plain PyTorch version for a tensor on the CPU. The global-max
 clamp, the scaling and the zero padding to a bucket run here in plain
-PyTorch, as in the JAX package.
+PyTorch, as in the JAX package. ``log_mel_batch`` is the batched form the
+continuous batcher's ring prefill runs: one kernel launch for every row,
+each row masked to its true length and clamped to its own maximum.
 """
 
 from __future__ import annotations
@@ -177,3 +179,24 @@ def normalize_log_mel(
     if pad_to_frames is not None and pad_to_frames > n_frames:
         log_spec = F.pad(log_spec, (0, 0, 0, pad_to_frames - n_frames))
     return log_spec
+
+
+def log_mel_batch(audio: torch.Tensor, n_samples: torch.Tensor, cfg: MelConfig = MelConfig()):
+    """Batched log-mel with per-row true-length masking and per-row dynamic
+    range, the JAX package's log_mel_batch. audio [B, N] f32, each row
+    zero-padded beyond its true length n_samples [B] (int). -> (mel [B,
+    N // hop, n_mels], zero past each row's frames; n_frames [B] int32, at
+    least 1). Row for row the numbers of log_mel_spectrogram; the spectral
+    chain is one call of log_mel_frames over all rows."""
+    B, N = audio.shape
+    half = cfg.n_fft // 2
+    padded = F.pad(audio.float()[:, None], (half, half), mode="reflect")[:, 0]
+    T = N // cfg.hop_length
+    basis, fb = device_tables(cfg, audio.device)
+    log_spec = log_mel_frames(padded, basis, fb, T, cfg.hop_length)  # [B, T, n_mels]
+    n_frames = (n_samples // cfg.hop_length).to(torch.int32)
+    valid = (torch.arange(T, device=audio.device)[None, :] < n_frames[:, None])[..., None]
+    row_max = torch.where(valid, log_spec, -torch.inf).amax(dim=(1, 2), keepdim=True)
+    log_spec = torch.maximum(log_spec, row_max - cfg.dynamic_range_db_factor)
+    log_spec = (log_spec + 4.0) / 4.0
+    return torch.where(valid, log_spec, 0.0), torch.clamp(n_frames, min=1)

@@ -2,9 +2,9 @@
 
 A copy of the JAX package's ``AppConfig`` (the reference's env-backed
 config, backend/config.py:9-44: same timing constants, same env variables),
-cut to the fields this package reads. The continuous batcher's knobs
-(decode slots, fused dual decode, flash decode, data parallel) and the
-Silero weights come back with the slices that use them.
+cut to the fields this package reads. Of the continuous batcher's knobs
+only the decode slots are here; fused dual decode, flash decode, data
+parallel and the Silero weights come back with the slices that use them.
 """
 
 from __future__ import annotations
@@ -80,11 +80,14 @@ class AppConfig:
     file_max_new_tokens: int = 256
 
     # ---- engine (no reference counterpart) ----
+    # continuous batcher (engine/batcher.py): long-pool decode slots, i.e.
+    # concurrent finals / file segments
+    decode_slots: int = field(default_factory=lambda: int(_env("DECODE_SLOTS", "32")))
     # "native" | "int8" | "int8-decoder" | "int8-decoder-a8" (serve/runtime.py)
     quant_mode: str = field(default_factory=lambda: _env("QUANT_MODE", "native"))
     # speculative finals and interims: the JAX batcher verifies the banked
-    # interim tokens as a draft; the session passes them and the threaded
-    # engine ignores them, as the JAX ThreadedEngine does
+    # interim tokens as a draft; the session passes them and both engines
+    # of the port ignore them (ThreadedEngine as the JAX one does)
     speculative_finals: bool = field(
         default_factory=lambda: _env("SPECULATIVE_FINALS", "true").lower()
         in ("1", "true", "yes")

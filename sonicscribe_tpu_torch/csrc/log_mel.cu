@@ -42,10 +42,13 @@
 //   are 0 * power, so the result equals the dense sum's. The global-max
 //   clamp and the (x + 4) / 4 scaling need every frame and stay outside.
 //
-// Layout: audio [n_audio] float32 (reflect-padded), basis [n_fft, 2*n_bins]
-// float32 (windowed cos | -sin), fb [n_bins, n_mels] float32, bands
-// [n_mels, 2] int32, out [n_frames, n_mels] float32, frame
-// t = audio[t*hop : t*hop + n_fft].
+// Layout: audio [rows][n_audio] float32 (reflect-padded, rows row_stride
+// floats apart), basis [n_fft, 2*n_bins] float32 (windowed cos | -sin), fb
+// [n_bins, n_mels] float32, bands [n_mels, 2] int32, out [rows][n_frames,
+// n_mels] float32; frame t of row r = audio[r*row_stride + t*hop : ... +
+// n_fft]. A batch of rows (the continuous batcher's ring prefill) is one
+// launch: blockIdx.y is the row, and every row's frames stay 16-byte
+// aligned because row_stride and hop are multiples of 4 floats.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -140,7 +143,8 @@ __global__ void __launch_bounds__(kThreads, F == 16 ? 2 : 1)
 log_mel_kernel(const float* __restrict__ audio, const float* __restrict__ basis,
                const float* __restrict__ fb, const int* __restrict__ bands,
                float* __restrict__ out, int n_frames, int hop,
-               int n_fft, int n_bins, int n_mels, int fstride, int sstride) {
+               int n_fft, int n_bins, int n_mels, int fstride, int sstride,
+               long long row_stride) {
   constexpr int MT = F / 16;  // m-tiles
   extern __shared__ __align__(16) float smem[];
   __shared__ __align__(8) uint64_t bars[kStages + 1];  // the ring's stages, then the frames
@@ -153,6 +157,8 @@ log_mel_kernel(const float* __restrict__ audio, const float* __restrict__ basis,
   const int n_steps = n_fft / kBK;
   const int t0 = blockIdx.x * F;
   const int nf = min(F, n_frames - t0);
+  audio += blockIdx.y * row_stride;  // this block's row of the batch
+  out += (long long)blockIdx.y * n_frames * n_mels;
   const unsigned slice_bytes = sizeof(float) * kBK * cols;
 
   // basis slice `it` (kBK whole rows: contiguous) into stage it % kStages;
@@ -285,7 +291,8 @@ log_mel_kernel(const float* __restrict__ audio, const float* __restrict__ basis,
 
 template <int F>
 int launch(const float* audio, const float* basis, const float* fb, const int* bands, float* out,
-           int n_frames, int hop, int n_fft, int n_bins, int n_mels, cudaStream_t stream) {
+           int n_frames, int hop, int n_fft, int n_bins, int n_mels, int rows,
+           long long row_stride, cudaStream_t stream) {
   const int fstride = n_fft + 4;  // 4 x an odd number: a fragment's 8 frames on distinct banks
   const int npad = (2 * n_bins + 7) / 8 * 8;
   const int sstride = (npad / 8) % 2 ? npad : npad + 8;
@@ -297,24 +304,27 @@ int launch(const float* audio, const float* basis, const float* fb, const int* b
   cudaError_t err = cudaFuncSetAttribute(log_mel_kernel<F>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (n_frames + F - 1) / F;
+  const dim3 blocks((n_frames + F - 1) / F, rows);
   log_mel_kernel<F><<<blocks, kThreads, smem, stream>>>(audio, basis, fb, bands, out, n_frames,
                                                         hop, n_fft, n_bins, n_mels, fstride,
-                                                        sstride);
+                                                        sstride, row_stride);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // frames_per_block: 16 or 32 (the wrapper picks). audio and basis 16-byte
-// aligned, hop % 4 == 0, n_fft % 16 == 0 (whole rows and frames are bulk
-// copies), 2 * n_bins <= 448, every frame inside the audio (the wrapper
-// checks). Returns the cudaError_t of the launch (0 on success).
-extern "C" int log_mel(const void* audio, long long n_audio, const void* basis, const void* fb,
-                       const void* bands, void* out, int n_frames, int hop, int n_fft,
-                       int n_bins, int n_mels, int frames_per_block, void* stream) {
+// aligned, hop % 4 == 0, row_stride % 4 == 0 (>= n_audio for rows > 1),
+// n_fft % 16 == 0 (whole rows and frames are bulk copies), 2 * n_bins <=
+// 448, every frame inside its row's n_audio samples (the wrapper checks),
+// 1 <= rows <= 65535. Returns the cudaError_t of the launch (0 on success).
+extern "C" int log_mel(const void* audio, long long n_audio, long long row_stride, int rows,
+                       const void* basis, const void* fb, const void* bands, void* out,
+                       int n_frames, int hop, int n_fft, int n_bins, int n_mels,
+                       int frames_per_block, void* stream) {
   if (n_frames < 1 || hop < 1 || hop % 4 || n_fft < kBK || n_fft % kBK || n_bins < 1 ||
-      n_mels < 1 || 2 * n_bins > 8 * kWarps * kMaxNT ||
+      n_mels < 1 || 2 * n_bins > 8 * kWarps * kMaxNT || rows < 1 || rows > 65535 ||
+      row_stride % 4 || (rows > 1 && row_stride < n_audio) ||
       (long long)(n_frames - 1) * hop + n_fft > n_audio ||
       reinterpret_cast<uintptr_t>(audio) % 16 || reinterpret_cast<uintptr_t>(basis) % 16) {
     return (int)cudaErrorInvalidValue;
@@ -326,8 +336,10 @@ extern "C" int log_mel(const void* audio, long long n_audio, const void* basis, 
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (frames_per_block) {
-    case 16: return launch<16>(a, bs, f, bd, o, n_frames, hop, n_fft, n_bins, n_mels, s);
-    case 32: return launch<32>(a, bs, f, bd, o, n_frames, hop, n_fft, n_bins, n_mels, s);
+    case 16:
+      return launch<16>(a, bs, f, bd, o, n_frames, hop, n_fft, n_bins, n_mels, rows, row_stride, s);
+    case 32:
+      return launch<32>(a, bs, f, bd, o, n_frames, hop, n_fft, n_bins, n_mels, rows, row_stride, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

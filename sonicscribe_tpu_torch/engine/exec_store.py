@@ -125,11 +125,13 @@ class GraphRouter:
         return self._stream
 
     def _warm(self, program: Program, bufs: dict) -> None:
-        """One eager run on copies of the buffers, on the capture stream."""
+        """One eager run on copies of the buffers (a dict of them copied
+        field by field), on the capture stream."""
         stream = self._capture_stream()
         stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(stream):
-            program({k: v.clone() for k, v in bufs.items()})
+            program({k: {f: t.clone() for f, t in v.items()} if isinstance(v, dict)
+                     else v.clone() for k, v in bufs.items()})
         torch.cuda.current_stream(self.device).wait_stream(stream)
 
     def _record(self, program: Program, bufs: dict):

@@ -236,7 +236,9 @@ class Transcriber:
         """Resample to the model rate + optional peak normalization
         (reference asr.py:255-267 semantics), on the params' device."""
         target = self.mel_cfg.sampling_rate
-        x = torch.as_tensor(np.asarray(audio, np.float32), device=self.device)
+        x = torch.from_numpy(np.ascontiguousarray(audio, np.float32))
+        if self.device.type == "cuda":  # through pinned memory: no wait for the stream
+            x = x.pin_memory().to(self.device, non_blocking=True)
         x = resample(x, sample_rate, target)
         if self.peak_normalize:
             peak = x.abs().max()

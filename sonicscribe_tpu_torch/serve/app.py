@@ -1,8 +1,9 @@
 """aiohttp application: the REST + WebSocket API surface.
 
 Port of the JAX package's ``serve/app.py`` (reference FastAPI app,
-backend/main.py:150,171,193,651,701; wire schema SURVEY.md §2.7), on
-``ThreadedEngine``:
+backend/main.py:150,171,193,651,701; wire schema SURVEY.md §2.7), on the
+engine ``build_runtime`` built: the continuous batcher (``--engine
+batched``, the default) or ``ThreadedEngine`` (``--engine threaded``):
 
     GET  /health            model state, sessions, engine counters, device memory
     GET  /debug/config      derived protocol constants
@@ -135,6 +136,9 @@ async def debug_config(request: web.Request) -> web.Response:
                 "file": cfg.file_max_new_tokens,
             },
             "quant_mode": cfg.quant_mode,
+            # the engine build_runtime built, as its model info says
+            "engine": request.app["model_info"].get("engine"),
+            "decode_slots": request.app["model_info"].get("decode_slots"),
         }
     )
 
@@ -496,9 +500,11 @@ def main(argv=None):
     )
     parser.add_argument("--device", default=None,
                         help="'cuda' (default; fails without a card) | 'cpu'")
+    parser.add_argument("--engine", default="batched", choices=("batched", "threaded"),
+                        help="continuous batcher (default) or one request at a time")
     parser.add_argument("--no-warmup", action="store_true",
                         help="skip the startup capture of the CUDA graphs: the first "
-                             "request of each (bucket, budget) captures its own")
+                             "use of each program key captures its own")
     args = parser.parse_args(argv)
 
     config = AppConfig()
@@ -512,7 +518,8 @@ def main(argv=None):
         level=getattr(logging, config.log_level.upper(), logging.INFO),
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
     )
-    engine, vad, info = build_runtime(args.model, args.vad, config, device=args.device)
+    engine, vad, info = build_runtime(args.model, args.vad, config, device=args.device,
+                                      engine_kind=args.engine)
     if not args.no_warmup:
         t0 = time.perf_counter()
         # the JAX app's grid: each budget's ceiling serves every budget below it

@@ -12,6 +12,7 @@ import torch
 
 from sonicscribe_tpu_torch.config import AppConfig
 from sonicscribe_tpu_torch.device import resolve_device
+from sonicscribe_tpu_torch.engine.batcher import BatchedEngine
 from sonicscribe_tpu_torch.engine.transcriber import Transcriber
 from sonicscribe_tpu_torch.models.config import nano, tiny
 from sonicscribe_tpu_torch.models.glm_asr import param_count
@@ -22,6 +23,7 @@ from sonicscribe_tpu_torch.serve.engine_async import ThreadedEngine
 from sonicscribe_tpu_torch.vad.model import EnergyVad
 
 QUANT_MODES = ("native", "int8", "int8-decoder", "int8-decoder-a8")
+ENGINE_KINDS = ("batched", "threaded")
 
 
 def build_runtime(
@@ -30,13 +32,17 @@ def build_runtime(
     config: AppConfig | None = None,
     device=None,
     seed: int = 0,
+    engine_kind: str = "batched",
 ):
     """-> (engine, vad, model_info).
 
     model_spec: 'tiny-random' (f32) | 'nano-random' (bf16, full width) | a
     native checkpoint directory. Random weights are drawn from `seed`.
-    vad_spec: 'energy'. The engine is the threaded one. `device` as in
-    device.resolve_device: the card unless 'cpu' is asked for.
+    vad_spec: 'energy'. engine_kind: 'batched' (the continuous batcher,
+    engine/batcher.py: config.decode_slots long slots, one short slot per
+    stream; the default, as in the JAX package) | 'threaded' (one request
+    at a time). `device` as in device.resolve_device: the card unless 'cpu'
+    is asked for.
     config.quant_mode: 'native' | 'int8' (every projection but embed,
     adapter and lm_head, the reference's skip-list) | 'int8-decoder' (the
     decoder's projections only) | 'int8-decoder-a8' (as int8-decoder, and
@@ -48,6 +54,8 @@ def build_runtime(
     device = resolve_device(device)
     if config.quant_mode not in QUANT_MODES:
         raise ValueError(f"quant mode {config.quant_mode!r} is not one of {QUANT_MODES}")
+    if engine_kind not in ENGINE_KINDS:
+        raise ValueError(f"engine {engine_kind!r} is not one of {ENGINE_KINDS}")
     if vad_spec != "energy":
         raise NotImplementedError(f"VAD {vad_spec!r} is not yet ported; use 'energy'")
 
@@ -72,14 +80,19 @@ def build_runtime(
 
     transcriber = Transcriber(mcfg, params, tokenizer, prefill_buckets=buckets)
     vad = EnergyVad(device=device)
-    engine = ThreadedEngine(transcriber, vad)
+    if engine_kind == "batched":
+        engine = BatchedEngine(
+            transcriber, vad, slots=config.decode_slots,
+            max_decode_tokens=max(config.file_max_new_tokens, config.final_max_tokens))
+    else:
+        engine = ThreadedEngine(transcriber, vad)
     info = {
         "model": model_spec,
         "params": param_count(params),
         "quant_mode": config.quant_mode,
         "vad": vad_spec,
-        "engine": "threaded",
-        "decode_slots": 1,
+        "engine": engine_kind,
+        "decode_slots": config.decode_slots if engine_kind == "batched" else 1,
         "device": str(device),
         "device_name": (
             torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"

@@ -765,3 +765,64 @@ def test_int4_w4a16_designs(cuda, B):
             _assert_w8a16_close(got, want)
             _assert_w8a16_close(got_st, want)
             assert torch.equal(got_st, int4_matmul_stacked(x, packed, scale, 1))
+
+
+@pytest.mark.parametrize("B", [1, 4, 32])
+def test_log_mel_kernel_batched(cuda, B):
+    """One launch for B rows of noise at different levels (the batcher's
+    ring prefill), each row equal to the kernel on that row alone and
+    within 1e-4 raw log10 of the plain version; rows 16-byte aligned by
+    their stride."""
+    cfg = MelConfig()
+    basis, fb = device_tables(cfg, cuda)
+    rng = np.random.default_rng(B)
+    x = torch.from_numpy(np.stack([(0.02 + 0.1 * i / B) * rng.standard_normal(20 * 1024)
+                                   for i in range(B)]).astype(np.float32)).to(cuda)
+    padded = torch.nn.functional.pad(x[:, None], (200, 200), mode="reflect")[:, 0]
+    before = _build.launch_counts["log_mel"]
+    got = log_mel_frames(padded, basis, fb, 128, cfg.hop_length)
+    assert _build.launch_counts["log_mel"] - before == 1 and got.shape == (B, 128, cfg.n_mels)
+    want = log_mel_frames_plain(padded, basis, fb, 128, cfg.hop_length)
+    assert (got - want).abs().max().item() <= 1e-4
+    for i in (0, B - 1):
+        row, err = tmel._launch(padded[i].contiguous(), basis, fb, 128, cfg.hop_length,
+                                tmel.frames_per_block(128, _build.n_sms(cuda), B))
+        assert err == 0 and torch.equal(row, got[i])
+
+
+def test_batched_engine_on_the_card_equals_the_cpu(cuda):
+    """tiny f32 on the batched engine: the card (warmup's graphs, kernels)
+    gives the CPU's tokens for concurrent requests of mixed budgets and
+    hotwords, and a stepped stream session the CPU's messages; the stream
+    captures no graph after warmup."""
+    import asyncio
+
+    from sonicscribe_tpu_torch.engine.batcher import BatchedEngine
+    from sonicscribe_tpu_torch.vad.model import EnergyVad
+
+    reqs = [(_speech(0.8 + 0.5 * i, seed=30 + i), budget, hot) for i, (budget, hot) in
+            enumerate([(8, None), (24, ["gpu"]), (15, None), (40, None)])]
+    frames, _, _ = stream_frames(TINY_STREAM_SPANS, seed=50)
+    tokens, msgs, graphs = {}, {}, {}
+    for device in ("cpu", cuda):
+        tr, _ = _tiny_transcribers(device)
+        engine = BatchedEngine(tr, EnergyVad(device=device), slots=4, max_decode_tokens=64,
+                               n_streams=4)
+        engine.warmup()
+
+        async def run(engine=engine):
+            rs = await asyncio.gather(*[engine.transcribe(a, 16000, max_new_tokens=b, hotwords=h)
+                                        for a, b, h in reqs])
+            return [r.tokens for r in rs]
+
+        try:
+            tokens[str(device)] = asyncio.run(run())
+            before = engine.router.stats["graphs"]
+            msgs[str(device)] = asyncio.run(drive_stepped(AppConfig(), engine, frames))
+            graphs[str(device)] = engine.router.stats["graphs"] - before
+        finally:
+            engine.shutdown()
+    for a, b in zip(tokens[str(cuda)], tokens["cpu"]):
+        np.testing.assert_array_equal(a, b)
+    assert msgs[str(cuda)] == msgs["cpu"] and graphs[str(cuda)] == 0
+    assert [m["type"] for m in msgs["cpu"]].count("committed_output") == 2

@@ -412,7 +412,8 @@ def test_int8_checkpoint_round_trip(tmp_path, decoder_only):
 def test_build_runtime_int8_modes_on_cpu(mode):
     config = AppConfig()
     config.quant_mode = mode
-    engine, _, info = build_runtime("tiny-random", "energy", config, device="cpu")
+    engine, _, info = build_runtime("tiny-random", "energy", config, device="cpu",
+                                    engine_kind="threaded")
     try:
         tr = engine.transcriber
         layers = tr.params["decoder"]["layers"]

@@ -179,13 +179,15 @@ async def test_aggregate_mode_and_health(engines, aiohttp_client):
 
 
 def test_build_runtime_on_cpu():
-    engine, vad, info = build_runtime("tiny-random", "energy", AppConfig(), device="cpu")
+    engine, vad, info = build_runtime("tiny-random", "energy", AppConfig(), device="cpu",
+                                      engine_kind="threaded")
     try:
         r = engine.transcriber.transcribe(_speech(0.5), SR, max_new_tokens=4)
         assert isinstance(r.text, str) and info["device"] == "cpu"
         cfg = AppConfig()
         cfg.quant_mode = "int8"
-        int8_engine, _, int8_info = build_runtime("tiny-random", "energy", cfg, device="cpu")
+        int8_engine, _, int8_info = build_runtime("tiny-random", "energy", cfg, device="cpu",
+                                                  engine_kind="threaded")
         int8_engine.shutdown()
         assert int8_info["quant_mode"] == "int8"
         cfg.quant_mode = "int4"

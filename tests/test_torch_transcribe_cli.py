@@ -98,7 +98,8 @@ def _cli(model, *args) -> list[str]:
 def _in_process(model, path, vad: bool, hotwords: list[str], quant: str) -> list[dict]:
     config = AppConfig()
     config.quant_mode = quant
-    engine, vad_model, _ = build_runtime(model, "energy", config, device="cpu")
+    engine, vad_model, _ = build_runtime(model, "energy", config, device="cpu",
+                                         engine_kind="threaded")
     try:
         audio = decode_audio(path.read_bytes(), str(path), engine.transcriber.device)
         file_cfg = FileTranscriptionConfig(vad_enabled=vad, hotwords=hotwords,
@@ -172,6 +173,7 @@ def test_cli_info(wav_path):
     assert len(lines) == 1
     config = AppConfig()
     config.quant_mode = "int8"
-    engine, _, info = build_runtime("tiny-random", "energy", config, device="cpu")
+    engine, _, info = build_runtime("tiny-random", "energy", config, device="cpu",
+                                    engine_kind="threaded")
     engine.shutdown()
     assert json.loads(lines[0]) == info and info["quant_mode"] == "int8"
