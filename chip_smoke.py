@@ -17,11 +17,15 @@ exits non-zero on failure:
 2. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the main path's shapes, with its stated tolerance (decode attention
    also at lens on either side of a split boundary, and two launches on the
-   same inputs must give the same bits); then its time
+   same inputs must give the same bits; verify attention, its W1-query
+   form, at S 1, 4 and 33, M 803, W1 9 and 1, lens past M - W1 at S 33,
+   and at W1 1 equal, bit for bit, to decode attention); then its time
    beside its plain version's, a PyTorch library call's (a yardstick the
    port never calls) and its bound at the H100's 3.35 TB/s and its peak
    rate for the work's type (NVIDIA data sheet, SXM): 67 TFLOP/s float32
-   on the CUDA cores for decode attention; for the mel the lesser of that
+   on the CUDA cores for decode attention (verify attention: 989 TFLOP/s
+   bf16, where the tensor cores could run its products, with the float32
+   figure printed beside); for the mel the lesser of that
    and three passes at 495 TFLOP/s TF32 (its 3xTF32 DFT), both printed;
    989 TFLOP/s bf16 and 1979 TOP/s int8 on the tensor cores for the int8
    and int4 products (W8A16, W4A16 and W8A8, W4A8), which the tensor cores
@@ -122,8 +126,11 @@ exits non-zero on failure:
    another thread resamples uploads on the card give the tokens of graphs
    captured alone; and nano's prefill logits are finite. Then tiny f32 on
    the batched engine: five concurrent requests (mixed budgets, hotwords)
-   give the same tokens on the card (warmup's graphs) as on the CPU, and a
-   stepped StreamSession on the ring the same messages.
+   give the same tokens on the card (warmup's graphs) as on the CPU; a
+   request undrafted and with a golden, a half-garbage and a garbage draft
+   gives the same tokens every time, on the card as on the CPU, with the
+   same verify rounds; and a stepped StreamSession on the ring the same
+   messages.
 5. batched: the kernels at the batcher's shapes first (after phase 2):
    decode attention at S 33, M 803 and S 65, M = the short pool's length,
    lens mixed with empty slots; the log-mel kernel over a batch of rows in
@@ -132,25 +139,33 @@ exits non-zero on failure:
    4, 16, 33 and 65 against their plain versions; with times. Then, in
    native and in int8-decoder-a8, build_runtime's default engine (the
    continuous batcher, engine/batcher.py): its grid captured (graphs,
-   seconds by kind, memory); the ~3 s, ~12 s and ~35 s requests submitted
+   seconds by kind, memory; the 12 verify keys, rounds 1, 2, 4, 8 x rows
+   full, 1, 4, among them); the ~3 s, ~12 s and ~35 s requests submitted
    at once through the file path (walls, RTF, aggregate tokens/s, peak
    memory; tokens beside phase 3's threaded ones, the first divergence
-   printed); then 8 StreamSessions on the device ring, real-time frames of
-   STREAM_SPANS 0.25 s apart, beside the ~12 s file request: each commits
-   what the gate implies, no graph is captured, no call fails (tentative
-   delay, speech end -> committed, interims sent and dropped, the ring VAD
-   program's time); in native, 1, 4, 16 and 32 concurrent requests at a
+   printed); the ~12 s request undrafted, then with its own tokens, its
+   first half then garbage, and garbage as drafts (speculative finals: wall,
+   tokens/s, verify rounds, spec_accept_ema; the golden draft must take
+   verify rounds, no graph may be captured; the first divergence from the
+   undrafted tokens printed); then 8 StreamSessions on the device ring,
+   real-time frames of STREAM_SPANS 0.25 s apart, beside the ~12 s file
+   request: each commits what the gate implies, no graph is captured, no
+   call fails (tentative delay, speech end -> committed, interims sent and
+   dropped, the ring VAD program's time; eager finals launched and gated
+   by eager_ok, verify rounds, the acceptance EMA); in native, 1, 4, 16 and 32 concurrent requests at a
    128-token budget (wall, tokens/s, and a profiled run's device busy and
-   idle share). The launch counters are set to 0 before the files and
-   before the streams, and read after: log_mel once per prepared host
-   request and per ring prefill program, decode attention once per layer
-   per pool decode step; over both modes W8A8 ran in both designs.
+   idle share). The launch counters are set to 0 before the files, the
+   drafted runs and the streams, and read after: log_mel once per
+   prepared host request and per ring prefill program, decode attention
+   once per layer per plain pool decode step, verify attention once per
+   layer per verify round; over both modes W8A8 ran in both designs.
 
 A line `captured {...}` holds phase 3's numbers by mode (grid, requests
 eager and captured), `batched {...}` phase 5's. The line before the last
-is the kernels' JSON record (nine kernels, each with the path its
-launches were counted on, decode attention and log_mel also with their
-launches on the stream (`stream_launches`), every one with its launches
+is the kernels' JSON record (ten kernels, each with the path its
+launches were counted on (verify attention: the drafted runs of phase
+5), decode attention and log_mel also with their launches on the stream
+(`stream_launches`; verify attention: the batched streams'), every one with its launches
 on the batched paths (`batched_launches`), decode attention, log_mel and the
 stacked W8A16 and W8A8 entries also with
 their batched shapes' numbers (`batched_shapes`); the redesigned ones with
@@ -199,6 +214,8 @@ BATCHED_STREAMS = 8
 STREAM_STAGGER_S = 0.25
 TICK_SLOTS = (1, 4, 16, 32)
 TICK_BUDGET = 128
+VERIFY_W1 = 9  # the batched engine's spec_w + 1: query positions of a verify round
+VERIFY_M = 803  # the long pool's cache length at nano
 # each captured request's segment tokens on the threaded engine, by (mode, request)
 THREADED_TOKENS: dict = {}
 # a profile's kernels by part of the model, by name
@@ -491,6 +508,100 @@ def kernel_phase(torch, timer):
             tile_ms={str(t): v for t, v in tile_ms.items()}, bound_f32_ms=f32_ms,
             bound_3xtf32_ms=tf32_ms))
     return attn_err, attn_rows[0], mel_err, mel_rows[0]
+
+
+def verify_lens(torch, S: int, gen):
+    """Verify phase lens at M = VERIFY_M: 674 at S 1; mixed at S 4; at S 33
+    random with slots whose lens + VERIFY_W1 passes M (their writes past the
+    end: the clamp), one at M - 1 and one at M."""
+    M = VERIFY_M
+    if S == 1:
+        return torch.tensor([674], dtype=torch.int32, device="cuda")
+    if S == 4:
+        return torch.tensor([0, 300, 795, M - 1], dtype=torch.int32, device="cuda")
+    lens = torch.randint(0, M, (S,), generator=gen, device="cuda")
+    lens[:6] = torch.tensor([0, M - 1, M - 3, M - 9, M - 5, M])
+    return lens.to(torch.int32)
+
+
+def verify_kernel_phase(torch, timer) -> dict:
+    """verify_attention (csrc/decode_attention.cu's verify entry) against
+    verify_attention_plain at nano's heads and M = VERIFY_M, S 1, 4 and 33
+    (verify_lens), W1 = VERIFY_W1 and 1, float32 and bf16, within ATTN_TOL;
+    at W1 = 1 equal, bit for bit, to decode_attention on the same inputs.
+    Then, in bf16, each case's time (cold L2, median of 30) beside the plain
+    version's, SDPA's with the equivalent boolean mask (a yardstick the port
+    never calls) and its bound: the bytes (q, each slot's K/V rows up to
+    its last query's position, out) at 3.35 TB/s against the operations
+    (4 * nh * hd per query and position it sees) at 989 TFLOP/s bf16 on the
+    tensor cores, where the card could run the two products; the float32
+    CUDA-core figure (67 TFLOP/s, the kernel's own arithmetic) printed
+    beside. -> {"max_abs_err", "shapes": {case: numbers}, "main": the S 1,
+    W1 9 case's numbers (a single drafted final: the rows = 1 program)}."""
+    import torch.nn.functional as F
+
+    from sonicscribe_tpu_torch.models.config import nano
+    from sonicscribe_tpu_torch.ops import _build
+    from sonicscribe_tpu_torch.ops.decode_attention import (
+        STAGE_BYTES,
+        decode_attention_cuda,
+        verify_attention_cuda,
+        verify_attention_plain,
+        verify_split_shape,
+    )
+
+    dec = nano().decoder
+    nh, nkv, hd, M = dec.n_heads, dec.n_kv_heads, dec.head_dim, VERIFY_M
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 13)
+    n_sms = _build.n_sms(torch.device("cuda"))
+    err_max, shapes = 0.0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for S in (1, 4, 33):
+            lens = verify_lens(torch, S, gen)
+            k = torch.randn((2, S, M, nkv, hd), generator=gen, device="cuda").to(dtype)[1]
+            v = torch.randn((2, S, M, nkv, hd), generator=gen, device="cuda").to(dtype)[1]
+            for W1 in (VERIFY_W1, 1):
+                q = torch.randn((S, W1, nh, hd), generator=gen, device="cuda").to(dtype)
+                got = verify_attention_cuda(q, k, v, lens)
+                err = (got - verify_attention_plain(q, k, v, lens)).abs().max().item()
+                case = f"S={S} W1={W1} {str(dtype)[6:]}"
+                check(np.isfinite(err) and err <= ATTN_TOL,
+                      f"verify_attention {case} lens {lens.tolist()}: max err {err} > {ATTN_TOL}")
+                err_max = max(err_max, err)
+                if W1 == 1:
+                    check(torch.equal(got[:, 0], decode_attention_cuda(q[:, 0], k, v, lens)),
+                          f"verify_attention {case}: differs from decode_attention")
+                if dtype != torch.bfloat16:
+                    continue
+                qpos = lens.long()[:, None] + torch.arange(W1, device="cuda")[None, :]
+                mask = (torch.arange(M, device="cuda")[None, None, :] <= qpos[:, :, None])[:, None]
+                qq, kq, vq = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+                ms = timer.ms(lambda: verify_attention_cuda(q, k, v, lens))
+                plain_ms = timer.ms(lambda: verify_attention_plain(q, k, v, lens))
+                lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+                    qq, kq, vq, attn_mask=mask, enable_gqa=True))
+                seen = torch.clamp(qpos, max=M - 1) + 1  # [S, W1] positions each query sees
+                n_bytes = (S * W1 * nh * hd * 2 + float(seen[:, -1].sum()) * 2 * nkv * hd * 2
+                           + S * W1 * nh * hd * 4 + S * 4)
+                flops = 4 * nh * hd * float(seen.sum())
+                b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S)
+                f32_ms, f32_by = bound_ms(n_bytes, flops)
+                chunk, splits = verify_split_shape(S, W1, M, nkv, hd, 2, n_sms)
+                staged = W1 > 1 and 2 * chunk * hd * 2 <= STAGE_BYTES
+                design = (f"{splits} splits of {chunk} positions x {nkv} KV heads x {S} slots, "
+                          + (f"each split's K/V staged in shared memory once for the {W1} "
+                             f"query tiles" if staged else "the decode kernel"))
+                log(f"verify_attention {case} M={M} lens {'mixed' if S > 1 else lens.tolist()} "
+                    f"({design}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA (masked) "
+                    f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}; float32 CUDA cores "
+                    f"{f32_ms:.5f} ms, {f32_by})")
+                shapes[f"S{S}_W{W1}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                            bound_ms=b_ms, bound_by=b_by, bound_f32_ms=f32_ms,
+                                            design=design)
+    log(f"verify_attention: max abs err {err_max:.3g} <= {ATTN_TOL} (f32 and bf16, S 1, 4, 33, "
+        f"W1 {VERIFY_W1} and 1, lens past M - W1 at S 33); at W1 = 1 equal to decode_attention")
+    return dict(max_abs_err=err_max, shapes=shapes, main=shapes[f"S1_W{VERIFY_W1}"])
 
 
 def int8_kernel_phase(torch, timer):
@@ -1341,10 +1452,12 @@ def check_same_tokens(name, captured, eager):
              f"captured {tc}, eager {te} (end: EOS or pad); lengths {len(c['tokens'])}, {len(e['tokens'])}")
 
 
-def profile_request(torch, engine, vad, config, name: str, audio) -> dict:
+def profile_request(torch, engine, vad, config, name: str, audio,
+                    attention_checked: bool = True) -> dict:
     """The request at a PROFILE_BUDGET-token budget: its wall unprofiled,
     then a profiled run (torch.profiler, CUDA activity; again while records
-    are missing): device busy time
+    that top_profiles checks are missing: the W8A8 kernels, and the
+    decode-attention ones where attention_checked): device busy time
     (kernels only) and idle share, the decode-attention and W8A8 kernels the
     profiler saw beside the wrappers' counts, the top kernels."""
     from torch.autograd import DeviceType
@@ -1358,8 +1471,9 @@ def profile_request(torch, engine, vad, config, name: str, audio) -> dict:
     # The profiler now and then drops a run of records (eager profiles of
     # ~60k kernels have missed the split and merge kernels of 1-92
     # decode-attention calls, in up to 4 of a run's 9 requests). Every call
-    # launches one split and one merge kernel, so a profile that shows
-    # fewer of either is incomplete: the request is profiled again.
+    # launches one split and one merge kernel, and every W8A8 call one
+    # kernel, so a profile that shows fewer of a checked kernel is
+    # incomplete: the request is profiled again.
     for attempt in range(1, PROFILE_TRIES + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             serve_request(torch, engine, vad, config, name, audio, budget=PROFILE_BUDGET)
@@ -1367,13 +1481,16 @@ def profile_request(torch, engine, vad, config, name: str, audio) -> dict:
         events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         seen = [sum(e.count for e in events if f"decode_attention_{part}_kernel" in e.key)
                 for part in ("split", "merge")]
-        if min(seen) >= counts["decode_attention"] or attempt == PROFILE_TRIES:
+        w8a8 = [e for e in events if "w8a8" in e.key.lower()]
+        complete = sum(e.count for e in w8a8) >= counts["int8_matmul_w8a8"] and (
+            not attention_checked or min(seen) >= counts["decode_attention"])
+        if complete or attempt == PROFILE_TRIES:
             break
         log(f"{name}: the profiler lost records ({seen[0]} + {seen[1]} decode-attention "
-            f"kernels for {counts['decode_attention']} calls); profiling it again")
+            f"kernels for {counts['decode_attention']} calls, {sum(e.count for e in w8a8)} "
+            f"W8A8 kernels for {counts['int8_matmul_w8a8']}); profiling it again")
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     check(busy_ms > 0, f"{name}: the profiler saw no device time")
-    w8a8 = [e for e in events if "w8a8" in e.key.lower()]
     by_part = {part: 0.0 for part in KERNEL_PARTS}
     for e in events:
         part = next((p for p, keys in KERNEL_PARTS.items() if any(k in e.key for k in keys)),
@@ -1407,7 +1524,8 @@ def compare_requests(torch, engine, eager, vad, config, mode: str, names) -> dic
     rows = {}
     for name in names:  # the profiles after every unprofiled run
         runs = {label: dict(served[name, label], profile=profile_request(
-            torch, eng, vad, config, f"{name} {mode} {label} profiled", payloads()[name]))
+            torch, eng, vad, config, f"{name} {mode} {label} profiled", payloads()[name],
+            attention_checked=label == "captured"))
             for label, eng in engines}
         same = len(runs["captured"]["calls"]) == len(runs["eager"]["calls"]) and all(
             np.array_equal(c["tokens"], e["tokens"])
@@ -1449,7 +1567,7 @@ def top_profiles(mode, name, runs) -> None:
     the eager 35 s request's profile (~170k kernels and as many launch
     records) has reported 4 fewer of both kernels than the calls.
     profile_request profiles a request again, up to PROFILE_TRIES times,
-    while its decode-attention kernels show records missing."""
+    while the kernels checked here show records missing."""
     for label, r in runs.items():
         p = r["profile"]
         if name == "3s":
@@ -2225,9 +2343,9 @@ def batched_kernel_phase(torch, timer) -> dict:
     return out
 
 
-def first_divergence(got: list, want: list) -> str:
+def first_divergence(got: list, want: list, names=("batched", "threaded")) -> str:
     """Where two lists of per-segment tokens first differ: (segment, step,
-    both tokens), or 'equal'."""
+    both tokens, named `names`), or 'equal'."""
     if len(got) != len(want):
         return f"{len(got)} segments vs {len(want)}"
     for i, (g, w) in enumerate(zip(got, want)):
@@ -2237,7 +2355,7 @@ def first_divergence(got: list, want: list) -> str:
             step = int(diff[0]) if len(diff) else n
             tg = int(g[step]) if step < len(g) else "end"
             tw = int(w[step]) if step < len(w) else "end"
-            return f"segment {i} step {step}: batched {tg}, threaded {tw}"
+            return f"segment {i} step {step}: {names[0]} {tg}, {names[1]} {tw}"
     return "equal"
 
 
@@ -2284,7 +2402,8 @@ def batched_files(torch, engine, vad, mode: str) -> dict:
     wall = time.perf_counter() - t0
     counts = dict(_build.launch_counts)
     delta = {k: engine.stats[k] - stats0.get(k, 0) for k in
-             ("decode_steps", "tokens", "requests", "mel_preps", "prefill_programs")}
+             ("decode_steps", "verify_rounds", "tokens", "requests", "mel_preps",
+              "prefill_programs")}
     peak = torch.cuda.max_memory_allocated() / 2**30
     out = dict(wall_s=wall, peak_gib=peak, tokens=delta["tokens"],
                tokens_per_s=delta["tokens"] / wall, decode_steps=delta["decode_steps"],
@@ -2308,6 +2427,8 @@ def batched_files(torch, engine, vad, mode: str) -> dict:
     check(counts["log_mel"] == delta["mel_preps"] > 0,
           f"batched {mode} files: log_mel launched {counts['log_mel']} times for "
           f"{delta['mel_preps']} prepared requests")
+    check(delta["verify_rounds"] == 0, f"batched {mode} files: undrafted requests took "
+          f"{delta['verify_rounds']} verify rounds")
     check(counts["decode_attention"] == n_layers * delta["decode_steps"] > 0,
           f"batched {mode} files: decode_attention launched {counts['decode_attention']} times "
           f"for {delta['decode_steps']} pool decode steps x {n_layers} layers")
@@ -2401,8 +2522,8 @@ def batched_streams(torch, engine, vad, mode: str) -> dict:
     counts = dict(_build.launch_counts)
     captured = engine.router.stats["graphs"] - graphs0
     delta = {k: engine.stats[k] - stats0.get(k, 0) for k in
-             ("decode_steps", "mel_preps", "ring_prefill_programs", "prefill_programs",
-              "vad_batches", "requests")}
+             ("decode_steps", "verify_rounds", "mel_preps", "ring_prefill_programs",
+              "prefill_programs", "vad_batches", "requests", "eager_granted", "eager_denied")}
     check(not errors.records, f"batched {mode} streams: {len(errors.records)} failed calls")
     check(captured == 0, f"batched {mode} streams: {captured} graphs captured during the run")
     check(file_msgs[-1]["type"] == "final_summary" and file_msgs[-1]["failed_segments"] == 0,
@@ -2425,9 +2546,13 @@ def batched_streams(torch, engine, vad, mode: str) -> dict:
           f"batched {mode} streams: log_mel launched {counts['log_mel']} times for "
           f"{delta['ring_prefill_programs']} ring prefill programs + {delta['mel_preps']} host "
           f"requests")
-    check(counts["decode_attention"] == n_layers * delta["decode_steps"] > 0,
+    plain_steps = delta["decode_steps"] - delta["verify_rounds"]
+    check(counts["decode_attention"] == n_layers * plain_steps > 0,
           f"batched {mode} streams: decode_attention launched {counts['decode_attention']} "
-          f"times for {delta['decode_steps']} pool decode steps x {n_layers} layers")
+          f"times for {plain_steps} plain pool decode steps x {n_layers} layers")
+    check(counts["verify_attention"] == n_layers * delta["verify_rounds"],
+          f"batched {mode} streams: verify_attention launched {counts['verify_attention']} "
+          f"times for {delta['verify_rounds']} verify rounds x {n_layers} layers")
 
     # the ring VAD program of this run's batch bucket, replayed alone
     B = next(b for b in (1, 4, 16, 64) if b >= BATCHED_STREAMS)
@@ -2452,6 +2577,8 @@ def batched_streams(torch, engine, vad, mode: str) -> dict:
                speech_end_to_committed_max_s=max(end_to_commit),
                vad_ring_ms=vad_ms, vad_ring_batch=B, peak_gib=torch.cuda.max_memory_allocated()
                / 2**30, file_rtf=file_msgs[-1]["rtf"], engine=delta,
+               eager_accept_ema=engine.eager_accept_ema, spec_accept_ema=engine.spec_accept_ema,
+               spec_accept_min=engine.spec_accept_min,
                launches={k: v for k, v in counts.items() if v})
     log(f"batched {mode} streams: {BATCHED_STREAMS} sessions + the 12 s file in {wall:.2f} s, "
         f"committed as the gate implies, 0 graphs captured; {sent_n} interims sent, {dropped} "
@@ -2460,7 +2587,152 @@ def batched_streams(torch, engine, vad, mode: str) -> dict:
         f"{out['speech_end_to_committed_p50_s']:.3f} s max "
         f"{out['speech_end_to_committed_max_s']:.3f} s; ring VAD program (B={B}) "
         f"{vad_ms:.4f} ms; file RTF {out['file_rtf']}; {delta}")
+    log(f"batched {mode} streams, speculation: {delta['eager_granted']} eager finals launched, "
+        f"{delta['eager_denied']} gated, eager_accept_ema {engine.eager_accept_ema:.3f}; "
+        f"{delta['verify_rounds']} verify rounds; spec_accept_ema {engine.spec_accept_ema:.3f} "
+        f"(drafts spent while >= {engine.spec_accept_min}: random weights' interims are no "
+        f"draft of their finals)")
     return out
+
+
+def batched_drafts(torch, engine, mode: str) -> dict:
+    """The 12 s file's request on the batched engine (one request, the
+    file budget): undrafted first, its greedy tokens the drafts'
+    source; then with each of draft_kinds (golden, half then garbage,
+    garbage). Launch counters set to 0 just before the drafted runs and
+    read just after: verify_attention once per layer per verify round,
+    decode_attention once per layer per plain step, no graph captured
+    (every verify key of the grid was captured by warmup), the golden run
+    on verify rounds. Per run: wall, tokens/s, verify rounds,
+    spec_accept_ema after it, and the first divergence from the undrafted
+    tokens (the verify program has other shapes than the decode program,
+    so bf16 near-ties may flip: printed, not checked, with the two tokens'
+    logits there from tie_logits)."""
+    from sonicscribe_tpu_torch.ops import _build
+
+    audio = payloads()["12s"]
+    n_layers = engine.transcriber.cfg.decoder.n_layers
+
+    def run(draft):
+        stats0 = dict(engine.stats)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = asyncio.run(engine.transcribe(audio, SR, max_new_tokens=GRID_BUDGETS[-1],
+                                          draft_tokens=draft))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        d = {k: engine.stats[k] - stats0.get(k, 0) for k in
+             ("decode_steps", "verify_rounds", "tokens")}
+        return r.tokens, dict(wall_s=wall, tokens=d["tokens"], tokens_per_s=d["tokens"] / wall,
+                              decode_steps=d["decode_steps"], verify_rounds=d["verify_rounds"],
+                              spec_accept_ema=engine.spec_accept_ema)
+
+    base, row = run(None)
+    check(row["verify_rounds"] == 0, f"batched {mode}: an undrafted request took verify rounds")
+    out = {"undrafted": row}
+    log(f"batched {mode} 12 s request undrafted: wall {row['wall_s']:.3f} s, {row['tokens']} "
+        f"tokens, {row['tokens_per_s']:.1f} tokens/s, {row['decode_steps']} pool decode steps")
+    graphs0 = engine.router.stats["graphs"]
+    stats0 = dict(engine.stats)
+    drafted = {}
+    _build.reset_launch_counts()
+    for name, draft in draft_kinds(base, engine.cfg.decoder.vocab_size).items():
+        tokens, row = run(draft)
+        drafted[name] = tokens
+        row["vs_undrafted"] = first_divergence([tokens], [base], ("drafted", "undrafted"))
+        out[name] = row
+        log(f"batched {mode} 12 s request, {name} draft: wall {row['wall_s']:.3f} s, "
+            f"{row['tokens']} tokens, {row['tokens_per_s']:.1f} tokens/s, {row['verify_rounds']} "
+            f"verify rounds in {row['decode_steps']} pool steps, spec_accept_ema "
+            f"{row['spec_accept_ema']:.3f}; tokens vs undrafted: {row['vs_undrafted']}")
+    counts = dict(_build.launch_counts)
+    rounds = engine.stats["verify_rounds"] - stats0["verify_rounds"]
+    steps = engine.stats["decode_steps"] - stats0["decode_steps"]
+    captured = engine.router.stats["graphs"] - graphs0
+    check(out["golden"]["verify_rounds"] > 0, f"batched {mode}: the golden draft took no verify "
+          "round")
+    check(captured == 0, f"batched {mode} drafts: {captured} graphs captured on the request path")
+    check(counts["verify_attention"] == n_layers * rounds > 0,
+          f"batched {mode} drafts: verify_attention launched {counts['verify_attention']} times "
+          f"for {rounds} verify rounds x {n_layers} layers")
+    check(counts["decode_attention"] == n_layers * (steps - rounds),
+          f"batched {mode} drafts: decode_attention launched {counts['decode_attention']} times "
+          f"for {steps - rounds} plain steps x {n_layers} layers")
+    out["launches"] = {k: v for k, v in counts.items() if v}
+    log(f"batched {mode} drafts: {rounds} verify rounds, {steps - rounds} plain steps, 0 graphs "
+        f"captured, launches {out['launches']}")
+    for name, tokens in drafted.items():  # after the counts: these launches are not the path's
+        step = first_step_differing(tokens, base)
+        if step:  # step 0 is prefill's pick, the same program drafted or not
+            out["tie"] = dict(draft=name, **tie_logits(torch, engine, audio, base, tokens, step))
+            t = out["tie"]
+            log(f"batched {mode} {name} draft, first divergence at step {step}: logits "
+                f"recomputed op by op at S 1 from the undrafted prefix (logit of undrafted "
+                f"{t['undrafted']} - logit of drafted {t['drafted']}): decode step "
+                f"{t['decode_margin']:+.4f} (logits {t['decode_logits'][0]:.4f}, "
+                f"{t['decode_logits'][1]:.4f}; top logit {t['decode_top']:.4f}); verify pass, "
+                f"the step at query 0..{len(t['verify_margins']) - 1}: "
+                + ", ".join(f"{m:+.4f}" for m in t["verify_margins"]))
+            break
+    return out
+
+
+def first_step_differing(got, want):
+    """The first step at which two token lists differ, both holding a
+    token there; None where they are equal or differ only in length."""
+    n = min(len(got), len(want))
+    diff = np.flatnonzero(np.asarray(got[:n]) != np.asarray(want[:n]))
+    return int(diff[0]) if len(diff) else None
+
+
+def tie_logits(torch, engine, audio, base, drafted, step: int) -> dict:
+    """The logits of the two tokens at a drafted run's first divergence
+    from the undrafted one, recomputed op by op at S 1 from the engine's
+    own prompt (its request prep, assemble_prompt_batch, prefill_kv) with
+    the undrafted tokens fed: by decode_step at the step, and by
+    verify_step with the step at each query position j (its round started
+    j tokens earlier, the undrafted tokens as the draft). A near-tie shows
+    margins near 0, of either sign; a fault in the numbers, a large one."""
+    from types import SimpleNamespace
+
+    from sonicscribe_tpu_torch.engine.batcher import assemble_prompt_batch
+    from sonicscribe_tpu_torch.models.glm_asr import (
+        decode_step,
+        init_cache,
+        prefill_kv,
+        verify_step,
+    )
+
+    tr, w = engine.transcriber, engine.spec_w
+    params, cfg, dev = tr.params, tr.cfg, engine.long.state["k"].device
+    a, b = int(base[step]), int(drafted[step])
+    req = SimpleNamespace(audio=audio, sample_rate=SR, hotwords=None, future=None)
+    bucket, mel, frames, prefix, suffix, slen, _ = engine._prepare_request(req)
+    ids = lambda x: torch.as_tensor(np.asarray(x, np.int64), device=dev)  # noqa: E731
+    tokens = ids(np.concatenate([base, np.full(w + 1, base[-1])]))
+    with torch.inference_mode():
+        buf, totals = assemble_prompt_batch(
+            params, cfg, mel[None], ids([frames]).int(), ids(prefix), ids(suffix)[None],
+            ids([slen]).int())
+        ks, vs, _ = prefill_kv(params, cfg, buf, totals)
+        cache = init_cache(cfg, 1, engine.long.max_len, dtype=engine.long.state["k"].dtype,
+                           device=dev)
+        cache["k"][:, :, : ks.shape[2]] = ks.to(cache["k"].dtype)
+        cache["v"][:, :, : vs.shape[2]] = vs.to(cache["v"].dtype)
+        cache["len"].copy_(totals.to(torch.int32))
+        verify_margins = [0.0] * (w + 1)
+        for i in range(1, step + 1):  # step i feeds token i - 1 and picks token i
+            j = step - i  # a round starting here holds the step at query j
+            if j <= w:
+                fork = {k: v.clone() for k, v in cache.items()}
+                _, vl = verify_step(params, cfg, fork, tokens[i - 1 : i + w][None])
+                verify_margins[j] = float(vl[0, j, a] - vl[0, j, b])
+                del fork
+            _, logits = decode_step(params, cfg, cache, tokens[i - 1 : i])
+        top = float(logits[0].max())
+        la, lb = float(logits[0, a]), float(logits[0, b])
+    return dict(step=step, undrafted=a, drafted=b, decode_logits=(la, lb),
+                decode_margin=la - lb, decode_top=top, verify_margins=verify_margins)
 
 
 def batched_ticks(torch, engine) -> dict:
@@ -2508,10 +2780,11 @@ def batched_ticks(torch, engine) -> dict:
 
 def batched_phase(torch, mode: str) -> tuple[dict, dict]:
     """build_runtime("nano-random") in `mode` on the batched engine (the
-    default): the grid captured (graphs, seconds, memory), the files at
-    once, the streams beside the 12 s file; in native also the decode runs
-    by active slots. -> (launch counts summed over the files and streams,
-    numbers)."""
+    default): the grid captured (graphs, seconds, memory; its 12 verify
+    keys among them), the files at once, the 12 s request undrafted and
+    drafted, the streams beside the 12 s file; in native also the decode
+    runs by active slots. -> (launch counts summed over the files, drafts
+    and streams, numbers)."""
     from sonicscribe_tpu_torch.config import AppConfig
     from sonicscribe_tpu_torch.engine.batcher import BatchedEngine
     from sonicscribe_tpu_torch.serve.runtime import build_runtime
@@ -2531,6 +2804,9 @@ def batched_phase(torch, mode: str) -> tuple[dict, dict]:
         for key, sec in cap.items():
             kinds.setdefault(key[0], []).append(sec)
         k64 = cap.get(("decode", "long", 64, None))
+        verify_keys = [engine._verify_key(p, r, rows) for p, r, rows in engine._grid()["verify"]]
+        check(len(verify_keys) == 12 and all(k in engine.router.entries for k in verify_keys),
+              f"batched {mode}: the verify keys {verify_keys} were not all captured by warmup")
         grid = dict(graphs=w["graphs"], grid_s=w["seconds"], resident_before_gib=resident0,
                     resident_gib=torch.cuda.memory_allocated() / 2**30,
                     max_gib=torch.cuda.max_memory_allocated() / 2**30,
@@ -2548,20 +2824,36 @@ def batched_phase(torch, mode: str) -> tuple[dict, dict]:
             f"{resident0:.2f} -> {grid['resident_gib']:.2f} GiB, max {grid['max_gib']:.2f} GiB; "
             f"pools {grid['pools_gib']} GiB, ring {grid['ring_gib']:.3f} GiB")
         files = batched_files(torch, engine, vad, mode)
+        drafts = batched_drafts(torch, engine, mode)
         streams = batched_streams(torch, engine, vad, mode)
         ticks = batched_ticks(torch, engine) if mode == "native" else None
-        launches = {k: files["launches"].get(k, 0) + streams["launches"].get(k, 0)
-                    for k in set(files["launches"]) | set(streams["launches"])}
-        return launches, dict(grid=grid, files=files, streams=streams, ticks=ticks)
+        runs = (files["launches"], drafts["launches"], streams["launches"])
+        launches = {k: sum(r.get(k, 0) for r in runs) for k in set().union(*runs)}
+        return launches, dict(grid=grid, files=files, drafts=drafts, streams=streams,
+                              ticks=ticks)
     finally:
         engine.shutdown()
+
+
+def draft_kinds(tokens, vocab: int) -> dict:
+    """The drafts of a request whose greedy tokens are `tokens`: those
+    tokens (golden), their first half then garbage, garbage only (each
+    garbage token differs from greedy's)."""
+    tokens = np.asarray(tokens, np.int32)
+    shift = np.random.default_rng(SEED + 12).integers(1, vocab, len(tokens))
+    garbage = ((tokens + shift) % vocab).astype(np.int32)
+    half = len(tokens) // 2
+    return {"golden": tokens, "half then garbage": np.concatenate([tokens[:half], garbage[half:]]),
+            "garbage": garbage}
 
 
 def tiny_batched_phase(torch) -> None:
     """tiny() f32 on the batched engine: the card (graphs captured by
     warmup, kernels) gives the tokens of the CPU (the same programs run
-    eagerly, plain versions) for five concurrent requests, and a stepped
-    stream session the same messages."""
+    eagerly, plain versions) for five concurrent requests; a request
+    undrafted and with each of draft_kinds gives the same tokens every
+    time, on the card as on the CPU, with the same verify rounds; and a
+    stepped stream session the same messages."""
     from sonicscribe_tpu_torch.config import AppConfig
     from sonicscribe_tpu_torch.engine.batcher import BatchedEngine
     from sonicscribe_tpu_torch.vad.model import EnergyVad
@@ -2569,7 +2861,8 @@ def tiny_batched_phase(torch) -> None:
     reqs = [(speech(0.8 + 0.5 * i, seed=23 + i), budget, hot) for i, (budget, hot) in
             enumerate([(8, None), (24, ["gpu"]), (15, None), (40, None), (21, ["a", "b"])])]
     frames, _, _ = stream_frames(TINY_STREAM_SPANS, seed=50)
-    tokens, msgs = {}, {}
+    draft_audio = speech(1.6, seed=29)
+    tokens, msgs, drafted, rounds = {}, {}, {}, {}
     for device in ("cpu", "cuda"):
         engine = BatchedEngine(tiny_transcriber(torch, device), EnergyVad(device=device),
                                slots=4, max_decode_tokens=64, n_streams=4)
@@ -2580,11 +2873,35 @@ def tiny_batched_phase(torch) -> None:
                                         for a, b, h in reqs])
             return [r.tokens for r in rs]
 
+        async def run_drafts(engine=engine):
+            base = await engine.transcribe(draft_audio, SR, max_new_tokens=40)
+            out = {"undrafted": base.tokens}
+            for name, d in draft_kinds(base.tokens, engine.cfg.decoder.vocab_size).items():
+                r = await engine.transcribe(draft_audio, SR, max_new_tokens=40, draft_tokens=d)
+                out[name] = r.tokens
+            return out
+
         try:
             tokens[device] = asyncio.run(run())
+            r0 = engine.stats["verify_rounds"]
+            drafted[device] = asyncio.run(run_drafts())
+            rounds[device] = engine.stats["verify_rounds"] - r0
             msgs[device] = asyncio.run(drive_stepped(AppConfig(), engine, frames))
         finally:
             engine.shutdown()
+    for device, runs in drafted.items():
+        for name, toks in runs.items():
+            check(np.array_equal(toks, runs["undrafted"]),
+                  f"tiny f32 batched {device}: the {name} draft gave other tokens: {toks} vs "
+                  f"{runs['undrafted']}")
+            check(np.array_equal(toks, drafted["cpu"][name]),
+                  f"tiny f32 batched: the {name} run differs, cuda {toks} vs cpu "
+                  f"{drafted['cpu'][name]}")
+    check(rounds["cuda"] > 0 and rounds["cuda"] == rounds["cpu"],
+          f"tiny f32 batched drafts: verify rounds cuda {rounds['cuda']}, cpu {rounds['cpu']}")
+    log(f"reference: tiny f32 batched drafts (golden, half then garbage, garbage): "
+        f"{len(drafted['cpu']['undrafted'])} tokens, drafted = undrafted and cuda = cpu, "
+        f"{rounds['cuda']} verify rounds on each")
     check(all(np.array_equal(a, b) for a, b in zip(tokens["cuda"], tokens["cpu"]))
           and any(len(t) for t in tokens["cpu"]),
           f"tiny f32 batched: tokens differ: cuda {tokens['cuda']} cpu {tokens['cpu']}")
@@ -2671,6 +2988,10 @@ def main() -> None:
         f"device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
+
+    def mark(phase: str) -> None:  # where the script's time goes
+        log(f"[{time.perf_counter() - t0:.1f} s] {phase} done")
+
     reports = _build.build()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s for {sorted(reports) or 'none (cached)'}")
     for name, report in reports.items():
@@ -2680,19 +3001,25 @@ def main() -> None:
     weight_scale_phase(torch)
     timer = Timer(torch)
     attn_err, attn_row, mel_err, mel_row = kernel_phase(torch, timer)
+    verify = verify_kernel_phase(torch, timer)
     int8_errs, int8_rows = int8_kernel_phase(torch, timer)
     int4_errs, int4_rows, int4_launches = int4_kernel_phase(torch, timer)
     batched_rows = batched_kernel_phase(torch, timer)
     del timer
+    mark("kernel phases")
     bench_launches, slice_steps = bench_phase(torch)
     int4_launches.update(bench_launches)
     int8_rows["int8_matmul_stacked"]["slice_table_steps"] = slice_steps
     release_memory(torch)
+    mark("bench sweeps")
 
     engine, launches, native = main_path_phase(torch)
+    mark("main path")
     try:
         stream = stream_phase(torch, engine, native["grid"])
+        mark("stream")
         reference_phase(torch, engine)
+        mark("reference")
     finally:
         engine.shutdown()
     del engine
@@ -2702,20 +3029,23 @@ def main() -> None:
         counts, captured[mode] = int8_main_path_phase(torch, mode)
         for name in (*int8_errs, "int8_matmul_mma", "int8_matmul_w8a8_mma"):
             launches[name] = launches.get(name, 0) + counts[name]
+        mark(f"main path {mode}")
     for mode in INT8_MODES:
         tiny_tokens_phase(torch, mode)
     tiny_batched_phase(torch)
+    mark("tiny references")
     batched, batched_launches = {}, {}
     for mode in BATCHED_MODES:
         release_memory(torch)
         counts, batched[mode] = batched_phase(torch, mode)
         for name, n in counts.items():
             batched_launches[name] = batched_launches.get(name, 0) + n
+        mark(f"batched {mode}")
     log("captured " + json.dumps(captured, default=float))
     log("stream " + json.dumps(stream, default=float))
     log("batched " + json.dumps(batched, default=float))
-    for name in ("decode_attention", "log_mel", "int8_matmul", "int8_matmul_w8a8",
-                 "int8_matmul_w8a8_mma"):
+    for name in ("decode_attention", "verify_attention", "log_mel", "int8_matmul",
+                 "int8_matmul_w8a8", "int8_matmul_w8a8_mma"):
         check(batched_launches.get(name, 0) > 0, f"{name} never launched on the batched paths")
     check(batched_launches["int8_matmul_w8a8"] > batched_launches["int8_matmul_w8a8_mma"],
           "W8A8's cluster design never ran on the batched paths")
@@ -2727,6 +3057,16 @@ def main() -> None:
              launches=launches["decode_attention"],
              stream_launches=stream["launches"].get("decode_attention", 0),
              max_abs_err=attn_err, **attn_row),
+        # no Pallas kernel: the JAX package's verify_step leaves its attention to XLA
+        dict(name="verify_attention", route="cuda",
+             source="sonicscribe_tpu_torch/csrc/decode_attention.cu",
+             replaces="sonicscribe_tpu/models/glm_asr.py:568", path="batched drafts",
+             launches=sum(b["drafts"]["launches"].get("verify_attention", 0)
+                          for b in batched.values()),
+             stream_launches=sum(b["streams"]["launches"].get("verify_attention", 0)
+                                 for b in batched.values()),
+             max_abs_err=verify["max_abs_err"], **verify["main"],
+             shapes=verify["shapes"]),
         dict(name="log_mel", route="cuda",
              source="sonicscribe_tpu_torch/csrc/log_mel.cu",
              replaces="sonicscribe_tpu/ops/mel_pallas.py:53", path="serve",
@@ -2765,7 +3105,8 @@ def main() -> None:
         k["batched_launches"] = batched_launches.get(k["name"], 0)
         if k["name"] in batched_rows:
             k["batched_shapes"] = batched_rows[k["name"]]
-    kernels[4]["batched_mma_launches"] = batched_launches.get("int8_matmul_w8a8_mma", 0)
+    next(k for k in kernels if k["name"] == "int8_matmul_w8a8")["batched_mma_launches"] = (
+        batched_launches.get("int8_matmul_w8a8_mma", 0))
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on the main path")
         check(k.get("stream_launches", 1) > 0, f"{k['name']} never launched on the stream")

@@ -20,6 +20,22 @@ Design, as in JAX:
   pool's first `rows` slots (all of them for rows None) with per-slot
   logit bias; EOS and budget stops, emitted tokens and a status row are
   kept on the device.
+- SPECULATIVE FINALS: a request may carry a draft (a session's banked
+  interim tokens). While a drafted slot is live in the long pool, the
+  pool runs the VERIFY program instead, one per (rounds, rows): each
+  round feeds [last token, next w draft tokens] through verify_step (w+1
+  query positions in one pass), accepts the longest draft prefix that
+  greedy agrees with and emits it with greedy's correction, so a drafted
+  slot emits up to w+1 tokens per pass and every slot emits exactly the
+  greedy tokens. The acceptance EMA stops spending drafts that keep
+  missing (spec_accept_min).
+- EAGER-FINALS GATE: a session launches a speculative final at the first
+  silent window only if ``eager_ok`` allows it (long-pool slack, live
+  streams no more than long slots, no final backlog, at most half the
+  pool speculative, interim admissions not queueing, and the bets'
+  confirmation EMA, with a probe every 8th closed call); such an
+  unconfirmed final does not escalate k in quiet windows unless that EMA
+  is healthy.
 - PIPELINED TICKS: each tick dispatches its programs, copies the status
   and token rows of each decode (and the VAD probabilities) to pinned host
   memory on the same stream right after it and records an event, then
@@ -39,10 +55,8 @@ CUDA graph on first use (or in ``warmup``) and replays it; on the CPU
 device work runs on one executor thread; the event loop never touches the
 device.
 
-Not ported yet: speculative finals (drafts and
-``speculative`` are accepted and ignored, as ThreadedEngine does; greedy
-output is the same), the eager-finals launch gate, the fused dual-pool
-decode, the stall watchdog, fast warmup, the data-parallel mesh.
+Not ported yet: the fused dual-pool decode, the stall watchdog and
+crash self-heal, fast warmup, the data-parallel mesh.
 """
 
 from __future__ import annotations
@@ -79,6 +93,7 @@ from sonicscribe_tpu_torch.models.glm_asr import (
     embed_tokens,
     encode_audio,
     prefill_kv,
+    verify_step,
 )
 from sonicscribe_tpu_torch.models.tokenizer import build_prompt
 from sonicscribe_tpu_torch.vad.model import WINDOW_SAMPLES
@@ -86,6 +101,9 @@ from sonicscribe_tpu_torch.vad.model import WINDOW_SAMPLES
 logger = logging.getLogger(__name__)
 
 _DECODE_K_CHOICES = (1, 2, 4, 8, 16, 32, 64)
+# status-row flag of the verify program: a slot not done whose draft still
+# has tokens to verify (far above any n_emitted + 1; never on negatives)
+_SPEC_LIVE_FLAG = 1 << 16
 # VAD batch ladder: one program per bucket
 _VAD_BATCH_BUCKETS = (1, 4, 16, 64)
 _GATE_WINDOW_CHUNKS = 10  # 640 ms
@@ -127,10 +145,14 @@ def assemble_prompt_batch(params, cfg: GlmAsrConfig, mels, n_frames, prefix_ids,
 
 
 def _slot_write_program(bufs: dict) -> None:
-    """The admit group's per-slot budgets (the budget part of the JAX
-    package's fused slot write): padding rows write 0 into the trash slot,
-    which keeps it done."""
-    bufs["budget"].index_copy_(0, bufs["slots"], bufs["budget_vals"])
+    """The admit group's per-slot budgets and drafts (the JAX package's
+    fused slot write): padding rows write a budget of 0 and an empty draft
+    into the trash slot, which keeps it done."""
+    slots = bufs["slots"]
+    bufs["budget"].index_copy_(0, slots, bufs["budget_vals"])
+    bufs["draft"].index_copy_(0, slots, bufs["draft_rows"])
+    bufs["draft_len"].index_copy_(0, slots, bufs["draft_lens"])
+    bufs["draft_pos"].index_fill_(0, slots, 0)
 
 
 def _prefill_common(params, cfg: GlmAsrConfig, bufs: dict, mels, n_frames) -> None:
@@ -208,6 +230,81 @@ def _decode_k_program(params, cfg: GlmAsrConfig, bufs: dict, k: int,
     return {}
 
 
+def _verify_rounds_program(params, cfg: GlmAsrConfig, bufs: dict, w: int, n_rounds: int,
+                           rows: Optional[int] = None) -> dict:
+    """n_rounds speculative verification rounds for the pool's first `rows`
+    slots (all for None), in place (the JAX package's
+    _verify_rounds_program). Each round, per slot: [tok, the next w draft
+    tokens] through verify_step, the greedy pick g_j (with bias) at every
+    position, the longest prefix where draft d_j == g_j accepted (a), and
+    d_0..d_{a-1} plus g_a emitted: the tokens sequential greedy decode
+    emits. The first emitted EOS and the budget cut the emission; len, tok,
+    n and done advance by it. The draft cursor moves past the draft tokens
+    greedy agreed with, in order: the a accepted ones and, when all w were,
+    the draft's next token d_w where it equals the emitted g_w (it predicted
+    that very token); on a mismatch it moves to the draft's end. (The JAX
+    program advances it by a alone, so after a round that accepts all w
+    the next one tests d_w against the token after g_w, and a draft that
+    is right throughout dies in its second round.) A slot without a draft
+    emits one token a round. Then the status row over every slot, as the
+    decode program's, plus _SPEC_LIVE_FLAG on a slot not done whose draft
+    has tokens left. All on the device: no host sync, one CUDA graph."""
+    S, max_new = bufs["out"].shape
+    R = S if rows is None else min(rows, S)
+    max_draft = bufs["draft"].shape[1]
+    dev = bufs["tok"].device
+    j_idx = torch.arange(w + 1, device=dev)
+    out_pos = torch.arange(max_new, device=dev)
+    cache = {"k": bufs["k"][:, :R], "v": bufs["v"][:, :R], "len": bufs["len"][:R]}
+    tok, n, dn, dpos = bufs["tok"][:R], bufs["n"][:R], bufs["done"][:R], bufs["draft_pos"][:R]
+    bias, bud, out = bufs["bias"][:R], bufs["budget"][:R], bufs["out"][:R]
+    draft, dlen = bufs["draft"][:R], bufs["draft_len"][:R]
+    for _ in range(n_rounds):
+        # the next w + 1 draft tokens: the round's w inputs and the one after
+        idx = dpos[:, None] + j_idx[None, :]
+        have = idx < dlen[:, None]
+        dnext = torch.where(have, draft.gather(1, torch.clamp(idx, 0, max_draft - 1).long()),
+                            cfg.pad_id)
+        dtoks = dnext[:, :w]
+        _, logits = verify_step(params, cfg, cache, torch.cat([tok[:, None], dtoks], dim=1))
+        g = torch.argmax(logits + bias[:, None, :], dim=-1).to(torch.int32)  # [R, w+1]
+        # draft tokens greedy agrees with, in order (c), and the accepted
+        # inputs among them (a)
+        c = torch.cumprod((have & (dnext == g)).to(torch.int32), dim=1).sum(dim=1)
+        c = c.to(torch.int32)
+        a = torch.clamp(c, max=w)
+        # candidates e_0..e_a: the draft below a, greedy's correction at a
+        e = torch.where(j_idx[None, :] < a[:, None], torch.cat([dtoks, dtoks[:, -1:]], dim=1), g)
+        eos_at = (e == cfg.eos_id) & (j_idx[None, :] <= a[:, None])
+        first_eos = torch.argmax(eos_at.to(torch.int32), dim=1)  # the first, as JAX's
+        m = torch.where(eos_at.any(dim=1), first_eos + 1, a + 1)
+        m = torch.minimum(m, torch.clamp(bud - n, min=0))
+        m = torch.where(dn, 0, m).to(torch.int32)
+        # e_0..e_{m-1} into out at n..n+m-1; each column written once (the
+        # JAX program's clamped scatter repeats the last column's index)
+        rel = out_pos[None, :] - n[:, None].long()
+        take = (rel >= 0) & (rel < m[:, None])
+        out.copy_(torch.where(take, e.gather(1, torch.clamp(rel, 0, w)), out))
+        kept_eos = (eos_at & (j_idx[None, :] < m[:, None])).any(dim=1)
+        n_new = n + m
+        dn_new = dn | kept_eos | (n_new >= bud)
+        # the emitted inputs' K/V are in the cache; the last emitted token is
+        # the next round's x_0, as in decode_step
+        cache["len"].copy_(cache["len"] + m)
+        tok.copy_(torch.where(m > 0, e.gather(1, torch.clamp(m - 1, min=0).long()[:, None])[:, 0],
+                              tok))
+        avail = torch.clamp(torch.clamp(dlen - dpos, max=w + 1), min=0)
+        diverged = (c < avail) & ~dn
+        dpos.copy_(torch.where(diverged, dlen, dpos + c))
+        n.copy_(n_new)
+        dn.copy_(dn_new)
+    n_all, done_all = bufs["n"], bufs["done"]
+    live = ~done_all & (bufs["draft_pos"] < bufs["draft_len"])
+    bufs["status"].copy_(torch.where(done_all, -(n_all + 1),
+                                     n_all + 1 + torch.where(live, _SPEC_LIVE_FLAG, 0)))
+    return {}
+
+
 def _make_vad_batch_program(vad, n_sub: int):
     """Host-audio gate windows: bufs windows [B, n_sub, 512] and states
     {field: [B]} -> max probability over the sub-windows per row into
@@ -239,6 +336,10 @@ class _SlotState:
     budget: int = 0
     active: bool = False
     steps_seen: int = 0  # decode steps dispatched while this slot was active
+    drafted: bool = False  # admitted with a draft it spends (the verify path)
+    # verify rounds the draft can still use: ceil(draft_len / w) at admit,
+    # less the rounds dispatched (the status flag arrives a tick late)
+    spec_rounds: int = 0
 
 
 @dataclass
@@ -246,8 +347,9 @@ class _CachePool:
     """One decode class: its KV cache, slots and state, the static memory of
     its programs. `state` holds k, v [L, rows, max_len, nkv, hd]; len, tok,
     n, budget, status [rows] int32; done [rows] bool; out [rows, out_width]
-    int32; bias [rows, V] float32. Row `trash_slot` (== n_slots) takes the
-    padding rows of batched prefills."""
+    int32; bias [rows, V] float32; the drafts: draft [rows, out_width]
+    int32, draft_pos, draft_len [rows] int32. Row `trash_slot` (==
+    n_slots) takes the padding rows of batched prefills."""
 
     name: str
     max_len: int
@@ -263,6 +365,7 @@ class _CachePool:
     compiled_prefill: set = field(default_factory=set)
     compiled_ring_prefill: set = field(default_factory=set)
     compiled_decode: set = field(default_factory=set)
+    compiled_verify: set = field(default_factory=set)  # (rounds, rows)
 
     @property
     def n_active(self) -> int:
@@ -285,6 +388,11 @@ class _TranscribeReq:
     # elsewhere than the pre-resample estimate (no re-route bounce loop)
     pool_hint: Any = None
     t_admit: float = 0.0
+    # the session's predicted tokens (its banked interims): verified, never trusted
+    draft_tokens: Any = None
+    # an unconfirmed eager final: no k-escalation for it unless the bets'
+    # confirmation EMA is healthy; confirm_speculative clears it
+    speculative: bool = False
 
 
 @dataclass
@@ -312,6 +420,8 @@ class _RingTranscribeReq:
     future: asyncio.Future
     t_enqueue: float
     t_admit: float = 0.0
+    draft_tokens: Any = None  # as in _TranscribeReq
+    speculative: bool = False
 
 
 class BatchedEngine:
@@ -359,6 +469,10 @@ class BatchedEngine:
                 "bias": self._base_bias[None].repeat(rows, 1),
                 "budget": torch.zeros((rows,), dtype=i32, device=dev),
                 "status": torch.zeros((rows,), dtype=i32, device=dev),
+                "draft": torch.full((rows, max(out_width, 1)), self.cfg.pad_id, dtype=i32,
+                                    device=dev),
+                "draft_pos": torch.zeros((rows,), dtype=i32, device=dev),
+                "draft_len": torch.zeros((rows,), dtype=i32, device=dev),
             }
             return _CachePool(name=name, max_len=max_len, trash_slot=n_slots, state=state,
                               bias_dirty=[False] * rows,
@@ -426,9 +540,12 @@ class BatchedEngine:
         # decode_steps: k of every pool's decode dispatch; tokens: emitted up to
         # the budget or EOS (EOS included); mel_preps: host requests whose
         # mel was made (one log-mel launch each)
+        # steps of the verify program (verify_rounds is a part of decode_steps);
+        # eager_granted / eager_denied: eager_ok's answers
         self.stats = {"ticks": 0, "decode_steps": 0, "prefills": 0, "prefill_programs": 0,
                       "ring_prefill_programs": 0, "mel_preps": 0, "vad_batches": 0,
-                      "requests": 0, "tokens": 0}
+                      "requests": 0, "tokens": 0, "verify_rounds": 0, "eager_granted": 0,
+                      "eager_denied": 0}
         # decode-k caps (the JAX package's values, tuned there on the chip):
         # an arrival mid-program waits for it, so these bound queueing
         self.pending_k_cap = 16
@@ -438,10 +555,30 @@ class BatchedEngine:
         self.long_idle_k_cap = 32  # ...the short class quiet
         self.short_quiet_s = 0.3
         self._last_short_admit = 0.0
-        # interim admission wait (EMA, ms); the oversubscribed long cap
-        # applies only while it is under budget
+        # interim admission wait (EMA, ms); the oversubscribed long cap and
+        # the eager-finals gate apply only while it is under budget. It
+        # starts above: speculation must first see slack
         self.short_queue_ema = 150.0
         self.short_queue_budget_ms = 75.0
+        # speculative finals (the JAX package's values): w draft tokens a
+        # verify round, the rounds a verify program may run; drafts are
+        # spent only while the acceptance EMA (matching-prefix share of a
+        # finished drafted request's draft) is at the floor or above, and
+        # it is measured against the output either way, so it recovers
+        self.speculative = True
+        self.spec_w = 8
+        self.verify_rounds_choices = (1, 2, 4, 8)
+        self.spec_accept_ema = 1.0
+        self.spec_accept_min = 0.35
+        # eager finals: the bets' confirmation EMA, folded at most once per
+        # eager_window_s (a lockstep wave of outcomes is one observation;
+        # 0 folds each outcome)
+        self.eager_accept_ema = 1.0
+        self.eager_accept_min = 0.5
+        self.eager_window_s = 0.64
+        self._eager_pending: list[bool] = []
+        self._eager_fold_t = time.perf_counter()
+        self._eager_probe = 0
         # long admissions per tick while the short class is busy
         self.busy_long_admit_cap = 2
         # the file pipeline may run this many segment decodes at once
@@ -485,15 +622,16 @@ class BatchedEngine:
     async def transcribe(self, audio: np.ndarray, sample_rate: int, max_new_tokens: int,
                          hotwords: Optional[list[str]] = None, draft_tokens=None,
                          speculative: bool = False) -> TranscribeResult:
-        """Transcribe host audio. draft_tokens and speculative are accepted
-        for the session's interface and ignored (speculative finals are not
-        ported; greedy output is the same)."""
-        del draft_tokens, speculative
+        """Transcribe host audio. draft_tokens: predicted tokens (its first
+        the prediction of the prefill's token), verified on the long pool:
+        the output is the greedy one whatever they hold. speculative: an
+        unconfirmed eager final (see confirm_speculative)."""
         await self.start()
         fut = asyncio.get_running_loop().create_future()
         await self._requests.put(_TranscribeReq(
             np.asarray(audio, np.float32), sample_rate, min(max_new_tokens, self.MAX_NEW),
-            hotwords, fut, time.perf_counter()))
+            hotwords, fut, time.perf_counter(), draft_tokens=draft_tokens,
+            speculative=speculative))
         self._wake.set()
         return await fut
 
@@ -559,12 +697,12 @@ class BatchedEngine:
                               speculative: bool = False) -> TranscribeResult:
         """Transcribe ring chunks [start_chunk, start_chunk + chunk_count):
         no audio upload. draft_tokens, speculative: as in transcribe."""
-        del draft_tokens, speculative
         await self.start()
         fut = asyncio.get_running_loop().create_future()
         await self._ring_requests.put(_RingTranscribeReq(
             stream_idx, start_chunk, chunk_count, min(max_new_tokens, self.MAX_NEW), hotwords,
-            duration_s or chunk_count * CHUNK_SAMPLES / 16000.0, fut, time.perf_counter()))
+            duration_s or chunk_count * CHUNK_SAMPLES / 16000.0, fut, time.perf_counter(),
+            draft_tokens=draft_tokens, speculative=speculative))
         self._wake.set()
         return await fut
 
@@ -597,15 +735,18 @@ class BatchedEngine:
 
     def _grid(self) -> dict:
         """The default program grid, as the JAX package's warmup picks it:
-        {"host" | "ring": [(pool, bucket, sb, B)], "decode": [(pool, k,
-        rows)]}. Short pool: every batch size for the interim ring path at
-        the smallest chunk bucket, (1, 4) host and 1 elsewhere; long pool: a
-        group ladder (1, 2, 4, 8 as the live frame cap allows, and 4 and 8)
-        for the default suffix bucket, 1 for hotword prompts; decode every k
-        of the pool's ladder, rows variants for k >= 8."""
+        {"host" | "ring": [(pool, bucket, sb, B)], "decode" | "verify":
+        [(pool, k or rounds, rows)]}. Short pool: every batch size for the
+        interim ring path at the smallest chunk bucket, (1, 4) host and 1
+        elsewhere; long pool: a group ladder (1, 2, 4, 8 as the live frame
+        cap allows, and 4 and 8) for the default suffix bucket, 1 for
+        hotword prompts; decode every k of the pool's ladder, rows variants
+        for k >= 8; with speculative finals, verify every rounds choice on
+        the full pool and rows 1 and 4 (long pool only: finals are what
+        carry drafts, and a drafted short request takes the plain ladder)."""
         tr = self.transcriber
         smallest, smallest_cb = min(tr.buckets), min(self.chunk_buckets)
-        grid = {"host": [], "ring": [], "decode": []}
+        grid = {"host": [], "ring": [], "decode": [], "verify": []}
 
         def choices(pool, ring: bool, is_smallest: bool, sb: int, frame_bucket: int, pc):
             if pool is self.short:
@@ -632,6 +773,10 @@ class BatchedEngine:
             for k in (self.dual_k_choices if pool is self.short else _DECODE_K_CHOICES):
                 for rows in (None,) + tuple(r for r in pool.rows_ladder if k >= 8):
                     grid["decode"].append((pool, k, rows))
+            if self.speculative and pool is self.long:
+                for r in self.verify_rounds_choices:
+                    for rows in (None,) + tuple(rw for rw in pool.rows_ladder if rw in (1, 4)):
+                        grid["verify"].append((pool, r, rows))
         return grid
 
     def warmup(self, budgets=(15, 200, 256)) -> dict:
@@ -663,6 +808,11 @@ class BatchedEngine:
                     self.router.prepare(("decode", pool.name, k, rows), self._decode_fn(k, rows),
                                         pool.state)
                 pool.compiled_decode.add((k, rows))
+            for pool, r, rows in grid["verify"]:
+                if cuda:
+                    self.router.prepare(self._verify_key(pool, r, rows),
+                                        self._verify_fn(r, rows), pool.state)
+                pool.compiled_verify.add((r, rows))
             if cuda:
                 for B in _VAD_BATCH_BUCKETS:
                     self.router.prepare(*self._vad_host_entry(B, _GATE_SUB_WINDOWS))
@@ -686,7 +836,7 @@ class BatchedEngine:
         suffix[0, : min(n_suffix, sb)] = prompt.suffix_ids[: min(n_suffix, sb)]
         self._put_all(bufs, stream_idx=[self.trash_stream], start_chunk=[0], chunk_count=[1],
                       suffix_ids=suffix, suffix_lens=[min(n_suffix, sb)], slots=[0],
-                      budget_vals=[3])
+                      budget_vals=[3], draft_lens=[0])
         self.router.run(key, fn, bufs)
         self.router.run(("decode", pool.name, 4, None), self._decode_fn(4, None), pool.state)
         self._to_host(pool.state["out"])
@@ -712,6 +862,9 @@ class BatchedEngine:
                 "suffix_lens": torch.full((B,), min(n_suffix, sb), dtype=i32, device=dev),
                 "slots": torch.full((B,), pool.trash_slot, dtype=torch.long, device=dev),
                 "budget_vals": torch.zeros((B,), dtype=i32, device=dev),
+                "draft_rows": torch.full((B, pool.state["draft"].shape[1]), cfg.pad_id,
+                                         dtype=i32, device=dev),
+                "draft_lens": torch.zeros((B,), dtype=i32, device=dev),
             }
             if ring:
                 inputs.update(
@@ -733,6 +886,13 @@ class BatchedEngine:
     def _decode_fn(self, k: int, rows: Optional[int]):
         return functools.partial(_decode_k_program, self.transcriber.params, self.cfg, k=k,
                                  rows=rows)
+
+    def _verify_key(self, pool: _CachePool, rounds: int, rows: Optional[int]) -> tuple:
+        return ("verify", pool.name, self.spec_w, rounds, rows)
+
+    def _verify_fn(self, rounds: int, rows: Optional[int]):
+        return functools.partial(_verify_rounds_program, self.transcriber.params, self.cfg,
+                                 w=self.spec_w, n_rounds=rounds, rows=rows)
 
     def _vad_host_entry(self, B: int, n_sub: int):
         key = ("vad_host", B, n_sub)
@@ -851,17 +1011,87 @@ class BatchedEngine:
         return self._pool_for(cb * CHUNK_SAMPLES // 160, req.max_new_tokens,
                               self._req_suffix_bucket(req))
 
+    # ---------------- the eager-finals gate ----------------
+
+    def _note_short_queue(self, q_ms: float) -> None:
+        """Fold one reaped interim's admission wait into short_queue_ema."""
+        self.short_queue_ema = 0.9 * self.short_queue_ema + 0.1 * q_ms
+
+    def eager_ok(self) -> bool:
+        """May a session launch an eager (speculative-endpoint) final now?
+        Structural: a quarter of the long pool free, no more live streams
+        than long slots, no final waiting for a slot, fewer speculative
+        slots than half the pool. Measured: interim admissions not queueing
+        (short_queue_ema within short_queue_budget_ms), and the bets'
+        confirmation EMA at eager_accept_min or above; below it every 8th
+        call is let through as a probe, so the EMA stays measured. (The JAX
+        package's gate; without it lost bets doubled interim p50 there.)"""
+        ok = self._eager_allowed()
+        self.stats["eager_granted" if ok else "eager_denied"] += 1
+        return ok
+
+    def _eager_allowed(self) -> bool:
+        if self.long.free * 4 < len(self.long.slots):
+            return False
+        if self.N_STREAMS - len(self._free_streams) > len(self.long.slots):
+            return False
+        if self._ring_backlog:
+            return False
+        n_spec = sum(1 for s in self.long.slots
+                     if s.active and getattr(s.request, "speculative", False))
+        if n_spec >= max(1, len(self.long.slots) // 2):
+            return False
+        if self.short_queue_ema > self.short_queue_budget_ms:
+            return False
+        self._fold_eager_outcomes()
+        if self.eager_accept_ema >= self.eager_accept_min:
+            return True
+        self._eager_probe += 1
+        return self._eager_probe % 8 == 0
+
+    def eager_outcome(self, confirmed: bool) -> None:
+        """A session's report of one eager bet: True when its final was
+        committed, False when speech resumed or the commit could not use it.
+        Folded into eager_accept_ema at most once per eager_window_s."""
+        self._eager_pending.append(bool(confirmed))
+        self._fold_eager_outcomes()
+
+    def _fold_eager_outcomes(self) -> None:
+        now = time.perf_counter()
+        if not self._eager_pending or now - self._eager_fold_t < self.eager_window_s:
+            return
+        mean = sum(self._eager_pending) / len(self._eager_pending)
+        self._eager_pending.clear()
+        self._eager_fold_t = now
+        self.eager_accept_ema = 0.9 * self.eager_accept_ema + 0.1 * mean
+        self.stats["eager_accept_ema"] = round(self.eager_accept_ema, 3)
+
+    def confirm_speculative(self, stream_idx: int) -> None:
+        """The gate confirmed a stream's speech end: its eager final, in a
+        slot, backlogged or still queued, is committed work from now on
+        (_pick_k may escalate k for it)."""
+        for s in self.long.slots:
+            r = s.request
+            if (s.active and getattr(r, "speculative", False)
+                    and getattr(r, "stream_idx", None) == stream_idx):
+                r.speculative = False
+        queued = list(getattr(self._ring_requests, "_queue", ()))
+        for r in self._ring_backlog + queued:
+            if (isinstance(r, _RingTranscribeReq) and r.speculative
+                    and r.stream_idx == stream_idx):
+                r.speculative = False
+
     # ---------------- scheduler ----------------
 
     def _sweep_cancelled(self) -> None:
-        """Free slots and drop backlog entries whose caller cancelled; a
-        freed slot's row simply stops being read (the next prefill into it
-        resets it)."""
+        """Free slots and drop backlog entries whose caller cancelled (eager
+        finals discarded on speech resume, closed clients); a freed slot's
+        row simply stops being read (the next prefill into it resets it)."""
         n = 0
         for pool in self.pools:
             for s in pool.slots:
                 if s.active and s.request is not None and s.request.future.cancelled():
-                    s.active, s.request = False, None
+                    s.active, s.request, s.drafted = False, None, False
                     n += 1
         if n:
             self.stats["cancelled_slots"] = self.stats.get("cancelled_slots", 0) + n
@@ -945,7 +1175,7 @@ class BatchedEngine:
             for s in pool.slots:
                 if s.active and s.request is not None:
                     fail(s.request.future)
-                s.active, s.request = False, None
+                s.active, s.request, s.drafted = False, None, False
         backlogs = self._ring_backlog + self._host_backlog
         self._ring_backlog, self._host_backlog = [], []
         for req in backlogs:
@@ -1224,17 +1454,38 @@ class BatchedEngine:
         try:
             self._set_slot_bias(pool, [(s, self._hotword_ids(r.hotwords))
                                        for s, r in zip(slot_list, items)])
+            draft_rows, draft_lens = self._prep_draft_rows(
+                pool, [(s, r.draft_tokens) for s, r in zip(slot_list, items)], B)
             key, fn, bufs = self._prefill_entry(pool, True, bucket, sb, B, len(prefix))
             self._put_all(bufs, prefix_ids=prefix, stream_idx=stream_idx, start_chunk=start,
                           chunk_count=count, suffix_ids=suffixes, suffix_lens=suffix_lens,
                           slots=slot_list + [pool.trash_slot] * (B - len(items)),
-                          budget_vals=budgets)
+                          budget_vals=budgets, draft_rows=draft_rows, draft_lens=draft_lens)
             self.router.run(key, fn, bufs)
         except Exception as e:
             self._fail_group(items, e)
             return
         self._activate(pool, items, slot_list)
         self.stats["ring_prefill_programs"] += 1
+
+    def _prep_draft_rows(self, pool: _CachePool, slot_drafts: list, B: int):
+        """The admit group's draft rows [B, W] and lengths [B] (padding rows
+        empty), and each slot's drafted / spec_rounds. A draft is used when
+        speculative finals are on, it has more than one token and the
+        acceptance EMA is at spec_accept_min or above; its token 0 is
+        dropped (it predicts the prefill's own first token)."""
+        W = pool.state["draft"].shape[1]
+        rows = np.full((B, W), self.cfg.pad_id, np.int32)
+        lens = np.zeros((B,), np.int32)
+        for j, (slot, d) in enumerate(slot_drafts):
+            use = (self.speculative and d is not None and len(d) > 1
+                   and self.spec_accept_ema >= self.spec_accept_min)
+            if use:
+                dd = np.asarray(d, np.int32)[1 : W + 1]
+                rows[j, : len(dd)], lens[j] = dd, len(dd)
+            pool.slots[slot].drafted = bool(use)
+            pool.slots[slot].spec_rounds = -(-int(lens[j]) // self.spec_w) if use else 0
+        return rows, lens
 
     def _hotword_ids(self, hotwords) -> Optional[list[int]]:
         """Token ids to boost (deduped, sorted), None without hotwords."""
@@ -1320,6 +1571,8 @@ class BatchedEngine:
         try:
             self._set_slot_bias(pool, [(s, self._hotword_ids(r.hotwords))
                                        for s, (r, _) in zip(slot_list, items)])
+            draft_rows, draft_lens = self._prep_draft_rows(
+                pool, [(s, r.draft_tokens) for s, (r, _) in zip(slot_list, items)], B)
             key, fn, bufs = self._prefill_entry(pool, False, bucket, sb, B, len(preps[0][3]))
             bufs["mels"].copy_(torch.stack([p[1] for p in preps]))
             self._put_all(
@@ -1328,7 +1581,8 @@ class BatchedEngine:
                 suffix_ids=np.stack([p[4] for p in preps]),
                 suffix_lens=[p[5] for p in preps],
                 slots=slot_list + [pool.trash_slot] * pad,
-                budget_vals=[r.max_new_tokens for r, _ in items] + [0] * pad)
+                budget_vals=[r.max_new_tokens for r, _ in items] + [0] * pad,
+                draft_rows=draft_rows, draft_lens=draft_lens)
             self.router.run(key, fn, bufs)
         except Exception as e:
             self._fail_group([r for r, _ in items], e)
@@ -1352,7 +1606,14 @@ class BatchedEngine:
         min_rem = max(1, min(remaining)) if remaining else 1
         choices = self.dual_k_choices if pool is self.short else _DECODE_K_CHOICES
         k = next((c for c in choices if c >= min_rem), choices[-1])
-        long_quiet = pool is self.long and self._short_quiet() and pool.n_active > 0
+        # an unconfirmed eager final escalates in a quiet window only while
+        # the bets' confirmation EMA is healthy: a lost bet's long program
+        # would hold back the resumed speech's interims
+        spec_escalate = self.eager_accept_ema >= self.eager_accept_min
+        long_quiet = (pool is self.long and self._short_quiet()
+                      and any(s.active and (spec_escalate
+                                            or not getattr(s.request, "speculative", False))
+                              for s in pool.slots))
         waiting = (self._ring_backlog or self._host_backlog or not self._requests.empty()
                    or not self._ring_requests.empty() or not self._vad_ring_requests.empty()
                    or not self._vad_requests.empty())
@@ -1379,28 +1640,81 @@ class BatchedEngine:
                      if r >= high and (k, r) in pool.compiled_decode), None)
 
     def _dispatch_decode_pool(self, pool: _CachePool, parked: list) -> None:
-        """Pick k and rows, replay the pool's decode program and park its
-        status and token rows (host copies after it on the stream, and an
-        event) with the slots' request identities."""
+        """Pick k and rows, replay the pool's decode program (or, with a
+        drafted slot live, its verify program for some rounds) and park its
+        status and token rows."""
         k = self._pick_k(pool)
+        rounds = self._pick_verify_rounds(pool, k)
+        if rounds is not None:
+            rows = self._pick_verify_rows(pool, rounds)
+            self.router.run(self._verify_key(pool, rounds, rows), self._verify_fn(rounds, rows),
+                            pool.state)
+            pool.compiled_verify.add((rounds, rows))
+            self.stats["verify_rounds"] += rounds
+            for s in pool.slots:
+                if s.active and s.drafted:
+                    s.spec_rounds -= rounds
+                    # past the rounds a draft can cover: back to the plain
+                    # ladder without waiting for the (one tick late) flag
+                    if s.spec_rounds <= 0:
+                        s.drafted = False
+            self._park(pool, rounds, parked)
+            return
         rows = self._pick_rows(pool, k)
         self.router.run(("decode", pool.name, k, rows), self._decode_fn(k, rows), pool.state)
         pool.compiled_decode.add((k, rows))
-        self.stats["decode_steps"] += k
+        self._park(pool, k, parked)
+
+    def _park(self, pool: _CachePool, steps: int, parked: list) -> None:
+        """Count a dispatched program's steps and park its status and token
+        rows (host copies after it on the stream, and an event) with the
+        slots' request identities."""
+        self.stats["decode_steps"] += steps
         for s in pool.slots:
             if s.active:
-                s.steps_seen += k
+                s.steps_seen += steps
         status, tokens = self._to_host(pool.state["status"]), self._to_host(pool.state["out"])
         parked.append((pool, status, tokens, self._event(), [s.request for s in pool.slots]))
 
+    def _pick_verify_rounds(self, pool: _CachePool, k: int) -> Optional[int]:
+        """Rounds of the verify program while a drafted slot is live in the
+        long pool, else None (the plain k-step program): the smallest
+        registered choice covering the deepest live draft (any of
+        verify_rounds_choices before one is registered), capped at k (a
+        round costs about a decode step). The short pool never verifies:
+        warmup registers no verify program there, so a drafted short
+        request takes the plain ladder, as on a warmed JAX engine (an
+        unwarmed one would build a short-pool verify program on demand)."""
+        if (not self.speculative or pool is not self.long
+                or not any(s.active and s.drafted for s in pool.slots)):
+            return None
+        choices = (sorted({r for r, rows in pool.compiled_verify if rows is None})
+                   or sorted(self.verify_rounds_choices))
+        needed = max((s.spec_rounds for s in pool.slots if s.active and s.drafted), default=1)
+        cap = max((r for r in choices if r <= k), default=choices[0])
+        return min(next((r for r in choices if r >= min(needed, cap)), cap), cap)
+
+    def _pick_verify_rows(self, pool: _CachePool, rounds: int) -> Optional[int]:
+        """The smallest registered rows rung of the verify program covering
+        every active slot; None = the full pool."""
+        high = max((i + 1 for i, s in enumerate(pool.slots) if s.active), default=0)
+        return next((r for r in pool.rows_ladder
+                     if r >= high and (rounds, r) in pool.compiled_verify), None)
+
     def _reap_decode(self, pool: _CachePool, status: np.ndarray, rows: np.ndarray,
                      reqs: list) -> None:
-        """status and rows come from the same decode: a slot done there stays
-        frozen, so its row is final. Only a slot still holding the request
-        it held at dispatch may be finished."""
+        """status and rows come from the same program: a slot done there
+        stays frozen, so its row is final. Only a slot still holding the
+        request it held at dispatch may be finished. A drafted slot whose
+        status lacks _SPEC_LIVE_FLAG (its draft spent, or a plain program
+        ran) goes back to the plain ladder."""
         for i, s in enumerate(pool.slots):
-            if s.active and s.request is not None and s.request is reqs[i] and status[i] < 0:
+            if not (s.active and s.request is not None and s.request is reqs[i]):
+                continue
+            if status[i] < 0:
                 self._finish(pool, i, rows[i], int(-status[i] - 1))
+            elif s.drafted and status[i] < _SPEC_LIVE_FLAG:
+                s.drafted = False
 
     def _finish(self, pool: _CachePool, slot_idx: int, row: np.ndarray, n_tokens: int) -> None:
         st = pool.slots[slot_idx]
@@ -1430,9 +1744,20 @@ class BatchedEngine:
             lat["run"].append(round((dt - queue_s) * 1e3, 1))
             lat["tokens"].append(n_tokens)
         if pool is self.short:
-            self.short_queue_ema = 0.9 * self.short_queue_ema + 0.1 * queue_s * 1e3
+            self._note_short_queue(queue_s * 1e3)
+        draft = req.draft_tokens
+        if self.speculative and draft is not None and len(draft) > 1:
+            # acceptance: the draft's matching prefix against the output,
+            # which is the greedy one whether or not the draft was spent
+            match = 0
+            for a, b in zip(np.asarray(draft), out):
+                if int(a) != int(b):
+                    break
+                match += 1
+            self.spec_accept_ema = 0.8 * self.spec_accept_ema + 0.2 * match / len(draft)
+            self.stats["spec_accept_ema"] = round(self.spec_accept_ema, 3)
         self.stats["requests"] += 1
         self.stats["tokens"] += n_tokens
-        st.active, st.request = False, None
+        st.active, st.request, st.drafted = False, None, False
         if not req.future.done():
             req.future.get_loop().call_soon_threadsafe(_resolve_quietly, req.future, result)

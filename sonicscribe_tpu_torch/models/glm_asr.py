@@ -11,10 +11,11 @@ held against the JAX functions:
 - the `audio_proj` adapter (frame stacking + 2-layer MLP),
 - a GLM-style decoder-only LM (RMSNorm, partial NeoX RoPE with float32
   angles, GQA with QKV bias, SwiGLU, tied embeddings), float32 logits,
-- an explicit KV cache with `prefill` / `decode_step`.
+- an explicit KV cache with `prefill` / `decode_step`, and `verify_step`
+  (W1 query positions per slot in one pass: speculative verification).
 
-Decode attention goes through ``ops.decode_attention`` (the CUDA kernel on
-the card). Encoder and prefill attention are written as the JAX package
+Decode and verify attention go through ``ops.decode_attention`` (the CUDA
+kernel on the card). Encoder and prefill attention are written as the JAX package
 writes them: einsum, float32 softmax, additive NEG_INF masks.
 
 Every quantizable projection goes through ``ops.quant``: a plain weight is
@@ -23,8 +24,8 @@ in prefill, and the stacked one (or W8A8 when ``act_int8_decode`` is set)
 in the decode step, which hands the kernel the whole stack and a layer
 index.
 
-Unlike JAX, the port updates the KV cache IN PLACE: `prefill` and
-`decode_step` write into the cache tensors they are given, its length
+Unlike JAX, the port updates the KV cache IN PLACE: `prefill`,
+`decode_step` and `verify_step` write into the cache tensors they are given, its length
 included, so a CUDA graph of the decode step reads and writes the same
 cache on every replay (engine/exec_store.py).
 """
@@ -40,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from sonicscribe_tpu_torch.models.config import DecoderConfig, GlmAsrConfig
-from sonicscribe_tpu_torch.ops.decode_attention import decode_attention
+from sonicscribe_tpu_torch.ops.decode_attention import decode_attention, verify_attention
 from sonicscribe_tpu_torch.ops.quant import is_qtensor, matmul, matmul_w8a8
 
 Params = Dict[str, Any]
@@ -395,6 +396,70 @@ def decode_step(
 
     # in place: a CUDA graph of the step carries len from one replay to the next
     cache["len"].copy_(torch.where(active, torch.clamp(pos + 1, max=max_len), pos))
+    return cache, _lm_logits(params, cfg, h)
+
+
+def verify_step(
+    params: Params,
+    cfg: GlmAsrConfig,
+    cache: Cache,
+    tokens: torch.Tensor,  # [B, W1]: x_0 (the last emitted token) + W draft tokens
+) -> Tuple[Cache, torch.Tensor]:
+    """One speculative verification step: W1 query positions per slot in
+    one forward pass. -> (cache, logits [B, W1, V] float32); logits[:, j] is
+    the next-token distribution after x_0..x_j, the pick the sequential
+    decode_step would make there.
+
+    K/V of all W1 inputs are written IN PLACE at positions len..len+W1-1,
+    as the JAX package's verify_step writes them (the same QKV and RoPE
+    helpers as decode_step, K/V cast to the cache dtype before attention);
+    query j attends to the positions <= len+j through
+    ops.decode_attention.verify_attention. ``cache["len"]`` is left as it
+    was: the caller advances it by what it accepts.
+
+    JAX drops the writes past the cache's end (mode="drop"). Here they are
+    aimed at position max_len-1, each carrying the value the row's
+    in-range write puts there (or the value already there when the row has
+    none), so that duplicate indices store equal values whatever order the
+    device writes them in.
+    """
+    dec = cfg.decoder
+    B, W1 = tokens.shape
+    k_all, v_all = cache["k"], cache["v"]
+    max_len = k_all.shape[2]
+    device = k_all.device
+    pos0 = cache["len"]  # [B]
+    j_idx = torch.arange(W1, device=device)
+    qpos = pos0.long()[:, None] + j_idx[None, :]  # [B, W1]
+
+    x = embed_tokens(params, tokens)  # [B, W1, D]
+    cos, sin, rot = _rope_tables(dec, qpos)  # [B, W1, rot//2]
+
+    rows = torch.arange(B, device=device)[:, None]
+    write_at = torch.clamp(qpos, max=max_len - 1)
+    # the input each write takes: its own, or for a write past the end the
+    # one that lands on max_len-1 in range (j = max_len-1-len)
+    j_last = torch.clamp(max_len - 1 - pos0.long(), 0, W1 - 1)
+    src = torch.where(qpos < max_len, j_idx[None, :], j_last[:, None])
+    src = src[:, :, None, None].expand(B, W1, dec.n_kv_heads, dec.head_dim)
+    full = (pos0 >= max_len)[:, None, None, None]  # no write in range: keep the old value
+
+    mm = matmul_w8a8 if dec.act_int8_decode else matmul
+    h = x
+    for i in range(dec.n_layers):
+        lp = _layer(params["decoder"]["layers"], i, whole_qtensors=True)
+        k_cache, v_cache = k_all[i], v_all[i]
+        hn = _rms_norm(h, lp["ln1_scale"], dec.rms_eps)
+        q, k_new, v_new = _decoder_qkv(lp, hn, dec, mm)  # [B, W1, nh | nkv, hd]
+        q = _apply_rope(q, cos, sin, rot)
+        k_new = _apply_rope(k_new, cos, sin, rot).to(k_cache.dtype)
+        v_new = v_new.to(v_cache.dtype)
+        k_cache[rows, write_at] = torch.where(full, k_cache[rows, write_at], k_new.gather(1, src))
+        v_cache[rows, write_at] = torch.where(full, v_cache[rows, write_at], v_new.gather(1, src))
+
+        ctx = verify_attention(q, k_cache, v_cache, pos0).to(h.dtype)  # [B, W1, nh*hd]
+        h = h + mm(ctx, lp["o_w"])
+        h = _decoder_layer_mlp(h, lp, dec, mm)
     return cache, _lm_logits(params, cfg, h)
 
 

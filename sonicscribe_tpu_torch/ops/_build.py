@@ -36,7 +36,7 @@ KERNELS = ("decode_attention", "log_mel", "int8_matmul", "int4_matmul")  # csrc/
 # launches per wrapper: each adds one where it launches its kernel
 launch_counts: dict[str, int] = {
     name: 0 for name in (
-        "decode_attention", "log_mel",
+        "decode_attention", "verify_attention", "log_mel",
         "int8_matmul", "int8_matmul_stacked", "int8_matmul_w8a8",  # csrc/int8_matmul.cu
         "int8_matmul_mma",  # the flat launches that took the tensor-core design
         "int8_matmul_w8a8_mma",  # the W8A8 launches on the s8 tensor cores

@@ -1,13 +1,18 @@
-"""Decode attention: one query position per slot against its KV cache.
+"""Decode attention: one query position per slot against its KV cache;
+verify attention: W1 query positions per slot.
 
-Port of the TPU kernel ``sonicscribe_tpu/ops/decode_attention.py``
-(``flash_decode_attention``). ``decode_attention`` launches the
-hand-written CUDA kernel ``csrc/decode_attention.cu`` for tensors on the
-card and runs ``decode_attention_plain`` for tensors on the CPU; there is
-no other fallback. Unlike the Pallas kernel it takes any cache length M.
+``decode_attention`` is the port of the TPU kernel
+``sonicscribe_tpu/ops/decode_attention.py`` (``flash_decode_attention``).
+``verify_attention`` is the attention of the JAX package's verify step
+(``models/glm_asr.py:verify_step``, which XLA computes there): query j of
+slot s sees the positions <= lens[s] + j. Each launches the hand-written
+CUDA kernel ``csrc/decode_attention.cu`` for tensors on the card and runs
+its plain version for tensors on the CPU; there is no other fallback.
+Unlike the Pallas kernel they take any cache length M.
 
 The kernel splits the cache positions over blocks (split-KV) and merges
-the splits in a second pass; ``split_shape`` picks the split and
+the splits in a second pass; ``split_shape`` picks the split (for W1 > 1
+``verify_split_shape``, whose chunk fits the shared-memory stage) and
 ``scratch_numel`` sizes the merge's float32 scratch.
 """
 
@@ -26,6 +31,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BLOCKS_PER_SM = 2  # aim: about this many split blocks per SM
 CHUNK_MULTIPLE = 32  # positions per split: a multiple of one pass (8 groups x 4)
 MAX_SPLITS = 128  # csrc/decode_attention.cu kMaxSplits
+STAGE_BYTES = 80 * 1024  # csrc/decode_attention.cu kMaxStageBytes: K and V of a staged chunk
 
 
 def decode_attention_plain(q, k_cache, v_cache, lens) -> torch.Tensor:
@@ -49,6 +55,25 @@ def decode_attention_plain(q, k_cache, v_cache, lens) -> torch.Tensor:
     return torch.einsum("skgm,smkd->skgd", attn, v_cache.float()).reshape(S, nh * hd)
 
 
+def verify_attention_plain(q, k_cache, v_cache, lens) -> torch.Tensor:
+    """The masked attention of the JAX package's verify step
+    (models/glm_asr.py:verify_step's layer body), in float32.
+
+    q [S, W1, nh, hd]; k/v_cache [S, M, nkv, hd] holding this step's K/V at
+    lens[s] + j; lens [S] int -> ctx [S, W1, nh*hd] float32. Query j of
+    slot s attends to the positions <= lens[s] + j (all M past the end).
+    """
+    S, W1, nh, hd = q.shape
+    M, nkv = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(S, W1, nkv, nh // nkv, hd).float()
+    scores = torch.einsum("sqkgd,smkd->skgqm", qg, k_cache.float()) * (1.0 / math.sqrt(hd))
+    qpos = lens.to(q.device, torch.long)[:, None] + torch.arange(W1, device=q.device)[None, :]
+    valid = torch.arange(M, device=q.device)[None, None, :] <= qpos[:, :, None]  # [S, W1, M]
+    scores = torch.where(valid[:, None, None], scores, NEG_INF)
+    attn = torch.softmax(scores, dim=-1)
+    return torch.einsum("skgqm,smkd->sqkgd", attn, v_cache.float()).reshape(S, W1, nh * hd)
+
+
 def split_shape(S: int, M: int, nkv: int, n_sms: int) -> tuple[int, int]:
     """-> (chunk, splits): split `s` of every (slot, KV head) covers the
     positions [s * chunk, min((s + 1) * chunk, n)) of a slot that sees n =
@@ -62,25 +87,40 @@ def split_shape(S: int, M: int, nkv: int, n_sms: int) -> tuple[int, int]:
     return chunk, -(-M // chunk)
 
 
+def verify_split_shape(S: int, W1: int, M: int, nkv: int, hd: int, esize: int,
+                       n_sms: int) -> tuple[int, int]:
+    """-> (chunk, splits) of a verify launch: split_shape's at W1 = 1 (the
+    decode kernel, bit for bit); above, its chunk cut to the largest
+    multiple of CHUNK_MULTIPLE whose K and V rows fit STAGE_BYTES, so that
+    the kernel stages each split in shared memory once for all W1 queries
+    (the uncut split where that would pass MAX_SPLITS)."""
+    chunk, splits = split_shape(S, M, nkv, n_sms)
+    cap = STAGE_BYTES // (2 * hd * esize) // CHUNK_MULTIPLE * CHUNK_MULTIPLE
+    if W1 == 1 or cap < CHUNK_MULTIPLE or chunk <= cap or -(-M // cap) > MAX_SPLITS:
+        return chunk, splits
+    return cap, -(-M // cap)
+
+
 def scratch_numel(S: int, nkv: int, splits: int, g: int, hd: int) -> int:
     """float32 scratch of one launch: each split's unnormalised context
-    [S, nkv, splits, g, hd], then its (max, denominator) [S, nkv, splits, g, 2]."""
+    [S, nkv, splits, g, hd], then its (max, denominator) [S, nkv, splits, g, 2].
+    A verify launch has S * W1 rows."""
     return S * nkv * splits * g * (hd + 2)
 
 
 @functools.cache
 def _lib():
-    fn = _build.load("decode_attention").decode_attention
+    fn = _build.load("decode_attention").attention
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, L, L, L, L, ctypes.c_float, I, I, P]
+    fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, L, L, L, L, L, ctypes.c_float, I, I, P]
     fn.restype = ctypes.c_int
     return fn
 
 
-def decode_attention_cuda(q, k_cache, v_cache, lens) -> torch.Tensor:
-    """Launch the CUDA kernel; shapes as decode_attention_plain. Raises on
-    any input the kernel does not take, and on a failed launch."""
-    S, nh, hd = q.shape
+def _check_inputs(q, k_cache, v_cache, lens) -> tuple[int, int, int]:
+    """Raise on any input the kernel does not take; q [S, W1, nh, hd].
+    -> (M, nkv, g)."""
+    S, _, nh, hd = q.shape
     if k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"k/v caches must share a [S, M, nkv, hd] shape, got "
                          f"{tuple(k_cache.shape)} and {tuple(v_cache.shape)}")
@@ -98,26 +138,48 @@ def decode_attention_cuda(q, k_cache, v_cache, lens) -> torch.Tensor:
     if lens.dtype != torch.int32 or lens.shape != (S,) or not lens.is_contiguous():
         raise TypeError(f"lens must be a contiguous int32 [S], got {lens.dtype} "
                         f"{tuple(lens.shape)}")
-    if q.stride(2) != 1 or q.stride(1) != hd:
+    if q.stride(3) != 1 or q.stride(2) != hd:
         raise ValueError("q rows must be contiguous [nh, hd]")
     if k_cache.stride() != v_cache.stride() or k_cache.stride(3) != 1:
         raise ValueError("k/v caches must share strides with a contiguous last dim")
-    g = nh // nkv
-    chunk, splits = split_shape(S, M, nkv, _build.n_sms(q.device))
-    out = torch.empty((S, nh * hd), device=q.device, dtype=torch.float32)
-    scratch = torch.empty(scratch_numel(S, nkv, splits, g, hd), device=q.device,
+    return M, nkv, nh // nkv
+
+
+def _launch(name: str, q, k_cache, v_cache, lens) -> torch.Tensor:
+    """One launch of the kernel on q [S, W1, nh, hd] (checked; the split
+    from verify_split_shape, split_shape's at W1 = 1), counted as `name`
+    -> out [S, W1, nh*hd] float32."""
+    M, nkv, g = _check_inputs(q, k_cache, v_cache, lens)
+    S, W1, nh, hd = q.shape
+    chunk, splits = verify_split_shape(S, W1, M, nkv, hd, q.element_size(),
+                                       _build.n_sms(q.device))
+    out = torch.empty((S, W1, nh * hd), device=q.device, dtype=torch.float32)
+    scratch = torch.empty(scratch_numel(S * W1, nkv, splits, g, hd), device=q.device,
                           dtype=torch.float32)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib()(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), scratch.data_ptr(), _DTYPES[q.dtype], S, M, nkv, g, hd,
-        q.stride(0), k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
-        1.0 / math.sqrt(hd), chunk, splits, stream,
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), _DTYPES[q.dtype], S, W1, M, nkv, g, hd, q.stride(0), q.stride(1),
+        k_cache.stride(0), k_cache.stride(1), k_cache.stride(2), 1.0 / math.sqrt(hd), chunk,
+        splits, stream,
     )
     if err != 0:
-        raise RuntimeError(f"decode_attention kernel launch failed: cudaError {err}")
-    _build.launch_counts["decode_attention"] += 1
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    _build.launch_counts[name] += 1
     return out
+
+
+def decode_attention_cuda(q, k_cache, v_cache, lens) -> torch.Tensor:
+    """Launch the CUDA kernel; shapes as decode_attention_plain. Raises on
+    any input the kernel does not take, and on a failed launch."""
+    return _launch("decode_attention", q[:, None], k_cache, v_cache, lens)[:, 0]
+
+
+def verify_attention_cuda(q, k_cache, v_cache, lens) -> torch.Tensor:
+    """Launch the CUDA kernel with W1 query positions; shapes as
+    verify_attention_plain. Raises on any input the kernel does not take,
+    and on a failed launch."""
+    return _launch("verify_attention", q, k_cache, v_cache, lens)
 
 
 def decode_attention(q, k_cache, v_cache, lens) -> torch.Tensor:
@@ -126,3 +188,11 @@ def decode_attention(q, k_cache, v_cache, lens) -> torch.Tensor:
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, lens)
     return decode_attention_cuda(q, k_cache, v_cache, lens)
+
+
+def verify_attention(q, k_cache, v_cache, lens) -> torch.Tensor:
+    """ctx [S, W1, nh*hd] float32: the CUDA kernel for tensors on the card,
+    the plain version for tensors on the CPU."""
+    if q.device.type == "cpu":
+        return verify_attention_plain(q, k_cache, v_cache, lens)
+    return verify_attention_cuda(q, k_cache, v_cache, lens)

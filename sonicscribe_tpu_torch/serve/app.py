@@ -489,8 +489,10 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description="SonicScribe server (PyTorch/CUDA port)")
     parser.add_argument("--host", default=None)
     parser.add_argument("--port", type=int, default=None)
-    parser.add_argument("--model", default="tiny-random",
-                        help="'tiny-random' | 'nano-random' | native checkpoint dir")
+    parser.add_argument("--model", default=None,
+                        help="'tiny-random' | 'nano-random' | native checkpoint dir "
+                             "(default: $CHECKPOINT_PATH if that directory exists, else "
+                             "tiny-random)")
     parser.add_argument("--vad", default="energy", help="'energy'")
     parser.add_argument(
         "--quant", default=None,
@@ -514,6 +516,9 @@ def main(argv=None):
         config.port = args.port
     if args.quant:
         config.quant_mode = args.quant
+    if args.model is None:
+        args.model = (config.checkpoint_path if os.path.isdir(config.checkpoint_path)
+                      else "tiny-random")
     logging.basicConfig(
         level=getattr(logging, config.log_level.upper(), logging.INFO),
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",

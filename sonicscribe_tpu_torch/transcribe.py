@@ -9,9 +9,9 @@ Counterpart of the JAX package's ``transcribe.py`` (the reference's
 
 The messages are those of ``POST /transcribe/file?stream=true``
 (``serve/files.py:transcribe_file_stream``), one JSON object per line.
-It runs the threaded engine: one file's segments gain little from the
-batcher's slots, and the threaded engine captures a smaller grid. (The
-JAX CLI runs the batched engine; the server here does too.)
+It runs the batched engine, as the JAX CLI and the server do: a file's
+segments decode side by side on its slots. Without a warmup, each program
+key is captured on its first use.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from sonicscribe_tpu_torch.serve.runtime import QUANT_MODES
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        description="SonicScribe file transcription (PyTorch/CUDA port; threaded engine)")
+        description="SonicScribe file transcription (PyTorch/CUDA port)")
     ap.add_argument("audio", help="path to an audio file (WAV preferred)")
     ap.add_argument("--model", default="tiny-random",
                     help="'tiny-random' | 'nano-random' | native checkpoint dir")
@@ -49,7 +49,7 @@ def main(argv=None) -> int:
     config = AppConfig()
     config.quant_mode = args.quant
     engine, vad, info = build_runtime(args.model, "energy", config, device=args.device,
-                                      engine_kind="threaded")
+                                      engine_kind="batched")
     try:
         if args.info:
             print(json.dumps(info))

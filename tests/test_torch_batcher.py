@@ -89,13 +89,11 @@ def stack():
 
 
 def _engines(stack, **kw):
-    """(JAX BatchedEngine, port BatchedEngine) over the stack's transcribers;
-    the JAX engine's speculative verify off (drafts are ignored in the
-    port; greedy tokens are the same either way)."""
+    """(JAX BatchedEngine, port BatchedEngine) over the stack's
+    transcribers, speculative finals on in both (their default)."""
     tr_j, tr = stack
-    eng_j = BatchedEngineJax(tr_j, EnergyVadJax(), **kw)
-    eng_j.speculative = False
-    return eng_j, BatchedEngine(tr, EnergyVad(device="cpu"), **kw)
+    return BatchedEngineJax(tr_j, EnergyVadJax(), **kw), BatchedEngine(tr, EnergyVad(device="cpu"),
+                                                                       **kw)
 
 
 def _both(stack, run, **kw):
@@ -377,14 +375,45 @@ def test_build_runtime_and_cli_default_to_batched(monkeypatch):
     assert kinds == ["batched", "threaded"]
 
 
+def test_server_model_defaults_to_checkpoint_path(monkeypatch, tmp_path):
+    """Without --model the server serves $CHECKPOINT_PATH when that
+    directory exists, else tiny-random (as the JAX server does); --model
+    wins over both."""
+    models = []
+
+    class Built(Exception):
+        pass
+
+    def fake_build_runtime(model, *a, **kw):
+        models.append(model)
+        raise Built
+
+    monkeypatch.setattr(app_module, "build_runtime", fake_build_runtime)
+    ckpt = tmp_path / "ckpt"
+    monkeypatch.setenv("CHECKPOINT_PATH", str(ckpt))
+    for argv in (["--device", "cpu"], ["--device", "cpu", "--model", "nano-random"]):
+        with pytest.raises(Built):
+            app_module.main(argv)
+    ckpt.mkdir()
+    for argv in (["--device", "cpu"], ["--device", "cpu", "--model", "nano-random"]):
+        with pytest.raises(Built):
+            app_module.main(argv)
+    assert models == ["tiny-random", "nano-random", str(ckpt), "nano-random"]
+
+
 @pytest.fixture(scope="module")
 def serving(stack):
-    """(JAX BatchedEngine, port BatchedEngine) with 4 slots and 4 streams;
-    the JAX eager-finals gate always open: the port has none (a session
-    takes its absence as "allowed"), and a closed gate commits another
-    audio range."""
+    """(JAX BatchedEngine, port BatchedEngine) with 4 slots and 4 streams,
+    each with its own eager-finals gate. The gate reads two wall-clock
+    measures, so both engines get the same ones: every bet's outcome folds
+    at once (eager_window_s 0), and the interim admission wait's EMA is
+    pinned at 0 ms (under its budget: slack), each reaped interim's wait
+    not folded in."""
     eng_j, eng = _engines(stack, slots=4, max_decode_tokens=256, n_streams=4)
-    eng_j.eager_ok = lambda: True
+    for e in (eng_j, eng):
+        e.eager_window_s = 0.0
+        e.short_queue_ema = 0.0
+        e._note_short_queue = lambda q_ms: None
     yield eng_j, eng
     eng_j.shutdown()
     eng.shutdown()
@@ -447,15 +476,21 @@ async def _drive(session_cls, cfg, engine, frames) -> list[dict]:
 
 async def test_stream_session_messages_match_jax(serving):
     """Two utterances through a StreamSession on each batched engine (the
-    ring path: ingest, ring VAD, ring interims, eager finals): every
-    message equal on a stepped clock."""
+    ring path: ingest, ring VAD, ring interims, eager finals through the
+    gate, drafted finals on the verify program): every message equal on a
+    stepped clock."""
     eng_j, eng = serving
     pcm = _pcm(np.concatenate([_silence(0.7, 11), _speech(2.3, 12), _silence(2.0, 13),
                                _speech(1.4, 14), _silence(2.0, 15)]))
     frames = [pcm[i : i + 2 * CHUNK].ljust(2 * CHUNK, b"\0") for i in range(0, len(pcm), 2 * CHUNK)]
+    rounds0, granted0 = eng.stats["verify_rounds"], eng.stats["eager_granted"]
     want = await _drive(StreamSessionJax, AppConfigJax(), eng_j, frames)
     got = await _drive(StreamSession, AppConfig(), eng, frames)
     assert got == want
+    # both finals launched eagerly through the gate, and their drafts (the
+    # banked interims) went through the verify program
+    assert eng.stats["eager_granted"] - granted0 == 2
+    assert eng.stats["verify_rounds"] > rounds0
     kinds = [m["type"] for m in got]
     assert kinds.count("committed_output") == 2 and "tentative_output" in kinds
     assert any(m["text"] for m in got if m["type"] == "committed_output")

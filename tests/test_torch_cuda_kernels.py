@@ -33,6 +33,8 @@ from sonicscribe_tpu_torch.ops.decode_attention import (
     decode_attention,
     decode_attention_plain,
     split_shape,
+    verify_attention,
+    verify_attention_plain,
 )
 from sonicscribe_tpu_torch.ops.int4_matmul import (
     int4_matmul,
@@ -125,6 +127,39 @@ def test_decode_attention_is_deterministic(cuda, dtype):
     q, k, v = _attention_inputs(cuda, dtype, 4, 1024, seed=9)
     lens = torch.tensor([5, 300, 677, 1023], dtype=torch.int32, device=cuda)
     assert torch.equal(decode_attention(q, k, v, lens), decode_attention(q, k, v, lens))
+
+
+def _verify_lens(S, M, g, device):
+    """The chip phase's lens: 674 at S 1; mixed at S 4; at S 33 mixed with
+    some slots past M - W1 (their writes past the end), one at M."""
+    if S == 1:
+        return torch.tensor([674], dtype=torch.int32, device=device)
+    if S == 4:
+        return torch.tensor([0, 300, 795, M - 1], dtype=torch.int32, device=device)
+    lens = torch.randint(0, M, (S,), generator=g, device=device)
+    lens[:6] = torch.tensor([0, M - 1, M - 3, M - 9, M - 5, M])
+    return lens.to(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 4, 33])
+@pytest.mark.parametrize("W1", [9, 1])
+def test_verify_attention_kernel(cuda, dtype, S, W1):
+    """The verify kernel at nano's heads and the long pool's M = 803
+    against its plain version (float32 sums in another order); at W1 = 1
+    it is the decode kernel, bit for bit."""
+    M = 803
+    g = torch.Generator(device=cuda).manual_seed(S * 10 + W1)
+    _, k, v = _attention_inputs(cuda, dtype, S, M, seed=S + W1)
+    q = torch.randn((S, W1, 16, 128), generator=g, device=cuda).to(dtype)
+    lens = _verify_lens(S, M, g, cuda)
+    before = dict(_build.launch_counts)
+    got = verify_attention(q, k, v, lens)
+    assert _build.launch_counts["verify_attention"] == before["verify_attention"] + 1
+    assert _build.launch_counts["decode_attention"] == before["decode_attention"]
+    torch.testing.assert_close(got, verify_attention_plain(q, k, v, lens), rtol=0, atol=2e-5)
+    if W1 == 1:
+        assert torch.equal(got[:, 0], decode_attention(q[:, 0], k, v, lens))
 
 
 def _speech(sec, seed):

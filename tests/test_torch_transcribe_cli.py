@@ -1,13 +1,14 @@
 """The port's file CLI (`python -m sonicscribe_tpu_torch.transcribe`), run in a
 subprocess that blocks every import of JAX and of the JAX package: its
 NDJSON lines equal those of the port's `transcribe_file_stream` on a runtime
-built the same way (same model spec, same seed) in the test process. The
-model is tiny-random, or a checkpoint of tiny() written by the JAX
-package with its weights scaled by 4, whose texts are not empty. On that
-checkpoint the lines also equal those of the JAX package's file pipeline
-(its `build_runtime` with the threaded engine, `decode_audio` and
+built the same way (same model spec, same seed, the batched engine) in the
+test process. The model is tiny-random, or a checkpoint of tiny() written
+by the JAX package with its weights scaled by 4, whose texts are not empty.
+On that checkpoint the lines also equal those of the JAX CLI's pipeline
+(its `build_runtime` with the batched engine, `decode_audio` and
 `transcribe_file_stream`, as its own CLI runs them) on the same WAV: the
-segment plan, each segment's text and the full text."""
+segment plan, each segment's text and the full text. The CLI builds the
+batched engine, as the JAX CLI does."""
 
 import asyncio
 import json
@@ -33,6 +34,8 @@ from sonicscribe_tpu_torch.audio.wav import write_wav
 from sonicscribe_tpu_torch.config import AppConfig
 from sonicscribe_tpu_torch.serve.decode import decode_audio
 from sonicscribe_tpu_torch.serve.files import FileTranscriptionConfig, transcribe_file_stream
+from sonicscribe_tpu_torch import transcribe as cli_module
+from sonicscribe_tpu_torch.serve import runtime as runtime_module
 from sonicscribe_tpu_torch.serve.runtime import build_runtime
 
 SR = 16000
@@ -99,7 +102,7 @@ def _in_process(model, path, vad: bool, hotwords: list[str], quant: str) -> list
     config = AppConfig()
     config.quant_mode = quant
     engine, vad_model, _ = build_runtime(model, "energy", config, device="cpu",
-                                         engine_kind="threaded")
+                                         engine_kind="batched")
     try:
         audio = decode_audio(path.read_bytes(), str(path), engine.transcriber.device)
         file_cfg = FileTranscriptionConfig(vad_enabled=vad, hotwords=hotwords,
@@ -115,12 +118,11 @@ def _in_process(model, path, vad: bool, hotwords: list[str], quant: str) -> list
 
 
 def _jax_pipeline(path, wav_path, vad: bool, hotwords: list[str], quant: str) -> list[dict]:
-    """The JAX package's file pipeline on the checkpoint at `path`, with
-    the threaded engine (its CLI asks for the batched one, which the port
-    does not have)."""
+    """The JAX CLI's file pipeline on the checkpoint at `path`: its
+    build_runtime with the batched engine."""
     config = AppConfigJax()
     config.quant_mode = quant
-    engine, vad_model, _ = build_runtime_jax(path, "energy", config, "threaded")
+    engine, vad_model, _ = build_runtime_jax(path, "energy", config, "batched")
     try:
         audio = decode_audio_jax(wav_path.read_bytes(), str(wav_path))
         file_cfg = FileCfgJax(vad_enabled=vad, hotwords=hotwords, max_new_tokens=MAX_NEW)
@@ -174,6 +176,24 @@ def test_cli_info(wav_path):
     config = AppConfig()
     config.quant_mode = "int8"
     engine, _, info = build_runtime("tiny-random", "energy", config, device="cpu",
-                                    engine_kind="threaded")
+                                    engine_kind="batched")
     engine.shutdown()
     assert json.loads(lines[0]) == info and info["quant_mode"] == "int8"
+    assert info["engine"] == "batched"
+
+
+def test_cli_builds_the_batched_engine(monkeypatch, wav_path):
+    """main asks build_runtime for the batched engine, as the JAX CLI does."""
+    asked = []
+
+    class Built(Exception):
+        pass
+
+    def fake_build_runtime(model, vad, config, device=None, engine_kind="batched", **kw):
+        asked.append((model, engine_kind, device))
+        raise Built
+
+    monkeypatch.setattr(runtime_module, "build_runtime", fake_build_runtime)
+    with pytest.raises(Built):
+        cli_module.main([str(wav_path), "--device", "cpu"])
+    assert asked == [("tiny-random", "batched", "cpu")]
