@@ -19,13 +19,15 @@ exits non-zero on failure:
    also at lens on either side of a split boundary, and two launches on the
    same inputs must give the same bits; verify attention, its W1-query
    form, at S 1, 4 and 33, M 803, W1 9 and 1, lens past M - W1 at S 33,
-   and at W1 1 equal, bit for bit, to decode attention); then its time
+   each bf16 W1 9 launch on the tensor-core kernel, and at W1 1 equal, bit
+   for bit, to decode attention); then its time
    beside its plain version's, a PyTorch library call's (a yardstick the
    port never calls) and its bound at the H100's 3.35 TB/s and its peak
    rate for the work's type (NVIDIA data sheet, SXM): 67 TFLOP/s float32
    on the CUDA cores for decode attention (verify attention: 989 TFLOP/s
-   bf16, where the tensor cores could run its products, with the float32
-   figure printed beside); for the mel the lesser of that
+   bf16 on the tensor cores, which run its products, with the float32
+   figure printed beside, and its float32 form timed alone); for the mel
+   the lesser of that
    and three passes at 495 TFLOP/s TF32 (its 3xTF32 DFT), both printed;
    989 TFLOP/s bf16 and 1979 TOP/s int8 on the tensor cores for the int8
    and int4 products (W8A16, W4A16 and W8A8, W4A8), which the tensor cores
@@ -158,7 +160,8 @@ exits non-zero on failure:
    drafted runs and the streams, and read after: log_mel once per
    prepared host request and per ring prefill program, decode attention
    once per layer per plain pool decode step, verify attention once per
-   layer per verify round; over both modes W8A8 ran in both designs.
+   layer per verify round, every one on the tensor cores
+   (verify_attention_mma); over both modes W8A8 ran in both designs.
 
 A line `captured {...}` holds phase 3's numbers by mode (grid, requests
 eager and captured), `batched {...}` phase 5's. The line before the last
@@ -170,7 +173,8 @@ on the batched paths (`batched_launches`), decode attention, log_mel and the
 stacked W8A16 and W8A8 entries also with
 their batched shapes' numbers (`batched_shapes`); the redesigned ones with
 their design; the flat W8A16, W8A8 and the four int4 entries with
-`mma_launches`, the launches that took the tensor cores); the last line is
+`mma_launches`, the launches that took the tensor cores, verify attention
+with `mma_launches` of its drafted runs); the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no result.
 """
 
@@ -220,7 +224,7 @@ VERIFY_M = 803  # the long pool's cache length at nano
 THREADED_TOKENS: dict = {}
 # a profile's kernels by part of the model, by name
 KERNEL_PARTS = {
-    "attention": ("decode_attention",),
+    "attention": ("decode_attention", "verify_attention"),
     "projections": ("nvjet", "gemm", "splitk::", "w8a16", "w8a8", "cutlass", "sm90_xmma"),
     "elementwise": ("at::native",),
     "other": (),
@@ -525,29 +529,33 @@ def verify_lens(torch, S: int, gen):
 
 
 def verify_kernel_phase(torch, timer) -> dict:
-    """verify_attention (csrc/decode_attention.cu's verify entry) against
+    """verify_attention (csrc/decode_attention.cu's verify entries) against
     verify_attention_plain at nano's heads and M = VERIFY_M, S 1, 4 and 33
     (verify_lens), W1 = VERIFY_W1 and 1, float32 and bf16, within ATTN_TOL;
-    at W1 = 1 equal, bit for bit, to decode_attention on the same inputs.
-    Then, in bf16, each case's time (cold L2, median of 30) beside the plain
+    each bf16 W1 = VERIFY_W1 launch on the tensor-core kernel
+    (verify_attention_mma counts it), no other; at W1 = 1 equal, bit for
+    bit, to decode_attention on the same inputs. The float32 W1 =
+    VERIFY_W1 cases are timed alone (the CUDA-core kernel, tiny's on the
+    card). Then, in bf16, each case's time (cold L2, median of 30) beside the plain
     version's, SDPA's with the equivalent boolean mask (a yardstick the port
     never calls) and its bound: the bytes (q, each slot's K/V rows up to
     its last query's position, out) at 3.35 TB/s against the operations
     (4 * nh * hd per query and position it sees) at 989 TFLOP/s bf16 on the
-    tensor cores, where the card could run the two products; the float32
-    CUDA-core figure (67 TFLOP/s, the kernel's own arithmetic) printed
-    beside. -> {"max_abs_err", "shapes": {case: numbers}, "main": the S 1,
-    W1 9 case's numbers (a single drafted final: the rows = 1 program)}."""
+    tensor cores, which run the two products (three bf16 parts of P: the
+    bound counts the work once); the float32 CUDA-core figure (67
+    TFLOP/s) printed beside. -> {"max_abs_err", "shapes": {case:
+    numbers}, "main": the S 1, W1 9 case's numbers (a single drafted
+    final: the rows = 1 program)}."""
     import torch.nn.functional as F
 
     from sonicscribe_tpu_torch.models.config import nano
     from sonicscribe_tpu_torch.ops import _build
     from sonicscribe_tpu_torch.ops.decode_attention import (
-        STAGE_BYTES,
         decode_attention_cuda,
+        split_shape,
         verify_attention_cuda,
         verify_attention_plain,
-        verify_split_shape,
+        verify_uses_mma,
     )
 
     dec = nano().decoder
@@ -563,9 +571,13 @@ def verify_kernel_phase(torch, timer) -> dict:
             v = torch.randn((2, S, M, nkv, hd), generator=gen, device="cuda").to(dtype)[1]
             for W1 in (VERIFY_W1, 1):
                 q = torch.randn((S, W1, nh, hd), generator=gen, device="cuda").to(dtype)
-                got = verify_attention_cuda(q, k, v, lens)
-                err = (got - verify_attention_plain(q, k, v, lens)).abs().max().item()
                 case = f"S={S} W1={W1} {str(dtype)[6:]}"
+                mma0 = _build.launch_counts["verify_attention_mma"]
+                got = verify_attention_cuda(q, k, v, lens)
+                mma = _build.launch_counts["verify_attention_mma"] - mma0
+                check(mma == (dtype == torch.bfloat16 and W1 > 1) == verify_uses_mma(q),
+                      f"verify_attention {case}: {mma} tensor-core launches")
+                err = (got - verify_attention_plain(q, k, v, lens)).abs().max().item()
                 check(np.isfinite(err) and err <= ATTN_TOL,
                       f"verify_attention {case} lens {lens.tolist()}: max err {err} > {ATTN_TOL}")
                 err_max = max(err_max, err)
@@ -573,6 +585,11 @@ def verify_kernel_phase(torch, timer) -> dict:
                     check(torch.equal(got[:, 0], decode_attention_cuda(q[:, 0], k, v, lens)),
                           f"verify_attention {case}: differs from decode_attention")
                 if dtype != torch.bfloat16:
+                    if W1 > 1:
+                        ms = timer.ms(lambda: verify_attention_cuda(q, k, v, lens))
+                        shapes[f"S{S}_W{W1}_f32"] = dict(ms=ms, err=err)
+                        log(f"verify_attention {case} M={M}: kernel {ms:.4f} ms (CUDA cores), "
+                            f"max abs err {err:.3g}")
                     continue
                 qpos = lens.long()[:, None] + torch.arange(W1, device="cuda")[None, :]
                 mask = (torch.arange(M, device="cuda")[None, None, :] <= qpos[:, :, None])[:, None]
@@ -587,20 +604,24 @@ def verify_kernel_phase(torch, timer) -> dict:
                 flops = 4 * nh * hd * float(seen.sum())
                 b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S)
                 f32_ms, f32_by = bound_ms(n_bytes, flops)
-                chunk, splits = verify_split_shape(S, W1, M, nkv, hd, 2, n_sms)
-                staged = W1 > 1 and 2 * chunk * hd * 2 <= STAGE_BYTES
+                chunk, splits = split_shape(S, M, nkv, n_sms)
+                rows = W1 * (nh // nkv)
                 design = (f"{splits} splits of {chunk} positions x {nkv} KV heads x {S} slots, "
-                          + (f"each split's K/V staged in shared memory once for the {W1} "
-                             f"query tiles" if staged else "the decode kernel"))
+                          + (f"the {rows} query rows of a KV head as {-(-rows // 16)} m16 tiles "
+                             f"on the bf16 tensor cores (mma.sync m16n8k16; P in three bf16 "
+                             f"parts) over a 3-stage ring of 32-position K/V tiles"
+                             if W1 > 1 else "the decode kernel"))
                 log(f"verify_attention {case} M={M} lens {'mixed' if S > 1 else lens.tolist()} "
-                    f"({design}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA (masked) "
+                    f"({design}): max abs err {err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                    f"ms, SDPA (masked) "
                     f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}; float32 CUDA cores "
                     f"{f32_ms:.5f} ms, {f32_by})")
                 shapes[f"S{S}_W{W1}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                             bound_ms=b_ms, bound_by=b_by, bound_f32_ms=f32_ms,
-                                            design=design)
+                                            err=err, design=design)
     log(f"verify_attention: max abs err {err_max:.3g} <= {ATTN_TOL} (f32 and bf16, S 1, 4, 33, "
-        f"W1 {VERIFY_W1} and 1, lens past M - W1 at S 33); at W1 = 1 equal to decode_attention")
+        f"W1 {VERIFY_W1} and 1, lens past M - W1 at S 33); bf16 W1 {VERIFY_W1} on the tensor "
+        f"cores; at W1 = 1 equal to decode_attention")
     return dict(max_abs_err=err_max, shapes=shapes, main=shapes[f"S1_W{VERIFY_W1}"])
 
 
@@ -2553,6 +2574,9 @@ def batched_streams(torch, engine, vad, mode: str) -> dict:
     check(counts["verify_attention"] == n_layers * delta["verify_rounds"],
           f"batched {mode} streams: verify_attention launched {counts['verify_attention']} "
           f"times for {delta['verify_rounds']} verify rounds x {n_layers} layers")
+    check(counts["verify_attention_mma"] == counts["verify_attention"],
+          f"batched {mode} streams: {counts['verify_attention_mma']} of "
+          f"{counts['verify_attention']} bf16 verify launches on the tensor cores")
 
     # the ring VAD program of this run's batch bucket, replayed alone
     B = next(b for b in (1, 4, 16, 64) if b >= BATCHED_STREAMS)
@@ -2655,6 +2679,9 @@ def batched_drafts(torch, engine, mode: str) -> dict:
     check(counts["verify_attention"] == n_layers * rounds > 0,
           f"batched {mode} drafts: verify_attention launched {counts['verify_attention']} times "
           f"for {rounds} verify rounds x {n_layers} layers")
+    check(counts["verify_attention_mma"] == counts["verify_attention"],
+          f"batched {mode} drafts: {counts['verify_attention_mma']} of "
+          f"{counts['verify_attention']} bf16 verify launches on the tensor cores")
     check(counts["decode_attention"] == n_layers * (steps - rounds),
           f"batched {mode} drafts: decode_attention launched {counts['decode_attention']} times "
           f"for {steps - rounds} plain steps x {n_layers} layers")
@@ -3063,6 +3090,8 @@ def main() -> None:
              replaces="sonicscribe_tpu/models/glm_asr.py:568", path="batched drafts",
              launches=sum(b["drafts"]["launches"].get("verify_attention", 0)
                           for b in batched.values()),
+             mma_launches=sum(b["drafts"]["launches"].get("verify_attention_mma", 0)
+                              for b in batched.values()),
              stream_launches=sum(b["streams"]["launches"].get("verify_attention", 0)
                                  for b in batched.values()),
              max_abs_err=verify["max_abs_err"], **verify["main"],

@@ -1,5 +1,6 @@
-// Device helpers shared by the int8 and int4 products: element types,
-// 16-byte loads, cp.async, ldmatrix and the bf16 mma.
+// Device helpers shared by the int8 and int4 products and the attention
+// kernels: element types, 16-byte loads, cp.async, ldmatrix and the bf16
+// mma.
 
 #pragma once
 

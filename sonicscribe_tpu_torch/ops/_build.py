@@ -37,6 +37,7 @@ KERNELS = ("decode_attention", "log_mel", "int8_matmul", "int4_matmul")  # csrc/
 launch_counts: dict[str, int] = {
     name: 0 for name in (
         "decode_attention", "verify_attention", "log_mel",
+        "verify_attention_mma",  # the verify launches on the bf16 tensor cores
         "int8_matmul", "int8_matmul_stacked", "int8_matmul_w8a8",  # csrc/int8_matmul.cu
         "int8_matmul_mma",  # the flat launches that took the tensor-core design
         "int8_matmul_w8a8_mma",  # the W8A8 launches on the s8 tensor cores

@@ -11,9 +11,11 @@ its plain version for tensors on the CPU; there is no other fallback.
 Unlike the Pallas kernel they take any cache length M.
 
 The kernel splits the cache positions over blocks (split-KV) and merges
-the splits in a second pass; ``split_shape`` picks the split (for W1 > 1
-``verify_split_shape``, whose chunk fits the shared-memory stage) and
-``scratch_numel`` sizes the merge's float32 scratch.
+the splits in a second pass; ``split_shape`` picks the split and
+``scratch_numel`` sizes the merge's float32 scratch. bf16 verification
+(``verify_uses_mma``) runs on the tensor cores, at most ``MMA_MAX_ROWS``
+query rows (W1 x g) a KV head and ``MMA_HD`` dims a head; float32
+verification and decode on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -29,9 +31,12 @@ from sonicscribe_tpu_torch.ops import _build
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BLOCKS_PER_SM = 2  # aim: about this many split blocks per SM
-CHUNK_MULTIPLE = 32  # positions per split: a multiple of one pass (8 groups x 4)
+# positions per split: a multiple of one pass (8 groups x 4) and of the
+# tensor-core kernel's ring tile (kTile)
+CHUNK_MULTIPLE = 32
 MAX_SPLITS = 128  # csrc/decode_attention.cu kMaxSplits
-STAGE_BYTES = 80 * 1024  # csrc/decode_attention.cu kMaxStageBytes: K and V of a staged chunk
+MMA_HD = 128  # csrc/decode_attention.cu kMmaHd: the tensor-core kernel's head dim
+MMA_MAX_ROWS = 64  # kMmaRows: query rows (W1 x g) of a KV head, 16 per warp
 
 
 def decode_attention_plain(q, k_cache, v_cache, lens) -> torch.Tensor:
@@ -87,18 +92,11 @@ def split_shape(S: int, M: int, nkv: int, n_sms: int) -> tuple[int, int]:
     return chunk, -(-M // chunk)
 
 
-def verify_split_shape(S: int, W1: int, M: int, nkv: int, hd: int, esize: int,
-                       n_sms: int) -> tuple[int, int]:
-    """-> (chunk, splits) of a verify launch: split_shape's at W1 = 1 (the
-    decode kernel, bit for bit); above, its chunk cut to the largest
-    multiple of CHUNK_MULTIPLE whose K and V rows fit STAGE_BYTES, so that
-    the kernel stages each split in shared memory once for all W1 queries
-    (the uncut split where that would pass MAX_SPLITS)."""
-    chunk, splits = split_shape(S, M, nkv, n_sms)
-    cap = STAGE_BYTES // (2 * hd * esize) // CHUNK_MULTIPLE * CHUNK_MULTIPLE
-    if W1 == 1 or cap < CHUNK_MULTIPLE or chunk <= cap or -(-M // cap) > MAX_SPLITS:
-        return chunk, splits
-    return cap, -(-M // cap)
+def verify_uses_mma(q) -> bool:
+    """Whether a verify launch on q [S, W1, nh, hd] takes the tensor-core
+    kernel: bf16 with W1 > 1 (W1 = 1 is the decode kernel, float32 the
+    CUDA cores)."""
+    return q.dtype == torch.bfloat16 and q.shape[1] > 1
 
 
 def scratch_numel(S: int, nkv: int, splits: int, g: int, hd: int) -> int:
@@ -110,11 +108,13 @@ def scratch_numel(S: int, nkv: int, splits: int, g: int, hd: int) -> int:
 
 @functools.cache
 def _lib():
-    fn = _build.load("decode_attention").attention
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, L, L, L, L, L, ctypes.c_float, I, I, P]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = _build.load("decode_attention")
+    P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.attention.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, L, L, L, L, L, F, I, I, P]
+    lib.verify_attention_mma.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, L, L, L, L, L, F, I,
+                                         I, P]
+    lib.attention.restype = lib.verify_attention_mma.restype = ctypes.c_int
+    return lib
 
 
 def _check_inputs(q, k_cache, v_cache, lens) -> tuple[int, int, int]:
@@ -145,27 +145,46 @@ def _check_inputs(q, k_cache, v_cache, lens) -> tuple[int, int, int]:
     return M, nkv, nh // nkv
 
 
+def _check_mma(q, k_cache, v_cache, g: int) -> None:
+    """Raise on a bf16 verify launch the tensor-core kernel does not take."""
+    _, W1, _, hd = q.shape
+    if hd != MMA_HD or W1 * g > MMA_MAX_ROWS:
+        raise ValueError(f"bf16 verify attention takes hd {MMA_HD} and W1 x g <= "
+                         f"{MMA_MAX_ROWS} query rows, got hd {hd}, W1 {W1}, g {g}")
+    if (k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16
+            or any(st % 8 for st in k_cache.stride()[:3])
+            or q.data_ptr() % 4 or q.stride(0) % 2 or q.stride(1) % 2):
+        raise ValueError("bf16 verify attention needs 16-byte aligned K/V rows and 4-byte "
+                         "aligned q rows")
+
+
 def _launch(name: str, q, k_cache, v_cache, lens) -> torch.Tensor:
     """One launch of the kernel on q [S, W1, nh, hd] (checked; the split
-    from verify_split_shape, split_shape's at W1 = 1), counted as `name`
-    -> out [S, W1, nh*hd] float32."""
+    from split_shape), counted as `name` (and as verify_attention_mma where
+    it takes the tensor cores) -> out [S, W1, nh*hd] float32."""
     M, nkv, g = _check_inputs(q, k_cache, v_cache, lens)
     S, W1, nh, hd = q.shape
-    chunk, splits = verify_split_shape(S, W1, M, nkv, hd, q.element_size(),
-                                       _build.n_sms(q.device))
+    mma = verify_uses_mma(q)
+    if mma:
+        _check_mma(q, k_cache, v_cache, g)
+    chunk, splits = split_shape(S, M, nkv, _build.n_sms(q.device))
     out = torch.empty((S, W1, nh * hd), device=q.device, dtype=torch.float32)
     scratch = torch.empty(scratch_numel(S * W1, nkv, splits, g, hd), device=q.device,
                           dtype=torch.float32)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _lib()(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), _DTYPES[q.dtype], S, W1, M, nkv, g, hd, q.stride(0), q.stride(1),
-        k_cache.stride(0), k_cache.stride(1), k_cache.stride(2), 1.0 / math.sqrt(hd), chunk,
-        splits, stream,
-    )
+    ptrs = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
+            out.data_ptr(), scratch.data_ptr())
+    shape = (S, W1, M, nkv, g, hd, q.stride(0), q.stride(1), k_cache.stride(0),
+             k_cache.stride(1), k_cache.stride(2), 1.0 / math.sqrt(hd), chunk, splits, stream)
+    if mma:
+        err = _lib().verify_attention_mma(*ptrs, *shape)
+    else:
+        err = _lib().attention(*ptrs, _DTYPES[q.dtype], *shape)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     _build.launch_counts[name] += 1
+    if mma:
+        _build.launch_counts["verify_attention_mma"] += 1
     return out
 
 

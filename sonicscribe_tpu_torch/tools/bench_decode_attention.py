@@ -15,6 +15,16 @@ line by line, bits included:
 
     PYTHONPATH=. python sonicscribe_tpu_torch/tools/bench_decode_attention.py [--blocks 3]
 
+Then one line on verify attention's accuracy at the model's own inputs:
+nano-random (bf16, seed SEED) prefills a prompt of random tokens into an
+M 803 cache and runs one verify step of W1 tokens; each of the 28 layers'
+verify attention outputs is held to its exact value (float64 on the card)
+and to the plain version's (float32): max and mean abs error, and the
+share of outputs whose bf16 rounding (the model casts them to bf16)
+differs from the exact one's. The script may run against another
+checkout's package (PYTHONPATH=<that root>), so two kernels meet the same
+inputs.
+
 Writes no file; raises without a card.
 """
 
@@ -77,6 +87,60 @@ def inputs(S: int, M: int, lens_kind: str, gen: torch.Generator) -> tuple:
     return q, k, v, lens
 
 
+def exact_verify(q, k, v, lens) -> torch.Tensor:
+    """verify_attention_plain's masked attention in float64."""
+    S, W1, nh, hd = q.shape
+    M, nkv = k.shape[1], k.shape[2]
+    qg = q.reshape(S, W1, nkv, nh // nkv, hd).double()
+    scores = torch.einsum("sqkgd,smkd->skgqm", qg, k.double()) / hd**0.5
+    qpos = lens.long()[:, None] + torch.arange(W1, device=q.device)[None, :]
+    valid = torch.arange(M, device=q.device)[None, None, :] <= qpos[:, :, None]
+    attn = torch.softmax(torch.where(valid[:, None, None], scores, -torch.inf), dim=-1)
+    return torch.einsum("skgqm,smkd->sqkgd", attn, v.double()).reshape(S, W1, nh * hd)
+
+
+def model_accuracy(smi: str, prompt: int = 674, M: int = 803) -> dict:
+    """Verify attention against float64 at nano-random's own inputs (see
+    the module docstring)."""
+    from sonicscribe_tpu_torch.models import glm_asr
+    from sonicscribe_tpu_torch.models.weights import init_random
+
+    cfg = nano()
+    params = init_random(cfg, SEED, dtype=torch.bfloat16, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    tokens = torch.randint(0, cfg.decoder.vocab_size, (1, prompt + W1), generator=gen,
+                           device="cuda")
+    seen, kernel = [], glm_asr.verify_attention
+
+    def recorded(q, k, v, lens):
+        out = kernel(q, k, v, lens)
+        seen.append((out, q.clone(), k.clone(), v.clone(), lens.clone()))
+        return out
+
+    with torch.inference_mode():
+        cache = glm_asr.init_cache(cfg, 1, M, device="cuda")
+        glm_asr.prefill(params, cfg, glm_asr.embed_tokens(params, tokens[:, :prompt]),
+                        torch.tensor([prompt], device="cuda"), cache)
+        glm_asr.verify_attention = recorded
+        try:
+            glm_asr.verify_step(params, cfg, cache, tokens[:, prompt:])
+        finally:
+            glm_asr.verify_attention = kernel
+        errs, plain_errs, flips = [], [], []
+        for out, q, k, v, lens in seen:
+            want = exact_verify(q, k, v, lens)
+            errs.append((out.double() - want).abs())
+            plain_errs.append((da.verify_attention_plain(q, k, v, lens).double() - want).abs())
+            flips.append((out.to(torch.bfloat16) != want.to(torch.bfloat16)).double().mean())
+    return {"kernel": "verify_attention", "shape": f"nano-random verify step, S=1 W1={W1} "
+            f"M={M} lens {prompt}, {len(seen)} layers", "max_abs_err": max(e.max().item()
+            for e in errs), "mean_abs_err": float(torch.stack([e.mean() for e in errs]).mean()),
+            "plain_max_abs_err": max(e.max().item() for e in plain_errs),
+            "bf16_flips": float(torch.stack(flips).mean()), "card": smi,
+            "package": sonicscribe_tpu_torch.__file__}
+
+
 def run(blocks: int = 3) -> list[dict]:
     """Time every kernel at every shape, `blocks` times in turn."""
     resolve_device("cuda")
@@ -102,6 +166,7 @@ def run(blocks: int = 3) -> list[dict]:
             out.append({"kernel": kernel, "shape": shape, "block": block,
                         "ms": cold_ms(fn, flush), "sha256": digest, "card": smi[0],
                         "package": sonicscribe_tpu_torch.__file__})
+    out.append(model_accuracy(smi[0]))
     return out
 
 

@@ -93,13 +93,13 @@ def test_decode_attention_kernel(cuda, dtype, M):
     torch.testing.assert_close(got, want, rtol=0, atol=2e-5)  # float32 sums, other order
 
 
-def _attention_inputs(device, dtype, S, M, seed=0):
-    """q and one layer of a [2, S, M, 4, 128] cache (the strided view the
-    decode step passes), nano's heads."""
+def _attention_inputs(device, dtype, S, M, seed=0, nkv=4):
+    """q and one layer of a [2, S, M, nkv, 128] cache (the strided view the
+    decode step passes), nano's 16 query heads (and 4 KV heads)."""
     g = torch.Generator(device=device).manual_seed(seed)
     q = torch.randn((S, 16, 128), generator=g, device=device).to(dtype)
-    k = torch.randn((2, S, M, 4, 128), generator=g, device=device).to(dtype)[1]
-    v = torch.randn((2, S, M, 4, 128), generator=g, device=device).to(dtype)[1]
+    k = torch.randn((2, S, M, nkv, 128), generator=g, device=device).to(dtype)[1]
+    v = torch.randn((2, S, M, nkv, 128), generator=g, device=device).to(dtype)[1]
     return q, k, v
 
 
@@ -143,23 +143,45 @@ def _verify_lens(S, M, g, device):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S", [1, 4, 33])
-@pytest.mark.parametrize("W1", [9, 1])
-def test_verify_attention_kernel(cuda, dtype, S, W1):
-    """The verify kernel at nano's heads and the long pool's M = 803
-    against its plain version (float32 sums in another order); at W1 = 1
-    it is the decode kernel, bit for bit."""
+@pytest.mark.parametrize("W1,nkv", [(9, 4), (1, 4), (2, 4), (16, 4), (8, 2)])
+def test_verify_attention_kernel(cuda, dtype, S, W1, nkv):
+    """The verify kernel at nano's 16 query heads (g = 4, and g = 8 over
+    2 KV heads) and the long pool's M = 803 against its plain version
+    (float32 sums in another order; bf16 P in three parts), lens 0 and
+    past M - W1 among them; bf16 with W1 > 1 on the tensor cores
+    (verify_attention_mma), float32 not; two launches give the same bits;
+    at W1 = 1 it is the decode kernel, bit for bit."""
     M = 803
     g = torch.Generator(device=cuda).manual_seed(S * 10 + W1)
-    _, k, v = _attention_inputs(cuda, dtype, S, M, seed=S + W1)
+    _, k, v = _attention_inputs(cuda, dtype, S, M, seed=S + W1, nkv=nkv)
     q = torch.randn((S, W1, 16, 128), generator=g, device=cuda).to(dtype)
     lens = _verify_lens(S, M, g, cuda)
     before = dict(_build.launch_counts)
     got = verify_attention(q, k, v, lens)
     assert _build.launch_counts["verify_attention"] == before["verify_attention"] + 1
     assert _build.launch_counts["decode_attention"] == before["decode_attention"]
+    mma = dtype == torch.bfloat16 and W1 > 1
+    assert _build.launch_counts["verify_attention_mma"] == before["verify_attention_mma"] + mma
     torch.testing.assert_close(got, verify_attention_plain(q, k, v, lens), rtol=0, atol=2e-5)
+    assert torch.equal(got, verify_attention(q, k, v, lens))
     if W1 == 1:
         assert torch.equal(got[:, 0], decode_attention(q[:, 0], k, v, lens))
+
+
+@pytest.mark.parametrize("W1,nkv,hd", [(17, 4, 128), (9, 2, 128), (9, 4, 64)])
+def test_verify_attention_rejects_what_the_mma_kernel_does_not_take(cuda, W1, nkv, hd):
+    """bf16 verification runs on the tensor cores or raises: more than 64
+    query rows (W1 x g) of a KV head, or hd other than 128; float32 takes
+    the same shapes on the CUDA cores."""
+    q = torch.zeros((1, W1, 16, hd), device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros((1, 64, nkv, hd), device=cuda, dtype=torch.bfloat16)
+    lens = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    before = dict(_build.launch_counts)
+    with pytest.raises(ValueError):
+        verify_attention(q, k, k, lens)
+    assert _build.launch_counts == before
+    got = verify_attention(q.float(), k.float(), k.float(), lens)
+    assert got.shape == (1, W1, 16 * hd) and bool((got == 0).all())
 
 
 def _speech(sec, seed):

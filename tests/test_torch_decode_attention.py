@@ -11,6 +11,7 @@ from sonicscribe_tpu.models.config import DecoderConfig
 from sonicscribe_tpu.models.glm_asr import _masked_decode_attention
 from sonicscribe_tpu.ops.decode_attention import flash_decode_attention
 from sonicscribe_tpu_torch.ops.decode_attention import (
+    CHUNK_MULTIPLE,
     MAX_SPLITS,
     decode_attention,
     scratch_numel,
@@ -122,3 +123,82 @@ def test_split_shape_caps_the_splits():
         assert splits <= MAX_SPLITS and chunk * splits >= M > (splits - 1) * chunk
     assert split_shape(1, 675, 4, 132) == (32, 22)  # 88 blocks for one slot
     assert split_shape(4, 1024, 4, 132) == (64, 16)  # 256 blocks for four
+
+
+VERIFY_W1 = 9  # the batcher's verify positions a slot (8 drafts + 1)
+RING_TILE = 32  # csrc/decode_attention.cu kTile: positions per K/V ring tile
+
+
+@pytest.mark.parametrize("S", [1, 4, 33])
+@pytest.mark.parametrize("M", [83, 803, 1024])
+def test_verify_split_shape_covers_every_position_once(S, M):
+    """The bf16 verify launch's split (split_shape: occupancy alone, no
+    shared-memory cap) under the tensor-core kernel's rules: block (split
+    sp, slot) returns at once where sp * chunk passes the slot's last
+    query's positions, else walks ceil(n_pos / RING_TILE) ring tiles that
+    stay inside its chunk; query j's row writes the splits that start below
+    its n_j = min(lens + j, M - 1) + 1 positions, and the merge reads
+    ceil(n_j / chunk) of them: every position once, for every query."""
+    nkv, g, hd = 4, 4, 128
+    chunk, splits = split_shape(S, M, nkv, 132)
+    assert chunk % RING_TILE == 0 and CHUNK_MULTIPLE % RING_TILE == 0
+    assert 1 <= splits <= MAX_SPLITS and chunk * splits >= M > (splits - 1) * chunk
+    rows = S * VERIFY_W1  # (slot, query) rows of the scratch
+    numel = scratch_numel(rows, nkv, splits, g, hd)
+    last = ((rows * nkv - 1) * splits + splits - 1) * g + g - 1  # the last (row, head)
+    assert (last + 1) * hd + (last + 1) * 2 == numel
+    for L in (0, 1, chunk - 1, chunk, M - VERIFY_W1, M - 3, M - 1, M, M + 5):
+        n_last = min(L + VERIFY_W1 - 1, M - 1) + 1
+        for sp in range(splits):
+            start = sp * chunk
+            if start < n_last:
+                n_pos = min(chunk, n_last - start)
+                assert -(-n_pos // RING_TILE) * RING_TILE <= chunk
+        for j in range(VERIFY_W1):
+            n = min(L + j, M - 1) + 1
+            written = [sp for sp in range(splits) if sp * chunk < n]
+            assert len(written) == -(-n // chunk)  # what the merge reads
+            seen = [t for sp in written for t in range(sp * chunk, min((sp + 1) * chunk, n))]
+            assert seen == list(range(n)), (L, j)
+
+
+def _bf16(a):
+    return torch.from_numpy(a).to(torch.bfloat16).double()
+
+
+def test_p_in_three_bf16_parts_keeps_the_context_within_the_tolerance():
+    """A float64 emulation of the tensor-core verify kernel's second
+    product at the chip phase's S 33 shape (nano's heads, M 803, lens past
+    M - W1 among them, unit-normal bf16 q, k, v): the products of bf16
+    parts of P with bf16 V are exact, so the error against the exact
+    context is that of P's parts. One bf16 P is ~300x chip_smoke.py's
+    ATTN_TOL (2e-5); hi + lo under it; hi + mid + lo is the float32 p itself
+    (3 x 8 significant bits), under 1e-6, which leaves the tolerance to the
+    float32 sums."""
+    S, M, nh, nkv, hd = 33, 803, 16, 4, 128
+    rng = np.random.default_rng(12)
+    q = _bf16(rng.standard_normal((S, VERIFY_W1, nh, hd), dtype=np.float32))
+    k = _bf16(rng.standard_normal((S, M, nkv, hd), dtype=np.float32))
+    v = _bf16(rng.standard_normal((S, M, nkv, hd), dtype=np.float32))
+    lens = rng.integers(0, M, S)
+    lens[:6] = [0, M - 1, M - 3, M - 9, M - 5, M]
+    qg = q.reshape(S, VERIFY_W1, nkv, nh // nkv, hd)
+    scores = torch.einsum("sqkgd,smkd->skgqm", qg, k) / np.sqrt(hd)
+    qpos = torch.from_numpy(lens)[:, None] + torch.arange(VERIFY_W1)[None, :]
+    valid = (torch.arange(M)[None, None, :] <= qpos[:, :, None])[:, None, None]
+    scores = torch.where(valid, scores, -torch.inf)
+    p = torch.exp(scores - scores.amax(-1, keepdim=True)).float()  # the kernel's float32 p
+    denom = p.double().sum(-1, keepdim=True)
+
+    def context(pp):
+        return torch.einsum("skgqm,smkd->sqkgd", pp / denom, v)
+
+    exact = context(p.double())
+    parts, rest = [], p
+    for _ in range(3):
+        parts.append(rest.to(torch.bfloat16).float())
+        rest = rest - parts[-1]
+    errs = [(context(sum(parts[:n]).double()) - exact).abs().max().item() for n in (1, 2, 3)]
+    print(f"max abs error of the context, P in 1 / 2 / 3 bf16 parts: {errs}")
+    assert errs[0] > 2e-5
+    assert errs[2] < 1e-6
