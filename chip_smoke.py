@@ -92,8 +92,9 @@ exits non-zero on failure:
    attention once per layer per decode step (replays counted by the
    router). Then, in
    each int8 mode (int8, int8-decoder, int8-decoder-a8), a runtime of its
-   own with its grid captured serves the ~3 s and ~12 s requests captured
-   and eager in the same way: the stacked W8A16 kernel (W8A8 in -a8) runs 4
+   own, cut to its first INT8_THREADED_LAYERS (7) decoder layers for the
+   script's time, with its grid captured serves the ~3 s and ~12 s
+   requests captured and eager in the same way: the stacked W8A16 kernel (W8A8 in -a8) runs 4
    times per layer per decode step (one launch each), the flat W8A16
    kernel 4 times per layer per segment in prefill (plus 6 per encoder
    layer in full int8), every one of them bf16 with B > 8 and so on the
@@ -132,7 +133,14 @@ exits non-zero on failure:
    request undrafted and with a golden, a half-garbage and a garbage draft
    gives the same tokens every time, on the card as on the CPU, with the
    same verify rounds; and a stepped StreamSession on the ring the same
-   messages.
+   messages. On a tiny engine built with fuse_dual_decode: a fast boot
+   (a request before its deferred keys land and after the drain: equal
+   tokens, nothing captured on the request path), the dual decode (short
+   and long requests at once: fused tokens equal unfused ones, dual
+   decodes counted), and a crash and its heal (a 2 s wedged tick past a
+   0.3 s abort: the request fails, alive False, start() refused while the
+   tick is stuck, then the pre-crash tokens and no graph captured again);
+   then warmup(full=True)'s graphs against the default grid's.
 5. batched: the kernels at the batcher's shapes first (after phase 2):
    decode attention at S 33, M 803 and S 65, M = the short pool's length,
    lens mixed with empty slots; the log-mel kernel over a batch of rows in
@@ -142,7 +150,13 @@ exits non-zero on failure:
    native and in int8-decoder-a8, build_runtime's default engine (the
    continuous batcher, engine/batcher.py): its grid captured (graphs,
    seconds by kind, memory; the 12 verify keys, rounds 1, 2, 4, 8 x rows
-   full, 1, 4, among them); the ~3 s, ~12 s and ~35 s requests submitted
+   full, 1, 4, among them), in native by a fast boot (warmup(fast=True):
+   the blocking seconds, graphs and peak memory; the ~12 s request served
+   first while the deferred keys wait, nothing captured on its path; then
+   warmup_join and drain_replays: seconds, peak memory, no capture failed,
+   the registered grid _grid()'s), the engine built with fuse_dual_decode
+   (its dual graphs in the grid, fusion off until the A/B) and the tick
+   trace on; the ~3 s, ~12 s and ~35 s requests submitted
    at once through the file path (walls, RTF, aggregate tokens/s, peak
    memory; tokens beside phase 3's threaded ones, the first divergence
    printed); the ~12 s request undrafted, then with its own tokens, its
@@ -154,9 +168,15 @@ exits non-zero on failure:
    request: each commits what the gate implies, no graph is captured, no
    call fails (tentative delay, speech end -> committed, interims sent and
    dropped, the ring VAD program's time; eager finals launched and gated
-   by eager_ok, verify rounds, the acceptance EMA); in native, 1, 4, 16 and 32 concurrent requests at a
-   128-token budget (wall, tokens/s, and a profiled run's device busy and
-   idle share). The launch counters are set to 0 before the files, the
+   by eager_ok, verify rounds, the acceptance EMA; in native the p50 and
+   p95 of each traced tick phase); in native, 1, 4, 16 and 32 concurrent
+   requests at a 128-token budget (wall, tokens/s, and a profiled run's
+   device busy and idle share), then the dual decode's A/B on the same
+   engine: the three files and 16 interim-budget requests at once,
+   unfused then fused, timed and profiled (walls, tokens/s, dual decodes,
+   device busy per pool step; decode attention once per layer per pool
+   step, two launches a dual step). No run after the fast boot captures a
+   graph on the request path. The launch counters are set to 0 before the files, the
    drafted runs and the streams, and read after: log_mel once per
    prepared host request and per ring prefill program, decode attention
    once per layer per plain pool decode step, verify attention once per
@@ -184,6 +204,7 @@ import asyncio
 import gc
 import json
 import logging
+import os
 import subprocess
 import sys
 import time
@@ -207,6 +228,10 @@ INT8_F32_TOL = 1e-5
 # activation quantisation, over 28 layers
 SWEEP_TOL = 0.02
 INT8_MODES = ("int8", "int8-decoder", "int8-decoder-a8")
+# decoder layers of the threaded int8 main paths (nano has 28): their
+# requests run captured and eager, and this depth keeps the script inside its
+# time limit; every other path runs all 28
+INT8_THREADED_LAYERS = 7
 SEED = 0
 GRID_BUDGETS = (15, 200, 256)  # the interim, final maximum and file budgets (config.py)
 PROFILE_BUDGET = 32  # decode tokens per segment in the profiled runs
@@ -1665,10 +1690,32 @@ def main_path_phase(torch):
         eager.shutdown()
 
 
+def cut_depth(engine, n_layers: int):
+    """A ThreadedEngine over the first n_layers decoder layers of `engine`'s
+    transcriber (its weights as build_runtime made and quantized them)."""
+    from dataclasses import replace
+
+    from sonicscribe_tpu_torch.engine.transcriber import Transcriber
+    from sonicscribe_tpu_torch.serve.engine_async import ThreadedEngine
+
+    def first(tree):
+        return {k: first(v) for k, v in tree.items()} if isinstance(tree, dict) \
+            else tree[:n_layers]
+
+    tr = engine.transcriber
+    cfg = replace(tr.cfg, decoder=replace(tr.cfg.decoder, n_layers=n_layers))
+    params = dict(tr.params, decoder=dict(tr.params["decoder"],
+                                          layers=first(tr.params["decoder"]["layers"])))
+    engine.shutdown()
+    return ThreadedEngine(Transcriber(cfg, params, tr.tokenizer, mel_cfg=tr.mel_cfg,
+                                      prefill_buckets=tr.buckets), engine.vad)
+
+
 def int8_main_path_phase(torch, mode: str) -> tuple[dict, dict]:
-    """build_runtime in one int8 mode, its grid captured, then the ~3 s and
-    ~12 s requests captured and eager; checks the int8 kernels' launch
-    counts in both. -> (the captured 12 s request's launch counts, numbers)."""
+    """build_runtime in one int8 mode, cut to INT8_THREADED_LAYERS decoder
+    layers, its grid captured, then the ~3 s and ~12 s requests captured
+    and eager; checks the int8 kernels' launch counts in both. -> (the
+    captured 12 s request's launch counts, numbers)."""
     from sonicscribe_tpu_torch.config import AppConfig
     from sonicscribe_tpu_torch.serve.runtime import build_runtime
 
@@ -1677,9 +1724,12 @@ def int8_main_path_phase(torch, mode: str) -> tuple[dict, dict]:
     t0 = time.perf_counter()
     engine, vad, info = build_runtime("nano-random", "energy", config, seed=SEED,
                                       engine_kind="threaded")
+    engine = cut_depth(engine, INT8_THREADED_LAYERS)
+    gc.collect()
     torch.cuda.synchronize()
-    log(f"nano-random {mode}: {info['params']} params, init {time.perf_counter() - t0:.1f} s, "
-        f"resident {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    log(f"nano-random {mode}, cut to {INT8_THREADED_LAYERS} decoder layers: {info['params']} "
+        f"params before the cut, init {time.perf_counter() - t0:.1f} s, resident "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     eager = eager_engine(engine)
     try:
         torch.cuda.reset_peak_memory_stats()
@@ -2532,6 +2582,8 @@ def batched_streams(torch, engine, vad, mode: str) -> dict:
 
     graphs0 = engine.router.stats["graphs"]
     stats0 = dict(engine.stats)
+    if engine.tick_trace is not None:
+        engine.tick_trace.clear()
     session_log.addHandler(errors)
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
@@ -2611,6 +2663,12 @@ def batched_streams(torch, engine, vad, mode: str) -> dict:
         f"{out['speech_end_to_committed_p50_s']:.3f} s max "
         f"{out['speech_end_to_committed_max_s']:.3f} s; ring VAD program (B={B}) "
         f"{vad_ms:.4f} ms; file RTF {out['file_rtf']}; {delta}")
+    if engine.tick_trace is not None:
+        out["tick_trace"] = tick_split(engine.tick_trace)
+        log(f"batched {mode} streams, tick phases (host ms, p50 / p95 of "
+            f"{out['tick_trace']['ticks']} ticks): "
+            + ", ".join(f"{k} {v[0]:.3f} / {v[1]:.3f}" for k, v in out["tick_trace"].items()
+                        if k != "ticks"))
     log(f"batched {mode} streams, speculation: {delta['eager_granted']} eager finals launched, "
         f"{delta['eager_denied']} gated, eager_accept_ema {engine.eager_accept_ema:.3f}; "
         f"{delta['verify_rounds']} verify rounds; spec_accept_ema {engine.spec_accept_ema:.3f} "
@@ -2619,7 +2677,7 @@ def batched_streams(torch, engine, vad, mode: str) -> dict:
     return out
 
 
-def batched_drafts(torch, engine, mode: str) -> dict:
+def batched_drafts(torch, engine, mode: str, fast_boot_tokens=None) -> dict:
     """The 12 s file's request on the batched engine (one request, the
     file budget): undrafted first, its greedy tokens the drafts'
     source; then with each of draft_kinds (golden, half then garbage,
@@ -2631,7 +2689,10 @@ def batched_drafts(torch, engine, mode: str) -> dict:
     spec_accept_ema after it, and the first divergence from the undrafted
     tokens (the verify program has other shapes than the decode program,
     so bf16 near-ties may flip: printed, not checked, with the two tokens'
-    logits there from tie_logits)."""
+    logits there from tie_logits). fast_boot_tokens: the same request's
+    tokens served before a fast boot's deferred keys landed (full rows, k
+    <= 8), whose first divergence from the undrafted run is printed: bf16
+    near-ties part program shapes, so it is not checked."""
     from sonicscribe_tpu_torch.ops import _build
 
     audio = payloads()["12s"]
@@ -2656,6 +2717,11 @@ def batched_drafts(torch, engine, mode: str) -> dict:
     out = {"undrafted": row}
     log(f"batched {mode} 12 s request undrafted: wall {row['wall_s']:.3f} s, {row['tokens']} "
         f"tokens, {row['tokens_per_s']:.1f} tokens/s, {row['decode_steps']} pool decode steps")
+    if fast_boot_tokens is not None:
+        row["fast_boot_vs_undrafted"] = first_divergence([fast_boot_tokens], [base],
+                                                         ("before the drain", "after"))
+        log(f"batched {mode} 12 s request served before the fast boot's deferred keys landed, "
+            f"against the same request after: {row['fast_boot_vs_undrafted']}")
     graphs0 = engine.router.stats["graphs"]
     stats0 = dict(engine.stats)
     drafted = {}
@@ -2805,6 +2871,217 @@ def batched_ticks(torch, engine) -> dict:
     return out
 
 
+def registered_grid(engine) -> dict:
+    """The programs dispatch may use, by pool and kind."""
+    return {p.name: {"host": set(p.compiled_prefill), "ring": set(p.compiled_ring_prefill),
+                     "decode": set(p.compiled_decode), "verify": set(p.compiled_verify)}
+            for p in engine.pools}
+
+
+def expected_grid(engine, full: bool = False) -> dict:
+    """The grid (engine._grid(full)) in registered_grid's form."""
+    out = {p.name: {"host": set(), "ring": set(), "decode": set(), "verify": set()}
+           for p in engine.pools}
+    for kind, cells in engine._grid(full=full).items():
+        for pool, *rest in cells:
+            out[pool.name][kind].add(tuple(rest))
+    return out
+
+
+def fast_boot(torch, engine, mode: str) -> dict:
+    """warmup(fast=True): the blocking seconds, graphs and peak memory; the
+    12 s request served first, while the deferred keys wait (full rows, k
+    <= 8, B = 1 groups: nothing captured on its path; idle ticks may
+    capture deferred keys after it); then warmup_join() and
+    drain_replays() (seconds, graphs, the peak memory during them), no
+    capture failed, and the registered grid _grid()'s. -> numbers, and the
+    request's tokens under "tokens"."""
+    rs = engine.router.stats
+    torch.cuda.synchronize()
+    w = engine.warmup(budgets=GRID_BUDGETS, fast=True)
+    torch.cuda.synchronize()
+    out = dict(blocking_s=w["seconds"], graphs=w["graphs"], deferred=w["deferred"],
+               max_gib=torch.cuda.max_memory_allocated() / 2**30,
+               resident_gib=torch.cuda.memory_allocated() / 2**30,
+               phases=dict(engine.stats["warmup_phase_s"]))
+    log(f"batched {mode} fast boot: {w['graphs']} graphs captured in {w['seconds']:.1f} s "
+        f"(blocking; phases {out['phases']}), {w['deferred']} keys deferred; max "
+        f"{out['max_gib']:.2f} GiB, resident {out['resident_gib']:.2f} GiB")
+    graphs0, on_run0, keys0 = rs["graphs"], rs["captured_on_run"], set(rs["capture_s"])
+    stats0 = dict(engine.stats)
+    t0 = time.perf_counter()
+    r = asyncio.run(engine.transcribe(payloads()["12s"], SR, max_new_tokens=GRID_BUDGETS[-1]))
+    torch.cuda.synchronize()
+    out["first_request"] = dict(
+        wall_s=time.perf_counter() - t0, tokens=len(r.tokens),
+        decode_steps=engine.stats["decode_steps"] - stats0["decode_steps"],
+        idle_captures=rs["graphs"] - graphs0)
+    check(rs["captured_on_run"] == on_run0, f"batched {mode} fast boot: the first request "
+          f"captured {rs['captured_on_run'] - on_run0} graphs on its path")
+    log(f"batched {mode} fast boot, the 12 s request first: wall "
+        f"{out['first_request']['wall_s']:.3f} s, {len(r.tokens)} tokens, "
+        f"{out['first_request']['decode_steps']} pool decode steps, 0 graphs captured on its "
+        f"path, {out['first_request']['idle_captures']} deferred keys captured in idle ticks")
+    torch.cuda.reset_peak_memory_stats()
+    graphs1 = rs["graphs"]
+    t1 = time.perf_counter()
+    engine.warmup_join()
+    join_s = time.perf_counter() - t1
+    drain_s = engine.drain_replays()
+    torch.cuda.synchronize()
+    out.update(join_s=join_s, drain_s=drain_s, drain_graphs=rs["graphs"] - graphs1,
+               drain_max_gib=torch.cuda.max_memory_allocated() / 2**30,
+               graphs_total=rs["graphs"],
+               deferred_s=engine.stats["warmup_phase_s"].get("deferred", 0.0),
+               capture_failures=engine.stats["warmup_capture_failures"], tokens=r.tokens)
+    # the slowest deferred capture (on the card every deferred key is captured by now)
+    slowest = max((k for k in rs["capture_s"] if k not in keys0), key=rs["capture_s"].get,
+                  default=None)
+    out["slowest_deferred"] = dict(key=str(slowest), capture_s=rs["capture_s"].get(slowest),
+                                   warm_s=rs["warm_s"].get(slowest))
+    check(engine.stats["warmup_capture_failures"] == 0,
+          f"batched {mode} fast boot: {engine.stats['warmup_capture_failures']} deferred "
+          "captures failed")
+    check(engine.stats["warmup_background_pending"] == 0 and not engine._replay_queue,
+          f"batched {mode} fast boot: {engine.stats['warmup_background_pending']} deferred keys "
+          "left after the drain")
+    log(f"batched {mode} fast boot drained: warmup_join {join_s:.2f} s, drain_replays "
+        f"{drain_s:.2f} s, {out['drain_graphs']} graphs ({out['graphs_total']} in all; deferred "
+        f"captures {out['deferred_s']:.2f} s in all; the slowest {out['slowest_deferred']}), "
+        f"max {out['drain_max_gib']:.2f} GiB during them, warmup_capture_failures 0")
+    return out
+
+
+def tick_split(trace) -> dict:
+    """p50 and p95 of each traced tick phase and admit detail (host ms)."""
+    ticks = list(trace)
+    phases = ("ingest_ms", "vad_dispatch_ms", "admit_ms", "early_resolve_ms",
+              "decode_dispatch_ms", "resolve_ms", "total_ms")
+    detail = ("prep_ms", "write_ms", "dispatch_ms", "groups_short", "groups_long")
+    out: dict = {"ticks": len(ticks)}
+    for name, rows in [(k, [t[k] for t in ticks]) for k in phases] + [
+            ("admit_" + k, [t["admit_detail"][k] for t in ticks]) for k in detail]:
+        out[name] = (float(np.percentile(rows, 50)), float(np.percentile(rows, 95))) if rows \
+            else (0.0, 0.0)
+    return out
+
+
+DUAL_SHORTS = 16  # interim-budget requests beside the three files in the dual A/B
+
+
+def dual_ab(torch, engine, vad) -> dict:
+    """The fused dual decode, A/B on one native engine (built with
+    fuse_dual_decode; engine.fuse_dual toggled): the three files through
+    the file path and DUAL_SHORTS interim-budget host requests (1 s each,
+    the short pool) at once as soon as a file segment holds a long slot,
+    unfused then fused, then each once more under torch.profiler with the
+    3 s file alone (at PROFILE_BUDGET tokens) beside the shorts. Per run: walls, aggregate tokens/s, dual decodes (> 0
+    fused, 0 unfused), pool decode steps, decode attention once per layer
+    per pool step (two launches a dual step: one per pool), nothing
+    captured on the path; per profiled run the device busy per pool step.
+    Each request's first divergence fused vs unfused is printed (bf16
+    near-ties part program shapes), not checked. -> numbers and the
+    timed runs' launch counts ("launches": two dicts)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sonicscribe_tpu_torch.audio.wav import write_wav
+    from sonicscribe_tpu_torch.config import AppConfig
+    from sonicscribe_tpu_torch.ops import _build
+    from sonicscribe_tpu_torch.serve.decode import decode_audio
+    from sonicscribe_tpu_torch.serve.files import FileTranscriptionConfig, transcribe_file_stream
+
+    config = AppConfig()
+    n_layers = engine.transcriber.cfg.decoder.n_layers
+    decoded = {name: decode_audio(write_wav(a, SR), f"{name}.wav", engine.transcriber.device)
+               for name, a in payloads().items()}
+    shorts = [speech(1.0, seed=60 + i) for i in range(DUAL_SHORTS)]
+    torch.cuda.synchronize()
+
+    async def run_all(names, file_budget):
+        recs = {name: Recording(engine) for name in names}
+
+        async def one(name):
+            file_cfg = FileTranscriptionConfig.from_dict(
+                {}, default_threshold=config.vad_speech_threshold)
+            file_cfg.max_new_tokens = file_budget
+            file_cfg.concurrency = engine.concurrency_hint
+            t0 = time.perf_counter()
+            await _collect(transcribe_file_stream(decoded[name], recs[name], vad, file_cfg,
+                                                  f"{name}.wav"))
+            return time.perf_counter() - t0
+
+        async def short(a):
+            # sent once a file segment holds a long slot, so that both pools
+            # are active (the files' host prep comes first)
+            while not engine.long.n_active:
+                await asyncio.sleep(0.001)
+            t0 = time.perf_counter()
+            r = await engine.transcribe(a, SR, max_new_tokens=config.interim_max_new_tokens)
+            return r.tokens, time.perf_counter() - t0
+
+        got = await asyncio.gather(*[one(n) for n in names], *[short(a) for a in shorts])
+        walls = dict(zip(names, got[: len(names)]))
+        tokens = {n: [c["tokens"] for c in recs[n].calls] for n in names}
+        tokens["shorts"] = [t for t, _ in got[len(names):]]
+        walls["shorts_max"] = max(w for _, w in got[len(names):])
+        return walls, tokens
+
+    def run(fused: bool, profiled: bool):
+        engine.fuse_dual = fused
+        stats0, on_run0 = dict(engine.stats), engine.router.stats["captured_on_run"]
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if profiled:  # reading a profile's records costs time by their number
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                walls, tokens = asyncio.run(run_all(("3s",), PROFILE_BUDGET))
+                torch.cuda.synchronize()
+        else:
+            walls, tokens = asyncio.run(run_all(tuple(decoded), config.file_max_new_tokens))
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_build.launch_counts)
+        d = {k: engine.stats[k] - stats0.get(k, 0) for k in
+             ("decode_steps", "dual_decodes", "tokens", "requests", "verify_rounds")}
+        label = "fused" if fused else "unfused"
+        check(engine.router.stats["captured_on_run"] == on_run0,
+              f"dual A/B {label}: graphs captured on the request path")
+        check((d["dual_decodes"] > 0) == fused,
+              f"dual A/B {label}: {d['dual_decodes']} dual decodes")
+        plain = d["decode_steps"] - d["verify_rounds"]
+        check(counts["decode_attention"] == n_layers * plain > 0,
+              f"dual A/B {label}: decode_attention launched {counts['decode_attention']} times "
+              f"for {plain} plain pool steps x {n_layers} layers")
+        row = dict(wall_s=wall, walls=walls, tokens=d["tokens"], tokens_per_s=d["tokens"] / wall,
+                   decode_steps=d["decode_steps"], dual_decodes=d["dual_decodes"],
+                   verify_rounds=d["verify_rounds"], requests=d["requests"])
+        if profiled:
+            busy = sum(dev_us(e) for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA) / 1e3
+            check(busy > 0, f"dual A/B {label}: the profiler saw no device time")
+            row.update(busy_ms=busy, busy_ms_per_pool_step=busy / max(d["decode_steps"], 1))
+        log(f"dual A/B {label}{' profiled' if profiled else ''}: wall {wall:.3f} s (files "
+            + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()) + f" s), {d['tokens']} "
+            f"tokens, {row['tokens_per_s']:.1f} tokens/s, {d['decode_steps']} pool decode steps "
+            f"({d['dual_decodes']} dual decodes, {d['verify_rounds']} verify rounds)"
+            + (f", device busy {row['busy_ms']:.1f} ms, "
+               f"{row['busy_ms_per_pool_step']:.3f} ms a pool step" if profiled else ""))
+        return row, tokens, {k: v for k, v in counts.items() if v}
+
+    try:
+        unfused, tok_u, launches_u = run(False, False)
+        fused, tok_f, launches_f = run(True, False)
+        unfused["profiled"] = run(False, True)[0]
+        fused["profiled"] = run(True, True)[0]
+    finally:
+        engine.fuse_dual = False
+    div = {name: first_divergence(tok_f[name], tok_u[name], ("fused", "unfused"))
+           for name in tok_u}
+    log(f"dual A/B: fused against unfused tokens (printed, not checked): {div}")
+    return dict(unfused=unfused, fused=fused, vs_unfused=div, launches=(launches_u, launches_f))
+
+
 def batched_phase(torch, mode: str) -> tuple[dict, dict]:
     """build_runtime("nano-random") in `mode` on the batched engine (the
     default): the grid captured (graphs, seconds, memory; its 12 verify
@@ -2818,14 +3095,36 @@ def batched_phase(torch, mode: str) -> tuple[dict, dict]:
 
     config = AppConfig()
     config.quant_mode = mode
-    engine, vad, info = build_runtime("nano-random", "energy", config, seed=SEED)
+    native = mode == "native"
+    # native: the dual programs in the grid (the A/B below; off for the other
+    # runs) and the tick trace on (read on the streams run)
+    config.fuse_dual_decode = native
+    if native:
+        os.environ["SONIC_TICK_TRACE"] = "1"
+    try:
+        engine, vad, info = build_runtime("nano-random", "energy", config, seed=SEED)
+    finally:
+        os.environ.pop("SONIC_TICK_TRACE", None)
     check(isinstance(engine, BatchedEngine) and info["engine"] == "batched",
           f"build_runtime built {type(engine).__name__} by default")
+    check(engine.fuse_dual == native and info["fuse_dual_decode"] == native
+          and (engine.tick_trace is not None) == native,
+          f"batched {mode}: fuse_dual {engine.fuse_dual}, tick trace {engine.tick_trace is not None}")
     try:
         torch.cuda.synchronize()
         resident0 = torch.cuda.memory_allocated() / 2**30
         torch.cuda.reset_peak_memory_stats()
-        w = engine.warmup(budgets=GRID_BUDGETS)
+        if native:
+            boot = fast_boot(torch, engine, mode)
+            w = dict(graphs=engine.router.stats["graphs"], seconds=boot["blocking_s"])
+        else:
+            boot = None
+            w = engine.warmup(budgets=GRID_BUDGETS)
+        check(registered_grid(engine) == expected_grid(engine),
+              f"batched {mode}: the registered grid is not _grid()'s")
+        check(engine._compiled_dual == (set(engine.dual_k_choices) if native else set()),
+              f"batched {mode}: dual programs registered {engine._compiled_dual}")
+        engine.fuse_dual = False  # the runs below as before; dual_ab turns it on
         cap = engine.router.stats["capture_s"]
         kinds: dict = {}
         for key, sec in cap.items():
@@ -2850,14 +3149,29 @@ def batched_phase(torch, mode: str) -> tuple[dict, dict]:
             + f"); long decode k=64 full {k64 and round(k64, 2)} s; resident "
             f"{resident0:.2f} -> {grid['resident_gib']:.2f} GiB, max {grid['max_gib']:.2f} GiB; "
             f"pools {grid['pools_gib']} GiB, ring {grid['ring_gib']:.3f} GiB")
+        on_run0 = engine.router.stats["captured_on_run"]
+        t0 = time.perf_counter()
+
+        def done(part: str) -> None:  # where the phase's time goes
+            log(f"batched {mode}: {part} done at {time.perf_counter() - t0:.1f} s")
+
         files = batched_files(torch, engine, vad, mode)
-        drafts = batched_drafts(torch, engine, mode)
+        done("files")
+        drafts = batched_drafts(torch, engine, mode, boot and boot.pop("tokens"))
+        done("drafts")
         streams = batched_streams(torch, engine, vad, mode)
-        ticks = batched_ticks(torch, engine) if mode == "native" else None
-        runs = (files["launches"], drafts["launches"], streams["launches"])
+        done("streams")
+        ticks = batched_ticks(torch, engine) if native else None
+        done("decode by slots")
+        dual = dual_ab(torch, engine, vad) if native else None
+        done("dual A/B")
+        on_run = engine.router.stats["captured_on_run"] - on_run0
+        check(on_run == 0, f"batched {mode}: {on_run} graphs captured on the request path")
+        runs = (files["launches"], drafts["launches"], streams["launches"],
+                *(dual["launches"] if dual else ()))
         launches = {k: sum(r.get(k, 0) for r in runs) for k in set().union(*runs)}
-        return launches, dict(grid=grid, files=files, drafts=drafts, streams=streams,
-                              ticks=ticks)
+        return launches, dict(grid=grid, boot=boot, files=files, drafts=drafts,
+                              streams=streams, ticks=ticks, dual=dual)
     finally:
         engine.shutdown()
 
@@ -2910,6 +3224,8 @@ def tiny_batched_phase(torch) -> None:
 
         try:
             tokens[device] = asyncio.run(run())
+            if device == "cuda":
+                default_graphs = engine.router.stats["graphs"]
             r0 = engine.stats["verify_rounds"]
             drafted[device] = asyncio.run(run_drafts())
             rounds[device] = engine.stats["verify_rounds"] - r0
@@ -2940,6 +3256,117 @@ def tiny_batched_phase(torch) -> None:
     log(f"reference: tiny f32 batched, 5 concurrent requests: tokens equal on cuda (graphs) and "
         f"cpu; stream: {kinds.count('tentative_output')} tentative and "
         f"{kinds.count('committed_output')} committed messages equal")
+    tiny_boot_dual_heal(torch, reqs, default_graphs)
+
+
+def tiny_boot_dual_heal(torch, reqs, default_graphs: int) -> None:
+    """tiny() f32 on the card, on an engine built with fuse_dual_decode:
+    a fast boot (a request before the deferred keys land and after the
+    drain: equal tokens, nothing captured on its path); the dual decode
+    (short and long requests at once, fused then unfused: equal tokens,
+    dual decodes > 0 fused); a crash and its heal (tick_stall_dump_s /
+    tick_stall_abort_s 0.1 / 0.3 s, the tick a 2 s sleep: the request
+    fails, alive turns False, start() raises while the tick is stuck; after
+    it drains, the next request's tokens are the pre-crash tokens and no
+    graph is captured again). Then warmup(full=True) on another engine:
+    its graphs against the default grid's (default_graphs)."""
+    from sonicscribe_tpu_torch.engine.batcher import BatchedEngine
+    from sonicscribe_tpu_torch.vad.model import EnergyVad
+
+    def build(**kw):
+        return BatchedEngine(tiny_transcriber(torch, "cuda"), EnergyVad(device="cuda"), slots=4,
+                             max_decode_tokens=64, n_streams=4, **kw)
+
+    audio, budget = reqs[3][0], reqs[3][1]  # a long-pool request
+    mixed = ([(speech(0.6, seed=70 + i), 12) for i in range(3)]
+             + [(a, b) for a, b, _ in reqs[1:4]])
+    engine = build(fuse_dual_decode=True)
+    rs = engine.router.stats
+    try:
+        w = engine.warmup(fast=True)
+        on_run0 = rs["captured_on_run"]
+        before = asyncio.run(engine.transcribe(audio, SR, max_new_tokens=budget)).tokens
+        check(rs["captured_on_run"] == on_run0, "tiny fast boot: a graph captured on the "
+              "request path before the deferred keys landed")
+        engine.warmup_join()
+        drain_s = engine.drain_replays()
+        check(engine.stats["warmup_capture_failures"] == 0 and not engine._replay_queue,
+              f"tiny fast boot: {engine.stats['warmup_capture_failures']} captures failed")
+        after = asyncio.run(engine.transcribe(audio, SR, max_new_tokens=budget)).tokens
+        check(len(before) > 0 and np.array_equal(before, after),
+              f"tiny fast boot: tokens before the drain {before}, after {after}")
+        log(f"reference: tiny f32 fast boot: {w['graphs']} graphs blocking, {w['deferred']} "
+            f"deferred, drained in {drain_s:.2f} s ({rs['graphs']} graphs); the request's "
+            f"{len(before)} tokens equal before and after the drain")
+
+        async def run_mixed():
+            out = await asyncio.gather(*[engine.transcribe(a, SR, max_new_tokens=b)
+                                         for a, b in mixed])
+            return [r.tokens for r in out]
+
+        runs = {}
+        for fused in (True, False):
+            engine.fuse_dual = fused
+            d0 = engine.stats["dual_decodes"]
+            runs[fused] = (asyncio.run(run_mixed()), engine.stats["dual_decodes"] - d0)
+        engine.fuse_dual = False
+        check(runs[True][1] > 0 and runs[False][1] == 0,
+              f"tiny dual: dual decodes fused {runs[True][1]}, unfused {runs[False][1]}")
+        check(all(np.array_equal(a, b) for a, b in zip(runs[True][0], runs[False][0])),
+              f"tiny dual: fused tokens {runs[True][0]} differ from unfused {runs[False][0]}")
+        check(rs["captured_on_run"] == on_run0, "tiny dual: graphs captured on the request path")
+        log(f"reference: tiny f32 dual decode: {len(mixed)} requests (3 short, 3 long) at once, "
+            f"{runs[True][1]} dual decodes; fused tokens equal unfused")
+
+        graphs0, real_tick = rs["graphs"], engine._tick
+        engine.tick_stall_dump_s, engine.tick_stall_abort_s = 0.1, 0.3
+        engine._tick = lambda *_a, **_k: time.sleep(2.0)
+
+        async def crash():
+            try:
+                await asyncio.wait_for(engine.transcribe(audio, SR, max_new_tokens=budget), 20)
+                return "completed", None
+            except RuntimeError:
+                pass
+            t0 = time.perf_counter()
+            while engine.alive and time.perf_counter() - t0 < 10:
+                await asyncio.sleep(0.01)
+            refused = None
+            if engine._tick_busy:
+                try:
+                    await engine.start()
+                    refused = False
+                except RuntimeError as e:
+                    refused = "still" in str(e)
+            dead = not engine.alive
+            while engine._tick_busy and time.perf_counter() - t0 < 20:
+                await asyncio.sleep(0.01)
+            return ("failed" if dead else "alive"), refused
+
+        outcome, refused = asyncio.run(crash())
+        check(outcome == "failed" and refused is True and not engine._tick_busy,
+              f"tiny crash: request {outcome}, start() refused while stuck: {refused}, "
+              f"busy {engine._tick_busy}")
+        engine._tick = real_tick
+        engine.tick_stall_dump_s, engine.tick_stall_abort_s = 60.0, 600.0
+        healed = asyncio.run(engine.transcribe(audio, SR, max_new_tokens=budget)).tokens
+        check(engine.alive and np.array_equal(healed, before) and rs["graphs"] == graphs0,
+              f"tiny heal: alive {engine.alive}, tokens {healed} vs {before}, graphs "
+              f"{rs['graphs']} vs {graphs0}")
+        log("reference: tiny f32 crash and heal: the wedged request failed, alive False, start() "
+            "refused while the tick was stuck; healed: the pre-crash tokens, no graph captured "
+            "again")
+    finally:
+        engine.shutdown()
+    full = build()
+    try:
+        wf = full.warmup(full=True)
+        check(wf["graphs"] > default_graphs and registered_grid(full) == expected_grid(full, full=True),
+              f"tiny --warmup-full: {wf['graphs']} graphs against the default's {default_graphs}")
+        log(f"reference: tiny f32 warmup(full=True): {wf['graphs']} graphs in "
+            f"{wf['seconds']:.1f} s, the default grid {default_graphs}")
+    finally:
+        full.shutdown()
 
 
 def weight_scale_phase(torch) -> None:
@@ -3136,6 +3563,9 @@ def main() -> None:
             k["batched_shapes"] = batched_rows[k["name"]]
     next(k for k in kernels if k["name"] == "int8_matmul_w8a8")["batched_mma_launches"] = (
         batched_launches.get("int8_matmul_w8a8_mma", 0))
+    # decode attention's launches in the fused runs of the dual A/B (two a
+    # dual step and layer, one per pool), a part of its batched_launches
+    kernels[0]["dual_launches"] = batched["native"]["dual"]["launches"][1]["decode_attention"]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on the main path")
         check(k.get("stream_launches", 1) > 0, f"{k['name']} never launched on the stream")

@@ -99,6 +99,11 @@ class AppConfig:
     speculative_interims: bool = field(
         default_factory=lambda: _env_bool("SPECULATIVE_INTERIMS", False)
     )
+    # fused dual-pool decode on the batcher: both pools in one program per
+    # tick, the weights read once a step (off by default, as in JAX)
+    fuse_dual_decode: bool = field(
+        default_factory=lambda: _env_bool("FUSE_DUAL_DECODE", False)
+    )
     # mel-frame bucket sizes: one prompt shape per bucket
     prefill_buckets: List[int] = field(
         default_factory=lambda: [128, 256, 512, 1024, 2048, 3072]

@@ -45,6 +45,20 @@ Design, as in JAX:
   never finishes a slot's next occupant.
 - VAD: the gate windows of all streams are sliced from the device audio
   ring (engine/ring.py) and evaluated in one program per tick.
+- FUSED DUAL DECODE (``fuse_dual_decode``, off by default as in JAX): while
+  both pools are active, one program per k decodes both, the layer weights
+  read once a step (models/glm_asr.py:decode_step_dual); its k is the short
+  pool's pick, and the long pool's drafted slots take plain steps in it.
+- SELF-HEAL: a tick stuck past ``tick_stall_dump_s`` dumps every thread's
+  stack; past ``tick_stall_abort_s`` the scheduler crashes, fails every
+  caller and reports ``alive`` False (/health "degraded"). The stuck tick
+  cannot be cancelled (a wedged graph replay or event synchronize holds its
+  thread); ``start()`` refuses to spawn a scheduler while it is still
+  running, and the next request after it drains restarts one in-process.
+- WARMUP: ``warmup()`` captures the default grid before serving;
+  ``warmup(full=True)`` every batch size of each pool; ``warmup(fast=True)``
+  leaves what serving can start without (the JAX package's deferred set) to
+  the scheduler's idle ticks, one capture each, in JAX's priority order.
 
 Programs are functions of one dict of static buffers, written in place:
 each pool's state is the graphs' static memory, and admission copies a
@@ -55,16 +69,19 @@ CUDA graph on first use (or in ``warmup``) and replays it; on the CPU
 device work runs on one executor thread; the event loop never touches the
 device.
 
-Not ported yet: the fused dual-pool decode, the stall watchdog and
-crash self-heal, fast warmup, the data-parallel mesh.
+Not ported yet: the data-parallel mesh.
 """
 
 from __future__ import annotations
 
 import asyncio
+import faulthandler
 import functools
 import logging
+import os
+import threading
 import time
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any, Optional
@@ -90,6 +107,7 @@ from sonicscribe_tpu_torch.engine.transcriber import (
 from sonicscribe_tpu_torch.models.config import GlmAsrConfig
 from sonicscribe_tpu_torch.models.glm_asr import (
     decode_step,
+    decode_step_dual,
     embed_tokens,
     encode_audio,
     prefill_kv,
@@ -108,6 +126,12 @@ _SPEC_LIVE_FLAG = 1 << 16
 _VAD_BATCH_BUCKETS = (1, 4, 16, 64)
 _GATE_WINDOW_CHUNKS = 10  # 640 ms
 _GATE_SUB_WINDOWS = _GATE_WINDOW_CHUNKS * CHUNK_SAMPLES // WINDOW_SAMPLES
+# buffers a capture's eager warm run reads and writes in place instead of on
+# copies: the pools' K/V and the audio ring. Its writes land where no live
+# slot reads before its next step writes them again (a slot's K/V at or past
+# its length, the trash slot's rows, the trash stream's ring rows), so the
+# warm run needs no copy of the caches, which were most of the capture peak
+_WARM_IN_PLACE = ("k", "v", "ring")
 
 
 def _resolve_quietly(future: asyncio.Future, result) -> None:
@@ -227,6 +251,30 @@ def _decode_k_program(params, cfg: GlmAsrConfig, bufs: dict, k: int,
         dn.copy_(dn_new)
     n_all = bufs["n"]
     bufs["status"].copy_(torch.where(bufs["done"], -(n_all + 1), n_all + 1))
+    return {}
+
+
+def _decode_k_dual_program(params, cfg: GlmAsrConfig, bufs: dict, k: int) -> dict:
+    """k greedy steps for BOTH pools in one program (the JAX package's
+    _decode_k_dual_program): decode_step_dual reads the layer weights once
+    a step for the short pool's rows and the long pool's, each pool's
+    bookkeeping is _decode_k_program's on all of its rows, then each pool's
+    status row (no draft flag: drafted slots take plain steps here). bufs:
+    {"short": the short pool's state, "long": the long pool's}."""
+    a, b = bufs["short"], bufs["long"]
+    ca = {"k": a["k"], "v": a["v"], "len": a["len"]}
+    cb = {"k": b["k"], "v": b["v"], "len": b["len"]}
+    for _ in range(k):
+        _, la, _, lb = decode_step_dual(params, cfg, ca, a["tok"], cb, b["tok"],
+                                        active_a=~a["done"], active_b=~b["done"])
+        for st, logits in ((a, la), (b, lb)):
+            nxt, n_new, dn_new = _book_step(cfg, logits, st["bias"], st["done"], st["tok"],
+                                            st["out"], st["n"], st["budget"], st["out"].shape[1])
+            st["tok"].copy_(nxt)
+            st["n"].copy_(n_new)
+            st["done"].copy_(dn_new)
+    for st in (a, b):
+        st["status"].copy_(torch.where(st["done"], -(st["n"] + 1), st["n"] + 1))
     return {}
 
 
@@ -377,6 +425,20 @@ class _CachePool:
 
 
 @dataclass
+class _GridKey:
+    """One program of the warmup grid: its key, how to make its (key,
+    program, buffers) and how to register it for dispatch once captured;
+    `deferred` (fast warmup leaves it to idle ticks) and `prio` (their
+    order, 0 first) as the JAX package's warmup marks it."""
+
+    key: tuple
+    entry: Any  # () -> (key, program, buffers)
+    register: Any  # () -> None
+    deferred: bool = False
+    prio: int = 3
+
+
+@dataclass
 class _TranscribeReq:
     audio: np.ndarray
     sample_rate: int
@@ -438,7 +500,12 @@ class BatchedEngine:
         max_decode_tokens: int = 256,
         n_streams: int = 64,
         base_logit_bias=None,
+        fuse_dual_decode: bool = False,
     ):
+        """fuse_dual_decode: decode both pools in one program while both
+        are active (see _decode_k_dual_program); off by default, as in the
+        JAX package, where the v5e measured no win (``fuse_dual``, which a
+        caller may flip between runs)."""
         self.transcriber = transcriber
         self.vad = vad
         self.cfg = transcriber.cfg
@@ -453,7 +520,8 @@ class BatchedEngine:
         self._base_bias = torch.zeros((dec.vocab_size,), dtype=torch.float32, device=self.device)
         if base_logit_bias is not None:
             self._base_bias.copy_(torch.as_tensor(np.asarray(base_logit_bias, np.float32)))
-        self.router = GraphRouter(self.device)
+        self.router = GraphRouter(self.device, warm_in_place=_WARM_IN_PLACE)
+        self.fuse_dual = bool(fuse_dual_decode)
 
         def make_pool(name: str, n_slots: int, max_len: int, out_width: int) -> _CachePool:
             rows, dev, i32 = n_slots + 1, self.device, torch.int32
@@ -495,6 +563,9 @@ class BatchedEngine:
         # occupied-prefix decode: rungs 1/4/16 of the long pool
         self.long.rows_ladder = tuple(r for r in (1, 4, 16) if r < len(self.long.slots) + 1)
         self.pools = (self.short, self.long)
+        # the dual program's static buffers: both pools' state
+        self._dual_bufs = {"short": self.short.state, "long": self.long.state}
+        self._compiled_dual: set = set()  # the dual programs' k warmup registered
         # the short pool's k ladder stops below twice its budget, and holds
         # short_budget - 1 (a fresh interim's remaining steps)
         self.dual_k_choices = tuple(sorted(
@@ -532,6 +603,24 @@ class BatchedEngine:
         self._loop = None
         self._running = False
         self._crashed = False  # set only by the scheduler's crash handler
+        # watchdog: a tick blocked this long dumps every thread's stack (the
+        # tick keeps running); this long, the scheduler crashes and fails
+        # every caller instead of hanging them (the JAX package's values)
+        self.tick_stall_dump_s = 60.0
+        self.tick_stall_abort_s = 600.0
+        # ticks running on the executor thread, counted by that thread
+        # (_run_tick_guarded), so that the count holds even when the loop
+        # that dispatched a wedged tick is gone; start() refuses to spawn a
+        # scheduler while it is non-zero, under the lock the tick holds
+        # while it finishes
+        self._tick_lock = threading.Lock()
+        self._tick_busy = 0
+        # fast warmup's deferred grid keys (_GridKey), captured one per idle
+        # tick (or by warmup_join / drain_replays); `_deferred_inflight`:
+        # popped and not yet registered
+        self._replay_queue: deque = deque()
+        self._deferred_inflight = 0
+        self._warmed = False  # set by warmup(): dispatch only registered programs
         self._pending_results: Optional[dict] = None  # the previous tick's parked copies
         self._ring_backlog: list[_RingTranscribeReq] = []
         self._host_backlog: list[_TranscribeReq] = []
@@ -545,7 +634,14 @@ class BatchedEngine:
         self.stats = {"ticks": 0, "decode_steps": 0, "prefills": 0, "prefill_programs": 0,
                       "ring_prefill_programs": 0, "mel_preps": 0, "vad_batches": 0,
                       "requests": 0, "tokens": 0, "verify_rounds": 0, "eager_granted": 0,
-                      "eager_denied": 0}
+                      "eager_denied": 0, "dual_decodes": 0, "warmup_capture_failures": 0}
+        # per-tick phase times (SONIC_TICK_TRACE set): host times of
+        # dispatch, as in the JAX package; no device sync is added
+        self.tick_trace: Optional[deque] = (
+            deque(maxlen=4096) if os.environ.get("SONIC_TICK_TRACE") else None)
+        # the admit phase's split while tracing: host prep, input writes,
+        # program dispatch, and groups per pool
+        self._trace_admit: Optional[dict] = None
         # decode-k caps (the JAX package's values, tuned there on the chip):
         # an arrival mid-program waits for it, so these bound queueing
         self.pending_k_cap = 16
@@ -581,6 +677,12 @@ class BatchedEngine:
         self._eager_probe = 0
         # long admissions per tick while the short class is busy
         self.busy_long_admit_cap = 2
+        # rationing: admit the short class, dispatch the short decode, then
+        # admit the long class (off by default: the JAX package measured
+        # it a net loss); the dual decode always admits both first
+        self.ration_long_admits = False
+        # spread lockstep interim cohorts over eight phases (interim_stagger)
+        self.stagger_interims = True
         # the file pipeline may run this many segment decodes at once
         self.concurrency_hint = slots
         # total mel frames of a long-pool prefill group while the short class
@@ -597,6 +699,11 @@ class BatchedEngine:
     # ---------------- public async interface ----------------
 
     async def start(self) -> None:
+        """Spawn the scheduler on this loop unless one runs here: also after
+        a crash (the next request restarts the engine in-process) and on a
+        new loop. Raises RuntimeError while a crashed scheduler's wedged
+        tick still runs on the executor thread: a new scheduler would race
+        it on pool state, and only a process restart ends a lasting wedge."""
         loop = asyncio.get_running_loop()
         if self._task is not None and (self._task.done() or self._loop is not loop):
             if not self._task.done():
@@ -606,10 +713,20 @@ class BatchedEngine:
                     pass  # the old loop is closed
             self._task = None
         if self._task is None:
-            self._crashed = False
+            # a scheduler stopped without a crash (its loop closed) may leave
+            # its last tick finishing on the executor: wait that out
+            t0 = time.perf_counter()
+            while (self._tick_busy and not self._crashed
+                   and time.perf_counter() - t0 < self.tick_stall_abort_s):
+                await asyncio.sleep(0.002)
+            with self._tick_lock:
+                if self._tick_busy:
+                    raise RuntimeError("batcher crashed and the wedged device tick is still "
+                                       "stuck; restart the process")
+                # a restart clears the crash: /health reports this scheduler
+                self._crashed = False
             self._loop = loop
-            if self._executor is None:
-                self._executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="batcher")
+            self._device_thread()
             self._requests = asyncio.Queue()
             self._vad_requests = asyncio.Queue()
             self._vad_ring_requests = asyncio.Queue()
@@ -664,7 +781,9 @@ class BatchedEngine:
         """Per-stream interim-cadence phase in seconds, read by the session
         at each speech start: 0 unless the live streams could fill half the
         short pool in one wave, then (idx % 8) / 8, so that lockstep cohorts
-        spread over eight phases."""
+        spread over eight phases; 0 with stagger_interims off."""
+        if not self.stagger_interims:
+            return 0.0
         live = self.N_STREAMS - len(self._free_streams)
         if stream_idx is None or live * 2 < len(self.short.slots):
             return 0.0
@@ -733,22 +852,25 @@ class BatchedEngine:
         prompt = build_prompt(self.transcriber.tokenizer, self.cfg)
         return prompt, min(len(prompt.suffix_ids), MAX_SUFFIX_TOKENS)
 
-    def _grid(self) -> dict:
-        """The default program grid, as the JAX package's warmup picks it:
+    def _grid(self, full: bool = False) -> dict:
+        """The program grid, as the JAX package's warmup picks it:
         {"host" | "ring": [(pool, bucket, sb, B)], "decode" | "verify":
         [(pool, k or rounds, rows)]}. Short pool: every batch size for the
         interim ring path at the smallest chunk bucket, (1, 4) host and 1
         elsewhere; long pool: a group ladder (1, 2, 4, 8 as the live frame
         cap allows, and 4 and 8) for the default suffix bucket, 1 for
-        hotword prompts; decode every k of the pool's ladder, rows variants
-        for k >= 8; with speculative finals, verify every rounds choice on
-        the full pool and rows 1 and 4 (long pool only: finals are what
-        carry drafts, and a drafted short request takes the plain ladder)."""
+        hotword prompts; `full`: every batch size of the pool everywhere.
+        Decode every k of the pool's ladder, rows variants for k >= 8; with
+        speculative finals, verify every rounds choice on the full pool and
+        rows 1 and 4 (long pool only: finals are what carry drafts, and a
+        drafted short request takes the plain ladder)."""
         tr = self.transcriber
         smallest, smallest_cb = min(tr.buckets), min(self.chunk_buckets)
         grid = {"host": [], "ring": [], "decode": [], "verify": []}
 
         def choices(pool, ring: bool, is_smallest: bool, sb: int, frame_bucket: int, pc):
+            if full:
+                return pc
             if pool is self.short:
                 if ring and is_smallest:
                     return pc
@@ -779,40 +901,94 @@ class BatchedEngine:
                         grid["verify"].append((pool, r, rows))
         return grid
 
-    def warmup(self, budgets=(15, 200, 256)) -> dict:
-        """Register the default program grid (`_grid`) for both pools and,
-        on the card, capture each of its CUDA graphs synchronously, with the
-        VAD and scatter programs; then one admit -> decode -> reap per pool.
-        Without it (--no-warmup) prefill groups admit at B = 1 and each key
-        is captured by its first use. On the CPU nothing is captured: the
-        grid is only registered. -> {"graphs", "seconds"}."""
+    def _grid_keys(self, grid: dict, P: int) -> list[_GridKey]:
+        """The grid's programs in the JAX package's warmup order (per pool:
+        host prefills, decode, verify, ring prefills; then the dual
+        programs), each marked as JAX's fast warmup marks it
+        (batcher.py:1620-1745). Deferred: host prefills at B > 1, ring
+        prefills at long B > 1 and short B > 8, decode rows variants, long
+        decode at k > long_live_k_cap, the whole verify grid. Priority (0
+        first): short ring prefills at the smallest chunk bucket 0, other
+        short ring prefills and the short decode ladder 1, short host
+        prefills, long B = 1 default-suffix prefills, long ring prefills at
+        B = 1 and long full-rows decode up to long_oversub_k_cap 2, the
+        rest 3."""
+        sb0, smallest_cb = self.suffix_buckets[0], min(self.chunk_buckets)
+        items: list[_GridKey] = []
+
+        def prefill(pool, ring, bucket, sb, B, deferred, prio):
+            compiled = pool.compiled_ring_prefill if ring else pool.compiled_prefill
+            items.append(_GridKey(
+                key=self._prefill_key(pool, ring, bucket, sb, B, P),
+                entry=functools.partial(self._prefill_entry, pool, ring, bucket, sb, B, P),
+                register=functools.partial(compiled.add, (bucket, sb, B)),
+                deferred=deferred, prio=prio))
+
+        def program(key, fn, bufs, register, deferred, prio):
+            items.append(_GridKey(key=key, entry=lambda: (key, fn, bufs), register=register,
+                                  deferred=deferred, prio=prio))
+
+        for pool in self.pools:
+            short = pool is self.short
+            for p, bucket, sb, B in grid["host"]:
+                if p is pool:
+                    prefill(pool, False, bucket, sb, B, B > 1,
+                            2 if short or (B == 1 and sb == sb0) else 3)
+            for p, k, rows in grid["decode"]:
+                if p is pool:
+                    program(("decode", pool.name, k, rows), self._decode_fn(k, rows), pool.state,
+                            functools.partial(pool.compiled_decode.add, (k, rows)),
+                            rows is not None or (not short and k > self.long_live_k_cap),
+                            1 if short else 2 if rows is None and k <= self.long_oversub_k_cap
+                            else 3)
+            for p, r, rows in grid["verify"]:
+                if p is pool:
+                    program(self._verify_key(pool, r, rows), self._verify_fn(r, rows), pool.state,
+                            functools.partial(pool.compiled_verify.add, (r, rows)), True, 3)
+            for p, cb, sb, B in grid["ring"]:
+                if p is pool:
+                    prefill(pool, True, cb, sb, B, B > 8 if short else B > 1,
+                            (0 if cb == smallest_cb else 1) if short else 2 if B == 1 else 3)
+        if self.fuse_dual:
+            for k in self.dual_k_choices:
+                program(("decode_dual", k), self._dual_fn(k), self._dual_bufs,
+                        functools.partial(self._compiled_dual.add, k), False, 1)
+        return items
+
+    def warmup(self, budgets=(15, 200, 256), full: bool = False, fast: bool = False) -> dict:
+        """Register the program grid (`_grid`; every batch size with
+        `full`) for both pools and, on the card, capture each of its CUDA
+        graphs synchronously, with the dual programs (fusion on), the VAD
+        and scatter programs; then one admit -> decode -> reap per pool.
+        Dispatch is gated to registered programs from then on. Without it
+        (--no-warmup) prefill groups admit at B = 1 and each key is
+        captured by its first use.
+
+        `fast`: two-phase boot. The keys serving can start without (the
+        JAX package's deferred set, `_grid_keys`) are neither captured nor
+        registered here: the scheduler's idle ticks capture them one at a
+        time in priority order and register each once captured, and until
+        then finals admit in B = 1 groups, decode runs on full rows, long
+        k is clamped to registered rungs and drafted finals take plain
+        steps. ``warmup_join`` / ``drain_replays`` capture what is left.
+
+        On the CPU nothing is captured: the grid is only registered (fast:
+        the deferred keys queued the same way). -> {"graphs", "seconds",
+        "deferred"}."""
         del budgets  # a decode program serves every budget
         t0 = time.perf_counter()
-        grid = self._grid()
-        cuda = self.device.type == "cuda"
         prompt, n_suffix = self._prompt_defaults()
-        P = len(prompt.prefix_ids)
+        items = self._grid_keys(self._grid(full=full), len(prompt.prefix_ids))
+        deferred = [item for item in items if fast and item.deferred]
+        cuda = self.device.type == "cuda"
         with torch.inference_mode():
-            for pool, bucket, sb, B in grid["host"]:
+            for item in items:
+                if fast and item.deferred:
+                    continue
                 if cuda:
-                    key, fn, bufs = self._prefill_entry(pool, False, bucket, sb, B, P)
-                    self.router.prepare(key, fn, bufs)
-                pool.compiled_prefill.add((bucket, sb, B))
-            for pool, cb, sb, B in grid["ring"]:
-                if cuda:
-                    key, fn, bufs = self._prefill_entry(pool, True, cb, sb, B, P)
-                    self.router.prepare(key, fn, bufs)
-                pool.compiled_ring_prefill.add((cb, sb, B))
-            for pool, k, rows in grid["decode"]:
-                if cuda:
-                    self.router.prepare(("decode", pool.name, k, rows), self._decode_fn(k, rows),
-                                        pool.state)
-                pool.compiled_decode.add((k, rows))
-            for pool, r, rows in grid["verify"]:
-                if cuda:
-                    self.router.prepare(self._verify_key(pool, r, rows),
-                                        self._verify_fn(r, rows), pool.state)
-                pool.compiled_verify.add((r, rows))
+                    self.router.prepare(*item.entry())
+                item.register()
+            t1 = time.perf_counter()
             if cuda:
                 for B in _VAD_BATCH_BUCKETS:
                     self.router.prepare(*self._vad_host_entry(B, _GATE_SUB_WINDOWS))
@@ -822,10 +998,92 @@ class BatchedEngine:
                 for pool in self.pools:
                     self._exercise(pool, prompt, n_suffix)
                 torch.cuda.synchronize(self.device)
-        out = {"graphs": self.router.stats["graphs"], "seconds": time.perf_counter() - t0}
+        deferred.sort(key=lambda item: item.prio)  # stable: grid order within a priority
+        self._replay_queue.extend(deferred)
+        self._warmed = True
+        t2 = time.perf_counter()
+        out = {"graphs": self.router.stats["graphs"], "seconds": t2 - t0,
+               "deferred": len(deferred)}
         self.stats["warmup_graphs"] = out["graphs"]
         self.stats["warmup_s"] = round(out["seconds"], 1)
+        self.stats["warmup_phase_s"] = {"grid": round(t1 - t0, 3),
+                                        "vad_scatter_exercise": round(t2 - t1, 3)}
+        self._note_deferred()
         return out
+
+    def _device_thread(self) -> ThreadPoolExecutor:
+        """The executor whose one thread runs the ticks and the deferred
+        captures (made on first use)."""
+        if self._executor is None:
+            self._executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="batcher")
+        return self._executor
+
+    def _note_deferred(self) -> None:
+        """stats: deferred keys not yet registered (queued or being
+        captured) and those still queued."""
+        self.stats["warmup_background_pending"] = len(self._replay_queue) + self._deferred_inflight
+        self.stats["warmup_replay_pending"] = len(self._replay_queue)
+
+    def _pop_deferred(self) -> Optional[_GridKey]:
+        with self._tick_lock:
+            if not self._replay_queue:
+                return None
+            self._deferred_inflight += 1
+            return self._replay_queue.popleft()
+
+    def _run_replay_thunk(self, item: _GridKey) -> None:
+        """Capture one deferred grid key on the device thread, then
+        register it: dispatch may use it from the next tick on. Its warm
+        run keeps live slots as they are (_WARM_IN_PLACE), and no replay
+        follows the capture (it would step the live slots). A capture that
+        fails is logged and counted in stats["warmup_capture_failures"],
+        and its key stays unregistered: nothing runs it eagerly."""
+        t0 = time.perf_counter()
+        try:
+            if self.device.type == "cuda":
+                with torch.inference_mode():
+                    self.router.prepare(*item.entry(), replay=False)
+            item.register()
+        except Exception:
+            logger.exception("deferred capture of %s failed", item.key)
+            self.stats["warmup_capture_failures"] += 1
+        finally:
+            with self._tick_lock:
+                self._deferred_inflight -= 1
+            phases = self.stats.setdefault("warmup_phase_s", {})
+            phases["deferred"] = round(phases.get("deferred", 0.0) + time.perf_counter() - t0, 3)
+            self._note_deferred()
+
+    def _drain_deferred(self, timeout: Optional[float]) -> None:
+        """Capture the deferred keys still queued, in order, on the device
+        thread (serialized with ticks), then wait for one an idle tick is
+        capturing."""
+        t0 = time.perf_counter()
+
+        def time_left() -> bool:
+            return timeout is None or time.perf_counter() - t0 < timeout
+
+        while time_left():
+            item = self._pop_deferred()
+            if item is None:
+                break
+            self._device_thread().submit(self._run_replay_thunk, item).result()
+        while self._deferred_inflight and time_left():
+            time.sleep(0.002)
+
+    def warmup_join(self, timeout: Optional[float] = None) -> None:
+        """Return once no deferred key of a fast warmup is left (at once
+        otherwise), or at the timeout: what the idle ticks have not
+        captured yet is captured here (_drain_deferred)."""
+        self._drain_deferred(timeout)
+
+    def drain_replays(self, timeout: Optional[float] = None) -> float:
+        """Capture every deferred key left, now; -> seconds spent. Benches
+        call warmup_join() and this before measuring steady state; serving
+        leaves them to the idle ticks."""
+        t0 = time.perf_counter()
+        self._drain_deferred(timeout)
+        return time.perf_counter() - t0
 
     def _exercise(self, pool: _CachePool, prompt, n_suffix: int) -> None:
         """One real admit -> decode -> reap into slot 0 from the trash
@@ -850,7 +1108,7 @@ class BatchedEngine:
         """(key, program, static buffers) of a prefill program: the pool's
         state and the group's inputs, made once per key in a state the
         program can run on (every row padding aimed at the trash slot)."""
-        key = ("ring_prefill" if ring else "prefill", pool.name, bucket, B, sb, P)
+        key = self._prefill_key(pool, ring, bucket, sb, B, P)
         tr, cfg = self.transcriber, self.cfg
         if key not in self._bufs:
             dev, i32 = self.device, torch.int32
@@ -882,6 +1140,13 @@ class BatchedEngine:
         else:
             fn = functools.partial(_prefill_slots_program, tr.params, cfg)
         return key, fn, self._bufs[key]
+
+    @staticmethod
+    def _prefill_key(pool: _CachePool, ring: bool, bucket: int, sb: int, B: int, P: int) -> tuple:
+        return ("ring_prefill" if ring else "prefill", pool.name, bucket, B, sb, P)
+
+    def _dual_fn(self, k: int):
+        return functools.partial(_decode_k_dual_program, self.transcriber.params, self.cfg, k=k)
 
     def _decode_fn(self, k: int, rows: Optional[int]):
         return functools.partial(_decode_k_program, self.transcriber.params, self.cfg, k=k,
@@ -1106,6 +1371,52 @@ class BatchedEngine:
         with torch.inference_mode():
             self._tick(vad_batch, ring_vad_batch)
 
+    def _run_tick_guarded(self, vad_batch, ring_vad_batch) -> None:
+        """Executor entry of a tick. The busy count is the thread's own, so
+        it holds even when the loop that dispatched a wedged tick has gone;
+        start() refuses to spawn a scheduler while it is non-zero. A tick
+        that outlived a crash may have admitted requests after the crash
+        handler's sweep: it sweeps again on its way out, under the lock
+        start() takes, so it cannot clear a scheduler that restarted."""
+        with self._tick_lock:
+            self._tick_busy += 1
+        try:
+            self._run_tick(vad_batch, ring_vad_batch)
+        finally:
+            with self._tick_lock:
+                self._tick_busy -= 1
+                if self._crashed:
+                    self._fail_pending(RuntimeError("batcher crashed"))
+
+    async def _await_tick(self, fut) -> None:
+        """Wait for a tick on the executor. Past tick_stall_dump_s every
+        thread's stack goes to stderr and the wait goes on; past
+        tick_stall_abort_s this raises and the scheduler crashes. The stuck
+        tick is abandoned, not stopped: a graph replay or an event
+        synchronize wedged in the CUDA runtime cannot be cancelled, and
+        only a process restart ends a lasting wedge."""
+        try:
+            await asyncio.wait_for(asyncio.shield(fut), self.tick_stall_dump_s)
+            return
+        except asyncio.TimeoutError:
+            pass
+        logger.error("scheduler tick stalled > %.1f s; dumping every thread's stack",
+                     self.tick_stall_dump_s)
+        faulthandler.dump_traceback(all_threads=True)
+        waited = self.tick_stall_dump_s
+        while True:
+            try:
+                await asyncio.wait_for(asyncio.shield(fut), self.tick_stall_dump_s)
+                return
+            except asyncio.TimeoutError:
+                waited += self.tick_stall_dump_s
+                if waited >= self.tick_stall_abort_s:
+                    # retrieve the abandoned tick's outcome when it comes, so
+                    # that nothing logs it as never retrieved
+                    fut.add_done_callback(lambda f: f.cancelled() or f.exception())
+                    raise RuntimeError(f"device tick wedged > {waited:.1f} s; abandoning the "
+                                       "engine; restart the process")
+
     async def _scheduler(self) -> None:
         loop = asyncio.get_running_loop()
         try:
@@ -1131,10 +1442,16 @@ class BatchedEngine:
                 if did_work:
                     # one executor hop per tick: dispatch every phase, then
                     # resolve the previous tick's copies
-                    await loop.run_in_executor(self._executor, self._run_tick, vad_batch,
-                                               ring_vad_batch)
+                    await self._await_tick(loop.run_in_executor(
+                        self._executor, self._run_tick_guarded, vad_batch, ring_vad_batch))
                 self.stats["ticks"] += 1
                 if not did_work:
+                    item = self._pop_deferred() if self._replay_queue else None
+                    if item is not None:
+                        # fully idle: capture one deferred grid key on the
+                        # tick thread, then look at the queues again
+                        await loop.run_in_executor(self._executor, self._run_replay_thunk, item)
+                        continue
                     self._wake.clear()
                     try:
                         await asyncio.wait_for(self._wake.wait(), timeout=1.0)
@@ -1193,41 +1510,81 @@ class BatchedEngine:
         tick's programs (each decode followed by the copy of its status and
         token rows to the host and an event), then resolve the previous
         tick's copies. Finished requests are reaped one tick late; the host
-        waits only on work it dispatched a tick earlier."""
+        waits only on work it dispatched a tick earlier. With tick_trace on,
+        one record of its phases' host times (the JAX package's keys)."""
+        trace = self.tick_trace
+        if trace is not None:
+            self._trace_admit = {"prep_ms": 0.0, "write_ms": 0.0, "dispatch_ms": 0.0,
+                                 "groups_short": 0, "groups_long": 0}
+        t0 = time.perf_counter()
         self._sweep_cancelled()
         if self._stream_resets:
             self._reset_streams()
         if self._ingest_pending:
             self._scatter_ingest()
+        t_ingest = time.perf_counter()
         if vad_batch:
             self._run_vad_batch(vad_batch)
         ring_vad_chunks = _chunked(ring_vad_batch, _VAD_BATCH_BUCKETS[-1])
         ring_vad = [(self._dispatch_vad_ring(c), c) for c in ring_vad_chunks]
         ring_vad = [(p, c) for p, c in ring_vad if p is not None]  # a failed one failed its futures
+        t_vad = time.perf_counter()
 
         # admits; a starved pool with a waiting burst resolves the previous
-        # tick first, to free its finished slots
+        # tick first, to free its finished slots. Rationing admits the long
+        # class after the short decode; the dual decode needs both admitted
+        ration = self.ration_long_admits and not self.fuse_dual
         if self._ring_backlog or self._host_backlog:
             if self._pending_results is not None and self._any_pool_starved():
                 self._resolve_pending()
-            self._admit_backlogs()
+            self._admit_backlogs(only=self.short if ration else None)
         else:
             self._backlog_has_short = False
+        t_admit = time.perf_counter()
 
         # decode k steps per pool, short first. If every active slot has
         # surely run out its budget, resolve first instead of a wasted step
-        if self._pending_results is not None and self._all_surely_done():
+        early = self._pending_results is not None and self._all_surely_done()
+        if early:
             self._resolve_pending()
+        t_early = time.perf_counter()
         parked: list = []
-        for pool in self.pools:
-            if pool.n_active > 0:
-                self._dispatch_decode_pool(pool, parked)
+        if self.fuse_dual:
+            self._dispatch_decode_all(parked)
+        else:
+            if self.short.n_active > 0:
+                self._dispatch_decode_pool(self.short, parked)
+            if ration and (self._ring_backlog or self._host_backlog):
+                self._admit_backlogs(only=self.long)
+            if self.long.n_active > 0:
+                self._dispatch_decode_pool(self.long, parked)
+        t_decode = time.perf_counter()
 
         self._resolve_pending()
+        t_resolve = time.perf_counter()
         if ring_vad or parked:
             self._pending_results = {"ring_vad": [p for p, _ in ring_vad],
                                      "ring_vad_batch": [c for _, c in ring_vad],
                                      "pools": parked}
+        if trace is not None:
+            trace.append({
+                "t": t0,
+                "ingest_ms": (t_ingest - t0) * 1e3,
+                "vad_dispatch_ms": (t_vad - t_ingest) * 1e3,
+                "admit_ms": (t_admit - t_vad) * 1e3,
+                "early_resolve_ms": (t_early - t_admit) * 1e3,
+                "decode_dispatch_ms": (t_decode - t_early) * 1e3,
+                "resolve_ms": (t_resolve - t_decode) * 1e3,
+                "total_ms": (t_resolve - t0) * 1e3,
+                "early": early,
+                "n_vad": len(vad_batch) + len(ring_vad_batch),
+                # steps left after this tick's dispatch (0: surely done next tick)
+                "remain_max": [(p.name, max(s.budget - 1 - s.steps_seen
+                                            for s in p.slots if s.active))
+                               for p in self.pools if p.n_active],
+                "active": [(p.name, p.n_active) for p in self.pools],
+                "admit_detail": self._trace_admit,
+            })
 
     def _all_surely_done(self) -> bool:
         """True if every active slot has been driven past its budget (n
@@ -1348,15 +1705,19 @@ class BatchedEngine:
 
     # ---------------- admission ----------------
 
-    def _admit_backlogs(self) -> None:
-        """Route backlogged requests to their pools, shortest budget first;
-        admit what fits each pool's free slots and carry the rest. While the
-        short class is busy, long admissions are paced (busy_long_admit_cap
-        per tick)."""
-        free = {id(p): p.free for p in self.pools}
-        if not self._short_quiet():
+    def _admit_backlogs(self, only: Optional[_CachePool] = None) -> None:
+        """Route backlogged requests to their pools (to `only`'s alone when
+        given), shortest budget first; admit what fits each pool's free
+        slots and carry the rest. While the short class is busy, long
+        admissions are paced (busy_long_admit_cap per tick)."""
+        scope = self.pools if only is None else (only,)
+        free = {id(p): p.free for p in scope}
+        if id(self.long) in free and not self._short_quiet():
             free[id(self.long)] = min(free[id(self.long)], self.busy_long_admit_cap)
-        self._backlog_has_short = False
+        # the call that routes the short class owns the waiting-interim flag
+        track_short = only is None or only is self.short
+        if track_short:
+            self._backlog_has_short = False
         for backlog, route, admit in ((self._ring_backlog, self._ring_pool,
                                        self._admit_ring_grouped),
                                       (self._host_backlog, self._host_pool, self._admit_grouped)):
@@ -1365,15 +1726,15 @@ class BatchedEngine:
             keep, take = [], {}
             for req in sorted(backlog, key=lambda r: r.max_new_tokens):
                 pool = route(req)
-                if free[id(pool)] > 0:
+                if free.get(id(pool), 0) > 0:
                     free[id(pool)] -= 1
                     take.setdefault(id(pool), []).append(req)
                 else:
                     keep.append(req)
-                    if pool is self.short:
+                    if track_short and pool is self.short:
                         self._backlog_has_short = True
             backlog[:] = keep
-            for pool in self.pools:
+            for pool in scope:
                 if take.get(id(pool)):
                     admit(pool, take[id(pool)])
 
@@ -1451,6 +1812,7 @@ class BatchedEngine:
             stream_idx[j], start[j] = req.stream_idx, req.start_chunk
             count[j] = max(1, min(req.chunk_count, bucket))
             budgets[j] = req.max_new_tokens
+        ta, t_w = self._trace_admit, time.perf_counter()
         try:
             self._set_slot_bias(pool, [(s, self._hotword_ids(r.hotwords))
                                        for s, r in zip(slot_list, items)])
@@ -1461,10 +1823,13 @@ class BatchedEngine:
                           chunk_count=count, suffix_ids=suffixes, suffix_lens=suffix_lens,
                           slots=slot_list + [pool.trash_slot] * (B - len(items)),
                           budget_vals=budgets, draft_rows=draft_rows, draft_lens=draft_lens)
+            t_d = time.perf_counter()
             self.router.run(key, fn, bufs)
         except Exception as e:
             self._fail_group(items, e)
             return
+        if ta is not None:
+            self._trace_group(ta, pool, t_w, t_d)
         self._activate(pool, items, slot_list)
         self.stats["ring_prefill_programs"] += 1
 
@@ -1541,10 +1906,19 @@ class BatchedEngine:
                 req.future.get_loop().call_soon_threadsafe(req.future.set_exception, e)
             return None
 
+    def _trace_group(self, ta: dict, pool: _CachePool, t_write: float, t_dispatch: float) -> None:
+        """Add an admitted group to the traced tick's admit detail: its
+        input writes (bias rows, drafts, host-to-device copies) from
+        t_write, its program's dispatch from t_dispatch to now."""
+        ta["write_ms"] += (t_dispatch - t_write) * 1e3
+        ta["dispatch_ms"] += (time.perf_counter() - t_dispatch) * 1e3
+        ta[f"groups_{pool.name}"] += 1
+
     def _admit_grouped(self, pool: _CachePool, reqs: list[_TranscribeReq]) -> None:
         """Prepare each request, group by (mel bucket, suffix bucket), one
         prefill program per group of a registered size."""
         by_key: dict = {}
+        t_prep = time.perf_counter()
         for req in reqs:
             prep = self._prepare_request(req)
             if prep is None:
@@ -1557,6 +1931,8 @@ class BatchedEngine:
                 self._host_backlog.append(req)
                 continue
             by_key.setdefault((prep[0], prep[6]), []).append((req, prep))
+        if self._trace_admit is not None:  # host prep: resample, mel dispatch, prompt
+            self._trace_admit["prep_ms"] += (time.perf_counter() - t_prep) * 1e3
         for (bucket, sb), items in by_key.items():
             idx = 0
             for B in self._group_sizes(pool, pool.compiled_prefill, bucket, sb, bucket,
@@ -1568,6 +1944,7 @@ class BatchedEngine:
         slot_list = self._claim_slots(pool, len(items))
         pad = B - len(items)
         preps = [p for _, p in items] + [items[0][1]] * pad  # padding repeats the first row
+        ta, t_w = self._trace_admit, time.perf_counter()
         try:
             self._set_slot_bias(pool, [(s, self._hotword_ids(r.hotwords))
                                        for s, (r, _) in zip(slot_list, items)])
@@ -1583,10 +1960,13 @@ class BatchedEngine:
                 slots=slot_list + [pool.trash_slot] * pad,
                 budget_vals=[r.max_new_tokens for r, _ in items] + [0] * pad,
                 draft_rows=draft_rows, draft_lens=draft_lens)
+            t_d = time.perf_counter()
             self.router.run(key, fn, bufs)
         except Exception as e:
             self._fail_group([r for r, _ in items], e)
             return
+        if ta is not None:
+            self._trace_group(ta, pool, t_w, t_d)
         self._activate(pool, [r for r, _ in items], slot_list)
 
     # ---------------- decode ----------------
@@ -1630,6 +2010,13 @@ class BatchedEngine:
             else:
                 cap = self.long_live_k_cap
             k = min(k, cap)
+        if self._warmed and (k, None) not in pool.compiled_decode:
+            # a fast boot registers the long pool's escalation rungs later:
+            # the largest registered rung below k until then (never a
+            # capture on a request's path)
+            reg = [c for c in choices if (c, None) in pool.compiled_decode]
+            if reg:
+                k = next((c for c in reversed(reg) if c <= k), reg[0])
         return k
 
     def _pick_rows(self, pool: _CachePool, k: int) -> Optional[int]:
@@ -1638,6 +2025,25 @@ class BatchedEngine:
         high = max((i + 1 for i, s in enumerate(pool.slots) if s.active), default=0)
         return next((r for r in pool.rows_ladder
                      if r >= high and (k, r) in pool.compiled_decode), None)
+
+    def _dispatch_decode_all(self, parked: list) -> None:
+        """Every active pool's decode (fusion on). With both pools active,
+        one dual program: its k is the short pool's pick (clamped to the
+        dual ladder), so the interim class finishes in one tick and the
+        long pool rides along; the long pool's drafted slots take plain
+        steps in it (no verify program), as in the JAX package. After a
+        warmup only a registered dual k runs; else the pools decode apart."""
+        active = [p for p in self.pools if p.n_active > 0]
+        k = min(self._pick_k(self.short), self.dual_k_choices[-1]) if len(active) == 2 else None
+        if k is None or (self._warmed and k not in self._compiled_dual):
+            for pool in active:
+                self._dispatch_decode_pool(pool, parked)
+            return
+        self.router.run(("decode_dual", k), self._dual_fn(k), self._dual_bufs)
+        self._compiled_dual.add(k)
+        self.stats["dual_decodes"] += 1
+        self._park(self.short, k, parked)
+        self._park(self.long, k, parked)
 
     def _dispatch_decode_pool(self, pool: _CachePool, parked: list) -> None:
         """Pick k and rows, replay the pool's decode program (or, with a
@@ -1680,16 +2086,20 @@ class BatchedEngine:
         """Rounds of the verify program while a drafted slot is live in the
         long pool, else None (the plain k-step program): the smallest
         registered choice covering the deepest live draft (any of
-        verify_rounds_choices before one is registered), capped at k (a
-        round costs about a decode step). The short pool never verifies:
+        verify_rounds_choices on an engine never warmed; None on a warmed
+        one until a verify program is registered), capped at k (a round
+        costs about a decode step). The short pool never verifies:
         warmup registers no verify program there, so a drafted short
         request takes the plain ladder, as on a warmed JAX engine (an
         unwarmed one would build a short-pool verify program on demand)."""
         if (not self.speculative or pool is not self.long
                 or not any(s.active and s.drafted for s in pool.slots)):
             return None
-        choices = (sorted({r for r, rows in pool.compiled_verify if rows is None})
-                   or sorted(self.verify_rounds_choices))
+        choices = sorted({r for r, rows in pool.compiled_verify if rows is None})
+        if not choices:
+            if self._warmed:
+                return None  # a fast boot registers the verify grid later
+            choices = sorted(self.verify_rounds_choices)
         needed = max((s.spec_rounds for s in pool.slots if s.active and s.drafted), default=1)
         cap = max((r for r in choices if r <= k), default=choices[0])
         return min(next((r for r in choices if r >= min(needed, cap)), cap), cap)

@@ -15,12 +15,20 @@ Capture, per key:
 
 1. one eager run of the program on copies of its buffers, on the capture
    stream: it builds the CUDA kernels (``ops/_build.load``) and warms
-   cuBLAS, cuDNN and the allocator, and leaves the buffers as they were;
-2. ``torch.cuda.graph`` on that stream, into one memory pool shared by
-   every graph of the router (one device thread replays them in turn, so
-   no two of them are live at once), in ``thread_local`` error mode, so
-   that another thread's work on the card (``/transcribe/file`` resamples
-   uploads on it) neither fails nor invalidates the capture.
+   cuBLAS, cuDNN and the allocator, and leaves the buffers as they were.
+   The buffers the router was told to warm in place (``warm_in_place``:
+   the batcher's KV caches and audio ring, where its programs write only
+   what no live slot reads before writing it again) are not copied, which
+   keeps their size out of the capture's memory peak;
+2. ``CUDAGraph.capture_begin`` / ``capture_end`` on that stream, into one
+   memory pool shared by every graph of the router (one device thread
+   replays them in turn, so no two of them are live at once), in
+   ``thread_local`` error mode, so that another thread's work on the card
+   (``/transcribe/file`` resamples uploads on it) neither fails nor
+   invalidates the capture. Not the ``torch.cuda.graph`` context: it
+   synchronizes the device and empties the device and pinned-host caches
+   first, which a capture between serving ticks pays for (it frees every
+   pinned block the ticks' host copies left behind).
 
 A graph's cuBLAS products write into the workspace PyTorch keeps for the
 capture stream; ``torch._C._cuda_clearCublasWorkspaces()`` frees it, and a
@@ -28,7 +36,8 @@ replay after that writes into freed memory. Nothing in the package calls it.
 
 ``run`` then replays the graph; ``prepare`` (the transcriber's warmup)
 replays it once more, uncounted, so that the graph is uploaded to the
-device before the first request. A capture or replay that fails raises: on
+device before the first request, unless asked not to (a key captured
+beside live state, whose replay would step it). A capture or replay that fails raises: on
 the card no program runs eagerly. On the CPU (``device="cpu"``, as the
 tests ask) ``run`` calls the program itself: the path the caller asked for.
 
@@ -63,19 +72,25 @@ class Captured:
     outputs: dict  # tensors the graph writes
     launches: dict  # kernel launches per replay, by launch counter
     capture_s: float
+    warm_s: float  # the part of capture_s its eager warm run took
 
 
 class GraphRouter:
     """Dispatch programs as CUDA graphs, one per key (eagerly on the CPU).
 
-    `stats`: graphs captured, replays counted (`run`'s), and the seconds
-    each key's capture took (`capture_s`, by key).
+    `stats`: graphs captured, those `run` captured on a first dispatch
+    (`captured_on_run`, a request's path), replays counted (`run`'s), and
+    the seconds each key's capture took (`capture_s`, by key; `warm_s`:
+    the part its eager warm run took).
+    `warm_in_place`: names of buffers the warm run uses as they are.
     """
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, warm_in_place: tuple = ()):
         self.device = torch.device(device)
+        self.warm_in_place = frozenset(warm_in_place)
         self.entries: dict = {}
-        self.stats = {"graphs": 0, "replays": 0, "capture_s": {}}
+        self.stats = {"graphs": 0, "captured_on_run": 0, "replays": 0, "capture_s": {},
+                      "warm_s": {}}
         self._pool = None
         self._stream = None
 
@@ -84,38 +99,44 @@ class GraphRouter:
         (captured first if missing), or on the CPU the program itself."""
         if self.device.type == "cpu":
             return program(bufs)
-        entry = self.entries.get(key) or self._capture(key, program, bufs)
+        entry = self.entries.get(key)
+        if entry is None:
+            entry = self._capture(key, program, bufs)
+            self.stats["captured_on_run"] += 1
         entry.graph.replay()
         for name, n in entry.launches.items():
             _build.launch_counts[name] += n
         self.stats["replays"] += 1
         return entry.outputs
 
-    def prepare(self, key, program: Program, bufs: dict) -> Captured | None:
-        """Capture the key's graph if it has none, and replay it once,
-        uncounted: the first replay uploads the graph to the device and
-        shows that it runs, ahead of the first request. The buffers must
-        hold a state the program can run on, and their next user sets them
-        anew. None on the CPU."""
+    def prepare(self, key, program: Program, bufs: dict, replay: bool = True) -> Captured | None:
+        """Capture the key's graph if it has none, and (`replay`) replay it
+        once, uncounted: the first replay uploads the graph to the device
+        and shows that it runs, ahead of the first request. The buffers
+        must hold a state the program can run on, and their next user sets
+        them anew. None on the CPU."""
         if self.device.type == "cpu":
             return None
         entry = self.entries.get(key)
         if entry is None:
             entry = self._capture(key, program, bufs)
-            entry.graph.replay()
+            if replay:
+                entry.graph.replay()
         return entry
 
     def _capture(self, key, program: Program, bufs: dict) -> Captured:
         t0 = time.perf_counter()
         before = dict(_build.launch_counts)
         self._warm(program, bufs)
-        warm = dict(_build.launch_counts)
+        warm, warm_s = dict(_build.launch_counts), time.perf_counter() - t0
         graph, outputs = self._record(program, bufs)
         launches = {k: v - warm[k] for k, v in _build.launch_counts.items() if v != warm[k]}
         _build.launch_counts.update(before)
-        entry = self.entries[key] = Captured(graph, outputs, launches, time.perf_counter() - t0)
+        entry = self.entries[key] = Captured(graph, outputs, launches, time.perf_counter() - t0,
+                                             warm_s)
         self.stats["graphs"] += 1
         self.stats["capture_s"][key] = entry.capture_s
+        self.stats["warm_s"][key] = warm_s
         return entry
 
     def _capture_stream(self) -> torch.cuda.Stream:
@@ -126,18 +147,25 @@ class GraphRouter:
 
     def _warm(self, program: Program, bufs: dict) -> None:
         """One eager run on copies of the buffers (a dict of them copied
-        field by field), on the capture stream."""
+        field by field; those named in warm_in_place used as they are), on
+        the capture stream."""
+        def copy(name, t):
+            return t if name in self.warm_in_place else t.clone()
+
         stream = self._capture_stream()
         stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(stream):
-            program({k: {f: t.clone() for f, t in v.items()} if isinstance(v, dict)
-                     else v.clone() for k, v in bufs.items()})
+            program({k: {f: copy(f, t) for f, t in v.items()} if isinstance(v, dict)
+                     else copy(k, v) for k, v in bufs.items()})
         torch.cuda.current_stream(self.device).wait_stream(stream)
 
     def _record(self, program: Program, bufs: dict):
         stream = self._capture_stream()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool, stream=stream,
-                              capture_error_mode="thread_local"):
-            outputs = program(bufs)
+        with torch.cuda.stream(stream):
+            graph.capture_begin(self._pool, capture_error_mode="thread_local")
+            try:
+                outputs = program(bufs)
+            finally:
+                graph.capture_end()
         return graph, outputs

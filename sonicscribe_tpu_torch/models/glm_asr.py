@@ -11,7 +11,8 @@ held against the JAX functions:
 - the `audio_proj` adapter (frame stacking + 2-layer MLP),
 - a GLM-style decoder-only LM (RMSNorm, partial NeoX RoPE with float32
   angles, GQA with QKV bias, SwiGLU, tied embeddings), float32 logits,
-- an explicit KV cache with `prefill` / `decode_step`, and `verify_step`
+- an explicit KV cache with `prefill` / `decode_step`, `decode_step_dual`
+  (two caches' rows in one step, the weights read once) and `verify_step`
   (W1 query positions per slot in one pass: speculative verification).
 
 Decode and verify attention go through ``ops.decode_attention`` (the CUDA
@@ -25,9 +26,9 @@ in the decode step, which hands the kernel the whole stack and a layer
 index.
 
 Unlike JAX, the port updates the KV cache IN PLACE: `prefill`,
-`decode_step` and `verify_step` write into the cache tensors they are given, its length
-included, so a CUDA graph of the decode step reads and writes the same
-cache on every replay (engine/exec_store.py).
+`decode_step`, `decode_step_dual` and `verify_step` write into the cache
+tensors they are given, its length included, so a CUDA graph of the
+decode step reads and writes the same cache on every replay (engine/exec_store.py).
 """
 
 from __future__ import annotations
@@ -356,47 +357,83 @@ def decode_step(
     write dropped, as JAX's mode="drop" does; inactive rows are written too
     but do not advance len.
     """
-    dec = cfg.decoder
-    B = tokens.shape[0]
-    k_all, v_all = cache["k"], cache["v"]
-    max_len = k_all.shape[2]
-    device = k_all.device
-    pos = cache["len"]  # [B] position to write
-    if active is None:
-        active = torch.ones((B,), dtype=torch.bool, device=device)
+    (logits,) = _decode_pools(params, cfg, [cache], [tokens], [active])
+    return cache, logits
 
-    x = embed_tokens(params, tokens)  # [B, D]
-    cos, sin, rot = _rope_tables(dec, pos)  # [B, rot//2]
+
+def decode_step_dual(
+    params: Params,
+    cfg: GlmAsrConfig,
+    cache_a: Cache,
+    tokens_a: torch.Tensor,  # [Ba]
+    cache_b: Cache,
+    tokens_b: torch.Tensor,  # [Bb]
+    active_a: torch.Tensor | None = None,
+    active_b: torch.Tensor | None = None,
+) -> Tuple[Cache, torch.Tensor, Cache, torch.Tensor]:
+    """One step for TWO decode batches whose caches differ in shape (the
+    batcher's short and long pools), the layer weights read once: the JAX
+    package's decode_step_dual. Every row-independent op (embedding,
+    RMSNorm, QKV, RoPE, O, MLP, lm_head) runs on the concatenated
+    [Ba + Bb] rows; each batch writes its own cache in place and attends
+    over it through ops.decode_attention, one launch per batch and layer.
+    Per row this is decode_step. -> (cache_a, logits_a, cache_b, logits_b)."""
+    logits_a, logits_b = _decode_pools(params, cfg, [cache_a, cache_b], [tokens_a, tokens_b],
+                                       [active_a, active_b])
+    return cache_a, logits_a, cache_b, logits_b
+
+
+def _decode_pools(params: Params, cfg: GlmAsrConfig, caches: list, tokens: list,
+                  actives: list) -> list:
+    """decode_step over one or more caches at once: the row-independent ops
+    on the rows of all of them (concatenated only when there are several),
+    the cache writes and attention per cache. -> logits per cache."""
+    dec = cfg.decoder
+    sizes = [t.shape[0] for t in tokens]
+    cat = (lambda xs: xs[0]) if len(caches) == 1 else (lambda xs: torch.cat(xs))
+    device = caches[0]["k"].device
+    pos = [c["len"] for c in caches]  # [B] position to write, per cache
+    x = embed_tokens(params, cat(tokens))  # [sum B, D]
+    cos, sin, rot = _rope_tables(dec, cat(pos))  # [sum B, rot//2]
 
     # torch indexing has no drop mode: rows past the end rewrite their own
     # last entry with its old value instead
-    rows = torch.arange(B, device=device)
-    write_at = torch.clamp(pos.long(), max=max_len - 1)
-    in_range = (pos < max_len)[:, None, None]
+    writes = []
+    for c, p in zip(caches, pos):
+        max_len = c["k"].shape[2]
+        writes.append((torch.arange(p.shape[0], device=device),
+                       torch.clamp(p.long(), max=max_len - 1), (p < max_len)[:, None, None]))
 
     # the JAX package's _decode_mm: W8A8 when the config selects it
     mm = matmul_w8a8 if dec.act_int8_decode else matmul
     h = x
     for i in range(dec.n_layers):
         lp = _layer(params["decoder"]["layers"], i, whole_qtensors=True)
-        k_cache, v_cache = k_all[i], v_all[i]
         hn = _rms_norm(h, lp["ln1_scale"], dec.rms_eps)
         q, k_new, v_new = _decoder_qkv(lp, hn, dec, mm)
         q = _apply_rope(q[:, None], cos[:, None], sin[:, None], rot)[:, 0]
         k_new = _apply_rope(k_new[:, None], cos[:, None], sin[:, None], rot)[:, 0]
-        # match the numerics of reading the stored (cache-dtype) K/V back
-        k_new = k_new.to(k_cache.dtype)
-        v_new = v_new.to(v_cache.dtype)
-        k_cache[rows, write_at] = torch.where(in_range, k_new, k_cache[rows, write_at])
-        v_cache[rows, write_at] = torch.where(in_range, v_new, v_cache[rows, write_at])
-
-        ctx = decode_attention(q, k_cache, v_cache, pos).to(h.dtype)
-        h = h + mm(ctx, lp["o_w"])
+        ctx, r0 = [], 0
+        for c, p, (rows, write_at, in_range), n in zip(caches, pos, writes, sizes):
+            k_cache, v_cache = c["k"][i], c["v"][i]
+            # match the numerics of reading the stored (cache-dtype) K/V back
+            k_c = k_new[r0 : r0 + n].to(k_cache.dtype)
+            v_c = v_new[r0 : r0 + n].to(v_cache.dtype)
+            k_cache[rows, write_at] = torch.where(in_range, k_c, k_cache[rows, write_at])
+            v_cache[rows, write_at] = torch.where(in_range, v_c, v_cache[rows, write_at])
+            ctx.append(decode_attention(q[r0 : r0 + n], k_cache, v_cache, p).to(h.dtype))
+            r0 += n
+        h = h + mm(cat(ctx), lp["o_w"])
         h = _decoder_layer_mlp(h, lp, dec, mm)
 
     # in place: a CUDA graph of the step carries len from one replay to the next
-    cache["len"].copy_(torch.where(active, torch.clamp(pos + 1, max=max_len), pos))
-    return cache, _lm_logits(params, cfg, h)
+    for c, p, active in zip(caches, pos, actives):
+        max_len = c["k"].shape[2]
+        if active is None:
+            active = torch.ones(p.shape, dtype=torch.bool, device=device)
+        c["len"].copy_(torch.where(active, torch.clamp(p + 1, max=max_len), p))
+    logits = _lm_logits(params, cfg, h)
+    return [logits] if len(caches) == 1 else list(torch.split(logits, sizes))
 
 
 def verify_step(

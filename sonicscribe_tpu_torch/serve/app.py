@@ -85,9 +85,12 @@ def _device_memory() -> dict:
 async def health(request: web.Request) -> web.Response:
     app = request.app
     engine = app.get("engine")
+    # a crashed scheduler (the stall watchdog's abort on a wedged card)
+    # reports degraded, so that a supervisor's liveness probe restarts it
+    alive = getattr(engine, "alive", True)
     return web.json_response(
         {
-            "status": "ok" if engine else "initializing",
+            "status": "ok" if engine and alive else "degraded" if engine else "initializing",
             "model_loaded": engine is not None,
             "vad_loaded": app.get("vad") is not None,
             "model_info": app.get("model_info", {}),
@@ -507,7 +510,17 @@ def main(argv=None):
     parser.add_argument("--no-warmup", action="store_true",
                         help="skip the startup capture of the CUDA graphs: the first "
                              "use of each program key captures its own")
+    parser.add_argument("--warmup-full", action="store_true",
+                        help="batched engine: capture every batch size of each pool's "
+                             "prefill programs, not only the serving grid")
+    parser.add_argument("--warmup-fast", action="store_true",
+                        help="batched engine: two-phase boot; block only on the programs "
+                             "serving starts with, and capture the rest (group prefills, "
+                             "rows variants, long escalation rungs, the verify grid) in "
+                             "idle ticks; /health shows warmup_background_pending")
     args = parser.parse_args(argv)
+    if args.warmup_full and args.warmup_fast:
+        parser.error("--warmup-full and --warmup-fast are mutually exclusive")
 
     config = AppConfig()
     if args.host:
@@ -525,11 +538,17 @@ def main(argv=None):
     )
     engine, vad, info = build_runtime(args.model, args.vad, config, device=args.device,
                                       engine_kind=args.engine)
+    modes = {}
+    if args.engine == "batched":
+        modes = {"full": True} if args.warmup_full else {"fast": True} if args.warmup_fast else {}
+    elif args.warmup_full or args.warmup_fast:
+        logger.warning("--warmup-full / --warmup-fast apply to --engine batched only; ignored")
     if not args.no_warmup:
         t0 = time.perf_counter()
         # the JAX app's grid: each budget's ceiling serves every budget below it
         engine.warmup(budgets=(config.interim_max_new_tokens, config.final_max_tokens,
-                               config.file_max_new_tokens))
+                               config.file_max_new_tokens), **modes)
+        # the blocking phase (a fast boot's deferred captures come later)
         info["warmup_s"] = round(time.perf_counter() - t0, 1)
     logger.info("runtime ready: %s", info)
     ssl_ctx = None

@@ -40,8 +40,9 @@ def build_runtime(
     native checkpoint directory. Random weights are drawn from `seed`.
     vad_spec: 'energy'. engine_kind: 'batched' (the continuous batcher,
     engine/batcher.py: config.decode_slots long slots, one short slot per
-    stream; the default, as in the JAX package) | 'threaded' (one request
-    at a time). `device` as in device.resolve_device: the card unless 'cpu'
+    stream; the default, as in the JAX package; config.fuse_dual_decode
+    decodes both pools in one program) | 'threaded' (one request at a
+    time). `device` as in device.resolve_device: the card unless 'cpu'
     is asked for.
     config.quant_mode: 'native' | 'int8' (every projection but embed,
     adapter and lm_head, the reference's skip-list) | 'int8-decoder' (the
@@ -83,7 +84,8 @@ def build_runtime(
     if engine_kind == "batched":
         engine = BatchedEngine(
             transcriber, vad, slots=config.decode_slots,
-            max_decode_tokens=max(config.file_max_new_tokens, config.final_max_tokens))
+            max_decode_tokens=max(config.file_max_new_tokens, config.final_max_tokens),
+            fuse_dual_decode=config.fuse_dual_decode)
     else:
         engine = ThreadedEngine(transcriber, vad)
     info = {
@@ -93,6 +95,7 @@ def build_runtime(
         "vad": vad_spec,
         "engine": engine_kind,
         "decode_slots": config.decode_slots if engine_kind == "batched" else 1,
+        "fuse_dual_decode": bool(getattr(engine, "fuse_dual", False)),
         "device": str(device),
         "device_name": (
             torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"

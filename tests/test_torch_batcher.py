@@ -241,6 +241,77 @@ def test_rows_prefix_decode_parity(stack):
     _assert_tokens(got, golden, "request vs sequential")
 
 
+def test_fused_dual_decode_matches_jax_and_sequential(stack):
+    """Interim-class (short pool) and final-class (long pool) requests at
+    once on an engine built with fuse_dual_decode: both pools decode in
+    the dual program (dual_decodes > 0 on both engines) with the tokens of
+    JAX's fused engine and of the sequential Transcriber (the JAX
+    package's test_mixed_classes_fuse_and_match)."""
+    _, tr = stack
+    shorts = [_audio(0.3, f=220 + 50 * i, seed=30 + i) for i in range(3)]
+    longs = [_audio(0.6, f=400 + 80 * i, seed=40 + i) for i in range(2)]
+    golden = ([tr.transcribe(a, SR, max_new_tokens=8).tokens for a in shorts]
+              + [tr.transcribe(a, SR, max_new_tokens=24).tokens for a in longs])
+
+    async def run(eng):
+        assert eng.fuse_dual
+        rs = await asyncio.gather(*[eng.transcribe(a, SR, max_new_tokens=8) for a in shorts],
+                                  *[eng.transcribe(a, SR, max_new_tokens=24) for a in longs])
+        return [r.tokens for r in rs], eng.stats.get("dual_decodes", 0)
+
+    (want, dual_j), (got, dual) = _both(stack, run, slots=4, max_decode_tokens=32,
+                                        fuse_dual_decode=True)
+    assert dual_j > 0 and dual > 0
+    _assert_tokens(got, want, "request")
+    _assert_tokens(got, golden, "request vs sequential")
+
+
+@pytest.mark.parametrize("ration", [False, True])
+def test_ration_flag_token_parity(stack, ration):
+    """Both admission orders (combined, the default; short class admitted
+    and decoded before the long class is admitted) give the tokens of JAX
+    and of the sequential Transcriber, with short and long requests in the
+    same ticks (the JAX package's test_ration_flag_token_parity)."""
+    _, tr = stack
+    audios = [_audio(0.3 + 0.07 * i, f=200 + 60 * i, seed=i) for i in range(6)]
+    budgets = [8, 24, 8, 24, 8, 24]
+    golden = [tr.transcribe(a, SR, max_new_tokens=b).tokens for a, b in zip(audios, budgets)]
+
+    async def run(eng):
+        eng.ration_long_admits = ration
+        rs = await asyncio.gather(*[eng.transcribe(a, SR, max_new_tokens=b)
+                                    for a, b in zip(audios, budgets)])
+        return [r.tokens for r in rs]
+
+    want, got = _both(stack, run, slots=4, max_decode_tokens=32)
+    _assert_tokens(got, want, "request")
+    _assert_tokens(got, golden, "request vs sequential")
+
+
+def test_tick_trace_keys_match_jax(stack, monkeypatch):
+    """tick_trace is None unless SONIC_TICK_TRACE is set; with it, each
+    tick's record and its admit_detail carry the JAX engine's keys, and the
+    admit detail counts the admitted groups per pool."""
+    for eng in _engines(stack, slots=4, max_decode_tokens=32):
+        assert eng.tick_trace is None
+        eng.shutdown()
+    monkeypatch.setenv("SONIC_TICK_TRACE", "1")
+
+    async def run(eng):
+        await asyncio.gather(eng.transcribe(_audio(0.3, seed=3), SR, max_new_tokens=8),
+                             eng.transcribe(_audio(0.5, seed=4), SR, max_new_tokens=24))
+        trace = list(eng.tick_trace)
+        return ([sorted(r) for r in trace], [sorted(r["admit_detail"]) for r in trace],
+                sum(r["admit_detail"]["groups_short"] + r["admit_detail"]["groups_long"]
+                    for r in trace))
+
+    (keys_j, detail_j, groups_j), (keys, detail, groups) = _both(
+        stack, run, slots=4, max_decode_tokens=32)
+    assert keys and set(map(tuple, keys)) == set(map(tuple, keys_j))
+    assert set(map(tuple, detail)) == set(map(tuple, detail_j))
+    assert groups == groups_j == 2
+
+
 def test_base_bias_and_hotwords():
     """base_logit_bias reaches every slot's decode, a hotword boost stacks on
     it, and a slot left hotword-dirty goes back to the base bias."""
@@ -304,6 +375,19 @@ def test_interim_stagger_matches_jax(stack):
     assert got[1] == [0.0] and len(set(got[4])) > 1 and got[5] == 0.0
 
 
+def test_stagger_flag_off_gives_no_phases(stack):
+    """stagger_interims off: phase 0 even for a pool-filling cohort, on
+    both engines (the JAX package's test_stagger_flag_off_disables_phases)."""
+    async def run(eng):
+        claimed = [eng.alloc_stream() for _ in range(4)]
+        on = [eng.interim_stagger(i) for i in claimed]
+        eng.stagger_interims = False
+        return on, [eng.interim_stagger(i) for i in claimed]
+
+    want, got = _both(stack, run, slots=4, max_decode_tokens=32, n_streams=4)
+    assert got == want and got[1] == [0.0] * 4 and len(set(got[0])) > 1
+
+
 def test_shutdown_fails_inflight_requests(stack):
     _, tr = stack
     audio = _audio(0.5, seed=42)
@@ -313,7 +397,9 @@ def test_shutdown_fails_inflight_requests(stack):
                             n_streams=4)
         await eng.transcribe(audio, SR, max_new_tokens=32)
         fut = asyncio.ensure_future(eng.transcribe(audio, SR, max_new_tokens=32))
-        await asyncio.sleep(0.05)  # admitted and decoding
+        t0 = time.perf_counter()  # admitted and decoding, or already done
+        while not (eng._n_active or fut.done()) and time.perf_counter() - t0 < 20.0:
+            await asyncio.sleep(0.005)
         eng.shutdown()
         try:
             await asyncio.wait_for(fut, timeout=30.0)
@@ -334,8 +420,12 @@ def test_graceful_shutdown_is_not_degraded(stack):
                             n_streams=2)
         await eng.transcribe(_audio(0.3, seed=7), SR, max_new_tokens=4)
         assert eng.alive is True
+        task = eng._task
         eng.shutdown()
-        await asyncio.sleep(0.05)
+        t0 = time.perf_counter()  # the scheduler has stopped
+        while not task.done() and time.perf_counter() - t0 < 20.0:
+            await asyncio.sleep(0.005)
+        assert task.done()
         return eng.alive
 
     assert asyncio.run(go()) is True

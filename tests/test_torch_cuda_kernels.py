@@ -883,3 +883,110 @@ def test_batched_engine_on_the_card_equals_the_cpu(cuda):
         np.testing.assert_array_equal(a, b)
     assert msgs[str(cuda)] == msgs["cpu"] and graphs[str(cuda)] == 0
     assert [m["type"] for m in msgs["cpu"]].count("committed_output") == 2
+
+
+def test_dual_decode_graph_equals_the_eager_step(cuda):
+    """The batcher's dual program (both pools' k steps, weights read once a
+    step) replayed as a CUDA graph equals the same program run eagerly, at
+    nano's width (two decoder layers, bf16 random weights, the pools' nano
+    shapes: 65 rows of 83 positions and 33 of 803, lens mixed, some rows
+    done): the same tokens, counts and status, K/V and lengths within one
+    bf16 step of the eager run's; decode attention recorded twice a layer
+    a step (one launch per pool)."""
+    from dataclasses import replace
+
+    from sonicscribe_tpu_torch.engine.batcher import _decode_k_dual_program
+    from sonicscribe_tpu_torch.engine.exec_store import GraphRouter
+    from sonicscribe_tpu_torch.models.config import nano
+
+    base = nano()
+    cfg = replace(base, decoder=replace(base.decoder, n_layers=2))
+    dec = cfg.decoder
+    params = init_random(cfg, seed=5, dtype=torch.bfloat16, device=cuda)
+    gen = torch.Generator(device="cpu").manual_seed(6)
+
+    def pool(rows, M, width):
+        shape = (dec.n_layers, rows, M, dec.n_kv_heads, dec.head_dim)
+        lens = torch.randint(1, M - 8, (rows,), generator=gen, dtype=torch.int32)
+        done = torch.rand(rows, generator=gen) < 0.2
+        st = {"k": (torch.randn(shape, generator=gen) * 0.5).to(torch.bfloat16),
+              "v": (torch.randn(shape, generator=gen) * 0.5).to(torch.bfloat16),
+              "len": lens, "tok": torch.randint(0, dec.vocab_size, (rows,), generator=gen,
+                                                dtype=torch.int32),
+              "out": torch.zeros((rows, width), dtype=torch.int32),
+              "n": torch.ones(rows, dtype=torch.int32), "done": done,
+              "bias": torch.zeros((rows, dec.vocab_size)),
+              "budget": torch.full((rows,), width, dtype=torch.int32),
+              "status": torch.zeros(rows, dtype=torch.int32)}
+        return {k: v.to(cuda) for k, v in st.items()}
+
+    bufs = {"short": pool(65, 83, 16), "long": pool(33, 803, 256)}
+    eager = {p: {k: v.clone() for k, v in st.items()} for p, st in bufs.items()}
+    k = 4
+    with torch.inference_mode():
+        router = GraphRouter(cuda, warm_in_place=("k", "v"))
+        program = lambda b: _decode_k_dual_program(params, cfg, b, k=k)  # noqa: E731
+        entry = router.prepare(("decode_dual", k), program, bufs, replay=False)
+        _build.reset_launch_counts()
+        router.run(("decode_dual", k), program, bufs)
+        replay_launches = dict(_build.launch_counts)
+        program(eager)
+    torch.cuda.synchronize()
+    assert entry.launches["decode_attention"] == 2 * dec.n_layers * k
+    assert replay_launches["decode_attention"] == 2 * dec.n_layers * k
+    for p in ("short", "long"):
+        got, want = bufs[p], eager[p]
+        for name in ("tok", "out", "n", "done", "status", "len"):
+            assert torch.equal(got[name], want[name]), (p, name)
+        for name in ("k", "v"):
+            torch.testing.assert_close(got[name].float(), want[name].float(), rtol=0,
+                                       atol=2 ** -6)
+
+
+def test_deferred_capture_leaves_live_slots_as_they_are(cuda):
+    """A fast boot's deferred keys captured while a slot of each pool is
+    live (admitted and one decode dispatched): every capture succeeds, the
+    short pool's live rows (K/V whole, and its token state) are bit-equal
+    to before, and the long pool's live slot keeps its K/V up to its length
+    and its token state, bit for bit."""
+    from sonicscribe_tpu_torch.engine.batcher import BatchedEngine, _TranscribeReq
+    from sonicscribe_tpu_torch.vad.model import EnergyVad
+
+    tr, _ = _tiny_transcribers(cuda)
+    eng = BatchedEngine(tr, EnergyVad(device=cuda), slots=4, max_decode_tokens=64, n_streams=4)
+    loop = __import__("asyncio").new_event_loop()
+    try:
+        eng.warmup(fast=True)
+        pending = len(eng._replay_queue)
+        assert pending > 0
+        reqs = [_TranscribeReq(_speech(0.6, seed=41), 16000, 12, None, loop.create_future(),
+                               0.0),
+                _TranscribeReq(_speech(2.0, seed=42), 16000, 40, None, loop.create_future(),
+                               0.0)]
+        with torch.inference_mode():
+            eng._admit_grouped(eng.short, reqs[:1])
+            eng._admit_grouped(eng.long, reqs[1:])
+            assert eng.short.n_active == 1 and eng.long.n_active == 1
+            parked = []
+            for p in eng.pools:
+                eng._dispatch_decode_pool(p, parked)
+        torch.cuda.synchronize()
+        names = ("len", "tok", "out", "n", "done", "budget", "bias", "draft_len")
+        before = {p.name: {**{k: p.state[k][:, 0].clone() for k in ("k", "v")},
+                           **{k: p.state[k][0].clone() for k in names}}
+                  for p in eng.pools}
+        graphs0 = eng.router.stats["graphs"]
+        eng.warmup_join()
+        torch.cuda.synchronize()
+        assert eng.stats["warmup_capture_failures"] == 0 and not eng._replay_queue
+        assert eng.router.stats["graphs"] - graphs0 == pending
+        for p in eng.pools:
+            for name in names:
+                assert torch.equal(p.state[name][0], before[p.name][name]), (p.name, name)
+        for name in ("k", "v"):
+            assert torch.equal(eng.short.state[name][:, 0], before["short"][name])
+            n = int(eng.long.state["len"][0])
+            assert torch.equal(eng.long.state[name][:, 0, :n], before["long"][name][:, :n])
+    finally:
+        eng.shutdown()
+        loop.close()

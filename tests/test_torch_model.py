@@ -173,3 +173,54 @@ def test_greedy_generate_token_exact(setup, eos_bias):
     if not eos_bias:
         assert len(set(np.asarray(want).ravel().tolist())) > 3
     assert steps == (0 if eos_bias else 11)
+
+
+def test_decode_step_dual_matches_jax_and_single(setup):
+    """decode_step_dual on two caches of different lengths and rows (the
+    batcher's short and long pools): logits and caches within 2e-4 of the
+    JAX package's decode_step_dual and len equal, five steps, cache a's row
+    0 full after three (writes dropped), a row of each inactive on some
+    steps; and equal to the port's decode_step run once per cache."""
+    cfg_j, cfg_t, params_j, params_t = setup
+    rng = np.random.default_rng(11)
+    ea, la = _prompt(cfg_t, B=2, S=8, seed=5)
+    eb = (rng.standard_normal((3, 14, cfg_t.decoder.d_model)) * 0.5).astype(np.float32)
+    lb = np.asarray([14, 9, 3], np.int32)
+    caches_j, caches_t = [], []
+    for embeds, length, max_len in ((ea, la, ea.shape[1] + 3), (eb, lb, 24)):
+        c_j = jm.init_cache(cfg_j, len(length), max_len, dtype=jnp.float32)
+        c_j, _ = jm.prefill(params_j, cfg_j, jnp.asarray(embeds), jnp.asarray(length), c_j)
+        c_t = tm.init_cache(cfg_t, len(length), max_len, dtype=torch.float32)
+        tm.prefill(params_t, cfg_t, torch.from_numpy(embeds), torch.from_numpy(length), c_t)
+        caches_j.append(c_j)
+        caches_t.append(c_t)
+    singles = [{k: v.clone() for k, v in c.items()} for c in caches_t]
+    ca_j, cb_j = caches_j
+    ca_t, cb_t = caches_t
+    for step in range(5):
+        ta = rng.integers(0, cfg_t.decoder.vocab_size, size=2).astype(np.int32)
+        tb = rng.integers(0, cfg_t.decoder.vocab_size, size=3).astype(np.int32)
+        act_a = np.asarray([True, step != 1])
+        act_b = np.asarray([step not in (0, 3), True, True])
+        ca_j, want_a, cb_j, want_b = jm.decode_step_dual(
+            params_j, cfg_j, ca_j, jnp.asarray(ta), cb_j, jnp.asarray(tb),
+            active_a=jnp.asarray(act_a), active_b=jnp.asarray(act_b))
+        _, got_a, _, got_b = tm.decode_step_dual(
+            params_t, cfg_t, ca_t, torch.from_numpy(ta), cb_t, torch.from_numpy(tb),
+            active_a=torch.from_numpy(act_a), active_b=torch.from_numpy(act_b))
+        _, one_a = tm.decode_step(params_t, cfg_t, singles[0], torch.from_numpy(ta),
+                                  active=torch.from_numpy(act_a))
+        _, one_b = tm.decode_step(params_t, cfg_t, singles[1], torch.from_numpy(tb),
+                                  active=torch.from_numpy(act_b))
+        for got, want, one, name in ((got_a, want_a, one_a, "a"), (got_b, want_b, one_b, "b")):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       err_msg=f"step {step} {name}", **TOL)
+            np.testing.assert_allclose(got.numpy(), one.numpy(),
+                                       err_msg=f"step {step} {name} single", **TOL)
+    assert int(ca_t["len"][0]) == ea.shape[1] + 3
+    for c_t, c_j, single in ((ca_t, ca_j, singles[0]), (cb_t, cb_j, singles[1])):
+        np.testing.assert_array_equal(c_t["len"].numpy(), np.asarray(c_j["len"]))
+        np.testing.assert_array_equal(c_t["len"].numpy(), single["len"].numpy())
+        for key in ("k", "v"):
+            np.testing.assert_allclose(c_t[key].numpy(), np.asarray(c_j[key]), **TOL)
+            np.testing.assert_allclose(c_t[key].numpy(), single[key].numpy(), **TOL)

@@ -178,6 +178,74 @@ async def test_aggregate_mode_and_health(engines, aiohttp_client):
     assert d["decode_budgets"]["file"] == 24 and d["samples_per_chunk"] == 1024
 
 
+async def test_health_degraded_when_engine_dead(engines, aiohttp_client):
+    """/health: ok with a live engine, degraded once its scheduler has
+    crashed (a supervisor's liveness probe restarts the process), and
+    initializing without an engine, as the JAX server reports it."""
+    _, eng = engines
+    _, cfg = _configs()
+    app = build_app(cfg, eng, eng.vad)
+    client = await aiohttp_client(app)
+    assert (await (await client.get("/health")).json())["status"] == "ok"
+
+    class Dead:
+        alive = False
+        stats = {"ticks": 1}
+
+    app["engine"] = Dead()
+    body = await (await client.get("/health")).json()
+    assert body["status"] == "degraded" and body["model_loaded"]
+    app["engine"] = None
+    body = await (await client.get("/health")).json()
+    assert body["status"] == "initializing" and not body["model_loaded"]
+
+
+async def test_crash_self_heals_through_serving(engines, aiohttp_client):
+    """On the batched engine: a wedged tick crashes the engine (the file
+    request fails, /health degraded, and a request while the tick is still
+    stuck fails too); once the tick drains, the next request restarts the
+    scheduler in-process, succeeds, and /health is ok again (the JAX
+    server's test_crash_self_heals_through_serving)."""
+    import asyncio
+    import time
+
+    from sonicscribe_tpu_torch.engine.batcher import BatchedEngine
+
+    _, threaded = engines
+    eng = BatchedEngine(threaded.transcriber, EnergyVad(device="cpu"), slots=4,
+                        max_decode_tokens=32, n_streams=4)
+    _, cfg = _configs()
+    client = await aiohttp_client(build_app(cfg, eng, eng.vad))
+    wav = write_wav(_speech(1.0), SR)
+
+    async def drained(timeout=20.0):
+        t0 = time.perf_counter()
+        while eng._tick_busy and time.perf_counter() - t0 < timeout:
+            await asyncio.sleep(0.01)
+        return not eng._tick_busy
+
+    real_tick = eng._tick
+    try:
+        eng.tick_stall_dump_s, eng.tick_stall_abort_s = 0.1, 0.3
+        eng._tick = lambda *_a, **_k: time.sleep(3.0)  # wedge
+        summary = (await _post_file(client, wav, stream=False))["summary"]
+        assert summary["failed_segments"] >= 1
+        assert (await (await client.get("/health")).json())["status"] == "degraded"
+        if eng._tick_busy:  # still stuck: requests keep failing
+            summary = (await _post_file(client, wav, stream=False))["summary"]
+            assert summary["failed_segments"] >= 1
+        assert await drained()
+        eng._tick = real_tick  # the card recovered
+        eng.tick_stall_dump_s, eng.tick_stall_abort_s = 60.0, 600.0
+        summary = (await _post_file(client, wav, stream=False))["summary"]
+        assert summary["failed_segments"] == 0 and summary["successful_segments"] >= 1
+        assert (await (await client.get("/health")).json())["status"] == "ok"
+    finally:
+        eng._tick = real_tick
+        await drained()
+        eng.shutdown()
+
+
 def test_build_runtime_on_cpu():
     engine, vad, info = build_runtime("tiny-random", "energy", AppConfig(), device="cpu",
                                       engine_kind="threaded")

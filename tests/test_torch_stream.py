@@ -6,6 +6,7 @@ scaled tiny f32 checkpoint."""
 
 import asyncio
 import os
+import time
 import wave
 from dataclasses import asdict
 
@@ -393,7 +394,9 @@ async def test_close_right_after_speech_end_delivers_final():
     for chunk in _tone_chunks(True, 20) + _tone_chunks(False, 30):
         await s.on_audio(chunk)
     await s.flush_vad()
-    await asyncio.sleep(0.05)  # the gate's commit task has started (it sleeps)
+    t0 = time.perf_counter()  # the gate's commit task has started (it sleeps)
+    while eng.decodes < 1 and time.perf_counter() - t0 < 10.0:
+        await asyncio.sleep(0.005)
     assert eng.decodes >= 1
     assert not any(m["type"] == "committed_output" for m in msgs)
     await s.flush()

@@ -6,6 +6,7 @@ tiny f32 checkpoint."""
 
 import asyncio
 import json
+import time
 import wave
 
 import jax
@@ -95,6 +96,16 @@ def app(engines):
     return build_app(AppConfig(), eng, eng.vad, {"model": "tiny"})
 
 
+async def _until(cond, timeout: float = 20.0) -> bool:
+    """Poll cond every 10 ms until it holds (True) or the deadline (False)."""
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            return False
+        await asyncio.sleep(0.01)
+    return True
+
+
 async def _json(ws):
     return json.loads(await ws.receive_str())
 
@@ -136,10 +147,7 @@ async def test_ws_protocol(app, aiohttp_client):
     _assert_schema(seen)
     await ws.send_str(json.dumps({"type": "close"}))
     await ws.close()
-    for _ in range(100):
-        if not app["sessions"]:
-            break
-        await asyncio.sleep(0.01)
+    assert await _until(lambda: not app["sessions"])
     assert (await (await client.get("/health")).json())["active_sessions"] == 0
 
 
@@ -193,16 +201,11 @@ async def test_detached_sessions_swept_without_new_connects(app, aiohttp_client)
         await ws.receive_str()
         await ws.send_bytes(b"\x00" * 2048)
         await ws.close()
-    for _ in range(100):
-        if len(app["detached"]) == 5:
-            break
-        await asyncio.sleep(0.01)
+    assert await _until(lambda: len(app["detached"]) == 5)
     parked = [s for _, s in app["detached"].values()]
     assert len(parked) == 5 and not any(s.active for s in parked)
-    for _ in range(100):
-        if not app["detached"] and all(s._vad_worker_task is None for s in parked):
-            break
-        await asyncio.sleep(0.05)
+    assert await _until(lambda: not app["detached"]
+                        and all(s._vad_worker_task is None for s in parked))
     assert app["detached"] == {}
     assert all(s._vad_worker_task is None and not s._tasks for s in parked)
 
@@ -278,10 +281,7 @@ async def test_debug_tap_through_ws(engines, aiohttp_client, tmp_path):
     await ws.send_bytes(pcm)
     await ws.send_str(json.dumps({"type": "close"}))
     await ws.close()
-    for _ in range(100):
-        if not client.app["sessions"]:
-            break
-        await asyncio.sleep(0.01)
+    assert await _until(lambda: not client.app["sessions"])
     with wave.open(info["path"], "rb") as w:
         assert w.readframes(w.getnframes()) == pcm
 
