@@ -183,8 +183,25 @@ exits non-zero on failure:
    layer per verify round, every one on the tensor cores
    (verify_attention_mma); over both modes W8A8 ran in both designs.
 
+6. silero: the Silero VAD and the checkpoint tools on the card. A seeded
+   Silero tree on the card against the same tree on the CPU over one gate
+   window (20 sub-windows) at B 1, 16 and 64 (probabilities and states
+   within 1e-5) and over the 35 s file (window_probs within 1e-4, timed);
+   tiny f32 batched engines built with SileroCostProbeVad and with
+   EnergyVad, each warmed: 8 stepped streams capture no graph on the
+   request path and commit the same segments, and their ring VAD programs
+   are replayed and timed at B 16 and 64; the threaded engine's Silero
+   gate window timed. Then the checkpoint path at nano's widths, encoder
+   and decoder cut to 2 layers: export_hf_checkpoint of a seeded bf16
+   tree as BF16 safetensors, convert_hf_checkpoint, load_checkpoint onto
+   the card (the tree's bits), the ~12 s request's tokens from the loaded
+   tree equal to the in-memory tree's, and verify_checkpoint on the card
+   (its report printed; no step fails, the twin passes); the GB and
+   seconds of each step.
+
 A line `captured {...}` holds phase 3's numbers by mode (grid, requests
-eager and captured), `batched {...}` phase 5's. The line before the last
+eager and captured), `batched {...}` phase 5's, `silero {...}` phase 6's
+(it runs after phase 4, before the batched modes). The line before the last
 is the kernels' JSON record (ten kernels, each with the path its
 launches were counted on (verify attention: the drafted runs of phase
 5), decode attention and log_mel also with their launches on the stream
@@ -236,6 +253,9 @@ SEED = 0
 GRID_BUDGETS = (15, 200, 256)  # the interim, final maximum and file budgets (config.py)
 PROFILE_BUDGET = 32  # decode tokens per segment in the profiled runs
 PROFILE_TRIES = 6  # profiles of a request at most, while records are missing
+# profiles of a few calls at most, while empty: one costs milliseconds, and
+# the H100 has returned three empty ones in a row
+KERNEL_PROFILE_TRIES = 20
 # the batched phase: its modes, realtime streams, their staggered starts,
 # and the active long slots of the profiled decode runs (at a budget)
 BATCHED_MODES = ("native", "int8-decoder-a8")
@@ -338,25 +358,33 @@ def bound_ms(n_bytes: float, flops: float, peak: float = F32_FLOPS_PER_S) -> tup
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_names(torch, fn) -> list[str]:
-    """The kernels one call of fn runs on the card (built and loaded first).
-    A call launches at least one kernel, so a profile with none lost its
-    records (the profiler has returned an empty first profile of a process
-    on the H100): it is taken again, at most PROFILE_TRIES times."""
+def profiled(torch, fn, tries: int = PROFILE_TRIES):
+    """fn() under torch.profiler (CUDA activity). fn launches at least one
+    kernel, so a profile with no kernel record lost its records (the
+    profiler has returned empty profiles on the H100, also after earlier
+    profiles of the process had records): fn is run and profiled again, at
+    most `tries` times. -> (the profile, fn's result)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        if any(e.device_type == DeviceType.CUDA for e in prof.events()):
+            break
+        log("an empty profile; profiling again")
+    return prof, out
+
+
+def kernel_names(torch, fn) -> list[str]:
+    """The kernels one call of fn runs on the card (built and loaded first)."""
+    from torch.autograd import DeviceType
+
     fn()
     torch.cuda.synchronize()
-    for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if names:
-            break
-        log("kernel_names: an empty profile; profiling again")
-    return names
+    prof = profiled(torch, fn, KERNEL_PROFILE_TRIES)[0]
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
 def kernel_phase(torch, timer):
@@ -1026,9 +1054,6 @@ def int4_kernel_phase(torch, timer):
     and read just after: no entry point of either package serves the flat
     forms, so their timed runs are their path (INT4_ENTRIES). -> ({entry:
     max abs err}, {entry: row}, {entry: launches in the timed runs})."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from sonicscribe_tpu_torch.models.config import nano
     from sonicscribe_tpu_torch.ops import _build
     from sonicscribe_tpu_torch.ops import int4_matmul as i4
@@ -1123,11 +1148,8 @@ def int4_kernel_phase(torch, timer):
     # a W4A8 call launches only int4_matmul.cu's kernels
     pk, sc = stacks["gate_up"]["packed"], stacks["gate_up"]["scale"]
     xs = [x_of(B, shapes["gate_up"][0], torch.bfloat16) for B in (1, 64)]
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for x in xs:
-            i4.int4_matmul_w4a8_stacked_cuda(x, pk, sc, 1)
-        torch.cuda.synchronize()
-    names = sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA})
+    names = sorted(set(kernel_names(torch, lambda: [
+        i4.int4_matmul_w4a8_stacked_cuda(x, pk, sc, 1) for x in xs])))
     check(names and all("w4a8" in n for n in names), f"W4A8 calls ran other kernels: {names}")
     log(f"profile of two W4A8 calls (B 1 and 64): only {len(names)} kernels of "
         f"int4_matmul.cu ran: {[n.split('(')[0][-40:] for n in names]}")
@@ -1528,8 +1550,8 @@ def profile_request(torch, engine, vad, config, name: str, audio,
         seen = [sum(e.count for e in events if f"decode_attention_{part}_kernel" in e.key)
                 for part in ("split", "merge")]
         w8a8 = [e for e in events if "w8a8" in e.key.lower()]
-        complete = sum(e.count for e in w8a8) >= counts["int8_matmul_w8a8"] and (
-            not attention_checked or min(seen) >= counts["decode_attention"])
+        complete = (bool(events) and sum(e.count for e in w8a8) >= counts["int8_matmul_w8a8"]
+                    and (not attention_checked or min(seen) >= counts["decode_attention"]))
         if complete or attempt == PROFILE_TRIES:
             break
         log(f"{name}: the profiler lost records ({seen[0]} + {seen[1]} decode-attention "
@@ -2834,7 +2856,6 @@ def batched_ticks(torch, engine) -> dict:
     budget), once for the wall and tokens/s, once under torch.profiler for
     the device busy time and idle share of the run."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     audio = payloads()["3s"]
 
@@ -2853,11 +2874,13 @@ def batched_ticks(torch, engine) -> dict:
         wall = time.perf_counter() - t0
         tokens = engine.stats["tokens"] - tokens0
         steps = engine.stats["decode_steps"] - steps0
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        def timed():
             t1 = time.perf_counter()
             asyncio.run(run(n))
             torch.cuda.synchronize()
-            pwall = time.perf_counter() - t1
+            return time.perf_counter() - t1
+
+        prof, pwall = profiled(torch, timed)
         busy = sum(dev_us(e) for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA) / 1e3
         check(busy > 0, f"batched decode at {n} slots: the profiler saw no device time")
@@ -3027,7 +3050,7 @@ def dual_ab(torch, engine, vad) -> dict:
         walls["shorts_max"] = max(w for _, w in got[len(names):])
         return walls, tokens
 
-    def run(fused: bool, profiled: bool):
+    def run(fused: bool, profiled: bool, tries: int = 1):
         engine.fuse_dual = fused
         stats0, on_run0 = dict(engine.stats), engine.router.stats["captured_on_run"]
         _build.reset_launch_counts()
@@ -3059,6 +3082,9 @@ def dual_ab(torch, engine, vad) -> dict:
         if profiled:
             busy = sum(dev_us(e) for e in prof.key_averages()
                        if e.device_type == DeviceType.CUDA) / 1e3
+            if busy == 0 and tries < PROFILE_TRIES:  # the profile lost its records
+                log(f"dual A/B {label}: an empty profile; running it again")
+                return run(fused, True, tries + 1)
             check(busy > 0, f"dual A/B {label}: the profiler saw no device time")
             row.update(busy_ms=busy, busy_ms_per_pool_step=busy / max(d["decode_steps"], 1))
         log(f"dual A/B {label}{' profiled' if profiled else ''}: wall {wall:.3f} s (files "
@@ -3369,6 +3395,234 @@ def tiny_boot_dual_heal(torch, reqs, default_graphs: int) -> None:
         full.shutdown()
 
 
+# ---------------------------------------------------------------------
+# the Silero VAD and the checkpoint tools
+# ---------------------------------------------------------------------
+
+SILERO_TOL = 1e-5  # a gate window's probabilities and states, card against CPU
+SILERO_FILE_TOL = 1e-4  # window_probs over the 35 s file: ~1,100 LSTM steps
+SILERO_STREAMS = 8
+CKPT_LAYERS = 2  # the checkpoint path's encoder and decoder depth at nano's widths
+
+
+def _sync_ms(torch, fn, iters: int = 20) -> float:
+    """Median wall ms of fn() with the card synchronized after each call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _replay_ms(torch, engine, B: int) -> float:
+    """Median device ms of the ring VAD program of batch B, replayed alone."""
+    key, fn, bufs = engine._vad_ring_entry(B)
+    pairs = []
+    with torch.inference_mode():
+        for _ in range(20):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            engine.router.run(key, fn, bufs)
+            b.record()
+            pairs.append((a, b))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
+def silero_phase(torch) -> dict:
+    """The Silero VAD on the card: a seeded tree against the same tree on
+    the CPU over one gate window (20 sub-windows) at B 1, 16, 64 and over
+    the 35 s file (window_probs); tiny f32 batched engines built with
+    SileroCostProbeVad and with EnergyVad: their ring VAD programs' replays
+    at B 16 and 64, and 8 stepped streams each (no graph captured on the
+    request path, the same commits); the threaded engine's gate window with
+    Silero. Then the checkpoint tools at nano's widths, CKPT_LAYERS layers:
+    export_hf_checkpoint as BF16 safetensors, convert_hf_checkpoint,
+    load_checkpoint onto the card (the tree's bits), a 12 s request's tokens
+    from the loaded tree equal to the in-memory tree's, and
+    verify_checkpoint on the card (rc 0, twin passed). -> its numbers."""
+    import shutil
+    import tempfile
+    from dataclasses import replace
+
+    from sonicscribe_tpu_torch.config import AppConfig
+    from sonicscribe_tpu_torch.engine.batcher import BatchedEngine
+    from sonicscribe_tpu_torch.engine.transcriber import Transcriber
+    from sonicscribe_tpu_torch.models.config import nano
+    from sonicscribe_tpu_torch.models.tokenizer import ByteTokenizer
+    from sonicscribe_tpu_torch.models.weights import init_random, load_checkpoint
+    from sonicscribe_tpu_torch.serve.engine_async import ThreadedEngine
+    from sonicscribe_tpu_torch.tools.convert_weights import _flatten, convert_hf_checkpoint
+    from sonicscribe_tpu_torch.tools.export_hf import export_hf_checkpoint
+    from sonicscribe_tpu_torch.tools.verify_checkpoint import print_report, verify
+    from sonicscribe_tpu_torch.vad.model import (
+        WINDOW_SAMPLES,
+        EnergyVad,
+        SileroCostProbeVad,
+        SileroVad,
+        window_probs,
+    )
+
+    out: dict = {}
+    vads = {d: SileroVad(device=d, seed=SEED) for d in ("cpu", "cuda")}
+    window = 20 * WINDOW_SAMPLES
+    for B in (1, 16, 64):
+        x = np.stack([(speech if i % 3 else silence)(window / SR, 60 + i)[:window]
+                      for i in range(B)]).reshape(B, 20, WINDOW_SAMPLES)
+        got = {}
+        for d, vad in vads.items():
+            state = vad.init_state(B)
+            state["h"] += 0.1  # a stream mid-way
+            with torch.inference_mode():
+                probs, state = vad.forward_windows(vad.params, torch.from_numpy(x).to(d), state)
+            got[d] = [probs.cpu()] + [state[k].cpu() for k in ("h", "c", "ctx")]
+        err = max(float((a - b).abs().max()) for a, b in zip(got["cuda"], got["cpu"]))
+        check(err <= SILERO_TOL, f"silero B={B}: card against CPU {err} > {SILERO_TOL}")
+        xc = torch.from_numpy(x).cuda()
+        with torch.inference_mode():
+            ms = _sync_ms(torch, lambda: vads["cuda"].forward_windows(
+                vads["cuda"].params, xc, vads["cuda"].init_state(B)))
+        out[f"window_B{B}"] = dict(max_abs_err=err, eager_ms=ms)
+        log(f"silero: one gate window (20 sub-windows) at B={B}, card against CPU max |err| "
+            f"{err:.2e} (tol {SILERO_TOL}), probabilities {float(got['cpu'][0].min()):.4f}-"
+            f"{float(got['cpu'][0].max()):.4f}; eager forward_windows {ms:.3f} ms")
+
+    audio = payloads()["35s"]
+    p_cpu = window_probs(vads["cpu"], audio)
+    p_cuda = window_probs(vads["cuda"], audio)
+    err = float(np.abs(p_cuda - p_cpu).max())
+    check(p_cuda.shape == p_cpu.shape and err <= SILERO_FILE_TOL,
+          f"silero window_probs 35 s: card against CPU {err} > {SILERO_FILE_TOL}")
+    ms = _sync_ms(torch, lambda: window_probs(vads["cuda"], audio), iters=5)
+    e_ms = _sync_ms(torch, lambda: window_probs(EnergyVad(device="cuda"), audio), iters=5)
+    out["file_35s"] = dict(windows=len(p_cpu), max_abs_err=err, ms=ms, energy_ms=e_ms)
+    log(f"silero: window_probs of the 35 s file ({len(p_cpu)} windows) card against CPU max "
+        f"|err| {err:.2e} (tol {SILERO_FILE_TOL}); {ms:.2f} ms on the card (energy {e_ms:.2f})")
+
+    # tiny f32 batched engines, the cost probe against the energy gate
+    config = AppConfig()
+    streams = [stream_frames(TINY_STREAM_SPANS, seed=70 + 10 * i)[0]
+               for i in range(SILERO_STREAMS)]
+    engines, commits = {}, {}
+    for name, vad in (("probe", SileroCostProbeVad(device="cuda", seed=SEED)),
+                      ("energy", EnergyVad(device="cuda"))):
+        engine = BatchedEngine(tiny_transcriber(torch, "cuda"), vad, slots=4,
+                               max_decode_tokens=64, n_streams=SILERO_STREAMS)
+        engines[name] = engine
+        engine.warmup()
+        graphs0 = engine.router.stats["graphs"]
+        on_run0 = engine.router.stats["captured_on_run"]
+
+        async def run(engine=engine):
+            return await asyncio.gather(*[drive_stepped(config, engine, f) for f in streams])
+
+        t0 = time.perf_counter()
+        msgs = asyncio.run(run())
+        wall = time.perf_counter() - t0
+        captured = engine.router.stats["graphs"] - graphs0
+        check(captured == 0 and engine.router.stats["captured_on_run"] == on_run0,
+              f"silero {name} engine: {captured} graphs captured on the streams' path")
+        commits[name] = [[(m["segment_id"], m["start_chunk_id"], m["end_chunk_id"], m["text"])
+                          for m in ms if m["type"] == "committed_output"] for ms in msgs]
+        out[f"streams_{name}"] = dict(wall_s=wall, graphs=graphs0, captured=captured,
+                                      commits=sum(len(c) for c in commits[name]))
+    for i, (a, b) in enumerate(zip(commits["probe"], commits["energy"])):
+        check([c[:3] for c in a] == [c[:3] for c in b] and a,
+              f"silero probe stream {i}: commits {a}, the energy engine's {b}")
+    same_text = sum(x == y for a, b in zip(commits["probe"], commits["energy"])
+                    for x, y in zip(a, b))
+    for B in (16, 64):
+        out[f"vad_ring_B{B}_ms"] = {name: _replay_ms(torch, e, B) for name, e in engines.items()}
+    for e in engines.values():
+        e.shutdown()
+    log(f"silero: {SILERO_STREAMS} stepped streams on tiny f32 batched engines, the cost probe "
+        f"and the energy gate: 0 graphs captured on the request path, the same "
+        f"{out['streams_probe']['commits']} commits ({same_text} with the same text), walls "
+        f"{out['streams_probe']['wall_s']:.2f} / {out['streams_energy']['wall_s']:.2f} s; ring "
+        f"VAD program replays, probe / energy: B=16 "
+        f"{out['vad_ring_B16_ms']['probe']:.4f} / {out['vad_ring_B16_ms']['energy']:.4f} ms, "
+        f"B=64 {out['vad_ring_B64_ms']['probe']:.4f} / {out['vad_ring_B64_ms']['energy']:.4f} ms")
+    del engines
+
+    threaded = ThreadedEngine(None, vads["cuda"])
+    gate = speech(10 * CHUNK_SAMPLES / SR, 80)
+    state = threaded._vad_window(gate, None)[1]
+    ms = _sync_ms(torch, lambda: threaded._vad_window(gate, state))
+    threaded_energy = ThreadedEngine(None, EnergyVad(device="cuda"))
+    e_ms = _sync_ms(torch, lambda: threaded_energy._vad_window(gate, None))
+    threaded.shutdown()
+    threaded_energy.shutdown()
+    out["threaded_window_ms"] = dict(silero=ms, energy=e_ms)
+    log(f"silero: ThreadedEngine gate window (20 sub-windows) {ms:.3f} ms (energy {e_ms:.3f})")
+
+    # the checkpoint tools at nano's widths
+    cfg = nano()
+    cfg = replace(cfg, encoder=replace(cfg.encoder, n_layers=CKPT_LAYERS),
+                  decoder=replace(cfg.decoder, n_layers=CKPT_LAYERS))
+    root = tempfile.mkdtemp(prefix="sonic_ckpt_smoke_")
+    hf, native = os.path.join(root, "hf"), os.path.join(root, "native")
+
+    def gb(path):
+        return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path)
+                   for f in fs) / 1e9
+
+    try:
+        params = init_random(cfg, SEED, dtype=torch.bfloat16, device="cuda")
+        steps = {}
+        t0 = time.perf_counter()
+        export_hf_checkpoint(params, cfg, hf, dtype=torch.bfloat16)
+        steps["export_hf"] = dict(s=time.perf_counter() - t0, gb=gb(hf))
+        t0 = time.perf_counter()
+        check(convert_hf_checkpoint(hf, native, progress=lambda _m: None) == cfg,
+              "checkpoint: the derived config is not the tree's")
+        steps["convert"] = dict(s=time.perf_counter() - t0, gb=gb(native))
+        t0 = time.perf_counter()
+        cfg2, loaded, tok = load_checkpoint(native, device="cuda")
+        torch.cuda.synchronize()
+        steps["load"] = dict(s=time.perf_counter() - t0,
+                             gb=sum(t.numel() * t.element_size()
+                                    for t in _flatten(loaded).values()) / 1e9)
+        a, b = _flatten(params), _flatten(loaded)
+        check(cfg2 == cfg and sorted(a) == sorted(b)
+              and all(b[k].device.type == "cuda" and b[k].dtype == a[k].dtype
+                      and torch.equal(a[k].view(torch.int16), b[k].view(torch.int16))
+                      for k in a), "checkpoint: the loaded tree's bits are not the tree's")
+        request = payloads()["12s"]
+        toks = {}
+        for name, tree in (("in_memory", params), ("loaded", loaded)):
+            tr = Transcriber(cfg, tree, ByteTokenizer(cfg))
+            t0 = time.perf_counter()
+            toks[name] = tr.transcribe(request, SR, max_new_tokens=GRID_BUDGETS[-1]).tokens
+            steps[f"request_{name}"] = dict(s=time.perf_counter() - t0, tokens=len(toks[name]))
+            del tr
+        check(len(toks["loaded"]) > 0 and np.array_equal(toks["loaded"], toks["in_memory"]),
+              f"checkpoint: the loaded tree's 12 s tokens differ: {toks}")
+        del loaded
+        gc.collect()
+        t0 = time.perf_counter()
+        report = verify(hf, out=os.path.join(root, "verified"), device="cuda")
+        steps["verify"] = dict(s=time.perf_counter() - t0)
+        passed = print_report(report)
+        twin = next(r for r in report if r["step"] == "twin")
+        check(passed and twin["status"] == "ok",
+              f"checkpoint: verify_checkpoint --device cuda failed: {report}")
+        out["checkpoint"] = dict(layers=CKPT_LAYERS, steps=steps,
+                                 report={r["step"]: r["status"] for r in report})
+        log("silero checkpoint path (nano widths, encoder and decoder at "
+            f"{CKPT_LAYERS} layers): " + "; ".join(
+                f"{k} {v['s']:.2f} s" + (f", {v['gb']:.3f} GB" if "gb" in v else "")
+                for k, v in steps.items())
+            + f"; the loaded bits are the tree's, the 12 s request's {len(toks['loaded'])} "
+            f"tokens equal; verify_checkpoint rc 0, twin: {twin['detail']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def weight_scale_phase(torch) -> None:
     """Weights quantized on the card (build_runtime's path) against the same
     weights quantized on the CPU, at nano's projection shapes (two layers,
@@ -3488,6 +3742,8 @@ def main() -> None:
         tiny_tokens_phase(torch, mode)
     tiny_batched_phase(torch)
     mark("tiny references")
+    silero = silero_phase(torch)
+    mark("silero")
     batched, batched_launches = {}, {}
     for mode in BATCHED_MODES:
         release_memory(torch)
@@ -3498,6 +3754,7 @@ def main() -> None:
     log("captured " + json.dumps(captured, default=float))
     log("stream " + json.dumps(stream, default=float))
     log("batched " + json.dumps(batched, default=float))
+    log("silero " + json.dumps(silero, default=float))
     for name in ("decode_attention", "verify_attention", "log_mel", "int8_matmul",
                  "int8_matmul_w8a8", "int8_matmul_w8a8_mma"):
         check(batched_launches.get(name, 0) > 0, f"{name} never launched on the batched paths")

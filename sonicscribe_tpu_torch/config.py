@@ -3,8 +3,8 @@
 A copy of the JAX package's ``AppConfig`` (the reference's env-backed
 config, backend/config.py:9-44: same timing constants, same env variables),
 cut to the fields this package reads. Of the continuous batcher's knobs
-only the decode slots are here; fused dual decode, flash decode, data
-parallel and the Silero weights come back with the slices that use them.
+the decode slots, fused dual decode and the Silero weights are here; flash
+decode and data parallel come back with the slices that use them.
 """
 
 from __future__ import annotations
@@ -104,6 +104,10 @@ class AppConfig:
     fuse_dual_decode: bool = field(
         default_factory=lambda: _env_bool("FUSE_DUAL_DECODE", False)
     )
+    # converted Silero weights (.npz from tools/convert_silero.py); when set,
+    # `--vad silero` serves these. Without them the random-init net is
+    # refused (it would gate garbage) and serving falls back to the energy gate
+    silero_weights: str = field(default_factory=lambda: _env("SONIC_SILERO_WEIGHTS", ""))
     # mel-frame bucket sizes: one prompt shape per bucket
     prefill_buckets: List[int] = field(
         default_factory=lambda: [128, 256, 512, 1024, 2048, 3072]

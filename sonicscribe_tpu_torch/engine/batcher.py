@@ -353,21 +353,16 @@ def _verify_rounds_program(params, cfg: GlmAsrConfig, bufs: dict, w: int, n_roun
     return {}
 
 
-def _make_vad_batch_program(vad, n_sub: int):
+def _make_vad_batch_program(vad):
     """Host-audio gate windows: bufs windows [B, n_sub, 512] and states
-    {field: [B]} -> max probability over the sub-windows per row into
+    {field: [B, ...]} -> max probability over the sub-windows per row into
     probs, the states after them in place."""
 
     def program(bufs: dict) -> dict:
-        states = dict(bufs["states"])
-        windows = bufs["windows"]
-        best = torch.zeros((windows.shape[0],), dtype=torch.float32, device=windows.device)
-        for i in range(n_sub):
-            probs, states = vad.forward(vad.params, windows[:, i], states)
-            best = torch.maximum(best, probs)
+        probs, states = vad.forward_windows(vad.params, bufs["windows"], dict(bufs["states"]))
         for name, t in bufs["states"].items():
             t.copy_(states[name])
-        bufs["probs"].copy_(best)
+        bufs["probs"].copy_(probs.amax(dim=1))
         return {}
 
     return program
@@ -590,7 +585,7 @@ class BatchedEngine:
         self.vad_states = vad.init_state(n_streams + 1)
         self._stream_resets: list[int] = []
         self._vad_ring_program = make_vad_ring_program(vad, _GATE_WINDOW_CHUNKS)
-        self._vad_programs: dict = {}  # n_sub -> host VAD program
+        self._vad_host_program = _make_vad_batch_program(vad)
         self._ingest_pending: list[tuple[int, int, np.ndarray]] = []
         self._vad_ring_requests: asyncio.Queue = asyncio.Queue()
         self._ring_requests: asyncio.Queue = asyncio.Queue()
@@ -1169,9 +1164,7 @@ class BatchedEngine:
                 "states": self.vad.init_state(B),
                 "probs": torch.zeros((B,), dtype=torch.float32, device=dev),
             }
-        if n_sub not in self._vad_programs:
-            self._vad_programs[n_sub] = _make_vad_batch_program(self.vad, n_sub)
-        return key, self._vad_programs[n_sub], self._bufs[key]
+        return key, self._vad_host_program, self._bufs[key]
 
     def _vad_ring_entry(self, B: int):
         key = ("vad_ring", B)

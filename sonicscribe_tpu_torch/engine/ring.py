@@ -15,8 +15,8 @@ The functions here are indexing and elementwise work, which XLA does in
 JAX without Pallas; they are plain PyTorch, written in place on static
 tensors so that engine/batcher.py can capture them as CUDA graphs. The
 VAD state of every stream lives in one tensor per state field, [n_streams
-+ 1] (the last row the padding rows' trash), updated in place by the ring
-VAD program; only probabilities go back to the host.
++ 1, ...] (the last row the padding rows' trash), updated in place by the
+ring VAD program; only probabilities go back to the host.
 """
 
 from __future__ import annotations
@@ -58,11 +58,11 @@ def _slice_stream(ring: torch.Tensor, stream: torch.Tensor, start_chunk: torch.T
 def make_vad_ring_program(vad, window_chunks: int):
     """Batched gate evaluation from the ring with device-resident state.
 
-    -> program(bufs) over bufs ring, states {field: [n_streams + 1]},
+    -> program(bufs) over bufs ring, states {field: [n_streams + 1, ...]},
     stream_idx [B], start_chunk [B], active [B] and probs [B]: each row's
-    window of `window_chunks` chunks through vad.forward one 512-sample
-    sub-window at a time, the max probability into probs; the state rows
-    of active rows written back in place. Padding rows (active False) read
+    window of `window_chunks` chunks through vad.forward_windows (its
+    512-sample sub-windows in order), the max probability into probs; the
+    state rows of active rows written back in place. Padding rows (active False) read
     the state of their stream_idx and write the trash row, so they never
     disturb a stream's state.
     """
@@ -74,15 +74,12 @@ def make_vad_ring_program(vad, window_chunks: int):
         windows = _slice_stream(bufs["ring"], idx, bufs["start_chunk"], window_chunks)
         windows = windows.reshape(B, n_sub, WINDOW_SAMPLES)
         row = {k: v[idx] for k, v in states.items()}
-        best = torch.zeros((B,), dtype=torch.float32, device=idx.device)
-        for i in range(n_sub):
-            probs, row = vad.forward(vad.params, windows[:, i], row)
-            best = torch.maximum(best, probs)
+        probs, row = vad.forward_windows(vad.params, windows, row)
         trash = next(iter(states.values())).shape[0] - 1
         write = torch.where(active, idx, trash)
         for k, v in states.items():
             v[write] = row[k]
-        bufs["probs"].copy_(best)
+        bufs["probs"].copy_(probs.amax(dim=1))
         return {}
 
     return program

@@ -85,14 +85,21 @@ def _cfg_from_dict(d: dict) -> GlmAsrConfig:
 
 def load_checkpoint(path: str, device=None):
     """A native checkpoint directory (``sonicscribe_config.json`` +
-    ``params.npz``, written by the JAX package's
-    tools/convert_weights.py:save_checkpoint) -> (cfg, params on `device`,
+    ``params.npz``, written by tools/convert_weights.py:save_checkpoint or
+    the JAX package's) -> (cfg, params on `device`,
     tokenizer). bfloat16 leaves are stored there as uint16 views; an int8
     checkpoint (written after ``--int8``) stores each quantized projection
     as ``…/q`` int8 and ``…/scale`` float32, which become QTensor dicts."""
     device = resolve_device(device)
     cfg_path = os.path.join(path, NATIVE_CONFIG)
     if not os.path.exists(cfg_path):
+        if os.path.isdir(path) and any(
+            f == "config.json" or f.endswith((".safetensors", ".bin")) for f in os.listdir(path)
+        ):
+            raise FileNotFoundError(
+                f"no {NATIVE_CONFIG} in '{path}': it looks like an HF checkpoint; convert "
+                f"it first: python -m sonicscribe_tpu_torch.tools.convert_weights {path} <out_dir>"
+            )
         raise FileNotFoundError(f"no {NATIVE_CONFIG} in '{path}'")
     with open(cfg_path) as f:
         meta = json.load(f)

@@ -496,7 +496,11 @@ def main(argv=None):
                         help="'tiny-random' | 'nano-random' | native checkpoint dir "
                              "(default: $CHECKPOINT_PATH if that directory exists, else "
                              "tiny-random)")
-    parser.add_argument("--vad", default="energy", help="'energy'")
+    parser.add_argument(
+        "--vad", default="energy",
+        help="'energy' | 'silero' (weights from SONIC_SILERO_WEIGHTS; without them "
+             "the energy gate serves) | path to a converted silero .npz "
+             "(python -m sonicscribe_tpu_torch.tools.convert_silero)")
     parser.add_argument(
         "--quant", default=None,
         help="'native' | 'int8' | 'int8-decoder' | 'int8-decoder-a8' (a8: decode "

@@ -14,10 +14,9 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
-import torch
 
 from sonicscribe_tpu_torch.engine.transcriber import Transcriber, TranscribeResult
-from sonicscribe_tpu_torch.vad.model import WINDOW_SAMPLES, gate_on_host
+from sonicscribe_tpu_torch.vad.model import WINDOW_SAMPLES
 
 
 class ThreadedEngine:
@@ -63,14 +62,14 @@ class ThreadedEngine:
         return await loop.run_in_executor(self._pool, self._vad_window, audio, state)
 
     def _vad_window(self, audio: np.ndarray, state) -> tuple[float, object]:
-        """Every sub-window's band energy in one matmul on the VAD's device
-        and one copy back, then the noise-floor recursion on the host (JAX
-        scans forward over the sub-windows in one program)."""
+        """The window's 512-sample sub-windows through the VAD's
+        whole-window method (window_probs_state: for the energy gate one
+        matmul on the device and the noise-floor recursion on the host, for
+        Silero the front end of every sub-window in one pass and the cells
+        in turn; JAX scans forward over the sub-windows in one program)."""
         n_win = max(1, len(audio) // WINDOW_SAMPLES)
         x = np.asarray(audio[: n_win * WINDOW_SAMPLES], np.float32).reshape(n_win, WINDOW_SAMPLES)
-        with torch.inference_mode():
-            energies = self.vad.band_energy(torch.from_numpy(x).to(self.vad.device)).cpu()
-        probs, state = gate_on_host(self.vad, energies, state)
+        probs, state = self.vad.window_probs_state(x, state)
         return float(probs.max()), state
 
     def warmup(self, budgets=(15, 200, 256)) -> None:

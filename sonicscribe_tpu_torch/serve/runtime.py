@@ -6,6 +6,8 @@ without importing aiohttp.
 
 from __future__ import annotations
 
+import logging
+import os
 from dataclasses import replace
 
 import torch
@@ -20,7 +22,10 @@ from sonicscribe_tpu_torch.models.tokenizer import ByteTokenizer
 from sonicscribe_tpu_torch.models.weights import init_random, load_checkpoint
 from sonicscribe_tpu_torch.ops.quant import quantize_params_int8
 from sonicscribe_tpu_torch.serve.engine_async import ThreadedEngine
-from sonicscribe_tpu_torch.vad.model import EnergyVad
+from sonicscribe_tpu_torch.tools.convert_silero import load_npz
+from sonicscribe_tpu_torch.vad.model import EnergyVad, SileroVad
+
+logger = logging.getLogger(__name__)
 
 QUANT_MODES = ("native", "int8", "int8-decoder", "int8-decoder-a8")
 ENGINE_KINDS = ("batched", "threaded")
@@ -38,7 +43,10 @@ def build_runtime(
 
     model_spec: 'tiny-random' (f32) | 'nano-random' (bf16, full width) | a
     native checkpoint directory. Random weights are drawn from `seed`.
-    vad_spec: 'energy'. engine_kind: 'batched' (the continuous batcher,
+    vad_spec: 'energy' | 'silero' (the weights at config.silero_weights,
+    SONIC_SILERO_WEIGHTS; without them it logs the error and serves the
+    energy gate, info["vad"] says so) | the path of a converted Silero npz
+    (tools/convert_silero.py). engine_kind: 'batched' (the continuous batcher,
     engine/batcher.py: config.decode_slots long slots, one short slot per
     stream; the default, as in the JAX package; config.fuse_dual_decode
     decodes both pools in one program) | 'threaded' (one request at a
@@ -57,8 +65,6 @@ def build_runtime(
         raise ValueError(f"quant mode {config.quant_mode!r} is not one of {QUANT_MODES}")
     if engine_kind not in ENGINE_KINDS:
         raise ValueError(f"engine {engine_kind!r} is not one of {ENGINE_KINDS}")
-    if vad_spec != "energy":
-        raise NotImplementedError(f"VAD {vad_spec!r} is not yet ported; use 'energy'")
 
     if model_spec == "tiny-random":
         mcfg = tiny()
@@ -80,7 +86,7 @@ def build_runtime(
             mcfg = replace(mcfg, decoder=replace(mcfg.decoder, act_int8_decode=True))
 
     transcriber = Transcriber(mcfg, params, tokenizer, prefill_buckets=buckets)
-    vad = EnergyVad(device=device)
+    vad, vad_served = build_vad(vad_spec, config, device)
     if engine_kind == "batched":
         engine = BatchedEngine(
             transcriber, vad, slots=config.decode_slots,
@@ -92,7 +98,7 @@ def build_runtime(
         "model": model_spec,
         "params": param_count(params),
         "quant_mode": config.quant_mode,
-        "vad": vad_spec,
+        "vad": vad_served,
         "engine": engine_kind,
         "decode_slots": config.decode_slots if engine_kind == "batched" else 1,
         "fuse_dual_decode": bool(getattr(engine, "fuse_dual", False)),
@@ -103,3 +109,25 @@ def build_runtime(
         "backend": "torch",
     }
     return engine, vad, info
+
+
+def build_vad(vad_spec: str, config: AppConfig, device: torch.device):
+    """-> (the VAD, what serves: vad_spec, or 'energy (silero weights
+    missing)' where 'silero' fell back), with the JAX package's semantics."""
+    if vad_spec == "energy":
+        return EnergyVad(device=device), vad_spec
+    if vad_spec == "silero":
+        # A random-init Silero net gates garbage: its speech probabilities
+        # are noise, so segments never open or close sensibly. Refuse it and
+        # fall back loudly to the energy gate.
+        w = config.silero_weights
+        if w and os.path.exists(w):
+            return SileroVad(params=load_npz(w), device=device), vad_spec
+        logger.error(
+            "--vad silero without converted weights would serve a RANDOM-INIT net "
+            "(garbage gating); falling back to the energy VAD. Convert real Silero "
+            "weights with python -m sonicscribe_tpu_torch.tools.convert_silero and "
+            "pass their path as --vad or set SONIC_SILERO_WEIGHTS.")
+        return EnergyVad(device=device), "energy (silero weights missing)"
+    # a converted silero weights file (tools/convert_silero.py)
+    return SileroVad(params=load_npz(vad_spec), device=device), vad_spec

@@ -321,14 +321,21 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 # every module but serve/app.py (and serve/__main__.py, which runs it)
 # imports with aiohttp, jax and the JAX package blocked: the card machine
-# has no aiohttp, and chip_smoke.py drives the stream without it
+# has no aiohttp, and chip_smoke.py drives the stream without it. Nor has it
+# safetensors, tokenizers or transformers, which no module imports at import
+# time (the checkpoint tools read safetensors themselves)
 _IMPORT_WITHOUT_AIOHTTP = _IMPORT_ALL.replace(
     'BLOCKED = ["jax", "jaxlib", "sonicscribe_tpu"]',
-    'BLOCKED = ["jax", "jaxlib", "sonicscribe_tpu", "aiohttp"]',
+    'BLOCKED = ["jax", "jaxlib", "sonicscribe_tpu", "aiohttp", "safetensors", "tokenizers", '
+    '"transformers"]',
 ).split('importlib.import_module("sonicscribe_tpu_torch.serve.app")')[0] + r"""
 for name in ("sonicscribe_tpu_torch.serve.session", "sonicscribe_tpu_torch.stream.buffer",
              "sonicscribe_tpu_torch.vad.gate", "sonicscribe_tpu_torch.native",
-             "sonicscribe_tpu_torch.serve.debug_tap"):
+             "sonicscribe_tpu_torch.serve.debug_tap", "sonicscribe_tpu_torch.tools.safetensors_io",
+             "sonicscribe_tpu_torch.tools.convert_weights", "sonicscribe_tpu_torch.tools.export_hf",
+             "sonicscribe_tpu_torch.tools.convert_silero",
+             "sonicscribe_tpu_torch.tools.verify_checkpoint",
+             "sonicscribe_tpu_torch.tools.torch_reference"):
     assert name in sys.modules, name
 try:
     importlib.import_module("sonicscribe_tpu_torch.serve.app")
