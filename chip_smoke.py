@@ -182,6 +182,16 @@ exits non-zero on failure:
    once per layer per plain pool decode step, verify attention once per
    layer per verify round, every one on the tensor cores
    (verify_attention_mma); over both modes W8A8 ran in both designs.
+   Last, in native, the load phase on the same warmed engine:
+   tools/loadtest.run_load drives LOAD_STREAMS (50) realtime sessions for
+   LOAD_SECONDS (12) s of its speech / silence cycles (2.0 / 1.5 s, the
+   energy gate, speculative and eager finals on from fresh gates), the
+   launch counters set to 0 just before and read just after: no error, at
+   least a commit a stream, no graph captured on the request path, decode
+   attention, log_mel and verify attention launched. A line `load {...}`
+   holds run_load's dict, the device round trip and capture probes, the
+   short and long classes' queue / run p50 and p95, the sessions on the
+   host path, the traced tick phases and the phase's seconds.
 
 6. silero: the Silero VAD and the checkpoint tools on the card. A seeded
    Silero tree on the card against the same tree on the CPU over one gate
@@ -208,7 +218,8 @@ launches were counted on (verify attention: the drafted runs of phase
 (`stream_launches`; verify attention: the batched streams'), every one with its launches
 on the batched paths (`batched_launches`), decode attention, log_mel and the
 stacked W8A16 and W8A8 entries also with
-their batched shapes' numbers (`batched_shapes`); the redesigned ones with
+their batched shapes' numbers (`batched_shapes`), every one with its
+launches in the load phase (`load_launches`); the redesigned ones with
 their design; the flat W8A16, W8A8 and the four int4 entries with
 `mma_launches`, the launches that took the tensor cores, verify attention
 with `mma_launches` of its drafted runs); the last line is
@@ -260,6 +271,8 @@ KERNEL_PROFILE_TRIES = 20
 # and the active long slots of the profiled decode runs (at a budget)
 BATCHED_MODES = ("native", "int8-decoder-a8")
 BATCHED_STREAMS = 8
+LOAD_STREAMS = 50  # the north star's concurrent realtime streams
+LOAD_SECONDS = 12.0
 STREAM_STAGGER_S = 0.25
 TICK_SLOTS = (1, 4, 16, 32)
 TICK_BUDGET = 128
@@ -3108,6 +3121,68 @@ def dual_ab(torch, engine, vad) -> dict:
     return dict(unfused=unfused, fused=fused, vs_unfused=div, launches=(launches_u, launches_f))
 
 
+def load_phase(torch, engine) -> dict:
+    """tools/loadtest.run_load on the warmed native batched engine:
+    LOAD_STREAMS realtime sessions for LOAD_SECONDS s (the default 2.0 /
+    1.5 s speech / silence cycle, the energy gate, speculative and eager
+    finals on from fresh gates), launch counters set to 0 just before and
+    read just after. Checks: no error, a commit a stream at least (the
+    final flush commits each open segment), no graph captured on the
+    request path, decode attention, log_mel and verify attention launched.
+    -> run_load's dict, the device round trip and capture probes, the
+    classes' queue / run p50 / p95, host-path sessions, the traced tick
+    phases, seconds, launches."""
+    from sonicscribe_tpu_torch.config import AppConfig
+    from sonicscribe_tpu_torch.ops import _build
+    from sonicscribe_tpu_torch.tools.loadtest import (
+        capture_probe_s,
+        class_latency,
+        device_rtt_ms,
+        host_path_sessions,
+        run_load,
+    )
+
+    engine.fuse_dual = False
+    engine.spec_accept_ema = engine.eager_accept_ema = 1.0
+    engine._eager_probe = 0
+    engine._eager_pending.clear()
+    engine.stats.pop("short_lat_ms", None)
+    engine.stats.pop("long_lat_ms", None)
+    if engine.tick_trace is not None:
+        engine.tick_trace.clear()
+    host_path = host_path_sessions(engine, LOAD_STREAMS)
+    stats0 = dict(engine.stats)
+    on_run0 = engine.router.stats["captured_on_run"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _build.reset_launch_counts()
+    m = asyncio.run(run_load(engine, AppConfig(), LOAD_STREAMS, LOAD_SECONDS))
+    torch.cuda.synchronize()
+    counts = dict(_build.launch_counts)
+    seconds = time.perf_counter() - t0
+    captured = engine.router.stats["captured_on_run"] - on_run0
+    delta = {k: engine.stats[k] - stats0.get(k, 0) for k in
+             ("decode_steps", "verify_rounds", "mel_preps", "ring_prefill_programs",
+              "prefill_programs", "requests", "eager_granted", "eager_denied")}
+    check(m["errors"] == 0, f"load: {m['errors']} errors")
+    check(m["committed_count"] >= LOAD_STREAMS,
+          f"load: {m['committed_count']} commits for {LOAD_STREAMS} streams")
+    check(captured == 0, f"load: {captured} graphs captured on the request path")
+    for name in ("decode_attention", "log_mel", "verify_attention"):
+        check(counts.get(name, 0) > 0, f"load: {name} never launched")
+    lat = class_latency(engine)
+    out = dict(run_load=m, device_rtt_ms=device_rtt_ms(), capture_probe_s=capture_probe_s(),
+               short=lat.get("short"), long=lat.get("long"), host_path_sessions=host_path,
+               captured_on_run=captured, seconds=seconds, engine=delta,
+               spec_accept_ema=engine.spec_accept_ema, eager_accept_ema=engine.eager_accept_ema,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches={k: v for k, v in counts.items() if v})
+    if engine.tick_trace is not None:
+        out["tick_trace"] = tick_split(engine.tick_trace)
+    log("load " + json.dumps(out, default=float))
+    return out
+
+
 def batched_phase(torch, mode: str) -> tuple[dict, dict]:
     """build_runtime("nano-random") in `mode` on the batched engine (the
     default): the grid captured (graphs, seconds, memory; its 12 verify
@@ -3196,8 +3271,10 @@ def batched_phase(torch, mode: str) -> tuple[dict, dict]:
         runs = (files["launches"], drafts["launches"], streams["launches"],
                 *(dual["launches"] if dual else ()))
         launches = {k: sum(r.get(k, 0) for r in runs) for k in set().union(*runs)}
+        load = load_phase(torch, engine) if native else None
+        done("load")
         return launches, dict(grid=grid, boot=boot, files=files, drafts=drafts,
-                              streams=streams, ticks=ticks, dual=dual)
+                              streams=streams, ticks=ticks, dual=dual, load=load)
     finally:
         engine.shutdown()
 
@@ -3814,7 +3891,9 @@ def main() -> None:
     kernels[-3]["mma_launches"] = int4_launches["int4_matmul_stacked_mma"]
     kernels[-2]["mma_launches"] = int4_launches["int4_matmul_w4a8_mma"]
     kernels[-1]["mma_launches"] = int4_launches["int4_matmul_w4a8_stacked_mma"]
+    load_launches = batched["native"]["load"]["launches"]
     for k in kernels:
+        k["load_launches"] = load_launches.get(k["name"], 0)
         k["batched_launches"] = batched_launches.get(k["name"], 0)
         if k["name"] in batched_rows:
             k["batched_shapes"] = batched_rows[k["name"]]

@@ -85,9 +85,10 @@ class AppConfig:
     decode_slots: int = field(default_factory=lambda: int(_env("DECODE_SLOTS", "32")))
     # "native" | "int8" | "int8-decoder" | "int8-decoder-a8" (serve/runtime.py)
     quant_mode: str = field(default_factory=lambda: _env("QUANT_MODE", "native"))
-    # speculative finals and interims: the JAX batcher verifies the banked
-    # interim tokens as a draft; the session passes them and both engines
-    # of the port ignore them (ThreadedEngine as the JAX one does)
+    # speculative finals and interims: the session passes a segment's banked
+    # interim tokens as a draft; the batched engine spends them on its
+    # verify program (w draft tokens a round), and ThreadedEngine ignores
+    # them, as the JAX one does
     speculative_finals: bool = field(
         default_factory=lambda: _env("SPECULATIVE_FINALS", "true").lower()
         in ("1", "true", "yes")

@@ -284,8 +284,15 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
         build_runtime("tiny-random", "energy", cfg)
 
 
+# the load harness and the serving benches on it: each imported with jax and
+# the JAX package blocked (and, below, aiohttp too)
+NEW_TOOLS = tuple(f"sonicscribe_tpu_torch.tools.{m}" for m in (
+    "golden", "loadtest", "bench_nn_vad", "bench_interim", "bench_commit", "bench_eager",
+    "bench_spec", "bench_kcap", "bench_mixed", "bench_scale"))
+
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
+NEW_TOOLS = """ + repr(NEW_TOOLS) + r"""
 
 BLOCKED = ["jax", "jaxlib", "sonicscribe_tpu"]
 
@@ -304,6 +311,7 @@ for name in names:
         if name != "sonicscribe_tpu_torch.serve.app":
             importlib.import_module(name)
 assert "aiohttp" not in sys.modules, "aiohttp imported outside serve/app.py"
+assert all(name in sys.modules for name in NEW_TOOLS), NEW_TOOLS
 importlib.import_module("sonicscribe_tpu_torch.serve.app")
 importlib.import_module("sonicscribe_tpu_torch.serve.__main__")
 print(len(names))
@@ -316,7 +324,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         timeout=240, cwd=Path(__file__).resolve().parents[1],
     )
     assert out.returncode == 0, out.stderr[-2000:]
-    assert int(out.stdout.strip()) >= 26
+    assert int(out.stdout.strip()) >= 36
 
 
 # every module but serve/app.py (and serve/__main__.py, which runs it)
@@ -335,7 +343,7 @@ for name in ("sonicscribe_tpu_torch.serve.session", "sonicscribe_tpu_torch.strea
              "sonicscribe_tpu_torch.tools.convert_weights", "sonicscribe_tpu_torch.tools.export_hf",
              "sonicscribe_tpu_torch.tools.convert_silero",
              "sonicscribe_tpu_torch.tools.verify_checkpoint",
-             "sonicscribe_tpu_torch.tools.torch_reference"):
+             "sonicscribe_tpu_torch.tools.torch_reference", *NEW_TOOLS):
     assert name in sys.modules, name
 try:
     importlib.import_module("sonicscribe_tpu_torch.serve.app")
@@ -353,4 +361,4 @@ def test_port_imports_no_aiohttp_outside_the_app():
         timeout=240, cwd=Path(__file__).resolve().parents[1],
     )
     assert out.returncode == 0, out.stderr[-2000:]
-    assert int(out.stdout.strip()) >= 26
+    assert int(out.stdout.strip()) >= 36
