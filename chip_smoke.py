@@ -48,7 +48,8 @@ exits non-zero on failure:
    profile of one stacked W8A16 call and of one W8A8 call at B 1 must each
    show one kernel, and of a W8A8 call at the threshold and at 64 rows only
    W8A8 kernels; W8A8 is timed at B 1 on the four projections and at gate_up
-   B 8, 37 and 64 (torch._int_mm its yardstick above 16 rows), with its
+   B 8, 37 and 64 (torch._int_mm its yardstick above 16 rows, bf16
+   torch.mm on the dequantised weight below; W4A8 the same), with its
    cluster sizes at B 1, 2 and 4 and both designs at the four projections
    from 1 to 256 rows (the threshold's A/B); the flat W8A16 design is timed at the four
    prefill/encoder shapes beside the cluster split-K design on the same
@@ -73,6 +74,18 @@ exits non-zero on failure:
    int8_w8a8 and int4_w4a16 step.
    The int4 kernels serve no request: the JAX package serves no int4 mode,
    and its only path to them is this sweep.
+   micro: the decode microbenches' legs at full width (nano bf16, 28
+   layers), MICRO_REPS timed programs a leg: tools/bench_hbm's five
+   arrays (each rate above 0 and at most the data sheet's x 1.05);
+   bench_decode_parts' four parts and the full step's split by op (the op
+   groups cover at least MICRO_COVERAGE of the profiled busy time, and the
+   profile holds one decode-attention split kernel per layer and step);
+   bench_decode at 50 x 896, captured and eager; bench_rows at rows 4 and
+   full (float32 parity: the same tokens, the rows past the prefix
+   untouched), then bf16 timing; bench_flash at occupancies 64 and
+   max_len - 8 on both routes (the routes' attention within
+   bench_flash.AGREE_TOL of each other). Every time above 0. A line
+   `micro {...}` holds the twins' results.
 3. main path: build_runtime("nano-random", engine_kind="threaded") in bf16
    at full width; its transcriber's CUDA graphs captured for every bucket
    and the budgets 15,
@@ -170,7 +183,7 @@ exits non-zero on failure:
    dropped, the ring VAD program's time; eager finals launched and gated
    by eager_ok, verify rounds, the acceptance EMA; in native the p50 and
    p95 of each traced tick phase); in native, 1, 4, 16 and 32 concurrent
-   requests at a 128-token budget (wall, tokens/s, and a profiled run's
+   requests at a 128-token budget (wall, tokens/s, and at 1 and 32 a profiled run's
    device busy and idle share), then the dual decode's A/B on the same
    engine: the three files and 16 interim-budget requests at once,
    unfused then fused, timed and profiled (walls, tokens/s, dual decodes,
@@ -275,7 +288,15 @@ LOAD_STREAMS = 50  # the north star's concurrent realtime streams
 LOAD_SECONDS = 12.0
 STREAM_STAGGER_S = 0.25
 TICK_SLOTS = (1, 4, 16, 32)
+# the counts of TICK_SLOTS whose run is also profiled: the ends of the range
+TICK_PROFILED = (1, 32)
 TICK_BUDGET = 128
+# the micro phase: timed programs a leg (the twins' own runs take 8-20),
+# HBM reads an array, and the share of the step's busy time its op groups
+# must cover
+MICRO_REPS = 3
+MICRO_HBM_REPS = 10
+MICRO_COVERAGE = 0.95
 VERIFY_W1 = 9  # the batched engine's spec_w + 1: query positions of a verify round
 VERIFY_M = 803  # the long pool's cache length at nano
 # each captured request's segment tokens on the threaded engine, by (mode, request)
@@ -881,7 +902,8 @@ def int8_kernel_phase(torch, timer):
                 "(deterministic)", times=stacked_times)
     # W8A8: B=1 at the four projections, gate_up also at 8, 37 and 64 rows;
     # torch._int_mm (s8 x s8 -> int32, cuBLASLt) on x quantised beforehand
-    # is the yardstick where it runs (B > 16)
+    # is the yardstick where it runs (B > 16), below that bf16 torch.mm on
+    # the dequantised weight (as for the W8A16 rows)
     for B, p in ((1, "qkv"), (1, "o"), (1, "gate_up"), (1, "down"), (8, "gate_up"),
                  (37, "gate_up"), (64, "gate_up")):
         K, N = shapes[p]
@@ -889,10 +911,13 @@ def int8_kernel_phase(torch, timer):
         x = x_of(B, K, torch.bfloat16)
         xq = im.quantize_activations(x)[0]
         q_cm = q[1].t().contiguous().t()  # column-major s8, as cuBLASLt takes it
+        w = dequantize_tensor({"q": q[1], "scale": sc[1]}, torch.bfloat16)
         r = time_row(p, "int8_matmul_w8a8", lambda: im.int8_matmul_w8a8_cuda(x, q, sc, 1),
                      lambda: im.int8_matmul_w8a8_plain(x, q, sc, 1),
-                     (lambda: torch._int_mm(xq, q_cm)) if B > 16 else None,
-                     B, K, N, INT8_OPS_PER_S, "torch._int_mm (x quantised beforehand)")
+                     (lambda: torch._int_mm(xq, q_cm)) if B > 16 else (lambda: torch.mm(x, w)),
+                     B, K, N, INT8_OPS_PER_S,
+                     "torch._int_mm (x quantised beforehand)" if B > 16
+                     else "bf16 dense mm on the dequantised weight (2x the bytes)")
         if im.w8a8_uses_mma(B, N):
             splits, kps = im.s8_mma_shape(B, K, N, n_sms, im.W8A8_MMA_MAX_K_PER_SPLIT)
             launch = dict(design="mma", splits=splits, k_per_split=kps)
@@ -1270,18 +1295,21 @@ def int4_kernel_phase(torch, timer):
                 if (B, p) == (1, "gate_up"):
                     rows[name] = dict(r, design=W4A16_DESIGN, times=w4a16_times[name],
                                       threshold=threshold, design_space=space)
-        # torch._int_mm takes only B > 16: a yardstick at 37 and 64 rows, none below
+        # torch._int_mm takes only B > 16: the yardstick at 37 and 64 rows;
+        # below, bf16 torch.mm on the dequantised weight (as for W4A16)
         xq = quantize_activations(x)[0]
         codes_cm = st["codes"][1].t().contiguous().t()  # column-major s8, as cuBLASLt takes it
-        lib = (lambda: torch._int_mm(xq, codes_cm)) if B > 16 else None
+        lib, lib_label = (((lambda: torch._int_mm(xq, codes_cm)),
+                           "torch._int_mm (2x the weight bytes)") if B > 16 else
+                          ((lambda: torch.mm(x, w)), "bf16 dense mm (4x the weight bytes)"))
         for name, fn, plain in (
             ("int4_matmul_w4a8", lambda: i4.int4_matmul_w4a8_cuda(x, pk[1], sc[1]),
              lambda: i4.int4_matmul_w4a8_plain(x, pk[1], sc[1])),
             ("int4_matmul_w4a8_stacked", lambda: i4.int4_matmul_w4a8_stacked_cuda(x, pk, sc, 1),
              lambda: i4.int4_matmul_w4a8_stacked_plain(x, pk, sc, 1)),
         ):
-            r = time_row(name, p, B, fn, plain, lib, "torch._int_mm (2x the weight bytes)")
-            w4a8_times[name][f"{p} B={B}"] = r["ms"]
+            r = time_row(name, p, B, fn, plain, lib, lib_label)
+            w4a8_times[name][f"{p} B={B}"] = dict(ms=r["ms"], library_ms=r["library_ms"])
             if (B, p) == (64, "gate_up"):
                 rows[name] = dict(r, design=W4A8_DESIGN, times=w4a8_times[name])
     launches = {name: _build.launch_counts[name] for name in INT4_ENTRIES}
@@ -2866,8 +2894,9 @@ def tie_logits(torch, engine, audio, base, drafted, step: int) -> dict:
 def batched_ticks(torch, engine) -> dict:
     """Decode at 1, 4, 16 and 32 active long slots: n concurrent 3 s
     requests at a TICK_BUDGET-token budget (the random weights run to the
-    budget), once for the wall and tokens/s, once under torch.profiler for
-    the device busy time and idle share of the run."""
+    budget), once for the wall and tokens/s, and at the TICK_PROFILED counts
+    once more under torch.profiler for the device busy time and idle share
+    of the run."""
     from torch.autograd import DeviceType
 
     audio = payloads()["3s"]
@@ -2887,6 +2916,15 @@ def batched_ticks(torch, engine) -> dict:
         wall = time.perf_counter() - t0
         tokens = engine.stats["tokens"] - tokens0
         steps = engine.stats["decode_steps"] - steps0
+        out[str(n)] = dict(wall_s=wall, tokens=tokens, tokens_per_s=tokens / wall,
+                           decode_steps=steps)
+        line = (f"batched decode, {n} active long slots x {TICK_BUDGET} tokens: wall "
+                f"{wall:.3f} s, {tokens} tokens, {tokens / wall:.1f} tokens/s, {steps} pool "
+                f"decode steps")
+        if n not in TICK_PROFILED:
+            log(line)
+            continue
+
         def timed():
             t1 = time.perf_counter()
             asyncio.run(run(n))
@@ -2897,12 +2935,9 @@ def batched_ticks(torch, engine) -> dict:
         busy = sum(dev_us(e) for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA) / 1e3
         check(busy > 0, f"batched decode at {n} slots: the profiler saw no device time")
-        out[str(n)] = dict(wall_s=wall, tokens=tokens, tokens_per_s=tokens / wall,
-                           decode_steps=steps, profiled_wall_s=pwall, busy_ms=busy,
+        out[str(n)].update(profiled_wall_s=pwall, busy_ms=busy,
                            idle=max(0.0, 1 - busy / (pwall * 1e3)))
-        log(f"batched decode, {n} active long slots x {TICK_BUDGET} tokens: wall {wall:.3f} s, "
-            f"{tokens} tokens, {tokens / wall:.1f} tokens/s, {steps} pool decode steps; "
-            f"profiled: wall {pwall:.3f} s, device busy {busy:.1f} ms, idle share "
+        log(f"{line}; profiled: wall {pwall:.3f} s, device busy {busy:.1f} ms, idle share "
             f"{out[str(n)]['idle']:.3f}")
     return out
 
@@ -3744,6 +3779,115 @@ def weight_scale_phase(torch) -> None:
     check(new == 0, f"quantize_tensor on the card differs from the CPU in {new} columns")
 
 
+def micro_phase(torch) -> dict:
+    """The decode microbenches' legs (tools/bench_hbm, bench_decode_parts,
+    bench_decode, bench_rows, bench_flash) at full width, nano bf16 with its
+    28 layers, with MICRO_REPS timed programs a leg. Checks: every read rate
+    above 0 and at most the data sheet's x 1.05; the split by op covers at
+    least MICRO_COVERAGE of the profiled busy time and holds one decode-
+    attention split kernel per layer and step; rows parity in float32 (the
+    bench raises otherwise); the routes' attention within
+    bench_flash.AGREE_TOL of each other; every time above 0. -> the twins'
+    results and the phase's seconds."""
+    from sonicscribe_tpu_torch.models.config import nano
+    from sonicscribe_tpu_torch.models.weights import init_random
+    from sonicscribe_tpu_torch.tools import (
+        bench_decode,
+        bench_decode_parts,
+        bench_flash,
+        bench_hbm,
+        bench_rows,
+    )
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = nano()
+    out, seconds = {}, {}
+
+    def timed(name, fn):
+        t1 = time.perf_counter()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t1
+
+    timed("hbm", lambda: bench_hbm.measure(dev, reps=MICRO_HBM_REPS))
+    for name, r in out["hbm"].items():
+        check(0 < r["eff_gb_s"] <= bench_hbm.DATASHEET_GB_S * bench_hbm.RATE_SLACK,
+              f"micro hbm {name}: {r['eff_gb_s']} GB/s is outside (0, "
+              f"{bench_hbm.DATASHEET_GB_S} x {bench_hbm.RATE_SLACK}]")
+        log(f"micro hbm {name}: {r['eff_gb_s']:.1f} GB/s, {r['ms']:.3f} ms a read of "
+            f"{r['bytes']} B; kernels " + "; ".join(
+                f"{k['name'][:60]} x{k['count']} {k['ms']:.3f} ms" for k in r["kernels"]))
+    rate = out["hbm"]["bf16_flat"]["eff_gb_s"]
+    params = init_random(cfg, SEED, dtype=torch.bfloat16, device=dev)
+    timed("decode_parts", lambda: bench_decode_parts.measure(params, cfg, dev, reps=MICRO_REPS,
+                                                             rate_gb_s=rate))
+    parts = out["decode_parts"]
+    split = parts["split_by_op"]
+    log(f"micro decode_parts: mlp_chain {parts['mlp_chain_ms_per_step']:.3f}, attn_chain "
+        f"{parts['attn_chain_ms_per_step']:.3f}, lm_head {parts['lm_head_ms_per_step']:.3f}, "
+        f"full {parts['full_ms_per_step']:.3f} ms a step; rooflines weights "
+        f"{parts['roofline_weights_ms']:.3f} ({parts['roofline_weights_ms_measured']:.3f} at "
+        f"{rate:.0f} GB/s), KV read {parts['roofline_kv_read_ms']:.3f} ms; split ({split['source']}"
+        f", {split['steps']} steps, profile {split['profile_tries']}): busy "
+        f"{split['busy_ms_per_step']:.3f} ms, {split['kernels_per_step']:.1f} kernels a step, "
+        f"coverage {split['coverage']:.4f}")
+    for g, r in split["groups"].items():
+        log(f"  {g}: {r['ms_per_step']:.4f} ms, {r['kernels_per_step']:.2f} kernels a step")
+    check(split["coverage"] >= MICRO_COVERAGE,
+          f"micro split by op: the groups cover {split['coverage']:.4f} of the busy time "
+          f"(< {MICRO_COVERAGE}); other: {split['other_names'][:8]}")
+    want = cfg.decoder.n_layers * split["steps"]
+    check(split["decode_attention_split_kernels"] == want,
+          f"micro split by op: {split['decode_attention_split_kernels']} decode-attention "
+          f"kernels in the profile for {want} calls")
+    timed("decode", lambda: bench_decode.measure(params, cfg, dev, pools=bench_decode.POOLS[:1],
+                                                 reps=MICRO_REPS, rate_gb_s=rate))
+    d = out["decode"]
+    log(f"micro decode pool50x896: graph {d['pool50x896_graph_ms_per_step']:.3f}, eager "
+        f"{d['pool50x896_eager_ms_per_step']:.3f} ms a step (capture "
+        f"{d['pool50x896_graph_capture_s']:.2f} s)")
+
+    def rows():
+        params32 = init_random(cfg, SEED, dtype=torch.float32, device=dev)
+        try:
+            return bench_rows.measure(params32, params, cfg, dev, rows_choices=(4, None),
+                                      n_iters=MICRO_REPS)
+        finally:
+            del params32
+
+    timed("rows", rows)
+    for label, r in out["rows"]["results"].items():
+        check(r["parity"] == "ok", f"micro rows {label}: parity {r['parity']}")
+        log(f"micro rows {label}: k8 program {r['k8_program_ms_med']:.3f} ms (min "
+            f"{r['k8_program_ms_min']:.3f}), bf16 tokens match full {r['token_match_vs_full']:.3f}"
+            f", capture {r['capture_s']:.2f} s; float32 parity {r['parity']}")
+    torch.cuda.empty_cache()
+    timed("flash", lambda: bench_flash.measure(params, cfg, dev, iters=MICRO_REPS,
+                                               occupancies=(64, -8)))
+    for key, v in out["flash"].items():
+        if key.endswith("_agreement"):
+            check(v <= bench_flash.AGREE_TOL, f"micro flash {key}: the routes' attention "
+                  f"{v:.3g} of max|kernel| apart (> {bench_flash.AGREE_TOL})")
+    log("micro flash: " + ", ".join(f"{k} {v:.4g}" for k, v in out["flash"].items()
+                                    if k.startswith("occ")))
+
+    def times(node, path=""):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                yield from times(v, f"{path}.{k}")
+        elif ("_ms" in path or path.endswith(".ms")) and "roofline" not in path \
+                and ".groups." not in path:  # an op group may hold no kernel
+            yield path, node
+
+    for path, v in times(out):
+        check(isinstance(v, float) and v > 0, f"micro {path}: time {v} is not above 0")
+    del params
+    out["seconds"] = dict(seconds, total=time.perf_counter() - t0)
+    log("micro " + json.dumps(out, default=float))
+    return out
+
+
 def release_memory(torch) -> None:
     """Free what earlier phases left on the card, cuBLAS's per-stream
     workspaces included, so that the resident and peak memory read next
@@ -3797,6 +3941,9 @@ def main() -> None:
     int8_rows["int8_matmul_stacked"]["slice_table_steps"] = slice_steps
     release_memory(torch)
     mark("bench sweeps")
+    micro_phase(torch)
+    release_memory(torch)
+    mark("micro")
 
     engine, launches, native = main_path_phase(torch)
     mark("main path")

@@ -284,11 +284,12 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
         build_runtime("tiny-random", "energy", cfg)
 
 
-# the load harness and the serving benches on it: each imported with jax and
-# the JAX package blocked (and, below, aiohttp too)
+# the load harness, the serving benches on it and the decode microbenches:
+# each imported with jax and the JAX package blocked (and, below, aiohttp too)
 NEW_TOOLS = tuple(f"sonicscribe_tpu_torch.tools.{m}" for m in (
     "golden", "loadtest", "bench_nn_vad", "bench_interim", "bench_commit", "bench_eager",
-    "bench_spec", "bench_kcap", "bench_mixed", "bench_scale"))
+    "bench_spec", "bench_kcap", "bench_mixed", "bench_scale", "bench_hbm",
+    "bench_decode_parts", "bench_decode", "bench_rows", "bench_flash"))
 
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
@@ -324,7 +325,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         timeout=240, cwd=Path(__file__).resolve().parents[1],
     )
     assert out.returncode == 0, out.stderr[-2000:]
-    assert int(out.stdout.strip()) >= 36
+    assert int(out.stdout.strip()) >= 41
 
 
 # every module but serve/app.py (and serve/__main__.py, which runs it)
@@ -361,4 +362,4 @@ def test_port_imports_no_aiohttp_outside_the_app():
         timeout=240, cwd=Path(__file__).resolve().parents[1],
     )
     assert out.returncode == 0, out.stderr[-2000:]
-    assert int(out.stdout.strip()) >= 36
+    assert int(out.stdout.strip()) >= 41
