@@ -160,7 +160,8 @@ exits non-zero on failure:
    one launch (B 1, 4, 32 x 128 frames, B 4 x 3072), each row normalized
    on its own; the stacked W8A16 entry at 16, 33 and 65 rows and W8A8 at
    4, 16, 33 and 65 against their plain versions; with times. Then, in
-   native and in int8-decoder-a8, build_runtime's default engine (the
+   native and in int8-decoder-a8 (cut to its first BATCHED_INT8_LAYERS (7)
+   decoder layers for the script's time), build_runtime's default engine (the
    continuous batcher, engine/batcher.py): its grid captured (graphs,
    seconds by kind, memory; the 12 verify keys, rounds 1, 2, 4, 8 x rows
    full, 1, 4, among them), in native by a fast boot (warmup(fast=True):
@@ -210,6 +211,10 @@ exits non-zero on failure:
    Silero tree on the card against the same tree on the CPU over one gate
    window (20 sub-windows) at B 1, 16 and 64 (probabilities and states
    within 1e-5) and over the 35 s file (window_probs within 1e-4, timed);
+   the independent twin (tools/torch_silero.py, upstream names, plain
+   torch modules): its state dict through the port's converter into
+   SileroVad, whose probabilities over the ~12 s file are held to the
+   twin's on the card within 1e-4;
    tiny f32 batched engines built with SileroCostProbeVad and with
    EnergyVad, each warmed: 8 stepped streams capture no graph on the
    request path and commit the same segments, and their ring VAD programs
@@ -222,6 +227,27 @@ exits non-zero on failure:
    (its report printed; no step fails, the twin passes); the GB and
    seconds of each step.
 
+7. dp: data-parallel serving (engine/replicas.py) on two replicas:
+   cuda:0 and cuda:1 where the machine has two cards, else cuda:0 twice
+   (printed first). Tiny f32: each replica's slots, ring and weights on
+   its card; 8 concurrent host requests give one engine's tokens; 4 ring
+   streams spread over the replicas give the host path's tokens on their
+   int16 audio; each replica's decode steps and decode-attention launches
+   (its router's replays) above 0; parallel/dryrun.py's dry run over the
+   same cards. Then nano bf16 at full width (build_runtime with
+   DATA_PARALLEL=2 on two cards; the same engine by hand on one), each
+   replica fast-booted and its deferred keys dropped, and
+   tools/loadtest.run_load with 50 realtime streams for 12 s: no error, a
+   commit a stream at least, streams on both replicas, no graph captured
+   on the request path, each replica decoding; the latencies, each
+   replica's share of the streams and the memory are printed (`dp {...}`).
+8. prewarm: tools/prewarm.py --model tiny-random --out <tmp> copies the
+   kernel and native libraries this run built (the same bytes, nothing
+   built); a child process with SONIC_KERNEL_DIR on that directory serves
+   one tiny request on the card and must build nothing, load its
+   libraries prebuilt and launch the log-mel and decode-attention kernels
+   (`prewarm {...}`).
+
 A line `captured {...}` holds phase 3's numbers by mode (grid, requests
 eager and captured), `batched {...}` phase 5's, `silero {...}` phase 6's
 (it runs after phase 4, before the batched modes). The line before the last
@@ -232,7 +258,8 @@ launches were counted on (verify attention: the drafted runs of phase
 on the batched paths (`batched_launches`), decode attention, log_mel and the
 stacked W8A16 and W8A8 entries also with
 their batched shapes' numbers (`batched_shapes`), every one with its
-launches in the load phase (`load_launches`); the redesigned ones with
+launches in the load phase (`load_launches`) and in the dp phase's load
+(`dp_launches`); the redesigned ones with
 their design; the flat W8A16, W8A8 and the four int4 entries with
 `mma_launches`, the launches that took the tensor cores, verify attention
 with `mma_launches` of its drafted runs); the last line is
@@ -273,6 +300,7 @@ INT8_MODES = ("int8", "int8-decoder", "int8-decoder-a8")
 # requests run captured and eager, and this depth keeps the script inside its
 # time limit; every other path runs all 28
 INT8_THREADED_LAYERS = 7
+BATCHED_INT8_LAYERS = 7  # int8-decoder-a8's batched phase runs this deep (the script's time)
 SEED = 0
 GRID_BUDGETS = (15, 200, 256)  # the interim, final maximum and file budgets (config.py)
 PROFILE_BUDGET = 32  # decode tokens per segment in the profiled runs
@@ -1753,25 +1781,43 @@ def main_path_phase(torch):
         eager.shutdown()
 
 
-def cut_depth(engine, n_layers: int):
-    """A ThreadedEngine over the first n_layers decoder layers of `engine`'s
-    transcriber (its weights as build_runtime made and quantized them)."""
+def cut_transcriber(tr, n_layers: int):
+    """A Transcriber over the first n_layers decoder layers of `tr` (its
+    weights as build_runtime made and quantized them)."""
     from dataclasses import replace
 
     from sonicscribe_tpu_torch.engine.transcriber import Transcriber
-    from sonicscribe_tpu_torch.serve.engine_async import ThreadedEngine
 
     def first(tree):
         return {k: first(v) for k, v in tree.items()} if isinstance(tree, dict) \
             else tree[:n_layers]
 
-    tr = engine.transcriber
     cfg = replace(tr.cfg, decoder=replace(tr.cfg.decoder, n_layers=n_layers))
     params = dict(tr.params, decoder=dict(tr.params["decoder"],
                                           layers=first(tr.params["decoder"]["layers"])))
+    return Transcriber(cfg, params, tr.tokenizer, mel_cfg=tr.mel_cfg, prefill_buckets=tr.buckets)
+
+
+def cut_depth(engine, n_layers: int):
+    """A ThreadedEngine over the first n_layers decoder layers of `engine`'s
+    transcriber."""
+    from sonicscribe_tpu_torch.serve.engine_async import ThreadedEngine
+
     engine.shutdown()
-    return ThreadedEngine(Transcriber(cfg, params, tr.tokenizer, mel_cfg=tr.mel_cfg,
-                                      prefill_buckets=tr.buckets), engine.vad)
+    return ThreadedEngine(cut_transcriber(engine.transcriber, n_layers), engine.vad)
+
+
+def cut_batched(engine, n_layers: int):
+    """`engine` (a BatchedEngine) rebuilt over the first n_layers decoder
+    layers of its transcriber, with its sizes, fusion and tick trace."""
+    from sonicscribe_tpu_torch.engine.batcher import BatchedEngine
+
+    engine.shutdown()
+    cut = BatchedEngine(cut_transcriber(engine.transcriber, n_layers), engine.vad,
+                        slots=len(engine.long.slots), max_decode_tokens=engine.MAX_NEW,
+                        n_streams=engine.N_STREAMS, fuse_dual_decode=engine.fuse_dual)
+    cut.tick_trace = engine.tick_trace
+    return cut
 
 
 def int8_main_path_phase(torch, mode: str) -> tuple[dict, dict]:
@@ -3243,6 +3289,10 @@ def batched_phase(torch, mode: str) -> tuple[dict, dict]:
         os.environ.pop("SONIC_TICK_TRACE", None)
     check(isinstance(engine, BatchedEngine) and info["engine"] == "batched",
           f"build_runtime built {type(engine).__name__} by default")
+    if not native:  # the script's time: the int8 modes' batched runs at a cut depth
+        engine = cut_batched(engine, BATCHED_INT8_LAYERS)
+        gc.collect()
+        log(f"batched {mode}: cut to {BATCHED_INT8_LAYERS} decoder layers")
     check(engine.fuse_dual == native and info["fuse_dual_decode"] == native
           and (engine.tick_trace is not None) == native,
           f"batched {mode}: fuse_dual {engine.fuse_dual}, tick trace {engine.tick_trace is not None}")
@@ -3614,6 +3664,7 @@ def silero_phase(torch) -> dict:
     out["file_35s"] = dict(windows=len(p_cpu), max_abs_err=err, ms=ms, energy_ms=e_ms)
     log(f"silero: window_probs of the 35 s file ({len(p_cpu)} windows) card against CPU max "
         f"|err| {err:.2e} (tol {SILERO_FILE_TOL}); {ms:.2f} ms on the card (energy {e_ms:.2f})")
+    out["twin"] = silero_twin(torch)
 
     # tiny f32 batched engines, the cost probe against the energy gate
     config = AppConfig()
@@ -3733,6 +3784,37 @@ def silero_phase(torch) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return out
+
+
+SILERO_TWIN_TOL = 1e-4  # the twin's modules against SileroVad's ops, the 12 s file's windows
+
+
+def silero_twin(torch) -> dict:
+    """The independent twin (tools/torch_silero.py: upstream names, plain
+    torch modules) on the card: its upstream-named state dict through the
+    port's converter into SileroVad, whose window_probs over the ~12 s
+    file on the card are held to the twin's probabilities, window by
+    window with its state threaded, on the card. -> windows, error."""
+    from sonicscribe_tpu_torch.tools.convert_silero import convert_state_dict
+    from sonicscribe_tpu_torch.tools.torch_silero import TorchSileroVad, synthetic_state_dict
+    from sonicscribe_tpu_torch.vad.model import WINDOW_SAMPLES, SileroVad, window_probs
+
+    with torch.random.fork_rng(devices=[]):  # the twin seeds torch's generator
+        sd = synthetic_state_dict(seed=SEED)
+        twin = TorchSileroVad(seed=SEED).cuda()
+    vad = SileroVad(params=convert_state_dict(sd), device="cuda")
+    audio = payloads()["12s"]
+    n = len(audio) // WINDOW_SAMPLES
+    x = torch.from_numpy(audio[: n * WINDOW_SAMPLES].reshape(n, WINDOW_SAMPLES)).cuda()
+    want = torch.stack([twin(x[i:i + 1], SR) for i in range(n)]).cpu().numpy()[:, 0]
+    got = window_probs(vad, audio[: n * WINDOW_SAMPLES])
+    err = float(np.abs(got - want).max())
+    check(got.shape == want.shape and err <= SILERO_TWIN_TOL,
+          f"silero twin: SileroVad on the card against TorchSileroVad {err} > {SILERO_TWIN_TOL}")
+    log(f"silero: the twin's upstream-named state dict through convert_silero: SileroVad "
+        f"against TorchSileroVad on the card over the 12 s file ({n} windows) max |err| "
+        f"{err:.2e} (tol {SILERO_TWIN_TOL}), probabilities {want.min():.4f}-{want.max():.4f}")
+    return dict(windows=n, max_abs_err=err)
 
 
 def weight_scale_phase(torch) -> None:
@@ -3888,6 +3970,283 @@ def micro_phase(torch) -> dict:
     return out
 
 
+DP_REPLICAS = 2
+DP_REQUESTS = 8  # tiny f32 host requests at once
+DP_STREAMS = 4  # tiny f32 ring streams, spread over the replicas
+
+
+def dp_devices(torch) -> list:
+    """The replicas' cards: cuda:0 and cuda:1 where the machine has two,
+    else cuda:0 twice."""
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", i if n >= DP_REPLICAS else 0) for i in range(DP_REPLICAS)]
+
+
+def dp_tiny(torch, devices) -> dict:
+    """tiny() f32 over two replicas (engine/replicas.py) against one
+    engine on cuda:0, both warmed: DP_REQUESTS host requests at once give
+    the single engine's tokens; DP_STREAMS ring streams on the replicas
+    (packed ingest, ring VAD, ring prefill) give the host path's tokens on
+    their int16 audio; each replica's slots, ring and weights on its card,
+    its decode steps and decode-attention launches (its router's replays)
+    above 0; then the dry run's twin over the same cards."""
+    from sonicscribe_tpu_torch.engine.batcher import BatchedEngine
+    from sonicscribe_tpu_torch.engine.replicas import DataParallelEngine
+    from sonicscribe_tpu_torch.parallel.dryrun import dryrun_multichip
+    from sonicscribe_tpu_torch.parallel.mesh import make_mesh
+    from sonicscribe_tpu_torch.vad.model import EnergyVad
+
+    single = BatchedEngine(tiny_transcriber(torch, "cuda"), EnergyVad(device="cuda"), slots=8,
+                           max_decode_tokens=64, n_streams=8)
+    engine = DataParallelEngine(tiny_transcriber(torch, "cuda"), EnergyVad(device="cuda"),
+                                make_mesh(devices=devices), slots=8, max_decode_tokens=64,
+                                n_streams=2 * DP_STREAMS)
+    for rep, dev in zip(engine.replicas, devices):
+        check(rep.device == dev and rep.ring.device == dev
+              and all(t.device == dev for p in rep.pools for t in p.state.values())
+              and rep.transcriber.params["decoder"]["embed"].device == dev,
+              f"dp tiny: a replica's state is not on {dev}")
+    reqs = [(speech(0.8 + 0.3 * i, seed=40 + i), budget, ["gpu"] if i in (1, 4) else None)
+            for i, budget in enumerate((8, 24, 15, 40, 21, 8, 30, 12))]
+    audios = [speech(20 * CHUNK_SAMPLES / SR, seed=60 + i) for i in range(DP_STREAMS)]
+    pcms = [(np.clip(a, -1, 1) * 32767).astype("<i2").tobytes() for a in audios]
+    int16 = [np.frombuffer(p, "<i2").astype(np.float32) / 32768.0 for p in pcms]
+
+    async def host(eng):
+        rs = await asyncio.gather(*[eng.transcribe(a, SR, max_new_tokens=b, hotwords=h)
+                                    for a, b, h in reqs])
+        return [r.tokens for r in rs]
+
+    async def ring(eng):
+        streams = [eng.alloc_stream() for _ in audios]
+        for s, p in zip(streams, pcms):
+            for c in range(20):
+                eng.ingest(s, c, p[c * 2048:(c + 1) * 2048])
+        probs = await asyncio.gather(*[eng.vad_window_ring(s, 0) for s in streams])
+        rs = await asyncio.gather(*[eng.transcribe_ring(s, 0, 20, max_new_tokens=24)
+                                    for s in streams])
+        for s in streams:
+            eng.free_stream(s)
+        return streams, probs, [r.tokens for r in rs]
+
+    async def host_of(eng, xs):
+        rs = await asyncio.gather(*[eng.transcribe(x, SR, max_new_tokens=24) for x in xs])
+        return [r.tokens for r in rs]
+
+    try:
+        single.warmup()
+        w = engine.warmup()
+        want = asyncio.run(host(single))
+        want_ring = asyncio.run(host_of(single, int16))
+        steps0 = [r.stats["decode_steps"] for r in engine.replicas]
+        got = asyncio.run(host(engine))
+        streams, probs, got_ring = asyncio.run(ring(engine))
+    finally:
+        single.shutdown()
+        engine.shutdown()
+    check(all(np.array_equal(a, b) for a, b in zip(got, want)) and any(len(t) for t in want),
+          f"dp tiny: the replicas' tokens differ from one engine's: {got} vs {want}")
+    owners = sorted(s // engine.rows_per_replica for s in streams)
+    check(owners == sorted(list(range(DP_REPLICAS)) * (DP_STREAMS // DP_REPLICAS)),
+          f"dp tiny: streams {streams} not spread over the replicas")
+    check(all(0.0 <= p <= 1.0 for p in probs), f"dp tiny: ring VAD probabilities {probs}")
+    check(all(np.array_equal(a, b) for a, b in zip(got_ring, want_ring)),
+          f"dp tiny: ring tokens {got_ring} differ from the host path's {want_ring}")
+    steps = [r.stats["decode_steps"] - s0 for r, s0 in zip(engine.replicas, steps0)]
+    attn = [r.router.stats["launches"].get("decode_attention", 0) for r in engine.replicas]
+    check(all(n > 0 for n in steps) and all(n > 0 for n in attn),
+          f"dp tiny: decode steps {steps}, decode-attention launches {attn} by replica")
+    dry = dryrun_multichip(DP_REPLICAS, devices)
+    log(f"dp tiny f32 on {[str(d) for d in devices]}: {w['graphs']} graphs warmed; "
+        f"{DP_REQUESTS} host requests = one engine's tokens; {DP_STREAMS} ring streams on "
+        f"replicas {owners} = the host path's tokens; decode steps {steps}, decode-attention "
+        f"launches {attn} by replica; dry run over {dry['devices']} passed")
+    return dict(graphs=w["graphs"], decode_steps=steps, decode_attention=attn,
+                dryrun_tokens=sum(len(t) for t in dry["tokens"]))
+
+
+def dp_load(torch, devices) -> dict:
+    """Nano bf16 at full width over two replicas, each fast-booted: the
+    deferred keys are dropped (an idle tick would otherwise capture them
+    inside the window, the long k = 64 graph holding a replica's device
+    thread for seconds), so the window serves on the blocking set. Then
+    tools/loadtest.run_load with LOAD_STREAMS realtime streams for
+    LOAD_SECONDS s, launch counters set to 0 just before and read just
+    after. Checks: no error, a commit a stream at least, streams on both
+    replicas, no graph captured on the request path, decode attention and
+    log_mel launched, each replica's decode attention by its router.
+    -> numbers."""
+    from sonicscribe_tpu_torch.config import AppConfig
+    from sonicscribe_tpu_torch.engine.replicas import DataParallelEngine
+    from sonicscribe_tpu_torch.engine.transcriber import Transcriber
+    from sonicscribe_tpu_torch.models.config import nano
+    from sonicscribe_tpu_torch.models.tokenizer import ByteTokenizer
+    from sonicscribe_tpu_torch.models.weights import init_random
+    from sonicscribe_tpu_torch.ops import _build
+    from sonicscribe_tpu_torch.parallel.mesh import make_mesh
+    from sonicscribe_tpu_torch.serve.runtime import build_runtime
+    from sonicscribe_tpu_torch.tools.loadtest import captured_on_run, class_latency, run_load
+    from sonicscribe_tpu_torch.vad.model import EnergyVad
+
+    config = AppConfig()
+    config.data_parallel = DP_REPLICAS
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    if len(set(devices)) == DP_REPLICAS:  # one card each: the server's own path
+        engine, _vad, info = build_runtime("nano-random", "energy", config, seed=SEED)
+        check(info["data_parallel"] == DP_REPLICAS and isinstance(engine, DataParallelEngine),
+              f"dp: build_runtime gave {info['data_parallel']} replicas")
+    else:  # one card: build_runtime would clamp to it; the same engine by hand
+        mcfg = nano()
+        params = init_random(mcfg, SEED, dtype=torch.bfloat16, device="cuda")
+        tr = Transcriber(mcfg, params, ByteTokenizer(mcfg),
+                         prefill_buckets=tuple(config.prefill_buckets))
+        engine = DataParallelEngine(
+            tr, EnergyVad(device="cuda"), make_mesh(devices=devices), slots=config.decode_slots,
+            max_decode_tokens=max(config.file_max_new_tokens, config.final_max_tokens))
+    build_s = time.perf_counter() - t0
+    try:
+        boot = engine.warmup(budgets=GRID_BUDGETS, fast=True)
+        dropped = [len(r._replay_queue) for r in engine.replicas]
+        for r in engine.replicas:
+            r._replay_queue.clear()
+            r._note_deferred()
+        torch.cuda.synchronize()
+        mem = dict(resident_gib=sum(torch.cuda.memory_allocated(d) for d in set(devices)) / 2**30,
+                   max_gib=sum(torch.cuda.max_memory_allocated(d) for d in set(devices)) / 2**30,
+                   pools_gib=[sum(t.numel() * t.element_size() for p in r.pools
+                                  for t in p.state.values()) / 2**30 for r in engine.replicas])
+        log(f"dp nano bf16 on {[str(d) for d in devices]}: built in {build_s:.1f} s; fast boots "
+            f"{[round(w['seconds'], 1) for w in boot['replicas']]} s blocking on "
+            f"{[w['graphs'] for w in boot['replicas']]} graphs, {dropped} deferred keys dropped; "
+            f"resident {mem['resident_gib']:.2f} GiB, max {mem['max_gib']:.2f} GiB, pools "
+            f"{[round(g, 2) for g in mem['pools_gib']]} GiB by replica")
+        on_run0 = captured_on_run(engine)
+        stats0 = [dict(r.stats) for r in engine.replicas]
+        launches0 = [dict(r.router.stats["launches"]) for r in engine.replicas]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _build.reset_launch_counts()
+        m = asyncio.run(run_load(engine, AppConfig(), LOAD_STREAMS, LOAD_SECONDS))
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+        counts = dict(_build.launch_counts)
+        seconds = time.perf_counter() - t1
+        captured = captured_on_run(engine) - on_run0
+        per = [{k: r.stats[k] - s0.get(k, 0) for k in ("decode_steps", "requests",
+                                                        "ring_prefill_programs")}
+               for r, s0 in zip(engine.replicas, stats0)]
+        attn = [r.router.stats["launches"].get("decode_attention", 0) - l0.get("decode_attention", 0)
+                for r, l0 in zip(engine.replicas, launches0)]
+        lat = class_latency(engine)
+    finally:
+        engine.shutdown()
+    share = [n / max(1, sum(engine.allocated)) for n in engine.allocated]
+    check(m["errors"] == 0, f"dp load: {m['errors']} errors")
+    check(m["committed_count"] >= LOAD_STREAMS,
+          f"dp load: {m['committed_count']} commits for {LOAD_STREAMS} streams")
+    check(captured == 0, f"dp load: {captured} graphs captured on the request path")
+    check(all(n > 0 for n in engine.allocated), f"dp load: streams by replica {engine.allocated}")
+    check(all(p["decode_steps"] > 0 for p in per) and all(n > 0 for n in attn),
+          f"dp load: by replica {per}, decode-attention launches {attn}")
+    for name in ("decode_attention", "log_mel"):
+        check(counts.get(name, 0) > 0, f"dp load: {name} never launched")
+    out = dict(devices=[str(d) for d in devices], run_load=m, seconds=seconds,
+               build_s=build_s, boot_s=[w["seconds"] for w in boot["replicas"]],
+               boot_graphs=[w["graphs"] for w in boot["replicas"]], deferred_dropped=dropped,
+               memory=mem, streams=engine.allocated, share=share, by_replica=per,
+               decode_attention=attn, short=lat.get("short"), long=lat.get("long"),
+               captured_on_run=captured, launches={k: v for k, v in counts.items() if v})
+    log(f"dp load: {LOAD_STREAMS} streams x {LOAD_SECONDS} s over {DP_REPLICAS} replicas "
+        f"(streams {engine.allocated}, share {[round(x, 3) for x in share]}): tentative p50 / "
+        f"p95 {m['interim_p50_ms']} / {m['interim_p95_ms']} ms, committed "
+        f"{m['committed_p50_ms']} / {m['committed_p95_ms']} ms, {m['committed_count']} commits, "
+        f"ingest lag {m['max_ingest_lag_s']} s, 0 captures; decode steps "
+        f"{[p['decode_steps'] for p in per]}, decode-attention launches {attn} by replica")
+    return out
+
+
+def dp_phase(torch) -> dict:
+    devices = dp_devices(torch)
+    log(f"dp: {DP_REPLICAS} replicas on {[str(d) for d in devices]} "
+        f"({torch.cuda.device_count()} card(s) present)")
+    tiny = dp_tiny(torch, devices)
+    release_memory(torch)
+    return dict(devices=[str(d) for d in devices], tiny=tiny, load=dp_load(torch, devices))
+
+
+_PREWARM_CHILD = r"""
+import asyncio, json, sys
+import numpy as np
+from sonicscribe_tpu_torch import native
+from sonicscribe_tpu_torch.ops import _build
+from sonicscribe_tpu_torch.serve.runtime import build_runtime
+engine, _vad, _info = build_runtime("tiny-random")
+native.load()
+rng = np.random.default_rng(0)
+r = asyncio.run(engine.transcribe((0.1 * rng.standard_normal(24000)).astype(np.float32), 16000,
+                                  max_new_tokens=8))
+engine.shutdown()
+print(json.dumps({"saves": _build.library_counts["built"] + native.library_counts["built"],
+                  "loads": _build.library_counts["loaded"] + native.library_counts["loaded"],
+                  "tokens": len(r.tokens), "launches": dict(_build.launch_counts)}))
+"""
+
+
+def prewarm_phase(torch) -> dict:
+    """tools/prewarm.py --model tiny-random --out <tmp>: every kernel
+    library and the native one copied from what this run built (the same
+    bytes), nothing built; then a child process with SONIC_KERNEL_DIR on
+    that directory serves one tiny request on the card: it must build
+    nothing (saves 0), load the libraries it ran prebuilt, and launch the
+    log-mel and decode-attention kernels. -> numbers."""
+    import filecmp
+    import re
+    import shutil
+    import tempfile
+
+    from sonicscribe_tpu_torch import native
+    from sonicscribe_tpu_torch.ops import _build
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = tempfile.mkdtemp(prefix="sonic_prewarm_")
+    native.build()  # the checkout's native library, as the stream phases built it
+    try:
+        env = {k: v for k, v in os.environ.items() if k != _build.KERNEL_DIR_ENV}
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "sonicscribe_tpu_torch.tools.prewarm",
+                            "--model", "tiny-random", "--out", out], capture_output=True,
+                           text=True, timeout=600, cwd=root, env=env)
+        prewarm_s = time.perf_counter() - t0
+        check(r.returncode == 0, f"prewarm exited {r.returncode}: {r.stderr[-2000:]}")
+        line = next(ln for ln in r.stdout.splitlines() if ln.startswith("prewarm done"))
+        saves = int(re.search(r"saves=(\d+)", line).group(1))
+        libs = [os.path.basename(_build.library_path(k)) for k in _build.KERNELS]
+        same = [filecmp.cmp(os.path.join(_build.BUILD_DIR, name),
+                            os.path.join(out, "kernels", name), shallow=False) for name in libs]
+        nat = os.path.basename(native.lib_path())
+        check(saves == len(libs) + 1 and all(same)
+              and filecmp.cmp(native.BUILD_DIR / nat, os.path.join(out, "native", nat),
+                              shallow=False),
+              f"prewarm: {line!r}; the kernel libraries copied as built: {same}")
+        t0 = time.perf_counter()
+        c = subprocess.run([sys.executable, "-c", _PREWARM_CHILD], capture_output=True,
+                           text=True, timeout=600, cwd=root,
+                           env=dict(env, **{_build.KERNEL_DIR_ENV: out}))
+        child_s = time.perf_counter() - t0
+        check(c.returncode == 0, f"prewarm restart exited {c.returncode}: {c.stderr[-2000:]}")
+        got = json.loads(c.stdout.strip().splitlines()[-1])
+        check(got["saves"] == 0 and got["loads"] >= 3 and got["tokens"] > 0
+              and got["launches"]["log_mel"] > 0 and got["launches"]["decode_attention"] > 0,
+              f"prewarm restart: {got}")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    log(f"prewarm: {line}; the restart on SONIC_KERNEL_DIR built {got['saves']}, loaded "
+        f"{got['loads']} prebuilt, {got['tokens']} tokens; prewarm {prewarm_s:.1f} s, restart "
+        f"process {child_s:.1f} s")
+    return dict(line=line, prewarm_s=prewarm_s, restart_s=child_s, restart=got)
+
+
 def release_memory(torch) -> None:
     """Free what earlier phases left on the card, cuBLAS's per-stream
     workspaces included, so that the resident and peak memory read next
@@ -3975,10 +4334,17 @@ def main() -> None:
         for name, n in counts.items():
             batched_launches[name] = batched_launches.get(name, 0) + n
         mark(f"batched {mode}")
+    release_memory(torch)
+    dp = dp_phase(torch)
+    mark("dp")
+    prewarmed = prewarm_phase(torch)
+    mark("prewarm")
     log("captured " + json.dumps(captured, default=float))
     log("stream " + json.dumps(stream, default=float))
     log("batched " + json.dumps(batched, default=float))
     log("silero " + json.dumps(silero, default=float))
+    log("dp " + json.dumps(dp, default=float))
+    log("prewarm " + json.dumps(prewarmed, default=float))
     for name in ("decode_attention", "verify_attention", "log_mel", "int8_matmul",
                  "int8_matmul_w8a8", "int8_matmul_w8a8_mma"):
         check(batched_launches.get(name, 0) > 0, f"{name} never launched on the batched paths")
@@ -4039,8 +4405,10 @@ def main() -> None:
     kernels[-2]["mma_launches"] = int4_launches["int4_matmul_w4a8_mma"]
     kernels[-1]["mma_launches"] = int4_launches["int4_matmul_w4a8_stacked_mma"]
     load_launches = batched["native"]["load"]["launches"]
+    dp_launches = dp["load"]["launches"]
     for k in kernels:
         k["load_launches"] = load_launches.get(k["name"], 0)
+        k["dp_launches"] = dp_launches.get(k["name"], 0)
         k["batched_launches"] = batched_launches.get(k["name"], 0)
         if k["name"] in batched_rows:
             k["batched_shapes"] = batched_rows[k["name"]]

@@ -113,6 +113,9 @@ class AppConfig:
     prefill_buckets: List[int] = field(
         default_factory=lambda: [128, 256, 512, 1024, 2048, 3072]
     )
+    # batched engine replicas, one per card (engine/replicas.py); on the CPU
+    # (device "cpu") this many replicas all on the CPU
+    data_parallel: int = field(default_factory=lambda: int(_env("DATA_PARALLEL", "1")))
 
     @property
     def samples_per_chunk(self) -> int:

@@ -17,8 +17,9 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """None or "cuda[:n]" -> that CUDA device (raises without one);
-    "cpu" -> the CPU."""
+    """None or "cuda[:n]" -> that CUDA device (raises without one), always
+    with its index ("cuda" alone is the current card), so that replicas on
+    several cards compare and place by device; "cpu" -> the CPU."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda" if device is None else device)
@@ -28,4 +29,6 @@ def resolve_device(device=None) -> torch.device:
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

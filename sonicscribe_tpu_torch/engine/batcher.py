@@ -66,15 +66,16 @@ request's inputs into static input buffers (never rebinding them). On the
 card ``engine/exec_store.py``'s GraphRouter captures each program key as a
 CUDA graph on first use (or in ``warmup``) and replays it; on the CPU
 (``device="cpu"``, as the tests ask) the same programs run eagerly. All
-device work runs on one executor thread; the event loop never touches the
-device.
-
-Not ported yet: the data-parallel mesh.
+device work runs on one executor thread, which makes the engine's card
+current; the event loop never touches the device. Data parallelism is a
+batcher per card behind ``engine/replicas.py``'s router (JAX's is this
+engine over a mesh).
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import faulthandler
 import functools
 import logging
@@ -976,7 +977,7 @@ class BatchedEngine:
         items = self._grid_keys(self._grid(full=full), len(prompt.prefix_ids))
         deferred = [item for item in items if fast and item.deferred]
         cuda = self.device.type == "cuda"
-        with torch.inference_mode():
+        with torch.inference_mode(), self._on_device():
             for item in items:
                 if fast and item.deferred:
                     continue
@@ -1008,10 +1009,24 @@ class BatchedEngine:
 
     def _device_thread(self) -> ThreadPoolExecutor:
         """The executor whose one thread runs the ticks and the deferred
-        captures (made on first use)."""
+        captures (made on first use). Its thread makes the engine's card
+        current once, at its start: every tick, capture, replay and host
+        copy on it lands there, whichever card the caller's thread has."""
         if self._executor is None:
-            self._executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="batcher")
+            self._executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="batcher",
+                                                initializer=self._pin_device)
         return self._executor
+
+    def _pin_device(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+
+    def _on_device(self):
+        """The engine's card current for the calling thread's block (the
+        caller's own thread: warmup)."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
 
     def _note_deferred(self) -> None:
         """stats: deferred keys not yet registered (queued or being
@@ -1216,7 +1231,7 @@ class BatchedEngine:
         if self.device.type != "cuda":
             return None
         ev = torch.cuda.Event()
-        ev.record()
+        ev.record(torch.cuda.current_stream(self.device))
         return ev
 
     # ---------------- routing ----------------
@@ -1275,8 +1290,10 @@ class BatchedEngine:
         """Fold one reaped interim's admission wait into short_queue_ema."""
         self.short_queue_ema = 0.9 * self.short_queue_ema + 0.1 * q_ms
 
-    def eager_ok(self) -> bool:
+    def eager_ok(self, stream_idx: Optional[int] = None) -> bool:
         """May a session launch an eager (speculative-endpoint) final now?
+        (stream_idx: the asking session's ring row, which a data-parallel
+        router routes by; one engine's gate is the same for every stream.)
         Structural: a quarter of the long pool free, no more live streams
         than long slots, no final waiting for a slot, fewer speculative
         slots than half the pool. Measured: interim admissions not queueing
@@ -1307,7 +1324,7 @@ class BatchedEngine:
         self._eager_probe += 1
         return self._eager_probe % 8 == 0
 
-    def eager_outcome(self, confirmed: bool) -> None:
+    def eager_outcome(self, confirmed: bool, stream_idx: Optional[int] = None) -> None:
         """A session's report of one eager bet: True when its final was
         committed, False when speech resumed or the commit could not use it.
         Folded into eager_accept_ema at most once per eager_window_s."""

@@ -81,7 +81,9 @@ class GraphRouter:
     `stats`: graphs captured, those `run` captured on a first dispatch
     (`captured_on_run`, a request's path), replays counted (`run`'s), and
     the seconds each key's capture took (`capture_s`, by key; `warm_s`:
-    the part its eager warm run took).
+    the part its eager warm run took), and the kernel launches its replays
+    made (`launches`, by launch counter: this router's share of
+    `_build.launch_counts`, which tells replicas apart on one card).
     `warm_in_place`: names of buffers the warm run uses as they are.
     """
 
@@ -90,7 +92,7 @@ class GraphRouter:
         self.warm_in_place = frozenset(warm_in_place)
         self.entries: dict = {}
         self.stats = {"graphs": 0, "captured_on_run": 0, "replays": 0, "capture_s": {},
-                      "warm_s": {}}
+                      "warm_s": {}, "launches": {}}
         self._pool = None
         self._stream = None
 
@@ -104,8 +106,10 @@ class GraphRouter:
             entry = self._capture(key, program, bufs)
             self.stats["captured_on_run"] += 1
         entry.graph.replay()
+        mine = self.stats["launches"]
         for name, n in entry.launches.items():
             _build.launch_counts[name] += n
+            mine[name] = mine.get(name, 0) + n
         self.stats["replays"] += 1
         return entry.outputs
 
@@ -140,9 +144,13 @@ class GraphRouter:
         return entry
 
     def _capture_stream(self) -> torch.cuda.Stream:
+        """The router's capture stream on its card (made on first use). The
+        warm run and the recording run under it, which makes its card
+        current for them whatever the calling thread's card is."""
         if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-            self._pool = torch.cuda.graph_pool_handle()
+            with torch.cuda.device(self.device):
+                self._stream = torch.cuda.Stream(self.device)
+                self._pool = torch.cuda.graph_pool_handle()
         return self._stream
 
     def _warm(self, program: Program, bufs: dict) -> None:

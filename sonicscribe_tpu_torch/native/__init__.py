@@ -6,11 +6,13 @@ monotonic ring that ``stream/buffer.py`` stores a session's audio in. This
 is host code, not a kernel.
 
 g++ builds the library on first use into
-``build/native/libsonic_native-<digest>.so`` at the root of the checkout
-(the digest covers the source and the flags, so an edited source builds
-anew). ``load()`` returns the bound library, or None where g++ or the
-source is missing; callers then take the NumPy versions, as in the JAX
-package.
+``build/native/libsonic_native-<digest>.so`` at the root of the checkout,
+or ``$SONIC_KERNEL_DIR/native`` where that variable names a deploy
+directory (ops/_build.py, tools/prewarm.py); the digest covers the source
+and the flags, so an edited source builds anew. ``load()`` returns the
+bound library, or None where g++ or the source is missing; callers then
+take the NumPy versions, as in the JAX package. ``library_counts``: built
+with g++ in this process, loaded prebuilt.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ from typing import Optional
 
 import numpy as np
 
+from sonicscribe_tpu_torch.ops._build import KERNEL_DIR_ENV
+
 logger = logging.getLogger(__name__)
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -33,14 +37,22 @@ SOURCE = ROOT / "native" / "sonic_native.cpp"
 BUILD_DIR = ROOT / "build" / "native"
 FLAGS = ("-O3", "-shared", "-fPIC")
 
+library_counts = {"built": 0, "loaded": 0}
+
 _lock = threading.Lock()
 _lib = None
 _tried = False
 
 
+def build_dir() -> Path:
+    """``native/`` of the deploy directory $SONIC_KERNEL_DIR, else BUILD_DIR."""
+    root = os.environ.get(KERNEL_DIR_ENV)
+    return Path(root) / "native" if root else BUILD_DIR
+
+
 def lib_path() -> Path:
     digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"libsonic_native-{digest}.so"
+    return build_dir() / f"libsonic_native-{digest}.so"
 
 
 def build() -> Optional[Path]:
@@ -50,7 +62,7 @@ def build() -> Optional[Path]:
     out = lib_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")  # processes may build at once
     try:
         subprocess.run(["g++", *FLAGS, "-o", str(tmp), str(SOURCE)],
@@ -59,6 +71,7 @@ def build() -> Optional[Path]:
         logger.warning("native build failed (%s); using NumPy fallback", e)
         return None
     os.replace(tmp, out)
+    library_counts["built"] += 1
     return out
 
 
@@ -69,6 +82,7 @@ def load():
         if _lib is not None or _tried:
             return _lib
         _tried = True
+        built = library_counts["built"]
         path = build()
         if path is None:
             return None
@@ -77,6 +91,8 @@ def load():
         except OSError as e:
             logger.warning("native load failed (%s); using NumPy fallback", e)
             return None
+        if library_counts["built"] == built:
+            library_counts["loaded"] += 1
 
         i64, f32p, i16p, u8p = (
             ctypes.c_int64,

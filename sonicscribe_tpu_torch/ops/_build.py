@@ -2,12 +2,16 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with nvcc
 for Hopper (``sm_90a``) into ``build/kernels/<name>-<digest>.so`` at the
-root of the checkout, on first use, and loaded with ctypes. The digest
+root of the checkout (``$SONIC_KERNEL_DIR/kernels`` where that variable
+names a deploy directory, see tools/prewarm.py), on first use, and loaded
+with ctypes. The digest
 covers the source, every header of ``csrc/`` it includes (``#include
 "x.cuh"``, followed through the headers' own includes) and the flags, so
 an edited source or header builds anew and a stale library is never
-loaded. ``build()`` starts one nvcc per source, all
-at once, and waits for them; ``load()`` builds what is missing.
+loaded: a digest the directory lacks is built, never skipped.
+``build()`` starts one nvcc per source, all at once, and waits for them;
+``load()`` builds what is missing. ``library_counts`` counts the libraries
+this process built with nvcc and those it loaded prebuilt.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no nvcc.
@@ -27,6 +31,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+KERNEL_DIR_ENV = "SONIC_KERNEL_DIR"  # a deploy directory: <dir>/kernels, <dir>/native
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -48,8 +53,20 @@ launch_counts: dict[str, int] = {
     )
 }
 
+# libraries this process compiled with nvcc / loaded without building them
+library_counts = {"built": 0, "loaded": 0}
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_built: set[str] = set()
+
+
+def kernel_dir() -> Path:
+    """Where the kernel libraries are built and looked for: the deploy
+    directory's ``kernels/`` where $SONIC_KERNEL_DIR is set, else the
+    checkout's ``build/kernels``."""
+    root = os.environ.get(KERNEL_DIR_ENV)
+    return Path(root) / "kernels" if root else BUILD_DIR
 
 
 def reset_launch_counts() -> None:
@@ -63,6 +80,23 @@ def n_sms(device) -> int:
     import torch
 
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def on_tensor_device(launcher):
+    """Run `launcher` with the card of its first tensor argument current.
+    A kernel launched through the C interface goes to the calling thread's
+    current device, and the stream handed to it must be that device's: on
+    a second card without this the launch lands on the wrong card or
+    fails on a foreign stream."""
+    @functools.wraps(launcher)
+    def launch(*args, **kw):
+        import torch
+
+        t = next(a for a in args if isinstance(a, torch.Tensor))
+        with torch.cuda.device(t.device):
+            return launcher(*args, **kw)
+
+    return launch
 
 
 def _nvcc() -> str:
@@ -97,14 +131,14 @@ def library_path(name: str) -> Path:
     for path in sources(name):
         h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
+    return kernel_dir() / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names=KERNELS) -> dict[str, str]:
     """Compile every named kernel whose library is missing, one nvcc each,
     all started together. -> {name: nvcc's -Xptxas=-v report}. Raises with
     the compiler's output if any build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    kernel_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         out = library_path(name)
@@ -124,6 +158,8 @@ def build(names=KERNELS) -> dict[str, str]:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
         os.replace(tmp, out)
+        library_counts["built"] += 1
+        _built.add(name)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return reports
@@ -137,4 +173,6 @@ def load(name: str) -> ctypes.CDLL:
             build((name,))
             lib = ctypes.CDLL(str(library_path(name)))
             _libs[name] = lib
+            if name not in _built:
+                library_counts["loaded"] += 1
         return lib

@@ -158,6 +158,7 @@ def _check_mma(q, k_cache, v_cache, g: int) -> None:
                          "aligned q rows")
 
 
+@_build.on_tensor_device
 def _launch(name: str, q, k_cache, v_cache, lens) -> torch.Tensor:
     """One launch of the kernel on q [S, W1, nh, hd] (checked; the split
     from split_shape), counted as `name` (and as verify_attention_mma where

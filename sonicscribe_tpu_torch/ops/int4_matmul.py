@@ -207,6 +207,7 @@ def _check(name, x, packed, scale, layer: int) -> tuple[int, int, int]:
     return B, K2, N
 
 
+@_build.on_tensor_device
 def _launch_mma(x, packed, scale, layer: int) -> tuple[torch.Tensor, int]:
     """The tensor-core W4A8 design on layer `layer` of a checked stack: a
     quantise kernel writes xq and sx, then the mma kernel (and the split-K
@@ -227,6 +228,7 @@ def _launch_mma(x, packed, scale, layer: int) -> tuple[torch.Tensor, int]:
     return out, err
 
 
+@_build.on_tensor_device
 def _launch_w4a16_mma(x, packed, scale, layer: int) -> tuple[torch.Tensor, int]:
     """The tensor-core W4A16 design (bf16 x, K/2 % 8 == 0, 16-byte aligned
     x and scale) on layer `layer` of a checked stack, and its split-K pass.
@@ -242,6 +244,7 @@ def _launch_w4a16_mma(x, packed, scale, layer: int) -> tuple[torch.Tensor, int]:
     return out, err
 
 
+@_build.on_tensor_device
 def _launch_w4a16_streaming(x, packed, scale, layer: int,
                             cluster: int | None = None) -> tuple[torch.Tensor, int]:
     """The cluster split-K W4A16 design on layer `layer` of a checked
@@ -257,6 +260,7 @@ def _launch_w4a16_streaming(x, packed, scale, layer: int,
     return out, err
 
 
+@_build.on_tensor_device
 def _launch(name, x, packed, scale, layer: int) -> torch.Tensor:
     """Launch the design that w4a16_uses_mma (W4A16) or w4a8_uses_mma
     (W4A8) picks on layer `layer` of the whole stack. Only torch.empty runs

@@ -251,6 +251,7 @@ def _check(name, x, q, scale, layer: int) -> tuple[int, int, int]:
     return B, K, N
 
 
+@_build.on_tensor_device
 def _launch_streaming(x, q, scale, layer: int,
                       cluster: int | None = None) -> tuple[torch.Tensor, int]:
     """The cluster split-K W8A16 design on layer `layer` of a checked
@@ -266,6 +267,7 @@ def _launch_streaming(x, q, scale, layer: int,
     return out, err
 
 
+@_build.on_tensor_device
 def _launch_w8a8_cluster(x, q, scale, layer: int,
                          cluster: int | None = None) -> tuple[torch.Tensor, int]:
     """The cluster split-K W8A8 design on layer `layer` of a checked stack:
@@ -281,6 +283,7 @@ def _launch_w8a8_cluster(x, q, scale, layer: int,
     return out, err
 
 
+@_build.on_tensor_device
 def _launch_w8a8_mma(x, q, scale, layer: int) -> tuple[torch.Tensor, int]:
     """The s8 tensor-core W8A8 design (N % 128 == 0) on layer `layer` of a
     checked stack: a quantise kernel writes xq and sx, then the mma kernel
@@ -302,6 +305,7 @@ def _launch_w8a8_mma(x, q, scale, layer: int) -> tuple[torch.Tensor, int]:
     return out, err
 
 
+@_build.on_tensor_device
 def _launch(name, x, q, scale, layer: int) -> torch.Tensor:
     """Launch a W8A16 kernel (the tensor-core design where uses_mma says
     so), or the W8A8 design that w8a8_uses_mma picks (its kernels quantise

@@ -99,6 +99,7 @@ def _lib():
     return fn
 
 
+@_build.on_tensor_device
 def _launch(padded, basis, fb, n_frames: int, hop: int, tile: int) -> tuple[torch.Tensor, int]:
     """One launch of the kernel with `tile` frames per block on checked
     inputs, padded [N] or [B, N] (one launch for every row). -> (out,

@@ -228,6 +228,8 @@ async def transcribe_file(request: web.Request) -> web.StreamResponse:
 
     try:
         loop = asyncio.get_running_loop()
+        # resampled on the (first) engine's card, returned to the host: each
+        # segment then goes to whichever replica serves it, which uploads it
         audio = await loop.run_in_executor(
             None, decode_audio, file_bytes, filename, engine.transcriber.device
         )

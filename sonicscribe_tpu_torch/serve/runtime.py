@@ -15,12 +15,14 @@ import torch
 from sonicscribe_tpu_torch.config import AppConfig
 from sonicscribe_tpu_torch.device import resolve_device
 from sonicscribe_tpu_torch.engine.batcher import BatchedEngine
+from sonicscribe_tpu_torch.engine.replicas import DataParallelEngine
 from sonicscribe_tpu_torch.engine.transcriber import Transcriber
 from sonicscribe_tpu_torch.models.config import nano, tiny
 from sonicscribe_tpu_torch.models.glm_asr import param_count
 from sonicscribe_tpu_torch.models.tokenizer import ByteTokenizer
 from sonicscribe_tpu_torch.models.weights import init_random, load_checkpoint
 from sonicscribe_tpu_torch.ops.quant import quantize_params_int8
+from sonicscribe_tpu_torch.parallel.mesh import make_mesh
 from sonicscribe_tpu_torch.serve.engine_async import ThreadedEngine
 from sonicscribe_tpu_torch.tools.convert_silero import load_npz
 from sonicscribe_tpu_torch.vad.model import EnergyVad, SileroVad
@@ -49,9 +51,13 @@ def build_runtime(
     (tools/convert_silero.py). engine_kind: 'batched' (the continuous batcher,
     engine/batcher.py: config.decode_slots long slots, one short slot per
     stream; the default, as in the JAX package; config.fuse_dual_decode
-    decodes both pools in one program) | 'threaded' (one request at a
-    time). `device` as in device.resolve_device: the card unless 'cpu'
-    is asked for.
+    decodes both pools in one program; config.data_parallel > 1: that
+    many replicas, one per card, behind engine/replicas.py's router, as
+    many as there are cards with a warning where fewer, all on the CPU
+    for device 'cpu') | 'threaded' (one request at a time). `device` as in
+    device.resolve_device: the card unless 'cpu' is asked for; the first
+    replica's card when data-parallel (the replicas take cuda:0 ..
+    cuda:dp-1).
     config.quant_mode: 'native' | 'int8' (every projection but embed,
     adapter and lm_head, the reference's skip-list) | 'int8-decoder' (the
     decoder's projections only) | 'int8-decoder-a8' (as int8-decoder, and
@@ -87,11 +93,27 @@ def build_runtime(
 
     transcriber = Transcriber(mcfg, params, tokenizer, prefill_buckets=buckets)
     vad, vad_served = build_vad(vad_spec, config, device)
+    dp = 1
     if engine_kind == "batched":
-        engine = BatchedEngine(
-            transcriber, vad, slots=config.decode_slots,
+        engine_kw = dict(
+            slots=config.decode_slots,
             max_decode_tokens=max(config.file_max_new_tokens, config.final_max_tokens),
             fuse_dual_decode=config.fuse_dual_decode)
+        if config.data_parallel > 1:
+            # one replica per card; on the CPU the replicas share it
+            n_devices = (config.data_parallel if device.type == "cpu"
+                         else torch.cuda.device_count())
+            dp = min(config.data_parallel, n_devices)
+            if dp < config.data_parallel:
+                logger.warning("data_parallel=%d requested but only %d devices; using %d",
+                               config.data_parallel, n_devices, dp)
+        if dp > 1:
+            devices = ([device] * dp if device.type == "cpu"
+                       else [torch.device("cuda", i) for i in range(dp)])
+            engine = DataParallelEngine(transcriber, vad, make_mesh(devices=devices),
+                                        **engine_kw)
+        else:
+            engine = BatchedEngine(transcriber, vad, **engine_kw)
     else:
         engine = ThreadedEngine(transcriber, vad)
     info = {
@@ -101,6 +123,7 @@ def build_runtime(
         "vad": vad_served,
         "engine": engine_kind,
         "decode_slots": config.decode_slots if engine_kind == "batched" else 1,
+        "data_parallel": dp,
         "fuse_dual_decode": bool(getattr(engine, "fuse_dual", False)),
         "device": str(device),
         "device_name": (

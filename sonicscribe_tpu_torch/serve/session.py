@@ -342,7 +342,9 @@ class StreamSession:
         if duration > self.config.max_segment_duration:
             return False
         ok = getattr(self.engine, "eager_ok", None)
-        if callable(ok) and not ok():
+        # the gate of the engine (the replica, behind a data-parallel
+        # router) that owns this session's ring row
+        if callable(ok) and not ok(self.stream_idx):
             return False
         task = asyncio.ensure_future(self._run_eager_final(start, end_chunk))
         self._tasks.add(task)
@@ -376,7 +378,7 @@ class StreamSession:
     def _report_eager(self, confirmed: bool) -> None:
         report = getattr(self.engine, "eager_outcome", None)
         if callable(report):
-            report(confirmed)
+            report(confirmed, self.stream_idx)
 
     async def _commit_segment(self, seg: SpeechSegment) -> None:
         t0 = time.monotonic()  # speech-end -> committed_output latency

@@ -240,16 +240,31 @@ async def settled_load(engine, config: AppConfig, n_streams: int, seconds: float
     settle_kw = {k: v for k, v in kw.items() if k != "samples"}
     await run_load(engine, config, n_streams, settle_s or max(4.0, seconds / 2),
                    realtime=realtime, **settle_kw)
-    engine.stats.pop("short_lat_ms", None)
-    engine.stats.pop("long_lat_ms", None)
+    for eng in replicas(engine):
+        eng.stats.pop("short_lat_ms", None)
+        eng.stats.pop("long_lat_ms", None)
     return await run_load(engine, config, n_streams, seconds, realtime=realtime, **kw)
+
+
+def replicas(engine) -> list:
+    """The engines behind `engine`: a data-parallel router's replicas
+    (engine/replicas.py), else the engine itself."""
+    return list(getattr(engine, "replicas", None) or [engine])
 
 
 def host_path_sessions(engine, n_streams: int) -> int:
     """How many of n_streams new sessions find no free ring row and take
     the host-audio path (stream_idx None): sessions claim rows in order."""
-    free = getattr(engine, "_free_streams", None)
-    return n_streams if free is None else max(0, n_streams - len(free))
+    if not getattr(engine, "has_ring", False):
+        return n_streams
+    free = sum(len(eng._free_streams) for eng in replicas(engine))
+    return max(0, n_streams - free)
+
+
+def captured_on_run(engine) -> int:
+    """Graphs captured on a request's path so far, over every replica."""
+    return sum((eng.router if getattr(eng, "has_ring", False) else eng.transcriber.router)
+               .stats["captured_on_run"] for eng in replicas(engine))
 
 
 # ---------------- what the serving benches share ----------------
@@ -271,7 +286,10 @@ def class_latency(engine) -> dict:
     queue and run p50 / p95 ms, tokens_p50}} for the classes that ran."""
     out = {}
     for cls in ("short", "long"):
-        lat = engine.stats.pop(cls + "_lat_ms", None)
+        lat: dict = {}
+        for eng in replicas(engine):
+            for k, v in (eng.stats.pop(cls + "_lat_ms", None) or {}).items():
+                lat.setdefault(k, []).extend(v)
         if lat and lat["queue"]:
             out[cls] = {
                 "n": len(lat["queue"]),
@@ -390,8 +408,7 @@ def main(argv=None):
                                        engine_kind=args.engine)
     engine.warmup(budgets=(config.interim_max_new_tokens, config.final_max_tokens))
     batched = getattr(engine, "has_ring", False)
-    router = engine.router if batched else engine.transcriber.router
-    captured0 = router.stats["captured_on_run"]
+    captured0 = captured_on_run(engine)
     host_path = host_path_sessions(engine, args.streams)
 
     async def go():
@@ -403,7 +420,7 @@ def main(argv=None):
     finally:
         engine.shutdown()
     metrics["host_path_sessions"] = host_path
-    metrics["captured_on_run"] = router.stats["captured_on_run"] - captured0
+    metrics["captured_on_run"] = captured_on_run(engine) - captured0
     metrics["latency_by_class"] = class_latency(engine) if batched else {}
     metrics["model_info"] = info
     metrics.update(device_fields(args.device))

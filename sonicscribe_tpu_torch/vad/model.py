@@ -114,6 +114,10 @@ class SileroVad:
         self.params = _tree_to(params, self.device)
         self._index: dict = {}  # (name, device) -> gather index on that device
 
+    def to(self, device) -> "SileroVad":
+        """The same net on `device` (a data-parallel replica's VAD)."""
+        return SileroVad(params=self.params, cfg=self.cfg, device=device)
+
     def _dft_basis(self) -> np.ndarray:
         """Analytic hann-windowed real-DFT basis [2*bins, n_fft]."""
         cfg = self.cfg
@@ -274,6 +278,10 @@ class EnergyVad:
         self.device = resolve_device(device)
         self._tables: dict = {}  # (W, device) -> (DFT basis, band mask) on that device
 
+    def to(self, device) -> "EnergyVad":
+        """The same gate on `device` (a data-parallel replica's VAD)."""
+        return EnergyVad(self.snr_low, self.snr_high, device=device)
+
     def init_state(self, batch: int):
         return {
             "noise": torch.full((batch,), 1e-8, device=self.device),
@@ -382,11 +390,15 @@ class SileroCostProbeVad:
 
     window_samples = WINDOW_SAMPLES
 
-    def __init__(self, device=None, seed: int = 0):
-        self.nn = SileroVad(device=device, seed=seed)
-        self.energy = EnergyVad(device=device)
+    def __init__(self, device=None, seed: int = 0, nn=None, energy=None):
+        self.nn = nn or SileroVad(device=device, seed=seed)
+        self.energy = energy or EnergyVad(device=self.nn.device)
         self.device = self.nn.device
         self.params = {"nn": self.nn.params}
+
+    def to(self, device) -> "SileroCostProbeVad":
+        """The same probe on `device` (a data-parallel replica's VAD)."""
+        return SileroCostProbeVad(nn=self.nn.to(device), energy=self.energy.to(device))
 
     def init_state(self, batch: int):
         return _join(self.nn.init_state(batch), self.energy.init_state(batch))

@@ -38,7 +38,7 @@ from sonicscribe_tpu_torch.models.weights import params_from_jax
 from sonicscribe_tpu_torch.serve.engine_async import ThreadedEngine
 from sonicscribe_tpu_torch.serve.runtime import build_runtime
 from sonicscribe_tpu_torch.serve.session import StreamSession
-from sonicscribe_tpu_torch.tools import convert_silero
+from sonicscribe_tpu_torch.tools import convert_silero, torch_silero
 from sonicscribe_tpu_torch.vad.model import (
     WINDOW_SAMPLES,
     EnergyVad,
@@ -199,6 +199,41 @@ def test_window_probs_matches_the_independent_torch_twin():
     want = [float(twin(torch.from_numpy(audio[i * WINDOW_SAMPLES:(i + 1) * WINDOW_SAMPLES])[None],
                        SR)) for i in range(100)]
     _close(window_probs(vad, audio), want, "twin")
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_port_twin_state_dict_equals_the_jax_packages(seed):
+    """The port's own twin (tools/torch_silero.py) draws the same
+    upstream-named state dict as the JAX package's, tensor for tensor."""
+    want = synthetic_state_dict(seed=seed)
+    got = torch_silero.synthetic_state_dict(seed=seed)
+    assert list(got) == list(want)
+    for name, w in want.items():
+        assert got[name].dtype == w.dtype and got[name].shape == w.shape, name
+        np.testing.assert_array_equal(got[name], w, err_msg=name)
+
+
+def test_port_twin_probabilities_equal_the_jax_twins_bit_for_bit():
+    """Both twins on the same windows, three streams at once and their
+    state threaded through 40 windows: equal probabilities, bit for bit."""
+    twin_j, twin = TorchSileroVad(seed=0), torch_silero.TorchSileroVad(seed=0)
+    audio = _signal()[: 40 * WINDOW_SAMPLES]
+    streams = np.stack([audio, audio[::-1].copy(), 0.5 * audio])
+    for i in range(40):
+        x = torch.from_numpy(streams[:, i * WINDOW_SAMPLES:(i + 1) * WINDOW_SAMPLES])
+        assert torch.equal(twin(x, SR), twin_j(x, SR)), f"window {i}"
+
+
+def test_port_converter_of_the_port_twin_matches_silero_vad():
+    """The port's converter on the port twin's state dict gives a SileroVad
+    whose probabilities match the twin's, as for the JAX package's twin."""
+    sd = torch_silero.synthetic_state_dict(seed=0)
+    vad = SileroVad(params=convert_silero.convert_state_dict(sd), device="cpu")
+    twin = torch_silero.TorchSileroVad(seed=0)
+    audio = _signal()[: 100 * WINDOW_SAMPLES]
+    want = [float(twin(torch.from_numpy(audio[i * WINDOW_SAMPLES:(i + 1) * WINDOW_SAMPLES])[None],
+                       SR)) for i in range(100)]
+    _close(window_probs(vad, audio), want, "port twin")
 
 
 def test_tf32_is_off_for_the_network():
