@@ -95,10 +95,11 @@ exits non-zero on failure:
    /transcribe/file (decode_audio + transcribe_file_stream) on three 16 kHz
    WAVs made from a seed: ~3 s, ~12 s and ~35 s with silences (VAD splits
    it, one span is cut long). Each request runs captured (the main path:
-   graph replays) and eager (an engine of this script whose transcriber
-   runs assemble_prompt + greedy_generate op by op on the same weights):
-   tokens equal (for 3 s and 12 s a difference fails and prints its step
-   and both tokens' eager logits), wall, RTF, decode tokens/s, peak memory,
+   graph replays), and the ~3 s and ~12 s ones also eager (an engine of
+   this script whose transcriber runs assemble_prompt + greedy_generate op
+   by op on the same weights; the ~35 s one no longer, for the script's
+   time): tokens equal (a difference fails and prints its step and both
+   tokens' eager logits), wall, RTF, decode tokens/s, peak memory,
    and from a profiled run at a 32-token budget the device busy time and
    idle share. The launch counters are set to 0 before each request and
    read after: the mel kernel must have run once per segment and decode
@@ -234,14 +235,37 @@ exits non-zero on failure:
    streams spread over the replicas give the host path's tokens on their
    int16 audio; each replica's decode steps and decode-attention launches
    (its router's replays) above 0; parallel/dryrun.py's dry run over the
-   same cards. Then nano bf16 at full width (build_runtime with
+   same cards (its dp x tp leg where they are two cards). Then nano bf16 at full width (build_runtime with
    DATA_PARALLEL=2 on two cards; the same engine by hand on one), each
    replica fast-booted and its deferred keys dropped, and
    tools/loadtest.run_load with 50 realtime streams for 12 s: no error, a
    commit a stream at least, streams on both replicas, no graph captured
    on the request path, each replica decoding; the latencies, each
    replica's share of the streams and the memory are printed (`dp {...}`).
-8. prewarm: tools/prewarm.py --model tiny-random --out <tmp> copies the
+8. tp: tensor parallelism (parallel/tp.py, parallel/mesh.py:
+   shard_params_tp, the dp x tp engine of engine/replicas.py). The card
+   count picks the leg, and the phase's first line prints it. On both: the
+   kernels at nano's tp = 2 shard shapes on the card against their plain
+   versions (decode attention over a rank's 8 query and 2 KV heads at S 1
+   and 32, timed; verify attention over them; the stacked W8A16 entry on
+   each projection's shard at 1 and 32 rows, the flat one at 419 prefill
+   rows). Two cards or more, the engine leg (NCCL, captured): tiny f32 over
+   a 1 x 2 mesh (2 x 2 on four cards) against one engine: 8 host requests,
+   a drafted final and 4 ring streams give its tokens, each rank's shards,
+   pools and ring on its card, each rank's decode-attention launches and
+   all-reduces above 0, no capture on the request path, the followers'
+   slots equal to rank 0's; nano bf16 at tp = 2 on two cards: each rank's
+   resident weight GiB, a captured decode step at 1 and 32 rows against
+   one card's in the same run (logits within TP_LOGIT_TOL of max|logits|,
+   device ms both ways, the 56 all-reduces' ms alone, capture seconds by
+   rank), and the ~12 s request through the file path on the dp x tp
+   engine (wall); nano int8 at tp = 2: the ~3 s request, the stacked W8A16
+   kernel 4 times per layer, step and rank. One card: both ranks' shards of
+   a nano decode step at 32 rows on cuda:0, each on its thread, the
+   partials added in rank order, native and int8-decoder, against the
+   card's whole-tree step (the same tolerance); it prints that the engine
+   leg needs two cards (`tp {...}`).
+9. prewarm: tools/prewarm.py --model tiny-random --out <tmp> copies the
    kernel and native libraries this run built (the same bytes, nothing
    built); a child process with SONIC_KERNEL_DIR on that directory serves
    one tiny request on the card and must build nothing, load its
@@ -258,8 +282,8 @@ launches were counted on (verify attention: the drafted runs of phase
 on the batched paths (`batched_launches`), decode attention, log_mel and the
 stacked W8A16 and W8A8 entries also with
 their batched shapes' numbers (`batched_shapes`), every one with its
-launches in the load phase (`load_launches`) and in the dp phase's load
-(`dp_launches`); the redesigned ones with
+launches in the load phase (`load_launches`), in the dp phase's load
+(`dp_launches`) and in the tp phase's runs (`tp_launches`); the redesigned ones with
 their design; the flat W8A16, W8A8 and the four int4 entries with
 `mma_launches`, the launches that took the tensor cores, verify attention
 with `mma_launches` of its drafted runs); the last line is
@@ -1481,13 +1505,14 @@ class Recording:
 
 
 def serve_request(torch, engine, vad, config, name: str, audio: np.ndarray,
-                  budget: int | None = None) -> dict:
+                  budget: int | None = None, ranks: int = 1) -> dict:
     """One request through the file path (decode_audio +
     transcribe_file_stream), the launch counters set to 0 just before it
     and read just after. Checks the NDJSON stream, the mel launches (one per
-    segment) and the decode-attention launches (one per layer per step:
-    through graph replays, the router's accounting). -> its numbers, the
-    counts and each segment's tokens."""
+    segment and tensor-parallel rank) and the decode-attention launches (one
+    per layer per step and rank: through graph replays, the router's
+    accounting).
+    -> its numbers, the counts and each segment's tokens."""
     from sonicscribe_tpu_torch.audio.wav import write_wav
     from sonicscribe_tpu_torch.ops import _build
     from sonicscribe_tpu_torch.serve.decode import decode_audio
@@ -1518,11 +1543,12 @@ def serve_request(torch, engine, vad, config, name: str, audio: np.ndarray,
     errors = [m for m in msgs if m["type"] == "segment_error"]
     check(not errors, f"{name}: segment errors {errors}")
     check(n_seg >= 1 and types == want, f"{name}: NDJSON types {types}")
-    check(counts["log_mel"] == n_seg,
-          f"{name}: log_mel launched {counts['log_mel']} times for {n_seg} segments")
-    check(steps > 0 and counts["decode_attention"] == n_layers * steps,
+    check(counts["log_mel"] == ranks * n_seg,
+          f"{name}: log_mel launched {counts['log_mel']} times for {n_seg} segments x "
+          f"{ranks} rank(s)")
+    check(steps > 0 and counts["decode_attention"] == ranks * n_layers * steps,
           f"{name}: decode_attention launched {counts['decode_attention']} times "
-          f"for {steps} decode steps x {n_layers} layers")
+          f"for {steps} decode steps x {n_layers} layers x {ranks} rank(s)")
     duration = len(decoded) / SR
     # segments that decoded their whole budget without an EOS
     at_budget = sum(len(c["tokens"]) == file_cfg.max_new_tokens for c in rec.calls)
@@ -1646,15 +1672,20 @@ def dev_us(e) -> float:
     return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
 
 
-def compare_requests(torch, engine, eager, vad, config, mode: str, names) -> dict:
-    """Each named request through the captured engine and the eager one:
-    tokens equal (for 3s and 12s a mismatch fails), then wall, RTF,
-    tokens/s, peak memory and, from a profile at a PROFILE_BUDGET-token
-    budget, the idle share, side by side. -> {name: {label: numbers}}."""
+def compare_requests(torch, engine, eager, vad, config, mode: str, names,
+                     eager_names=None) -> dict:
+    """Each named request through the captured engine and, where it is one
+    of `eager_names` (default: all), the eager one: tokens equal (for 3s
+    and 12s a mismatch fails), then wall, RTF, tokens/s, peak memory and,
+    from a profile at a PROFILE_BUDGET-token budget, the idle share, side
+    by side. -> {name: {label: numbers}}."""
+    eager_names = names if eager_names is None else eager_names
     engines = (("captured", engine), ("eager", eager))
     served = {}
     for name in names:
         for label, eng in engines:
+            if label == "eager" and name not in eager_names:
+                continue
             torch.cuda.reset_peak_memory_stats()
             r = serve_request(torch, eng, vad, config, f"{name} {mode} {label}", payloads()[name])
             served[name, label] = dict(r, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
@@ -1663,15 +1694,17 @@ def compare_requests(torch, engine, eager, vad, config, mode: str, names) -> dic
         runs = {label: dict(served[name, label], profile=profile_request(
             torch, eng, vad, config, f"{name} {mode} {label} profiled", payloads()[name],
             attention_checked=label == "captured"))
-            for label, eng in engines}
-        same = len(runs["captured"]["calls"]) == len(runs["eager"]["calls"]) and all(
-            np.array_equal(c["tokens"], e["tokens"])
-            for c, e in zip(runs["captured"]["calls"], runs["eager"]["calls"]))
-        if name in ("3s", "12s"):
-            check_same_tokens(f"{name} {mode}", runs["captured"], runs["eager"])
+            for label, eng in engines if (name, label) in served}
+        same = None
+        if "eager" in runs:
+            same = len(runs["captured"]["calls"]) == len(runs["eager"]["calls"]) and all(
+                np.array_equal(c["tokens"], e["tokens"])
+                for c, e in zip(runs["captured"]["calls"], runs["eager"]["calls"]))
+            if name in ("3s", "12s"):
+                check_same_tokens(f"{name} {mode}", runs["captured"], runs["eager"])
         log(f"captured vs eager, {name} {mode}: tokens "
-            f"{'equal' if same else 'DIFFER'} ({runs['captured']['tokens']} tokens, "
-            f"{runs['captured']['n_seg']} segments)")
+            f"{'not compared (captured only)' if same is None else 'equal' if same else 'DIFFER'}"
+            f" ({runs['captured']['tokens']} tokens, {runs['captured']['n_seg']} segments)")
         for label, r in runs.items():
             p = r["profile"]
             log(f"  {label:8s}: wall {r['wall']:.3f} s, RTF {r['rtf']:.4f}, "
@@ -1766,7 +1799,10 @@ def main_path_phase(torch):
         torch.cuda.reset_peak_memory_stats()
         grid = warm_grid(torch, engine, "native")
         launches = {"decode_attention": 0, "log_mel": 0}
-        rows = compare_requests(torch, engine, eager, vad, config, "native", ("3s", "12s", "35s"))
+        # the ~35 s request runs captured only: its eager run and profile
+        # (~30 s) were the script's largest single item
+        rows = compare_requests(torch, engine, eager, vad, config, "native", ("3s", "12s", "35s"),
+                                eager_names=("3s", "12s"))
         for name, row in rows.items():
             for kname in launches:
                 launches[kname] += row["captured"]["counts"][kname]
@@ -4175,6 +4211,574 @@ def dp_phase(torch) -> dict:
     return dict(devices=[str(d) for d in devices], tiny=tiny, load=dp_load(torch, devices))
 
 
+TP_DEGREE = 2
+TP_REQUESTS = 8  # tiny f32 host requests at once
+TP_STREAMS = 4  # tiny f32 ring streams
+TP_ROWS = (1, 32)  # decode rows of the nano steps timed at tp = 2 and on one card
+TP_STEP_REPS = 20  # replays of a timed step
+TP_CACHE_LEN, TP_HISTORY = 256, 200  # the nano steps' cache positions and history
+# nano bf16, one decode step at tp = 2 against one card, as a share of
+# max|logits|: each rank's row-parallel partial sum is rounded to bf16
+# before the all-reduce adds them (GSPMD's psum of bf16 partials does the
+# same), where one card rounds the whole product once; over 28 layers of
+# random weights that moved the logits by 3.1% of their maximum at 8 rows
+# and 4.5% at 32 (the greedy token the same in 84% of the 32 rows)
+TP_LOGIT_TOL = 0.08
+
+
+class OneCardPair:
+    """Both ranks of a tp pair on one card, each on a thread of its own:
+    the one-card leg's stand-in for NCCL, which refuses two ranks on one
+    card. Rank 0 adds the two partial sums in rank order once both are
+    enqueued, and both ranks take the sum (every op on the card's default
+    stream, in the order the barriers give)."""
+
+    def __init__(self, torch):
+        import threading
+
+        self.torch = torch
+        self.size = TP_DEGREE
+        self.barrier = threading.Barrier(TP_DEGREE, timeout=120)
+        self.parts = [None] * TP_DEGREE
+        self.total = None
+
+    def all_reduce(self, rank: int, x):
+        self.parts[rank] = x
+        self.barrier.wait()
+        if rank == 0:
+            self.total = self.parts[0] + self.parts[1]
+        self.barrier.wait()
+        x.copy_(self.total)
+        self.barrier.wait()
+        return x
+
+    def run(self, fn):
+        import threading
+
+        torch, out, errors = self.torch, [None] * TP_DEGREE, []
+
+        def rank(r):
+            try:
+                with torch.inference_mode(), torch.cuda.device(0):
+                    out[r] = fn(r)
+            except BaseException as e:  # reported below, after both threads end
+                errors.append(e)
+                self.barrier.abort()
+
+        threads = [threading.Thread(target=rank, args=(r,)) for r in range(TP_DEGREE)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        check(not errors and not any(t.is_alive() for t in threads),
+              f"tp one card: a rank failed or hung: {errors}")
+        return out
+
+
+def tp_trees(torch, params, cfg, devices, group):
+    """shard_params_tp's trees for `devices` (a pair; one card named twice
+    in the one-card leg), each with its rank's reduce hook on `group`."""
+    from sonicscribe_tpu_torch.models.config import tp_blocks
+    from sonicscribe_tpu_torch.parallel.mesh import make_mesh, shard_params_tp
+    from sonicscribe_tpu_torch.parallel.tp import TPRank
+
+    shards = shard_params_tp(params, make_mesh(devices=devices, model_parallel=TP_DEGREE), cfg)
+    blocks = tp_blocks(cfg, TP_DEGREE)
+    return [dict(t, tp=TPRank(group, r, blocks)) for r, t in enumerate(shards)]
+
+
+def tree_gib(tree) -> float:
+    """Bytes of a tree's tensor leaves, in GiB."""
+    if isinstance(tree, dict):
+        return sum(tree_gib(v) for v in tree.values())
+    return tree.numel() * tree.element_size() / 2**30 if hasattr(tree, "numel") else 0.0
+
+
+def step_inputs(torch, cfg, rows: int, devices):
+    """A decode step's inputs at nano: one card's cache [L, rows,
+    TP_CACHE_LEN, nkv, hd] of random bf16 history TP_HISTORY long (from a
+    seed), each rank's share of its KV heads on its device, and the
+    tokens. -> (whole cache, [rank caches], tokens)."""
+    dec = cfg.decoder
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 31 + rows)
+    shape = (dec.n_layers, rows, TP_CACHE_LEN, dec.n_kv_heads, dec.head_dim)
+    whole = {"k": (torch.randn(shape, generator=gen, device="cuda") * 0.5).to(torch.bfloat16),
+             "v": (torch.randn(shape, generator=gen, device="cuda") * 0.5).to(torch.bfloat16),
+             "len": torch.full((rows,), TP_HISTORY, dtype=torch.int32, device="cuda")}
+    h = dec.n_kv_heads // TP_DEGREE
+    shards = [{"k": whole["k"][:, :, :, r * h:(r + 1) * h].to(d, copy=True).contiguous(),
+               "v": whole["v"][:, :, :, r * h:(r + 1) * h].to(d, copy=True).contiguous(),
+               "len": whole["len"].to(d, copy=True)} for r, d in enumerate(devices)]
+    tok = torch.randint(10, dec.vocab_size, (rows,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    return whole, shards, tok
+
+
+def logits_agree(name, got, want) -> dict:
+    """tp logits against one card's: max |diff| within TP_LOGIT_TOL of
+    max|want|, and the share of rows with the same greedy token."""
+    err = (got.float() - want.float()).abs().max().item()
+    top = want.float().abs().max().item()
+    same = (got.float().argmax(-1) == want.float().argmax(-1)).float().mean().item()
+    check(np.isfinite(err) and err <= TP_LOGIT_TOL * top,
+          f"{name}: logits {err} from one card's (max |logits| {top}), beyond "
+          f"{TP_LOGIT_TOL} of it")
+    return dict(max_abs_err=err, max_abs_logit=top, rel_err=err / top, argmax_same=same)
+
+
+def tp_shard_kernels(torch) -> dict:
+    """Each kernel of the tp path at nano's tp = 2 shard shapes on the card
+    against its plain version: decode attention over a rank's 8 query and
+    2 KV heads (S 1 and 32, M 803, bf16, ATTN_TOL, and timed), verify
+    attention over them (S 4, W1 9: the tensor-core kernel), the stacked
+    W8A16 entry at decode rows 1 and 32 on each projection's shard (N / 2
+    for qkv and gate_up, K / 2 for o and down) and the flat one at 419
+    prefill rows on the qkv and down shards (check_w16's tolerance).
+    -> numbers by kernel."""
+    from sonicscribe_tpu_torch.models.config import nano
+    from sonicscribe_tpu_torch.ops import int8_matmul as im
+    from sonicscribe_tpu_torch.ops.decode_attention import (
+        decode_attention_cuda,
+        decode_attention_plain,
+        verify_attention_cuda,
+        verify_attention_plain,
+    )
+    from sonicscribe_tpu_torch.ops.quant import quantize_tensor
+
+    dec = nano().decoder
+    nh, nkv, hd = dec.n_heads // TP_DEGREE, dec.n_kv_heads // TP_DEGREE, dec.head_dim
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 41)
+    timer = Timer(torch)
+    out = {"decode_attention": {}, "verify_attention": {}, "int8_matmul_stacked": {},
+           "int8_matmul": {}}
+    M = VERIFY_M
+    for S in TP_ROWS:
+        k = torch.randn((S, M, nkv, hd), generator=gen, device="cuda").to(torch.bfloat16)
+        v = torch.randn((S, M, nkv, hd), generator=gen, device="cuda").to(torch.bfloat16)
+        q = torch.randn((S, nh, hd), generator=gen, device="cuda").to(torch.bfloat16)
+        lens = torch.randint(M // 2, M, (S,), generator=gen, device="cuda").to(torch.int32)
+        err = (decode_attention_cuda(q, k, v, lens).float()
+               - decode_attention_plain(q, k, v, lens)).abs().max().item()
+        check(np.isfinite(err) and err <= ATTN_TOL,
+              f"tp decode_attention S={S} nh={nh} nkv={nkv}: max err {err} > {ATTN_TOL}")
+        ms = timer.ms(lambda: decode_attention_cuda(q, k, v, lens))
+        out["decode_attention"][f"S{S}_M{M}_nkv{nkv}"] = dict(max_abs_err=err, ms=ms)
+    S, W1 = 4, VERIFY_W1
+    k = torch.randn((S, M, nkv, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn((S, M, nkv, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    q = torch.randn((S, W1, nh, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    lens = torch.randint(M // 2, M - W1, (S,), generator=gen, device="cuda").to(torch.int32)
+    err = (verify_attention_cuda(q, k, v, lens).float()
+           - verify_attention_plain(q, k, v, lens)).abs().max().item()
+    check(np.isfinite(err) and err <= ATTN_TOL,
+          f"tp verify_attention S={S} W1={W1} nkv={nkv}: max err {err} > {ATTN_TOL}")
+    out["verify_attention"][f"S{S}_W1{W1}_nkv{nkv}"] = dict(max_abs_err=err)
+    F = dec.ffn_hidden
+    shapes = {"qkv": (dec.d_model, (dec.n_heads + 2 * dec.n_kv_heads) * hd // TP_DEGREE),
+              "o": (dec.n_heads * hd // TP_DEGREE, dec.d_model),
+              "gate_up": (dec.d_model, F), "down": (F // TP_DEGREE, dec.d_model)}
+    for name, (K, N) in shapes.items():
+        w = torch.randn((2, K, N), generator=gen, device="cuda") * 0.05
+        qt = quantize_tensor(w)
+        for B in TP_ROWS:
+            x = torch.randn((B, K), generator=gen, device="cuda").to(torch.bfloat16)
+            got = im.int8_matmul_stacked_cuda(x, qt["q"], qt["scale"], 1)
+            err = check_w16(torch, f"tp int8_matmul_stacked {name} K={K} N={N}", got,
+                            im.int8_matmul_stacked_plain(x, qt["q"], qt["scale"], 1), f"B={B}")
+            out["int8_matmul_stacked"][f"{name}_K{K}_N{N}_B{B}"] = dict(
+                max_abs_err=err,
+                ms=timer.ms(lambda: im.int8_matmul_stacked_cuda(x, qt["q"], qt["scale"], 1)))
+        if name in ("qkv", "down"):
+            x = torch.randn((419, K), generator=gen, device="cuda").to(torch.bfloat16)
+            q1, s1 = qt["q"][1].contiguous(), qt["scale"][1].contiguous()
+            err = check_w16(torch, f"tp int8_matmul {name} K={K} N={N}",
+                            im.int8_matmul_cuda(x, q1, s1), im.int8_matmul_plain(x, q1, s1),
+                            "B=419")
+            out["int8_matmul"][f"{name}_K{K}_N{N}_B419"] = dict(
+                max_abs_err=err, ms=timer.ms(lambda: im.int8_matmul_cuda(x, q1, s1)))
+    del timer
+    log("tp shard kernels: " + json.dumps(out, default=float))
+    return out
+
+
+def tp_tiny(torch, cards) -> tuple[dict, dict]:
+    """tiny() f32 over a (n/2) x 2 mesh of the cards (1 x 2 on two, 2 x 2 on
+    four) against one engine on cuda:0, both warmed: TP_REQUESTS host
+    requests at once and a drafted final give the single engine's tokens,
+    TP_STREAMS ring streams its ring tokens; each rank's shards, pools and
+    ring on its card with its share of the KV heads; each rank's
+    decode-attention launches (its router's replays) and all-reduces above
+    0; each follower's slots equal to its rank 0's. The launch counters
+    are set to 0 just before the tp engine serves and read just after.
+    -> (numbers, launches)."""
+    from sonicscribe_tpu_torch.engine.batcher import BatchedEngine
+    from sonicscribe_tpu_torch.engine.replicas import DataParallelEngine
+    from sonicscribe_tpu_torch.ops import _build
+    from sonicscribe_tpu_torch.parallel.mesh import make_mesh
+    from sonicscribe_tpu_torch.vad.model import EnergyVad
+
+    mesh = make_mesh(devices=cards, model_parallel=TP_DEGREE)
+    single = BatchedEngine(tiny_transcriber(torch, "cuda"), EnergyVad(device="cuda"), slots=8,
+                           max_decode_tokens=64, n_streams=8)
+    engine = DataParallelEngine(tiny_transcriber(torch, "cuda"), EnergyVad(device="cuda"), mesh,
+                                slots=8, max_decode_tokens=64, n_streams=2 * TP_STREAMS)
+    nkv = single.cfg.decoder.n_kv_heads
+    for row, rep in zip(mesh.devices, engine.replicas):
+        for dev, eng in zip(row, rep._ranks):
+            leaves = [t for k, v in eng.transcriber.params.items() if k != "tp"
+                      for t in _tensors(v)]
+            check(eng.device == dev and eng.ring.device == dev
+                  and all(t.device == dev for p in eng.pools for t in p.state.values())
+                  and all(t.device == dev for t in leaves)
+                  and eng.long.state["k"].shape[3] == nkv // TP_DEGREE,
+                  f"tp tiny: a rank's shards, pools or ring are not on {dev}")
+    reqs = [(speech(0.8 + 0.3 * i, seed=140 + i), budget, ["gpu"] if i in (1, 4) else None)
+            for i, budget in enumerate((8, 24, 15, 40, 21, 8, 30, 12))]
+    audios = [speech(20 * CHUNK_SAMPLES / SR, seed=160 + i) for i in range(TP_STREAMS)]
+    pcms = [(np.clip(a, -1, 1) * 32767).astype("<i2").tobytes() for a in audios]
+    final = speech(2.5, seed=170)
+
+    async def host(eng, draft=None):
+        rs = await asyncio.gather(*[eng.transcribe(a, SR, max_new_tokens=b, hotwords=h)
+                                    for a, b, h in reqs])
+        drafted = await eng.transcribe(final, SR, max_new_tokens=40, draft_tokens=draft)
+        return [r.tokens for r in rs], drafted.tokens
+
+    async def ring(eng):
+        streams = [eng.alloc_stream() for _ in audios]
+        for s, p in zip(streams, pcms):
+            for c in range(20):
+                eng.ingest(s, c, p[c * 2048:(c + 1) * 2048])
+        probs = await asyncio.gather(*[eng.vad_window_ring(s, 0) for s in streams])
+        rs = await asyncio.gather(*[eng.transcribe_ring(s, 0, 20, max_new_tokens=24)
+                                    for s in streams])
+        for s in streams:
+            eng.free_stream(s)
+        return probs, [r.tokens for r in rs]
+
+    try:
+        single.warmup()
+        w = engine.warmup()
+        want, want_final = asyncio.run(host(single))
+        want_probs, want_ring = asyncio.run(ring(single))
+        launches0 = [[dict(e.router.stats["launches"]) for e in rep._ranks]
+                     for rep in engine.replicas]
+        on_run0 = sum(e.router.stats["captured_on_run"] for rep in engine.replicas
+                      for e in rep._ranks)
+        for d in cards:
+            torch.cuda.synchronize(d)
+        _build.reset_launch_counts()
+        got, got_final = asyncio.run(host(engine, draft=np.asarray(want_final)))
+        got_probs, got_ring = asyncio.run(ring(engine))
+        for d in cards:
+            torch.cuda.synchronize(d)
+        counts = dict(_build.launch_counts)
+        stats = engine.stats
+        by_rank = [[{k: v - l0.get(k, 0) for k, v in e.router.stats["launches"].items()}
+                    for e, l0 in zip(rep._ranks, l0s)]
+                   for rep, l0s in zip(engine.replicas, launches0)]
+        captured = sum(e.router.stats["captured_on_run"] for rep in engine.replicas
+                       for e in rep._ranks) - on_run0
+        follower_same = all(
+            torch.equal(rep._ranks[0]._pool(p).state[f].cpu(), e._pool(p).state[f].cpu())
+            for rep in engine.replicas for e in rep._ranks[1:] for p in ("short", "long")
+            for f in ("out", "tok", "n", "len", "done", "status"))
+    finally:
+        single.shutdown()
+        engine.shutdown()
+        for rp in engine.replicas:
+            rp.tp.close()
+    check(all(np.array_equal(a, b) for a, b in zip(got, want)) and any(len(t) for t in want)
+          and np.array_equal(got_final, want_final),
+          f"tp tiny: tokens {got} + {got_final} differ from one engine's {want} + {want_final}")
+    check(all(np.array_equal(a, b) for a, b in zip(got_ring, want_ring)),
+          f"tp tiny: ring tokens {got_ring} differ from one engine's {want_ring}")
+    check(np.allclose(got_probs, want_probs, atol=1e-6), f"tp tiny: ring VAD {got_probs}")
+    check(follower_same, "tp tiny: a follower's slots differ from its rank 0's")
+    check(captured == 0, f"tp tiny: {captured} graphs captured on the request path")
+    attn = [[r.get("decode_attention", 0) for r in rep] for rep in by_rank]
+    reduces = [[r.get("all_reduce", 0) for r in rep] for rep in by_rank]
+    check(all(n > 0 for rep in attn for n in rep) and all(n > 0 for rep in reduces for n in rep),
+          f"tp tiny: decode-attention launches {attn}, all-reduces {reduces} by rank")
+    check(stats["verify_rounds"] > 0, "tp tiny: the drafted final took no verify round")
+    log(f"tp tiny f32 over mesh {mesh.shape} on {[str(c) for c in cards]}: {w['graphs']} graphs "
+        f"warmed on rank 0 of each row; {TP_REQUESTS} host requests, a drafted final and "
+        f"{TP_STREAMS} ring streams = one engine's tokens; followers' slots = rank 0's; "
+        f"decode-attention launches {attn}, all-reduces {reduces} by row and rank")
+    return dict(mesh=mesh.shape, graphs=w["graphs"], decode_attention=attn, all_reduces=reduces,
+                verify_rounds=stats["verify_rounds"]), counts
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    else:
+        yield tree
+
+
+def events_ms(torch, fn, cards) -> float:
+    """Device ms of one fn(): CUDA events on cards[0]'s stream around
+    TP_STEP_REPS calls after a warm one, every card synchronized."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    fn()
+    for d in cards:
+        torch.cuda.synchronize(d)
+    a.record(torch.cuda.current_stream(cards[0]))
+    for _ in range(TP_STEP_REPS):
+        fn()
+    b.record(torch.cuda.current_stream(cards[0]))
+    for d in cards:
+        torch.cuda.synchronize(d)
+    return a.elapsed_time(b) / TP_STEP_REPS
+
+
+def tp_steps(torch, cfg, params, trees, cards, group) -> dict:
+    """Nano decode steps as CUDA graphs at TP_ROWS rows: one card's (on
+    cards[0], the whole tree) and the pair's (each rank's shard on its
+    card, through the group): the first replay's logits held against one
+    card's (logits_agree), the device ms of a step each way, each rank's
+    capture seconds, and the device ms of the step's 2 x n_layers
+    all-reduces of [rows, d_model] alone (a graph of them)."""
+    from sonicscribe_tpu_torch.engine.exec_store import GraphRouter
+    from sonicscribe_tpu_torch.models import glm_asr
+    from sonicscribe_tpu_torch.models.config import tp_local
+
+    local = tp_local(cfg, TP_DEGREE)
+    single, routers = GraphRouter(cards[0]), [GraphRouter(d) for d in cards]
+    n_reduce = 2 * cfg.decoder.n_layers
+
+    def program(tree, c):
+        def step(bufs):
+            _, logits = glm_asr.decode_step(tree, c, {k: bufs[k] for k in ("k", "v", "len")},
+                                            bufs["tok"])
+            return {"logits": logits}
+        return step
+
+    def reduces(r):
+        def program(bufs):
+            for _ in range(n_reduce):
+                group.all_reduce(r, bufs["x"])
+            return {}
+        return program
+
+    out = {}
+    for rows in TP_ROWS:
+        whole, shards, tok = step_inputs(torch, cfg, rows, cards)
+        bufs1 = dict(whole, tok=tok)
+        bufs = [dict(c, tok=tok.to(d)) for c, d in zip(shards, cards)]
+        key = ("decode", rows)
+        single.prepare(key, program(params, cfg), bufs1, replay=False)
+        group.run(lambda r: routers[r].prepare(key, program(trees[r], local), bufs[r],
+                                               replay=False))
+        want = single.run(key, None, bufs1)["logits"]
+        got = group.run(lambda r: routers[r].run(key, None, bufs[r]))["logits"]
+        for d in cards:
+            torch.cuda.synchronize(d)
+        agree = logits_agree(f"tp nano {rows} rows", got, want)
+        one_ms = events_ms(torch, lambda: single.run(key, None, bufs1), cards)
+        tp_ms = events_ms(torch, lambda: group.run(lambda r: routers[r].run(key, None, bufs[r])),
+                          cards)
+        xs = [{"x": torch.zeros((rows, cfg.decoder.d_model), dtype=torch.bfloat16, device=d)}
+              for d in cards]
+        ar_key = ("all_reduce", rows)
+        group.run(lambda r: routers[r].prepare(ar_key, reduces(r), xs[r], replay=False))
+        ar_ms = events_ms(torch, lambda: group.run(lambda r: routers[r].run(ar_key, None, xs[r])),
+                          cards)
+        out[rows] = dict(agree, one_card_ms=one_ms, tp_ms=tp_ms, all_reduce_ms=ar_ms,
+                         all_reduces=n_reduce,
+                         capture_s=[r.stats["capture_s"][key] for r in routers],
+                         one_card_capture_s=single.stats["capture_s"][key])
+        log(f"tp nano bf16 decode step, {rows} rows: one card {one_ms:.3f} ms, tp=2 {tp_ms:.3f} "
+            f"ms ({n_reduce} all-reduces of [{rows}, {cfg.decoder.d_model}] alone "
+            f"{ar_ms:.3f} ms); logits {agree['max_abs_err']:.4f} from one card's (max "
+            f"{agree['max_abs_logit']:.3f}), greedy token the same in "
+            f"{agree['argmax_same']:.3f} of rows; capture {out[rows]['capture_s']} s by rank")
+    return out
+
+
+def tp_nano(torch, cards) -> tuple[dict, dict]:
+    """Nano bf16 at full width over a pair of cards: each rank's resident
+    weight GiB, tp_steps, then the dp x tp engine (1 x 2, fast-booted, its
+    deferred keys dropped as in dp_load) serving the ~12 s request through
+    the file path (serve_request: decode attention once per layer, step and
+    rank), its wall beside phase 3's threaded one-card tokens. -> (numbers,
+    the request's launches)."""
+    from sonicscribe_tpu_torch.config import AppConfig
+    from sonicscribe_tpu_torch.engine.replicas import DataParallelEngine
+    from sonicscribe_tpu_torch.engine.transcriber import Transcriber
+    from sonicscribe_tpu_torch.models.config import nano
+    from sonicscribe_tpu_torch.models.tokenizer import ByteTokenizer
+    from sonicscribe_tpu_torch.models.weights import init_random
+    from sonicscribe_tpu_torch.parallel.mesh import make_mesh, shard_params_tp
+    from sonicscribe_tpu_torch.parallel.tp import TPGroup
+    from sonicscribe_tpu_torch.vad.model import EnergyVad
+
+    cfg, config = nano(), AppConfig()
+    params = init_random(cfg, SEED, dtype=torch.bfloat16, device=cards[0])
+    mesh = make_mesh(devices=cards, model_parallel=TP_DEGREE)
+    group = TPGroup(cards)
+    try:
+        trees = group.attach(shard_params_tp(params, mesh, cfg), cfg)
+        gib = dict(one_card=tree_gib(params),
+                   ranks=[tree_gib({k: v for k, v in t.items() if k != "tp"}) for t in trees])
+        log(f"tp nano bf16 weights: one card {gib['one_card']:.3f} GiB, by rank "
+            f"{[round(g, 3) for g in gib['ranks']]} GiB")
+        with torch.inference_mode():
+            steps = tp_steps(torch, cfg, params, trees, cards, group)
+        del trees
+    finally:
+        group.close()
+    release_memory(torch)
+    tr = Transcriber(cfg, params, ByteTokenizer(cfg), prefill_buckets=tuple(config.prefill_buckets))
+    vad = EnergyVad(device=cards[0])
+    engine = DataParallelEngine(tr, vad, mesh, slots=config.decode_slots,
+                                max_decode_tokens=max(config.file_max_new_tokens,
+                                                      config.final_max_tokens))
+    try:
+        boot = engine.warmup(budgets=GRID_BUDGETS, fast=True)
+        rep = engine.replicas[0]
+        rep._replay_queue.clear()
+        rep._note_deferred()
+        resident = [torch.cuda.memory_allocated(d) / 2**30 for d in cards]
+        r = serve_request(torch, engine, vad, config, "12s tp", payloads()["12s"],
+                          ranks=TP_DEGREE)
+        one_card = THREADED_TOKENS.get(("native", "12s"))
+        same = one_card is not None and len(one_card) == len(r["calls"]) and all(
+            np.array_equal(c["tokens"], t) for c, t in zip(r["calls"], one_card))
+        capture_s = [sum(e.router.stats["capture_s"].values()) for e in rep._ranks]
+    finally:
+        engine.shutdown()
+        for rp in engine.replicas:
+            rp.tp.close()
+    log(f"tp nano bf16 12 s request on mesh {mesh.shape}: wall {r['wall']:.3f} s, RTF "
+        f"{r['rtf']:.4f}, {r['tokens']} tokens, {r['tokens_per_s']:.1f} tokens/s; tokens "
+        f"{'equal to' if same else 'differ from'} the one-card threaded engine's; fast boot "
+        f"{boot['seconds']:.1f} s ({boot['graphs']} graphs on rank 0), capture seconds by rank "
+        f"{[round(c, 1) for c in capture_s]}; resident {[round(g, 2) for g in resident]} GiB by card")
+    return dict(weights_gib=gib, steps=steps, request=dict(
+        wall=r["wall"], rtf=r["rtf"], tokens=r["tokens"], tokens_per_s=r["tokens_per_s"],
+        steps=r["steps"], same_as_one_card=same), boot_s=boot["seconds"],
+        boot_graphs=boot["graphs"], capture_s=capture_s, resident_gib=resident), r["counts"]
+
+
+def tp_int8(torch, cards) -> tuple[dict, dict]:
+    """Nano int8 (encoder and decoder W8A16, quantised whole, then cut) on a
+    1 x 2 dp x tp engine, unwarmed (each key captured on first use): the
+    ~3 s request through the file path, the stacked W8A16 kernel launched
+    4 times per layer, step and rank on the shards, the flat one in
+    prefill. -> (numbers, the request's launches)."""
+    from sonicscribe_tpu_torch.config import AppConfig
+    from sonicscribe_tpu_torch.engine.replicas import DataParallelEngine
+    from sonicscribe_tpu_torch.engine.transcriber import Transcriber
+    from sonicscribe_tpu_torch.models.config import nano
+    from sonicscribe_tpu_torch.models.tokenizer import ByteTokenizer
+    from sonicscribe_tpu_torch.models.weights import init_random
+    from sonicscribe_tpu_torch.ops.quant import quantize_params_int8
+    from sonicscribe_tpu_torch.parallel.mesh import make_mesh
+    from sonicscribe_tpu_torch.vad.model import EnergyVad
+
+    cfg, config = nano(), AppConfig()
+    params = quantize_params_int8(init_random(cfg, SEED, dtype=torch.bfloat16, device=cards[0]))
+    tr = Transcriber(cfg, params, ByteTokenizer(cfg), prefill_buckets=tuple(config.prefill_buckets))
+    vad = EnergyVad(device=cards[0])
+    engine = DataParallelEngine(tr, vad, make_mesh(devices=cards, model_parallel=TP_DEGREE),
+                                slots=4, max_decode_tokens=config.file_max_new_tokens)
+    try:
+        r = serve_request(torch, engine, vad, config, "3s tp int8", payloads()["3s"],
+                          ranks=TP_DEGREE)
+    finally:
+        engine.shutdown()
+        for rp in engine.replicas:
+            rp.tp.close()
+    c, L = r["counts"], cfg.decoder.n_layers
+    check(c["int8_matmul_stacked"] == TP_DEGREE * 4 * L * r["steps"] and c["int8_matmul"] > 0,
+          f"tp int8: {c['int8_matmul_stacked']} stacked W8A16 launches for {r['steps']} steps "
+          f"x {L} layers x 4 x {TP_DEGREE} ranks, {c['int8_matmul']} flat")
+    log(f"tp nano int8 3 s request: wall {r['wall']:.3f} s (graphs captured on the way), "
+        f"{r['tokens']} tokens; launches { {k: v for k, v in c.items() if v} }")
+    return dict(wall=r["wall"], tokens=r["tokens"], steps=r["steps"]), c
+
+
+def tp_one_card(torch) -> tuple[dict, dict]:
+    """One card: both ranks' shards of one nano decode step at 32 rows on
+    cuda:0, natively and in int8-decoder (W8A16), each rank on its thread
+    and the partial sums added in rank order (OneCardPair), held against
+    the card's whole-tree step (logits_agree); decode attention once per
+    layer and rank, the stacked W8A16 kernel 4 times. -> (numbers, the
+    steps' launches)."""
+    from sonicscribe_tpu_torch.models import glm_asr
+    from sonicscribe_tpu_torch.models.config import nano, tp_local
+    from sonicscribe_tpu_torch.models.weights import init_random
+    from sonicscribe_tpu_torch.ops import _build
+    from sonicscribe_tpu_torch.ops.quant import quantize_params_int8
+
+    cfg = nano()
+    L, local = cfg.decoder.n_layers, tp_local(cfg, TP_DEGREE)
+    cards = [torch.device("cuda", 0)] * TP_DEGREE
+    params = init_random(cfg, SEED, dtype=torch.bfloat16, device="cuda")
+    out, counts = {}, {}
+    for mode in ("native", "int8-decoder"):
+        tree = params if mode == "native" else quantize_params_int8(params, decoder_only=True)
+        pair = OneCardPair(torch)
+        trees = tp_trees(torch, tree, cfg, cards, pair)
+        whole, shards, tok = step_inputs(torch, cfg, TP_ROWS[-1], cards)
+        with torch.inference_mode():
+            want = glm_asr.decode_step(tree, cfg, whole, tok)[1]
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        got = pair.run(lambda r: glm_asr.decode_step(trees[r], local, shards[r], tok)[1])
+        torch.cuda.synchronize()
+        c = dict(_build.launch_counts)
+        check(torch.equal(got[0], got[1]), f"tp one card {mode}: the ranks' logits differ")
+        check(c["decode_attention"] == TP_DEGREE * L
+              and c["int8_matmul_stacked"] == (0 if mode == "native" else TP_DEGREE * 4 * L),
+              f"tp one card {mode}: launches {c}")
+        out[mode] = logits_agree(f"tp one card {mode}", got[0], want)
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        del trees, tree
+    log(f"tp one card: both ranks' shards of a nano decode step at {TP_ROWS[-1]} rows on cuda:0, "
+        f"partials summed in rank order: logits against the whole tree's {json.dumps(out)}; "
+        f"the engine leg (NCCL, CUDA graphs, the dp x tp engine) needs two cards")
+    return out, counts
+
+
+def tp_phase(torch) -> dict:
+    """Tensor parallelism. The card count picks the leg: two cards or more
+    run the engine leg (tp_tiny on a (n/2) x 2 mesh of up to four cards,
+    tp_nano and tp_int8 on the first two), one card the one-card leg
+    (tp_one_card); both hold the shard shapes' kernels against their plain
+    versions (tp_shard_kernels). -> numbers, with the launches of the tp
+    runs ("launches")."""
+    n = torch.cuda.device_count()
+    leg = "engine" if n >= TP_DEGREE else "one card"
+    log(f"tp: {n} card(s) present: the {leg} leg")
+    out = dict(leg=leg, cards=n, shard_kernels=tp_shard_kernels(torch))
+    launches: dict = {}
+    if leg == "engine":
+        cards = [torch.device("cuda", i) for i in range(4 if n >= 4 else TP_DEGREE)]
+        parts = {"tiny": tp_tiny(torch, cards)}
+        release_memory(torch)
+        parts["nano"] = tp_nano(torch, cards[:TP_DEGREE])
+        release_memory(torch)
+        parts["int8"] = tp_int8(torch, cards[:TP_DEGREE])
+    else:
+        parts = {"one_card": tp_one_card(torch)}
+    for name, (numbers, counts) in parts.items():
+        out[name] = numbers
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = {k: v for k, v in launches.items() if v}
+    ran = ("decode_attention", "int8_matmul_stacked") + (
+        ("verify_attention", "log_mel", "int8_matmul", "all_reduce") if leg == "engine" else ())
+    for name in ran:
+        check(launches.get(name, 0) > 0, f"tp: {name} never launched on the {leg} leg")
+    return out
+
+
 _PREWARM_CHILD = r"""
 import asyncio, json, sys
 import numpy as np
@@ -4337,6 +4941,9 @@ def main() -> None:
     release_memory(torch)
     dp = dp_phase(torch)
     mark("dp")
+    release_memory(torch)
+    tp = tp_phase(torch)
+    mark(f"tp ({tp['leg']} leg)")
     prewarmed = prewarm_phase(torch)
     mark("prewarm")
     log("captured " + json.dumps(captured, default=float))
@@ -4344,6 +4951,7 @@ def main() -> None:
     log("batched " + json.dumps(batched, default=float))
     log("silero " + json.dumps(silero, default=float))
     log("dp " + json.dumps(dp, default=float))
+    log("tp " + json.dumps(tp, default=float))
     log("prewarm " + json.dumps(prewarmed, default=float))
     for name in ("decode_attention", "verify_attention", "log_mel", "int8_matmul",
                  "int8_matmul_w8a8", "int8_matmul_w8a8_mma"):
@@ -4409,6 +5017,7 @@ def main() -> None:
     for k in kernels:
         k["load_launches"] = load_launches.get(k["name"], 0)
         k["dp_launches"] = dp_launches.get(k["name"], 0)
+        k["tp_launches"] = tp["launches"].get(k["name"], 0)
         k["batched_launches"] = batched_launches.get(k["name"], 0)
         if k["name"] in batched_rows:
             k["batched_shapes"] = batched_rows[k["name"]]

@@ -70,6 +70,21 @@ device work runs on one executor thread, which makes the engine's card
 current; the event loop never touches the device. Data parallelism is a
 batcher per card behind ``engine/replicas.py``'s router (JAX's is this
 engine over a mesh).
+
+TENSOR PARALLELISM (``tp_group``): the engine is rank 0 of a group
+(parallel/tp.py) and mirrors itself on the other ranks. Each rank has an
+engine of its own (``_ranks``: its Transcriber over its shard tree, its
+pools with its share of the KV heads, its ring, buffers and router, on its
+card), which never schedules. Every program that touches the model or a
+pool, and every host-to-device write such a program reads (the prefill
+groups' inputs and bias rows, the packed ring scatter, the warmup's
+exercise), runs on every rank, in the same order, on the same host inputs,
+through ``_ranks_do``: the group runs it on all ranks at once, so the
+all-reduces inside the programs meet. Each rank picks its own greedy
+tokens from the same reduced bits, so its slots stay equal to rank 0's.
+The scheduler, admission, the eager gate, the drafts, the host copies of
+the results and the VAD (whose programs hold no collective and feed only
+the scheduler) are rank 0's alone.
 """
 
 from __future__ import annotations
@@ -428,7 +443,7 @@ class _GridKey:
     order, 0 first) as the JAX package's warmup marks it."""
 
     key: tuple
-    entry: Any  # () -> (key, program, buffers)
+    entry: Any  # (engine) -> (key, program, buffers): a rank's own
     register: Any  # () -> None
     deferred: bool = False
     prio: int = 3
@@ -497,11 +512,18 @@ class BatchedEngine:
         n_streams: int = 64,
         base_logit_bias=None,
         fuse_dual_decode: bool = False,
+        tp_group=None,
+        tp_followers=(),
     ):
         """fuse_dual_decode: decode both pools in one program while both
         are active (see _decode_k_dual_program); off by default, as in the
         JAX package, where the v5e measured no win (``fuse_dual``, which a
-        caller may flip between runs)."""
+        caller may flip between runs).
+
+        tp_group: a parallel/tp.py group whose rank 0 `transcriber` is;
+        tp_followers: the Transcribers of ranks 1.. (each over its shard
+        tree, on its card), whose engines this one drives. `vad` None: no
+        VAD (a follower's engine)."""
         self.transcriber = transcriber
         self.vad = vad
         self.cfg = transcriber.cfg
@@ -583,10 +605,11 @@ class BatchedEngine:
                                 dtype=torch.int16, device=self.device)
         self._free_streams = list(range(n_streams))
         # per-stream VAD state, one trash row for padding rows' writes
-        self.vad_states = vad.init_state(n_streams + 1)
+        self.vad_states = vad.init_state(n_streams + 1) if vad is not None else None
         self._stream_resets: list[int] = []
-        self._vad_ring_program = make_vad_ring_program(vad, _GATE_WINDOW_CHUNKS)
-        self._vad_host_program = _make_vad_batch_program(vad)
+        if vad is not None:
+            self._vad_ring_program = make_vad_ring_program(vad, _GATE_WINDOW_CHUNKS)
+            self._vad_host_program = _make_vad_batch_program(vad)
         self._ingest_pending: list[tuple[int, int, np.ndarray]] = []
         self._vad_ring_requests: asyncio.Queue = asyncio.Queue()
         self._ring_requests: asyncio.Queue = asyncio.Queue()
@@ -685,6 +708,17 @@ class BatchedEngine:
         # is active, and while it is quiet
         self.live_busy_prefill_frame_cap = 512
         self.quiet_prefill_frame_cap = 2048
+
+        # tensor parallelism: every rank's engine, this one first
+        self.tp = tp_group
+        self.tp_degree = tp_group.size if tp_group is not None else 1
+        if len(tp_followers) != self.tp_degree - 1:
+            raise ValueError(f"{len(tp_followers)} follower transcribers for a group of "
+                             f"{self.tp_degree}")
+        self._ranks = [self] + [
+            BatchedEngine(tr, None, slots=slots, max_decode_tokens=max_decode_tokens,
+                          n_streams=n_streams, base_logit_bias=base_logit_bias)
+            for tr in tp_followers]
 
     @property
     def alive(self) -> bool:
@@ -916,13 +950,15 @@ class BatchedEngine:
             compiled = pool.compiled_ring_prefill if ring else pool.compiled_prefill
             items.append(_GridKey(
                 key=self._prefill_key(pool, ring, bucket, sb, B, P),
-                entry=functools.partial(self._prefill_entry, pool, ring, bucket, sb, B, P),
+                entry=lambda eng, name=pool.name, a=(ring, bucket, sb, B, P):
+                    eng._prefill_entry(eng._pool(name), *a),
                 register=functools.partial(compiled.add, (bucket, sb, B)),
                 deferred=deferred, prio=prio))
 
-        def program(key, fn, bufs, register, deferred, prio):
-            items.append(_GridKey(key=key, entry=lambda: (key, fn, bufs), register=register,
-                                  deferred=deferred, prio=prio))
+        def program(key, make, register, deferred, prio):
+            """make(engine) -> (program, buffers) of that rank's engine."""
+            items.append(_GridKey(key=key, entry=lambda eng: (key, *make(eng)),
+                                  register=register, deferred=deferred, prio=prio))
 
         for pool in self.pools:
             short = pool is self.short
@@ -932,14 +968,18 @@ class BatchedEngine:
                             2 if short or (B == 1 and sb == sb0) else 3)
             for p, k, rows in grid["decode"]:
                 if p is pool:
-                    program(("decode", pool.name, k, rows), self._decode_fn(k, rows), pool.state,
+                    program(("decode", pool.name, k, rows),
+                            lambda eng, n=pool.name, k=k, rows=rows: (eng._decode_fn(k, rows),
+                                                                      eng._pool(n).state),
                             functools.partial(pool.compiled_decode.add, (k, rows)),
                             rows is not None or (not short and k > self.long_live_k_cap),
                             1 if short else 2 if rows is None and k <= self.long_oversub_k_cap
                             else 3)
             for p, r, rows in grid["verify"]:
                 if p is pool:
-                    program(self._verify_key(pool, r, rows), self._verify_fn(r, rows), pool.state,
+                    program(self._verify_key(pool, r, rows),
+                            lambda eng, n=pool.name, r=r, rows=rows: (eng._verify_fn(r, rows),
+                                                                      eng._pool(n).state),
                             functools.partial(pool.compiled_verify.add, (r, rows)), True, 3)
             for p, cb, sb, B in grid["ring"]:
                 if p is pool:
@@ -947,7 +987,7 @@ class BatchedEngine:
                             (0 if cb == smallest_cb else 1) if short else 2 if B == 1 else 3)
         if self.fuse_dual:
             for k in self.dual_k_choices:
-                program(("decode_dual", k), self._dual_fn(k), self._dual_bufs,
+                program(("decode_dual", k), lambda eng, k=k: (eng._dual_fn(k), eng._dual_bufs),
                         functools.partial(self._compiled_dual.add, k), False, 1)
         return items
 
@@ -982,7 +1022,7 @@ class BatchedEngine:
                 if fast and item.deferred:
                     continue
                 if cuda:
-                    self.router.prepare(*item.entry())
+                    self._ranks_do(lambda eng: eng.router.prepare(*item.entry(eng)))
                 item.register()
             t1 = time.perf_counter()
             if cuda:
@@ -990,10 +1030,12 @@ class BatchedEngine:
                     self.router.prepare(*self._vad_host_entry(B, _GATE_SUB_WINDOWS))
                     self.router.prepare(*self._vad_ring_entry(B))
                 for M in _SCATTER_BUCKETS:
-                    self.router.prepare(*self._scatter_entry(M))
+                    self._ranks_do(lambda eng: eng.router.prepare(*eng._scatter_entry(M)))
                 for pool in self.pools:
-                    self._exercise(pool, prompt, n_suffix)
-                torch.cuda.synchronize(self.device)
+                    self._ranks_do(lambda eng: eng._exercise(eng._pool(pool.name), prompt,
+                                                             n_suffix))
+                for eng in self._ranks:
+                    torch.cuda.synchronize(eng.device)
         deferred.sort(key=lambda item: item.prio)  # stable: grid order within a priority
         self._replay_queue.extend(deferred)
         self._warmed = True
@@ -1020,6 +1062,17 @@ class BatchedEngine:
     def _pin_device(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
+
+    def _ranks_do(self, fn):
+        """fn(engine) on every rank's engine (``_ranks``) at once, through
+        the tensor-parallel group; -> this engine's result. Without a group
+        fn(self)."""
+        if self.tp is None:
+            return fn(self)
+        return self.tp.run(lambda r: fn(self._ranks[r]))
+
+    def _pool(self, name: str) -> _CachePool:
+        return self.short if name == "short" else self.long
 
     def _on_device(self):
         """The engine's card current for the calling thread's block (the
@@ -1052,7 +1105,7 @@ class BatchedEngine:
         try:
             if self.device.type == "cuda":
                 with torch.inference_mode():
-                    self.router.prepare(*item.entry(), replay=False)
+                    self._ranks_do(lambda eng: eng.router.prepare(*item.entry(eng), replay=False))
             item.register()
         except Exception:
             logger.exception("deferred capture of %s failed", item.key)
@@ -1650,9 +1703,13 @@ class BatchedEngine:
             chunk_ids = np.zeros((M,), np.int32)
             for j, (s, c, arr) in enumerate(group):
                 packed[j], stream_idx[j], chunk_ids[j] = arr, s, c
-            key, fn, bufs = self._scatter_entry(M)
-            self._put_all(bufs, packed=packed, stream_idx=stream_idx, chunk_ids=chunk_ids)
-            self.router.run(key, fn, bufs)
+
+            def scatter(eng, M=M, packed=packed, stream_idx=stream_idx, chunk_ids=chunk_ids):
+                key, fn, bufs = eng._scatter_entry(M)
+                eng._put_all(bufs, packed=packed, stream_idx=stream_idx, chunk_ids=chunk_ids)
+                eng.router.run(key, fn, bufs)
+
+            self._ranks_do(scatter)
             self.stats["scatter_programs"] = self.stats.get("scatter_programs", 0) + 1
 
     def _dispatch_vad_ring(self, batch: list[_VadRingReq]):
@@ -1824,22 +1881,29 @@ class BatchedEngine:
             budgets[j] = req.max_new_tokens
         ta, t_w = self._trace_admit, time.perf_counter()
         try:
-            self._set_slot_bias(pool, [(s, self._hotword_ids(r.hotwords))
-                                       for s, r in zip(slot_list, items)])
+            slot_bias = [(s, self._hotword_ids(r.hotwords)) for s, r in zip(slot_list, items)]
             draft_rows, draft_lens = self._prep_draft_rows(
                 pool, [(s, r.draft_tokens) for s, r in zip(slot_list, items)], B)
-            key, fn, bufs = self._prefill_entry(pool, True, bucket, sb, B, len(prefix))
-            self._put_all(bufs, prefix_ids=prefix, stream_idx=stream_idx, start_chunk=start,
-                          chunk_count=count, suffix_ids=suffixes, suffix_lens=suffix_lens,
-                          slots=slot_list + [pool.trash_slot] * (B - len(items)),
-                          budget_vals=budgets, draft_rows=draft_rows, draft_lens=draft_lens)
-            t_d = time.perf_counter()
-            self.router.run(key, fn, bufs)
+            t_d = [0.0]  # rank 0's program dispatch
+
+            def admit(eng):  # on every rank, its own pool of that name
+                rp = eng._pool(pool.name)
+                eng._set_slot_bias(rp, slot_bias)
+                key, fn, bufs = eng._prefill_entry(rp, True, bucket, sb, B, len(prefix))
+                eng._put_all(bufs, prefix_ids=prefix, stream_idx=stream_idx, start_chunk=start,
+                             chunk_count=count, suffix_ids=suffixes, suffix_lens=suffix_lens,
+                             slots=slot_list + [rp.trash_slot] * (B - len(items)),
+                             budget_vals=budgets, draft_rows=draft_rows, draft_lens=draft_lens)
+                if eng is self:
+                    t_d[0] = time.perf_counter()
+                eng.router.run(key, fn, bufs)
+
+            self._ranks_do(admit)
         except Exception as e:
             self._fail_group(items, e)
             return
         if ta is not None:
-            self._trace_group(ta, pool, t_w, t_d)
+            self._trace_group(ta, pool, t_w, t_d[0])
         self._activate(pool, items, slot_list)
         self.stats["ring_prefill_programs"] += 1
 
@@ -1890,19 +1954,25 @@ class BatchedEngine:
                 bias[slot].copy_(self._base_bias)
                 pool.bias_dirty[slot] = False
 
+    def _mel(self, req: _TranscribeReq):
+        """-> (bucket, the log-mel kernel's mel [bucket, n_mels] on this
+        engine's card, frames) of a host request's audio."""
+        tr = self.transcriber
+        x = tr.prepare_audio(req.audio, req.sample_rate)
+        frames = max(1, frame_count(int(x.shape[0]), tr.mel_cfg))
+        bucket = tr._pick_bucket(frames)
+        if frames > bucket:
+            frames = bucket
+            x = x[: bucket * tr.mel_cfg.hop_length]
+        return bucket, log_mel_spectrogram(x, tr.mel_cfg, pad_to_frames=bucket).to(tr.dtype), frames
+
     def _prepare_request(self, req: _TranscribeReq):
         """Host request -> (bucket, mel [bucket, n_mels] on the device,
         frames, prefix, suffix [sb], suffix_len, sb), or None if it failed
         (its future gets the error). The mel is the log-mel kernel's."""
         tr = self.transcriber
         try:
-            x = tr.prepare_audio(req.audio, req.sample_rate)
-            frames = max(1, frame_count(int(x.shape[0]), tr.mel_cfg))
-            bucket = tr._pick_bucket(frames)
-            if frames > bucket:
-                frames = bucket
-                x = x[: bucket * tr.mel_cfg.hop_length]
-            mel = log_mel_spectrogram(x, tr.mel_cfg, pad_to_frames=bucket).to(tr.dtype)
+            bucket, mel, frames = self._mel(req)
             self.stats["mel_preps"] += 1
             prompt = build_prompt(tr.tokenizer, self.cfg, hotwords=req.hotwords)
             s_ids = prompt.suffix_ids[:MAX_SUFFIX_TOKENS]
@@ -1956,27 +2026,40 @@ class BatchedEngine:
         preps = [p for _, p in items] + [items[0][1]] * pad  # padding repeats the first row
         ta, t_w = self._trace_admit, time.perf_counter()
         try:
-            self._set_slot_bias(pool, [(s, self._hotword_ids(r.hotwords))
-                                       for s, (r, _) in zip(slot_list, items)])
+            slot_bias = [(s, self._hotword_ids(r.hotwords)) for s, (r, _) in zip(slot_list, items)]
             draft_rows, draft_lens = self._prep_draft_rows(
                 pool, [(s, r.draft_tokens) for s, (r, _) in zip(slot_list, items)], B)
-            key, fn, bufs = self._prefill_entry(pool, False, bucket, sb, B, len(preps[0][3]))
-            bufs["mels"].copy_(torch.stack([p[1] for p in preps]))
-            self._put_all(
-                bufs, prefix_ids=preps[0][3],
-                n_frames=[p[2] for _, p in items] + [bucket] * pad,
-                suffix_ids=np.stack([p[4] for p in preps]),
-                suffix_lens=[p[5] for p in preps],
-                slots=slot_list + [pool.trash_slot] * pad,
-                budget_vals=[r.max_new_tokens for r, _ in items] + [0] * pad,
-                draft_rows=draft_rows, draft_lens=draft_lens)
-            t_d = time.perf_counter()
-            self.router.run(key, fn, bufs)
+            reqs = [r for r, _ in items] + [items[0][0]] * pad
+            t_d = [0.0]  # rank 0's program dispatch
+
+            def admit(eng):  # on every rank, its own pool of that name
+                rp = eng._pool(pool.name)
+                eng._set_slot_bias(rp, slot_bias)
+                key, fn, bufs = eng._prefill_entry(rp, False, bucket, sb, B, len(preps[0][3]))
+                # each rank makes the mels from the host audio on its card: a
+                # copy across cards would order one card's stream after the
+                # other's, and rank 0's prefill all-reduces could then wait
+                # for a rank whose copy waits for them
+                bufs["mels"].copy_(torch.stack([p[1] for p in preps] if eng is self
+                                               else [eng._mel(r)[1] for r in reqs]))
+                eng._put_all(
+                    bufs, prefix_ids=preps[0][3],
+                    n_frames=[p[2] for _, p in items] + [bucket] * pad,
+                    suffix_ids=np.stack([p[4] for p in preps]),
+                    suffix_lens=[p[5] for p in preps],
+                    slots=slot_list + [rp.trash_slot] * pad,
+                    budget_vals=[r.max_new_tokens for r, _ in items] + [0] * pad,
+                    draft_rows=draft_rows, draft_lens=draft_lens)
+                if eng is self:
+                    t_d[0] = time.perf_counter()
+                eng.router.run(key, fn, bufs)
+
+            self._ranks_do(admit)
         except Exception as e:
             self._fail_group([r for r, _ in items], e)
             return
         if ta is not None:
-            self._trace_group(ta, pool, t_w, t_d)
+            self._trace_group(ta, pool, t_w, t_d[0])
         self._activate(pool, [r for r, _ in items], slot_list)
 
     # ---------------- decode ----------------
@@ -2049,7 +2132,8 @@ class BatchedEngine:
             for pool in active:
                 self._dispatch_decode_pool(pool, parked)
             return
-        self.router.run(("decode_dual", k), self._dual_fn(k), self._dual_bufs)
+        self._ranks_do(lambda eng: eng.router.run(("decode_dual", k), eng._dual_fn(k),
+                                                  eng._dual_bufs))
         self._compiled_dual.add(k)
         self.stats["dual_decodes"] += 1
         self._park(self.short, k, parked)
@@ -2063,8 +2147,9 @@ class BatchedEngine:
         rounds = self._pick_verify_rounds(pool, k)
         if rounds is not None:
             rows = self._pick_verify_rows(pool, rounds)
-            self.router.run(self._verify_key(pool, rounds, rows), self._verify_fn(rounds, rows),
-                            pool.state)
+            self._ranks_do(lambda eng: eng.router.run(eng._verify_key(pool, rounds, rows),
+                                                      eng._verify_fn(rounds, rows),
+                                                      eng._pool(pool.name).state))
             pool.compiled_verify.add((rounds, rows))
             self.stats["verify_rounds"] += rounds
             for s in pool.slots:
@@ -2077,7 +2162,9 @@ class BatchedEngine:
             self._park(pool, rounds, parked)
             return
         rows = self._pick_rows(pool, k)
-        self.router.run(("decode", pool.name, k, rows), self._decode_fn(k, rows), pool.state)
+        self._ranks_do(lambda eng: eng.router.run(("decode", pool.name, k, rows),
+                                                  eng._decode_fn(k, rows),
+                                                  eng._pool(pool.name).state))
         pool.compiled_decode.add((k, rows))
         self._park(pool, k, parked)
 

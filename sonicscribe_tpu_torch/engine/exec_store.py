@@ -45,7 +45,16 @@ Launch counts. A kernel wrapper adds to ``ops/_build.launch_counts`` in
 Python, which runs while the graph is recorded and never at a replay. The
 router takes back what the capture procedure added (its eager run and
 the recording) and adds what the recording added at every replay, so the
-counts say what the replays launched.
+counts say what the replays launched. It counts what its own thread added
+(``_build.recording``), so the ranks of a tensor-parallel group capture
+at once on their threads, each router keeping its own rank's launches.
+
+Tensor parallelism. Each rank of a group (``parallel/tp.py``) has its own
+router on its card. A program of a sharded model all-reduces inside it,
+so its warm run, its capture and every replay run on all ranks in
+lockstep, one thread per rank: the engine that dispatches it calls the
+group (``engine/batcher.py``), and the NCCL all-reduce is captured into
+each rank's graph like any kernel.
 
 No disk store. ``ExecStore`` pickles XLA executables so that a restarted
 server skips tracing and compiling. A CUDA graph holds device addresses of
@@ -83,7 +92,9 @@ class GraphRouter:
     the seconds each key's capture took (`capture_s`, by key; `warm_s`:
     the part its eager warm run took), and the kernel launches its replays
     made (`launches`, by launch counter: this router's share of
-    `_build.launch_counts`, which tells replicas apart on one card).
+    `_build.launch_counts`, which tells replicas apart on one card; on the
+    CPU what its programs counted, the all-reduces of a tensor-parallel
+    rank).
     `warm_in_place`: names of buffers the warm run uses as they are.
     """
 
@@ -100,18 +111,25 @@ class GraphRouter:
         """The program's outputs on `bufs`: the key's graph replayed
         (captured first if missing), or on the CPU the program itself."""
         if self.device.type == "cpu":
-            return program(bufs)
+            with _build.recording() as counted:
+                out = program(bufs)
+            self._note_launches(counted)
+            return out
         entry = self.entries.get(key)
         if entry is None:
             entry = self._capture(key, program, bufs)
             self.stats["captured_on_run"] += 1
         entry.graph.replay()
-        mine = self.stats["launches"]
         for name, n in entry.launches.items():
-            _build.launch_counts[name] += n
-            mine[name] = mine.get(name, 0) + n
+            _build.count_launch(name, n)
+        self._note_launches(entry.launches)
         self.stats["replays"] += 1
         return entry.outputs
+
+    def _note_launches(self, counts: dict) -> None:
+        mine = self.stats["launches"]
+        for name, n in counts.items():
+            mine[name] = mine.get(name, 0) + n
 
     def prepare(self, key, program: Program, bufs: dict, replay: bool = True) -> Captured | None:
         """Capture the key's graph if it has none, and (`replay`) replay it
@@ -130,12 +148,14 @@ class GraphRouter:
 
     def _capture(self, key, program: Program, bufs: dict) -> Captured:
         t0 = time.perf_counter()
-        before = dict(_build.launch_counts)
-        self._warm(program, bufs)
-        warm, warm_s = dict(_build.launch_counts), time.perf_counter() - t0
-        graph, outputs = self._record(program, bufs)
-        launches = {k: v - warm[k] for k, v in _build.launch_counts.items() if v != warm[k]}
-        _build.launch_counts.update(before)
+        with _build.recording() as warm:
+            self._warm(program, bufs)
+        warm_s = time.perf_counter() - t0
+        with _build.recording() as recorded:
+            graph, outputs = self._record(program, bufs)
+        _build.take_back(warm)
+        _build.take_back(recorded)
+        launches = {k: v for k, v in recorded.items() if v}
         entry = self.entries[key] = Captured(graph, outputs, launches, time.perf_counter() - t0,
                                              warm_s)
         self.stats["graphs"] += 1

@@ -1,4 +1,5 @@
-"""Data-parallel serving: one continuous batcher per data row, behind a router.
+"""Data-parallel serving: one continuous batcher per data row, behind a router;
+each row tensor-parallel over its model ranks where the mesh has them.
 
 JAX serves data-parallel inside ``BatchedEngine(mesh=...)``: one GSPMD
 program over the mesh, parameters replicated, every slot and stream array
@@ -27,8 +28,19 @@ server and the load harness use.
   says degraded); ``stats`` sums the replicas' counters under their keys and
   lists each replica's own under "replicas".
 
+dp x tp: on a mesh with model_parallel > 1 (JAX's
+``BatchedEngine(mesh=make_mesh(n, model_parallel=k))``) each data row is a
+tensor-parallel group (parallel/tp.py) over ``mesh.devices[row]``: the
+tree is cut into the row's Megatron shards (parallel/mesh.py:
+shard_params_tp), each rank has its own Transcriber over its shard on its
+card (models/config.py:tp_local), and the row's batcher is rank 0, which
+runs every model program on all of its ranks in lockstep
+(engine/batcher.py). The router, the affinity and the sizes are as above;
+``stats`` lists each row's tp degree and its all-reduces.
+
 There is no fallback: a replica that fails to build or start raises, and
-nothing moves its streams to another card or to the CPU.
+nothing moves its streams to another card or to the CPU; a group that
+fails to form, or a collective that times out, raises.
 """
 
 from __future__ import annotations
@@ -38,7 +50,9 @@ from typing import Optional
 
 from sonicscribe_tpu_torch.engine.batcher import BatchedEngine
 from sonicscribe_tpu_torch.engine.transcriber import Transcriber
-from sonicscribe_tpu_torch.parallel.mesh import Mesh, replicate_params
+from sonicscribe_tpu_torch.models.config import tp_local
+from sonicscribe_tpu_torch.parallel.mesh import Mesh, replicate_params, shard_params_tp
+from sonicscribe_tpu_torch.parallel.tp import TPGroup
 
 
 def _replica_transcribers(transcriber: Transcriber, mesh: Mesh) -> list[Transcriber]:
@@ -50,11 +64,27 @@ def _replica_transcribers(transcriber: Transcriber, mesh: Mesh) -> list[Transcri
             out.append(transcriber)
             used = True
             continue
-        out.append(Transcriber(
-            transcriber.cfg, params, transcriber.tokenizer, mel_cfg=transcriber.mel_cfg,
-            prefill_buckets=transcriber.buckets, peak_normalize=transcriber.peak_normalize,
-            hotword_bias_strength=transcriber.hotword_bias_strength))
+        out.append(_like(transcriber, transcriber.cfg, params))
     return out
+
+
+def _like(transcriber: Transcriber, cfg, params) -> Transcriber:
+    """A Transcriber with `transcriber`'s settings over another tree."""
+    return Transcriber(cfg, params, transcriber.tokenizer, mel_cfg=transcriber.mel_cfg,
+                       prefill_buckets=transcriber.buckets,
+                       peak_normalize=transcriber.peak_normalize,
+                       hotword_bias_strength=transcriber.hotword_bias_strength)
+
+
+def _rank_transcribers(transcriber: Transcriber, mesh: Mesh,
+                       row: int) -> tuple[TPGroup, list[Transcriber]]:
+    """Data row `row`'s tensor-parallel group and a Transcriber per rank
+    over its shard tree, on its card (rank 0 first)."""
+    cfg = tp_local(transcriber.cfg, mesh.shape["model"])  # raises for what tp cannot serve
+    group = TPGroup(mesh.devices[row])
+    trees = group.attach(shard_params_tp(transcriber.params, mesh, transcriber.cfg, row),
+                         transcriber.cfg)
+    return group, [_like(transcriber, cfg, tree) for tree in trees]
 
 
 class DataParallelEngine:
@@ -73,18 +103,22 @@ class DataParallelEngine:
         base_logit_bias=None,
         fuse_dual_decode: bool = False,
     ):
-        if mesh.shape["model"] > 1:
-            raise NotImplementedError("tensor parallelism (model_parallel > 1) is not ported; "
-                                      "build the mesh with model_parallel=1")
         self.mesh = mesh
         self.data_parallel = dp = mesh.shape["data"]
+        self.model_parallel = mesh.shape["model"]
         per_slots, self.rows_per_replica = -(-slots // dp), -(-n_streams // dp)
+        if self.model_parallel > 1:
+            rows = [_rank_transcribers(transcriber, mesh, row) for row in range(dp)]
+        else:
+            rows = [(None, [tr]) for tr in _replica_transcribers(transcriber, mesh)]
         self.replicas = [
-            BatchedEngine(tr, vad if vad.device == tr.device and i == 0 else vad.to(tr.device),
+            BatchedEngine(trs[0],
+                          vad if vad.device == trs[0].device and i == 0 else vad.to(trs[0].device),
                           slots=per_slots, max_decode_tokens=max_decode_tokens,
                           n_streams=self.rows_per_replica, base_logit_bias=base_logit_bias,
-                          fuse_dual_decode=fuse_dual_decode)
-            for i, tr in enumerate(_replica_transcribers(transcriber, mesh))]
+                          fuse_dual_decode=fuse_dual_decode, tp_group=group,
+                          tp_followers=trs[1:])
+            for i, (group, trs) in enumerate(rows)]
         self.vad = self.replicas[0].vad
         self.N_STREAMS = dp * self.rows_per_replica
         self.concurrency_hint = sum(r.concurrency_hint for r in self.replicas)
@@ -149,13 +183,17 @@ class DataParallelEngine:
     @property
     def stats(self) -> dict:
         """The replicas' integer counters summed under their keys, and each
-        replica's stats under "replicas"."""
+        replica's stats under "replicas", with its tp degree ("tp") and the
+        all-reduces its rank 0 ran ("all_reduces": eager on the CPU, graph
+        replays on the card)."""
         out: dict = {}
         for r in self.replicas:
             for k, v in r.stats.items():
                 if isinstance(v, int) and not isinstance(v, bool):
                     out[k] = out.get(k, 0) + v
-        out["replicas"] = [dict(r.stats) for r in self.replicas]
+        out["replicas"] = [dict(r.stats, tp=r.tp_degree,
+                                all_reduces=r.router.stats["launches"].get("all_reduce", 0))
+                           for r in self.replicas]
         return out
 
     # ---------------- host-audio requests ----------------

@@ -32,6 +32,13 @@ no buffer behind. The JAX package compiles one program per exact budget.
 ``engine/exec_store.py``'s ``GraphRouter`` captures each as a CUDA graph
 on the card and replays it, or runs it eagerly on the CPU. The mel, the
 resampling and the peak normalisation run before the programs, as in JAX.
+
+A tensor-parallel rank (engine/replicas.py) is a Transcriber over its
+shard tree (parallel/mesh.py:shard_params_tp, its hook under "tp") and
+its rank-local config, on its card, with a router of its own; the
+batcher drives the ranks' programs in lockstep (engine/batcher.py). Its
+own ``transcribe`` would run one rank alone, whose all-reduces nobody
+meets, so it raises.
 """
 
 from __future__ import annotations
@@ -319,6 +326,9 @@ class Transcriber:
         hotwords: Optional[list[str]] = None,
         instruction: str = DEFAULT_INSTRUCTION,
     ) -> TranscribeResult:
+        if "tp" in self.params:
+            raise NotImplementedError("a tensor-parallel rank's Transcriber serves through its "
+                                      "row's batcher (engine/replicas.py), which runs every rank")
         t0 = time.perf_counter()
         x = self.prepare_audio(audio, sample_rate)
         duration = float(x.shape[0]) / self.mel_cfg.sampling_rate

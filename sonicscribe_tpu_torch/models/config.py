@@ -18,7 +18,7 @@ tests and chip_smoke.py instantiate the `tiny()` / `nano()` presets.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 
 @dataclass(frozen=True)
@@ -137,3 +137,64 @@ def nano(vocab_size: int = 59520) -> GlmAsrConfig:
         adapter_stack=4,
         adapter_hidden=4096,
     )
+
+
+# =====================================================================
+# Tensor parallelism: the rank-local shapes
+# =====================================================================
+
+# The Megatron blocks of the model: a column-parallel projection into the
+# block, a row-parallel one out of it, whose partial sums are all-reduced
+# (models/glm_asr.py's reduce sites, parallel/mesh.py's rules).
+TP_BLOCKS = ("encoder_attn", "encoder_mlp", "adapter", "decoder_attn", "decoder_mlp")
+
+
+@dataclass(frozen=True)
+class RankEncoderConfig(AudioEncoderConfig):
+    """A tensor-parallel rank's encoder: its share of the heads, and the
+    whole model's head size (which d_model // n_heads would multiply by
+    the tp degree)."""
+
+    head_dim: int = 64
+
+
+def tp_blocks(cfg: GlmAsrConfig, tp: int) -> frozenset:
+    """The blocks a tp degree splits: those whose parallel axis divides by
+    tp, in whole heads for attention (query and KV heads alike). A block
+    that does not divide stays replicated whole, with no reduce: a
+    Megatron pair cannot be half replicated."""
+    enc, dec = cfg.encoder, cfg.decoder
+    widths = {
+        "encoder_attn": (enc.n_heads,),
+        "encoder_mlp": (enc.d_model * enc.ffn_mult,),
+        "adapter": (cfg.adapter_hidden,),
+        "decoder_attn": (dec.n_heads, dec.n_kv_heads),
+        "decoder_mlp": (dec.ffn_hidden,),
+    }
+    return frozenset(b for b in TP_BLOCKS if all(n % tp == 0 for n in widths[b]))
+
+
+def tp_local(cfg: GlmAsrConfig, tp: int) -> GlmAsrConfig:
+    """The config of one rank of a tp-way split (tp_blocks): the heads, KV
+    heads, decoder ffn_hidden and adapter_hidden of each split block
+    divided by tp; a replicated block keeps its whole widths. The encoder
+    keeps the whole model's head size; its MLP's width is its weights'
+    (ffn_mult stays the model's). W8A8 decode (act_int8_decode) raises:
+    ops/quant.py:check_tp."""
+    if tp == 1:
+        return cfg
+    from sonicscribe_tpu_torch.ops.quant import check_tp
+
+    check_tp(cfg.decoder.act_int8_decode, tp)
+    split = tp_blocks(cfg, tp)
+    enc, dec = cfg.encoder, cfg.decoder
+    enc_heads = enc.n_heads // tp if "encoder_attn" in split else enc.n_heads
+    encoder = RankEncoderConfig(**{f: getattr(enc, f) for f in
+                                   ("n_mels", "d_model", "n_layers", "ffn_mult", "max_frames")},
+                                n_heads=enc_heads, head_dim=enc.head_dim)
+    if "decoder_attn" in split:
+        dec = replace(dec, n_heads=dec.n_heads // tp, n_kv_heads=dec.n_kv_heads // tp)
+    if "decoder_mlp" in split:
+        dec = replace(dec, ffn_hidden=dec.ffn_hidden // tp)
+    hidden = cfg.adapter_hidden // tp if "adapter" in split else cfg.adapter_hidden
+    return replace(cfg, encoder=encoder, decoder=dec, adapter_hidden=hidden)

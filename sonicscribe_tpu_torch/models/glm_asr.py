@@ -25,6 +25,13 @@ in prefill, and the stacked one (or W8A8 when ``act_int8_decode`` is set)
 in the decode step, which hands the kernel the whole stack and a layer
 index.
 
+Tensor parallelism: a rank's tree (parallel/tp.py) carries its reduce
+hook under "tp", and each row-parallel product (encoder o and fc2, the
+adapter's fc2, decoder o and down) goes through it before its bias, so a
+bias after the sum counts once. Without a hook nothing is added to the
+single-card programs. The rank's config (models/config.py:tp_local) holds
+its share of the heads; the encoder's head size stays the model's.
+
 Unlike JAX, the port updates the KV cache IN PLACE: `prefill`,
 `decode_step`, `decode_step_dual` and `verify_step` write into the cache
 tensors they are given, its length included, so a CUDA graph of the
@@ -54,7 +61,21 @@ NEG_INF = -1e30
 def param_count(params: Params) -> int:
     if isinstance(params, torch.Tensor):
         return params.numel()
+    if not isinstance(params, dict):
+        return 0  # a tensor-parallel rank's hook
     return sum(param_count(v) for v in params.values())
+
+
+def _no_reduce(block: str, x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def _reducer(params: Params):
+    """The all-reduce of a tensor-parallel rank's row-parallel partial
+    sums, ``reduce(block, x)`` (the "tp" hook of its tree, which sums only
+    the blocks its degree splits), or the identity."""
+    tp = params.get("tp")
+    return _no_reduce if tp is None else tp.reduce
 
 
 # =====================================================================
@@ -152,10 +173,10 @@ def _conv1d(x, w, b, stride: int):
     return (out.transpose(1, 2).float() + b.float()).to(x.dtype)
 
 
-def _encoder_block(x, mask_bias, lp, n_heads: int):
-    """One pre-LN transformer block. x: [B, S, D]; mask_bias: [B, 1, 1, S]."""
-    B, S, D = x.shape
-    hd = D // n_heads
+def _encoder_block(x, mask_bias, lp, n_heads: int, hd: int, reduce=_no_reduce):
+    """One pre-LN transformer block. x: [B, S, D]; mask_bias: [B, 1, 1, S];
+    n_heads of head size hd (a tensor-parallel rank's share of them)."""
+    B, S, _ = x.shape
 
     h = _layer_norm(x, lp["ln1_scale"], lp["ln1_bias"])
     q = (matmul(h, lp["q_w"]) + lp["q_b"]).reshape(B, S, n_heads, hd)
@@ -165,12 +186,12 @@ def _encoder_block(x, mask_bias, lp, n_heads: int):
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     scores = scores * (1.0 / math.sqrt(hd)) + mask_bias
     attn = torch.softmax(scores, dim=-1).to(x.dtype)
-    ctx = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, S, D)
-    x = x + matmul(ctx, lp["o_w"]) + lp["o_b"]
+    ctx = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, S, n_heads * hd)
+    x = x + reduce("encoder_attn", matmul(ctx, lp["o_w"])) + lp["o_b"]
 
     h = _layer_norm(x, lp["ln2_scale"], lp["ln2_bias"])
     h = _gelu(matmul(h, lp["fc1_w"]) + lp["fc1_b"])
-    return x + matmul(h, lp["fc2_w"]) + lp["fc2_b"]
+    return x + reduce("encoder_mlp", matmul(h, lp["fc2_w"])) + lp["fc2_b"]
 
 
 def encode_audio(
@@ -195,8 +216,10 @@ def encode_audio(
     valid = torch.arange(S, device=x.device)[None, :] < torch.ceil(n_frames / 2).long()[:, None]
     mask_bias = torch.where(valid, 0.0, NEG_INF).float()[:, None, None, :]
 
+    reduce = _reducer(params)
     for i in range(enc.n_layers):
-        x = _encoder_block(x, mask_bias, _layer(p["layers"], i), enc.n_heads)
+        x = _encoder_block(x, mask_bias, _layer(p["layers"], i), enc.n_heads, enc.head_dim,
+                           reduce)
     x = _layer_norm(x, p["ln_post_scale"], p["ln_post_bias"])
     x = torch.where(valid[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -206,7 +229,7 @@ def encode_audio(
     x = x[:, : S_out * k].reshape(B, S_out, k * enc.d_model)
     a = params["adapter"]
     x = _gelu(x @ a["fc1"]["w"] + a["fc1"]["b"])
-    x = x @ a["fc2"]["w"] + a["fc2"]["b"]
+    x = reduce("adapter", x @ a["fc2"]["w"]) + a["fc2"]["b"]
 
     n_tokens = torch.clamp(n_frames // cfg.frames_per_audio_token, min=1)
     return x, n_tokens.to(torch.int32)
@@ -247,14 +270,15 @@ def _decoder_qkv(lp, h, dec: DecoderConfig, mm=matmul):
     return q, k, v
 
 
-def _decoder_layer_mlp(h, lp, dec: DecoderConfig, mm=matmul):
+def _decoder_layer_mlp(h, lp, dec: DecoderConfig, mm=matmul, reduce=_no_reduce):
     """Post-attention half of every decoder layer."""
     hn = _rms_norm(h, lp["ln2_scale"], dec.rms_eps)
     gate, up = torch.chunk(mm(hn, lp["gate_up_w"]), 2, dim=-1)
-    return h + mm(F.silu(gate) * up, lp["down_w"])
+    return h + reduce("decoder_mlp", mm(F.silu(gate) * up, lp["down_w"]))
 
 
-def _decoder_layer_prefill(x, lp, dec: DecoderConfig, cos, sin, rot, mask_bias):
+def _decoder_layer_prefill(x, lp, dec: DecoderConfig, cos, sin, rot, mask_bias,
+                           reduce=_no_reduce):
     """x: [B, S, D]; returns (x', (k_layer, v_layer)) for cache storage."""
     B, S, _ = x.shape
     nkv, g = dec.n_kv_heads, dec.n_heads // dec.n_kv_heads
@@ -268,8 +292,8 @@ def _decoder_layer_prefill(x, lp, dec: DecoderConfig, cos, sin, rot, mask_bias):
     scores = scores * (1.0 / math.sqrt(dec.head_dim)) + mask_bias
     attn = torch.softmax(scores, dim=-1).to(x.dtype)
     ctx = torch.einsum("bkgqs,bskd->bqkgd", attn, v).reshape(B, S, dec.n_heads * dec.head_dim)
-    x = x + matmul(ctx, lp["o_w"])
-    return _decoder_layer_mlp(x, lp, dec), (k, v)
+    x = x + reduce("decoder_attn", matmul(ctx, lp["o_w"]))
+    return _decoder_layer_mlp(x, lp, dec, reduce=reduce), (k, v)
 
 
 def _lm_logits(params: Params, cfg: GlmAsrConfig, h: torch.Tensor) -> torch.Tensor:
@@ -309,9 +333,10 @@ def prefill_kv(
 
     h = embeds
     ks, vs = [], []
+    reduce = _reducer(params)
     for i in range(dec.n_layers):
         h, (k, v) = _decoder_layer_prefill(
-            h, _layer(params["decoder"]["layers"], i), dec, cos, sin, rot, mask_bias
+            h, _layer(params["decoder"]["layers"], i), dec, cos, sin, rot, mask_bias, reduce
         )
         ks.append(k)
         vs.append(v)
@@ -406,6 +431,7 @@ def _decode_pools(params: Params, cfg: GlmAsrConfig, caches: list, tokens: list,
 
     # the JAX package's _decode_mm: W8A8 when the config selects it
     mm = matmul_w8a8 if dec.act_int8_decode else matmul
+    reduce = _reducer(params)
     h = x
     for i in range(dec.n_layers):
         lp = _layer(params["decoder"]["layers"], i, whole_qtensors=True)
@@ -423,8 +449,8 @@ def _decode_pools(params: Params, cfg: GlmAsrConfig, caches: list, tokens: list,
             v_cache[rows, write_at] = torch.where(in_range, v_c, v_cache[rows, write_at])
             ctx.append(decode_attention(q[r0 : r0 + n], k_cache, v_cache, p).to(h.dtype))
             r0 += n
-        h = h + mm(cat(ctx), lp["o_w"])
-        h = _decoder_layer_mlp(h, lp, dec, mm)
+        h = h + reduce("decoder_attn", mm(cat(ctx), lp["o_w"]))
+        h = _decoder_layer_mlp(h, lp, dec, mm, reduce)
 
     # in place: a CUDA graph of the step carries len from one replay to the next
     for c, p, active in zip(caches, pos, actives):
@@ -482,6 +508,7 @@ def verify_step(
     full = (pos0 >= max_len)[:, None, None, None]  # no write in range: keep the old value
 
     mm = matmul_w8a8 if dec.act_int8_decode else matmul
+    reduce = _reducer(params)
     h = x
     for i in range(dec.n_layers):
         lp = _layer(params["decoder"]["layers"], i, whole_qtensors=True)
@@ -495,8 +522,8 @@ def verify_step(
         v_cache[rows, write_at] = torch.where(full, v_cache[rows, write_at], v_new.gather(1, src))
 
         ctx = verify_attention(q, k_cache, v_cache, pos0).to(h.dtype)  # [B, W1, nh*hd]
-        h = h + mm(ctx, lp["o_w"])
-        h = _decoder_layer_mlp(h, lp, dec, mm)
+        h = h + reduce("decoder_attn", mm(ctx, lp["o_w"]))
+        h = _decoder_layer_mlp(h, lp, dec, mm, reduce)
     return cache, _lm_logits(params, cfg, h)
 
 

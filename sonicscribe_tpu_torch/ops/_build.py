@@ -19,6 +19,7 @@ machine may have no nvcc.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -38,8 +39,27 @@ NVCC_FLAGS = (
 )
 KERNELS = ("decode_attention", "log_mel", "int8_matmul", "int4_matmul")  # csrc/<name>.cu
 
-# launches per wrapper: each adds one where it launches its kernel
-launch_counts: dict[str, int] = {
+
+class _LaunchCounts(dict):
+    """The launch counters. What a thread adds to them inside its
+    ``recording()`` block is kept apart for that block too, so that
+    concurrent captures on a tensor-parallel group's threads each know
+    their own launches. Threads count through ``count_launch`` (under a
+    lock); ``+=`` on an item is recorded the same way, from one thread."""
+
+    def __setitem__(self, name, value):
+        rec = getattr(_local, "recorder", None)
+        if rec is not None:
+            rec[name] = rec.get(name, 0) + value - self.get(name, 0)
+        super().__setitem__(name, value)
+
+
+_local = threading.local()
+_count_lock = threading.Lock()
+
+# launches per wrapper: each adds one where it launches its kernel. The
+# tensor-parallel all-reduce (parallel/tp.py) counts under "all_reduce"
+launch_counts: dict[str, int] = _LaunchCounts({
     name: 0 for name in (
         "decode_attention", "verify_attention", "log_mel",
         "verify_attention_mma",  # the verify launches on the bf16 tensor cores
@@ -50,8 +70,9 @@ launch_counts: dict[str, int] = {
         "int4_matmul_w4a16_mma",  # the W4A16 launches (flat and stacked) on the tensor cores
         "int4_matmul_w4a8", "int4_matmul_w4a8_stacked",
         "int4_matmul_w4a8_mma",  # the W4A8 launches (flat and stacked) on the tensor cores
+        "all_reduce",
     )
-}
+})
 
 # libraries this process compiled with nvcc / loaded without building them
 library_counts = {"built": 0, "loaded": 0}
@@ -72,6 +93,32 @@ def kernel_dir() -> Path:
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def count_launch(name: str, n: int = 1) -> None:
+    """Add n to a launch counter, safely from any thread."""
+    with _count_lock:
+        launch_counts[name] = launch_counts.get(name, 0) + n
+
+
+def take_back(counts: dict) -> None:
+    """Subtract counts (a recording's) from the launch counters."""
+    with _count_lock:
+        for name, n in counts.items():
+            launch_counts[name] -= n
+
+
+@contextlib.contextmanager
+def recording():
+    """-> a dict of what this thread adds to the launch counters inside
+    the block, by counter. A block inside another keeps its own: the outer
+    one does not see it."""
+    outer = getattr(_local, "recorder", None)
+    _local.recorder = rec = {}
+    try:
+        yield rec
+    finally:
+        _local.recorder = outer
 
 
 @functools.cache

@@ -183,9 +183,9 @@ def _launch(name: str, q, k_cache, v_cache, lens) -> torch.Tensor:
         err = _lib().attention(*ptrs, _DTYPES[q.dtype], *shape)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    _build.launch_counts[name] += 1
+    _build.count_launch(name)
     if mma:
-        _build.launch_counts["verify_attention_mma"] += 1
+        _build.count_launch("verify_attention_mma")
     return out
 
 

@@ -290,9 +290,9 @@ def _launch(name, x, packed, scale, layer: int) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"{name}{' (mma)' if mma else ''} kernel launch failed: "
                            f"cudaError {err}")
-    _build.launch_counts[name] += 1
+    _build.count_launch(name)
     if mma:
-        _build.launch_counts["int4_matmul_w4a8_mma" if w4a8 else "int4_matmul_w4a16_mma"] += 1
+        _build.count_launch("int4_matmul_w4a8_mma" if w4a8 else "int4_matmul_w4a16_mma")
     return out
 
 

@@ -333,10 +333,10 @@ def _launch(name, x, q, scale, layer: int) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"{name}{' (mma)' if mma else ''} kernel launch failed: "
                            f"cudaError {err}")
-    _build.launch_counts[name] += 1
+    _build.count_launch(name)
     if mma:
-        _build.launch_counts["int8_matmul_w8a8_mma" if name == "int8_matmul_w8a8"
-                             else "int8_matmul_mma"] += 1
+        _build.count_launch("int8_matmul_w8a8_mma" if name == "int8_matmul_w8a8"
+                             else "int8_matmul_mma")
     return out
 
 

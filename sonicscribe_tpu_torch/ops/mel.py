@@ -144,7 +144,7 @@ def log_mel_frames_cuda(padded, basis, fb, n_frames: int, hop: int) -> torch.Ten
     out, err = _launch(padded, basis, fb, n_frames, hop, tile)
     if err != 0:
         raise RuntimeError(f"log_mel kernel launch failed: cudaError {err}")
-    _build.launch_counts["log_mel"] += 1
+    _build.count_launch("log_mel")
     return out
 
 

@@ -96,6 +96,23 @@ def matmul_w8a8(x: torch.Tensor, w) -> torch.Tensor:
     return out.reshape(*x.shape[:-1], out.shape[-1])
 
 
+def check_tp(act_int8_decode: bool, tp: int) -> None:
+    """Raise for W8A8 decode (``act_int8_decode``, quant mode
+    int8-decoder-a8) under tensor parallelism (tp > 1): not ported.
+    matmul_w8a8 quantises each activation row over its whole K (the JAX
+    recipe, whose amax GSPMD takes across the ranks); the W8A8 kernels
+    compute the row scale inside CUDA from the K they are given, which on
+    a row-parallel shard is the rank's K / tp, so the product would
+    differ. Exact parity needs the row amax max-reduced over the ranks and
+    handed to the kernels' quantise step (csrc/act_quant.cuh takes none
+    yet). W8A16 (int8, int8-decoder) is exact per shard."""
+    if act_int8_decode and tp > 1:
+        raise NotImplementedError(
+            f"W8A8 decode (int8-decoder-a8) under tensor parallelism (tp={tp}) is not ported: "
+            "its per-row activation scale needs the amax over every rank's K shard; serve "
+            "int8-decoder, int8 or native under tensor parallelism")
+
+
 def quantize_params_int8(params: dict, decoder_only: bool = False) -> dict:
     """Quantize a GLM-ASR parameter tree (returns a new tree that shares
     the unquantized leaves). decoder_only=True quantizes only the decoder

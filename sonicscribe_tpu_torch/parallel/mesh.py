@@ -1,4 +1,4 @@
-"""Data-parallel serving over several cards: the mesh and its placements.
+"""Data- and tensor-parallel serving over several cards: the mesh and its placements.
 
 The port's counterpart of the JAX package's ``parallel/mesh.py``, under
 its names. JAX serves data-parallel as one GSPMD program over a
@@ -10,22 +10,47 @@ router (``engine/replicas.py``). Sessions are independent, so nothing
 crosses cards on the hot path, as in JAX.
 
 - ``make_mesh`` lays the devices out as a [data, model] grid;
-- ``replicate_params`` gives each data row its copy of a parameter tree;
-- ``shard_batch`` cuts a tree of arrays into each data row's chunk.
+- ``replicate_params`` gives each data row its copy of a parameter tree,
+  every leaf placed ``replicated`` (whole on each row);
+- ``shard_batch`` cuts a tree of arrays into each data row's chunk, a
+  leaf placed by ``batch_sharding`` (cut along an axis over the rows);
+- ``shard_params_tp`` cuts a tree into the Megatron shards of one data
+  row's model ranks (tensor parallelism: ``parallel/tp.py`` runs them).
 
-Tensor parallelism (JAX's ``shard_params_tp``, ``batch_sharding``,
-``replicated``: GSPMD placements over "model") is not here yet: a
-Megatron split whose reduce crosses cards is a design of its own in
-PyTorch. A mesh with model_parallel > 1 can be built and inspected, and
-the data-parallel engine refuses it.
+Tensor-parallel shards. JAX's ``_TP_RULES`` and ``shard_params_tp`` name
+the leaves a "model" axis cuts, column-parallel (the projection into a
+block, cut on its output axis) or row-parallel (the projection out of it,
+cut on its input axis), and GSPMD reshards wherever a cut does not line up
+with the layer body. Here each rank runs the layer body on its own shard,
+so the cuts differ from JAX's in two ways, on purpose:
+
+- head-aligned fused layouts: ``qkv_w`` / ``qkv_b`` are cut per section
+  (rank r holds [its q heads | its k heads | its v heads]) and
+  ``gate_up_w`` per half ([its gate shard | its up shard]), where JAX cuts
+  the fused axis contiguously;
+- the divisibility rule holds per block (``models/config.py:tp_blocks``):
+  where a block's heads or hidden width do not divide by the degree, its
+  column / row pair and their biases stay replicated whole (a Megatron
+  pair cannot be half replicated), where JAX replicates leaf by leaf.
+
+Replicated as in JAX: ``embed`` (and ``lm_head``), the norms, the convs,
+and the biases added after a row-parallel product (``o_b``, ``fc2_b``,
+the adapter's ``fc2.b``). An int8 tree is quantised first and cut after:
+``q`` as its weight; ``scale`` (one per output column, an amax over the
+whole K) cut like the weight under a column rule and replicated under a
+row rule. Every shard is a contiguous copy of its own (the int8 kernels
+refuse views and need 16-byte alignment).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from sonicscribe_tpu_torch.models.config import GlmAsrConfig, tp_blocks
 
 
 class Mesh:
@@ -90,28 +115,150 @@ def _tree_map(fn, tree):
     return fn(tree) if isinstance(tree, torch.Tensor) else tree
 
 
+@dataclass(frozen=True)
+class Placement:
+    """Where a leaf goes on a mesh (JAX's NamedSharding): to every data
+    row whole (axis None: ``replicated``) or cut along `axis` into one
+    chunk per data row (``batch_sharding``), on the row's device."""
+
+    mesh: Mesh
+    axis: Optional[int] = None
+
+    def place(self, t: torch.Tensor, row: int) -> torch.Tensor:
+        """Data row `row`'s part of t, on its device. A leaf already there
+        whole is shared, not copied: weights are read-only, so replicas on
+        one card hold one copy."""
+        if self.axis is not None:
+            n = t.shape[self.axis] // self.mesh.shape["data"]
+            t = t.narrow(self.axis, row * n, n)
+        return t.to(self.mesh.data_devices[row])
+
+
+def batch_sharding(mesh: Mesh, ndim: int, axis: int = 0) -> Placement:
+    """An ndim-dimensional leaf cut along `axis` over the data rows."""
+    if not 0 <= axis < ndim:
+        raise ValueError(f"axis {axis} out of range for {ndim} dimensions")
+    return Placement(mesh, axis)
+
+
+def replicated(mesh: Mesh) -> Placement:
+    """A leaf whole on every data row."""
+    return Placement(mesh)
+
+
 def replicate_params(params, mesh: Mesh) -> list:
     """One copy of the parameter tree per data row, each on that row's
-    device: plain, int8 and int4 trees alike (ops/quant.py's QTensor dicts
-    are walked like any other level). A leaf already on the row's device is
-    shared, not copied: weights are read-only, so replicas on one card
-    hold one copy."""
-    return [_tree_map(lambda t, d=dev: t.to(d), params) for dev in mesh.data_devices]
+    device (``replicated``): plain, int8 and int4 trees alike
+    (ops/quant.py's QTensor dicts are walked like any other level)."""
+    whole = replicated(mesh)
+    return [_tree_map(lambda t, r=r: whole.place(t, r), params)
+            for r in range(mesh.shape["data"])]
 
 
 def shard_batch(tree, mesh: Mesh, axis: int = 0) -> list:
     """Each data row's chunk of every array leaf along `axis`, on that
-    row's device. A leaf whose axis does not divide by the data degree
-    (or that has no such axis) goes whole to every row, as JAX's falls
-    back to replication."""
+    row's device (``batch_sharding``). A leaf whose axis does not divide by
+    the data degree (or that has no such axis) goes whole to every row
+    (``replicated``), as JAX's falls back to replication."""
     dp = mesh.shape["data"]
 
-    def chunk(r: int, dev: torch.device):
-        def cut(t: torch.Tensor) -> torch.Tensor:
-            if t.dim() > axis and t.shape[axis] % dp == 0:
-                n = t.shape[axis] // dp
-                t = t.narrow(axis, r * n, n)
-            return t.to(dev)
-        return cut
+    def placement(t: torch.Tensor) -> Placement:
+        if t.dim() > axis and t.shape[axis] % dp == 0:
+            return batch_sharding(mesh, t.dim(), axis)
+        return replicated(mesh)
 
-    return [_tree_map(chunk(r, dev), tree) for r, dev in enumerate(mesh.data_devices)]
+    return [_tree_map(lambda t, r=r: placement(t).place(t, r), tree) for r in range(dp)]
+
+
+# Tensor-parallel rules for the GLM-ASR tree, by subtree and leaf name (an
+# int8 QTensor's "q" and "scale" take their weight's rule): the leaves of
+# the JAX package's _TP_RULES with the same roles, and the block each
+# belongs to (its all-reduce site in models/glm_asr.py). Column: the
+# output axis (the last) is cut; row: the input axis (the one before it).
+COLUMN, ROW = "column", "row"
+_TP_RULES = {
+    "encoder": {
+        # attention and MLP (d_model -> d_model, head-aligned)
+        "q_w": (COLUMN, "encoder_attn"), "q_b": (COLUMN, "encoder_attn"),
+        "k_w": (COLUMN, "encoder_attn"),
+        "v_w": (COLUMN, "encoder_attn"), "v_b": (COLUMN, "encoder_attn"),
+        "o_w": (ROW, "encoder_attn"),
+        "fc1_w": (COLUMN, "encoder_mlp"), "fc1_b": (COLUMN, "encoder_mlp"),
+        "fc2_w": (ROW, "encoder_mlp"),
+    },
+    "adapter": {  # the MLP's hidden axis
+        "fc1.w": (COLUMN, "adapter"), "fc1.b": (COLUMN, "adapter"),
+        "fc2.w": (ROW, "adapter"),
+    },
+    "decoder": {  # GQA and SwiGLU; qkv and gate_up cut per section
+        "qkv_w": (COLUMN, "decoder_attn"), "qkv_b": (COLUMN, "decoder_attn"),
+        "o_w": (ROW, "decoder_attn"),
+        "gate_up_w": (COLUMN, "decoder_mlp"),
+        "down_w": (ROW, "decoder_mlp"),
+    },
+}
+
+
+def tp_rule(path: Sequence[str]) -> Optional[tuple[str, str]]:
+    """(role, block) of the leaf at `path` (its keys from the root; a
+    QTensor's "q" / "scale" last), or None for a replicated leaf."""
+    keys = list(path[:-1]) if path[-1] in ("q", "scale") else list(path)
+    rules = _TP_RULES.get(keys[0], {})
+    return rules.get(f"{keys[-2]}.{keys[-1]}") or rules.get(keys[-1])
+
+
+def _sections(cfg: GlmAsrConfig, name: str, width: int) -> list[int]:
+    """The fused output axis of a column leaf as its sections, each cut on
+    its own: [q, k, v] for qkv, [gate, up] for gate_up, else the whole."""
+    dec = cfg.decoder
+    if name in ("qkv_w", "qkv_b"):
+        kv = dec.n_kv_heads * dec.head_dim
+        return [dec.n_heads * dec.head_dim, kv, kv]
+    if name == "gate_up_w":
+        return [width // 2, width // 2]
+    return [width]
+
+
+def _cut(t: torch.Tensor, axis: int, sections: list[int], rank: int, tp: int) -> torch.Tensor:
+    """Rank `rank`'s share of every section of t's `axis`, concatenated: a
+    new contiguous tensor."""
+    parts, start = [], 0
+    for n in sections:
+        parts.append(t.narrow(axis, start + rank * (n // tp), n // tp))
+        start += n
+    return torch.cat(parts, dim=axis)
+
+
+def shard_params_tp(params, mesh: Mesh, cfg: GlmAsrConfig, row: int = 0) -> list:
+    """The Megatron shards of `params` (the whole model's tree, plain or
+    int8; `cfg` its config) for data row `row`'s model ranks: one tree per
+    rank, on ``mesh.devices[row][rank]``, rank-local shapes as
+    ``models/config.py:tp_local`` gives them. Leaves of a block the degree
+    does not split, and leaves without a rule, go whole to every rank."""
+    devices = mesh.devices[row]
+    tp = len(devices)
+    split = tp_blocks(cfg, tp)
+
+    def shard(path: tuple, t: torch.Tensor, rank: int) -> torch.Tensor:
+        rule = tp_rule(path)
+        if rule is None or rule[1] not in split:
+            return t.to(devices[rank])
+        role, _ = rule
+        name = path[-2] if path[-1] in ("q", "scale") else path[-1]
+        if role == ROW:
+            if path[-1] == "scale":  # per output column: whole under a row cut
+                return t.to(devices[rank])
+            return _cut(t, t.dim() - 2, [t.shape[-2]], rank, tp).to(devices[rank])
+        return _cut(t, t.dim() - 1, _sections(cfg, name, t.shape[-1]), rank, tp).to(
+            devices[rank])
+
+    def walk(node, path: tuple, rank: int):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,), rank) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, path + (str(i),), rank) for i, v in enumerate(node))
+        if isinstance(node, np.ndarray):
+            node = torch.from_numpy(node)
+        return shard(path, node, rank) if isinstance(node, torch.Tensor) else node
+
+    return [walk(params, (), rank) for rank in range(tp)]
