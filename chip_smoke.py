@@ -260,17 +260,28 @@ exits non-zero on failure:
    device ms both ways, the 56 all-reduces' ms alone, capture seconds by
    rank), and the ~12 s request through the file path on the dp x tp
    engine (wall); nano int8 at tp = 2: the ~3 s request, the stacked W8A16
-   kernel 4 times per layer, step and rank. One card: both ranks' shards of
-   a nano decode step at 32 rows on cuda:0, each on its thread, the
-   partials added in rank order, native and int8-decoder, against the
-   card's whole-tree step (the same tolerance); it prints that the engine
-   leg needs two cards (`tp {...}`).
+   kernel 4 times per layer, step and rank; nano int8-decoder-a8 at tp =
+   2: the captured step at 1 and 32 rows against its one-card step and
+   native tp's, its all-reduces a step (56 sums + 56 maxima of the rows'
+   max|x|) and the 56 max-reduces' ms alone, the ~3 s request (W8A8 4
+   times per layer, step and rank) and a drafted final. One card: both
+   ranks' shards of a nano decode step at 32 rows on cuda:0, each on its
+   thread, the partials added (and the row maxima taken) in rank order,
+   native, int8-decoder and int8-decoder-a8, against the card's
+   whole-tree step (the same tolerance); it prints that the engine leg
+   needs two cards (`tp {...}`). Both legs hold W8A8 with a given
+   row_amax to its plain version at the shard shapes, bit for bit, and
+   without one at the whole shapes.
 9. prewarm: tools/prewarm.py --model tiny-random --out <tmp> copies the
    kernel and native libraries this run built (the same bytes, nothing
    built); a child process with SONIC_KERNEL_DIR on that directory serves
    one tiny request on the card and must build nothing, load its
    libraries prebuilt and launch the log-mel and decode-attention kernels
    (`prewarm {...}`).
+10. resilience: tools/bench_resilience.py's wait_for_device with its
+   default probe (a child interpreter's round trip on the card) must
+   answer at the first probe; run_phase on a child that writes JSON gives
+   "ok", on one that exits 7 "crashed" (`resilience {...}`).
 
 A line `captured {...}` holds phase 3's numbers by mode (grid, requests
 eager and captured), `batched {...}` phase 5's, `silero {...}` phase 6's
@@ -299,6 +310,7 @@ import logging
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -4216,6 +4228,7 @@ TP_REQUESTS = 8  # tiny f32 host requests at once
 TP_STREAMS = 4  # tiny f32 ring streams
 TP_ROWS = (1, 32)  # decode rows of the nano steps timed at tp = 2 and on one card
 TP_STEP_REPS = 20  # replays of a timed step
+TP_W8A8_ROWS = (1, 4, 16, 33)  # W8A8 at the shard shapes: the cluster design, then the s8 mma
 TP_CACHE_LEN, TP_HISTORY = 256, 200  # the nano steps' cache positions and history
 # nano bf16, one decode step at tp = 2 against one card, as a share of
 # max|logits|: each rank's row-parallel partial sum is rounded to bf16
@@ -4224,14 +4237,29 @@ TP_CACHE_LEN, TP_HISTORY = 256, 200  # the nano steps' cache positions and histo
 # random weights that moved the logits by 3.1% of their maximum at 8 rows
 # and 4.5% at 32 (the greedy token the same in 84% of the 32 rows)
 TP_LOGIT_TOL = 0.08
+# the same under int8-decoder-a8. Each row's scale is then max|x| / 127 of
+# that row, and a value of x / sx near a half flips its int8 code at the
+# least change of x: one flip moves the product's row by ~1e-3 of its
+# maximum, which flips more codes in the next layers. On nano's random
+# weights a step's 28 layers carry one rounding difference (bf16 partial
+# sums; even float32 summation order) to the level of -a8's own error:
+# both ranks' shards of one step against the whole tree's moved the logits
+# by 17% / 20% of their maximum at 1 / 32 rows in bf16, 70% of the step's
+# int8 codes flipped (11% at 32 rows in float32), where -a8 itself lies
+# ~22% from the native step (tp_steps, tp_one_card; one H100 80GB HBM3 at
+# 700 W, PERF.md). A logits bound cannot tell a fault from that here; the
+# bit-exact check of every rank's int8 x against the whole row's recipe
+# does (tp_a8_codes).
+TP_A8_LOGIT_TOL = 0.35
 
 
 class OneCardPair:
     """Both ranks of a tp pair on one card, each on a thread of its own:
     the one-card leg's stand-in for NCCL, which refuses two ranks on one
     card. Rank 0 adds the two partial sums in rank order once both are
-    enqueued, and both ranks take the sum (every op on the card's default
-    stream, in the order the barriers give)."""
+    enqueued, and both ranks take the sum, or the elementwise maximum for
+    op "max" (every op on the card's default stream, in the order the
+    barriers give)."""
 
     def __init__(self, torch):
         import threading
@@ -4241,12 +4269,15 @@ class OneCardPair:
         self.barrier = threading.Barrier(TP_DEGREE, timeout=120)
         self.parts = [None] * TP_DEGREE
         self.total = None
+        self.ops = [{"sum": 0, "max": 0} for _ in range(TP_DEGREE)]  # reduces by rank and op
 
-    def all_reduce(self, rank: int, x):
+    def all_reduce(self, rank: int, x, op: str = "sum"):
         self.parts[rank] = x
+        self.ops[rank][op] += 1
         self.barrier.wait()
         if rank == 0:
-            self.total = self.parts[0] + self.parts[1]
+            self.total = (self.parts[0] + self.parts[1] if op == "sum"
+                          else self.torch.maximum(self.parts[0], self.parts[1]))
         self.barrier.wait()
         x.copy_(self.total)
         self.barrier.wait()
@@ -4315,15 +4346,15 @@ def step_inputs(torch, cfg, rows: int, devices):
     return whole, shards, tok
 
 
-def logits_agree(name, got, want) -> dict:
-    """tp logits against one card's: max |diff| within TP_LOGIT_TOL of
-    max|want|, and the share of rows with the same greedy token."""
+def logits_agree(name, got, want, tol: float = TP_LOGIT_TOL) -> dict:
+    """tp logits against one card's: max |diff| within tol (TP_LOGIT_TOL,
+    or TP_A8_LOGIT_TOL under int8-decoder-a8) of max|want|, and the share
+    of rows with the same greedy token."""
     err = (got.float() - want.float()).abs().max().item()
     top = want.float().abs().max().item()
     same = (got.float().argmax(-1) == want.float().argmax(-1)).float().mean().item()
-    check(np.isfinite(err) and err <= TP_LOGIT_TOL * top,
-          f"{name}: logits {err} from one card's (max |logits| {top}), beyond "
-          f"{TP_LOGIT_TOL} of it")
+    check(np.isfinite(err) and err <= tol * top,
+          f"{name}: logits {err} from one card's (max |logits| {top}), beyond {tol} of it")
     return dict(max_abs_err=err, max_abs_logit=top, rel_err=err / top, argmax_same=same)
 
 
@@ -4334,8 +4365,15 @@ def tp_shard_kernels(torch) -> dict:
     attention over them (S 4, W1 9: the tensor-core kernel), the stacked
     W8A16 entry at decode rows 1 and 32 on each projection's shard (N / 2
     for qkv and gate_up, K / 2 for o and down) and the flat one at 419
-    prefill rows on the qkv and down shards (check_w16's tolerance).
-    -> numbers by kernel."""
+    prefill rows on the qkv and down shards (check_w16's tolerance); W8A8
+    at TP_W8A8_ROWS on each shard with a given row_amax (the row's max over
+    this share and another of the same width, as a row-parallel rank gets
+    it from the max-reduce), through the entry and both designs forced,
+    equal bits with the plain version under the same row_amax on CPU
+    copies (both are the same integer sums scaled the same way), timed with
+    and without it; and at the whole projections without a row_amax, equal
+    bits with the plain version and with the call given each row's own
+    max. -> numbers by kernel."""
     from sonicscribe_tpu_torch.models.config import nano
     from sonicscribe_tpu_torch.ops import int8_matmul as im
     from sonicscribe_tpu_torch.ops.decode_attention import (
@@ -4398,14 +4436,73 @@ def tp_shard_kernels(torch) -> dict:
                             "B=419")
             out["int8_matmul"][f"{name}_K{K}_N{N}_B419"] = dict(
                 max_abs_err=err, ms=timer.ms(lambda: im.int8_matmul_cuda(x, q1, s1)))
+    out["int8_matmul_w8a8"] = tp_w8a8_kernels(torch, timer, gen, shapes)
     del timer
     log("tp shard kernels: " + json.dumps(out, default=float))
     return out
 
 
-def tp_tiny(torch, cards) -> tuple[dict, dict]:
-    """tiny() f32 over a (n/2) x 2 mesh of the cards (1 x 2 on two, 2 x 2 on
-    four) against one engine on cuda:0, both warmed: TP_REQUESTS host
+def tp_w8a8_kernels(torch, timer, gen, shards) -> dict:
+    """tp_shard_kernels' W8A8 part: `shards` the projections' (K, N) at
+    tp = 2; the whole projections are nano's. -> numbers by case."""
+    from sonicscribe_tpu_torch.models.config import nano
+    from sonicscribe_tpu_torch.ops import int8_matmul as im
+    from sonicscribe_tpu_torch.ops.quant import quantize_tensor
+
+    dec = nano().decoder
+    whole = {"qkv": (dec.d_model, (dec.n_heads + 2 * dec.n_kv_heads) * dec.head_dim),
+             "o": (dec.n_heads * dec.head_dim, dec.d_model),
+             "gate_up": (dec.d_model, 2 * dec.ffn_hidden), "down": (dec.ffn_hidden, dec.d_model)}
+
+    def recipe(x, qt, amax=None):
+        """The plain version on CPU copies, layer 1, back on the card."""
+        return im.int8_matmul_w8a8_plain(x.cpu(), qt["q"].cpu(), qt["scale"].cpu(), 1,
+                                         None if amax is None else amax.cpu()).cuda()
+
+    out = {}
+    for kind, table in (("shard", shards), ("whole", whole)):
+        for name, (K, N) in table.items():
+            qt = quantize_tensor(torch.randn((2, K, N), generator=gen, device="cuda") * 0.05)
+            for B in TP_W8A8_ROWS:
+                x = torch.randn((B, K), generator=gen, device="cuda").to(torch.bfloat16)
+                own = x.float().abs().amax(-1)
+                case = f"{kind} {name} K={K} N={N} B={B}"
+                if kind == "shard":
+                    other = torch.randn((B, K), generator=gen, device="cuda").to(torch.bfloat16)
+                    amax = torch.maximum(own, other.float().abs().amax(-1))
+                    want = recipe(x, qt, amax)
+                    got = [im.int8_matmul_w8a8_cuda(x, qt["q"], qt["scale"], 1, amax)]
+                    for launch in (im._launch_w8a8_cluster, im._launch_w8a8_mma):
+                        o, err = launch(x, qt["q"], qt["scale"], 1, row_amax=amax)
+                        check(err == 0, f"tp W8A8 {case} {launch.__name__}: cudaError {err}")
+                        got.append(o)
+                    check(all(torch.equal(g, want) for g in got),
+                          f"tp W8A8 {case}: with row_amax, not the plain version's bits "
+                          f"(max err {max((g.float() - want.float()).abs().max().item() for g in got)})")
+                    n_bytes = K * N + 4 * N + 2 * B * (K + N) + 4 * B
+                    out[f"{name}_K{K}_N{N}_B{B}"] = dict(
+                        max_abs_err=0.0, mma=im.w8a8_uses_mma(B, N),
+                        ms=timer.ms(lambda: im.int8_matmul_w8a8_cuda(x, qt["q"], qt["scale"], 1,
+                                                                     amax)),
+                        ms_own_amax=timer.ms(lambda: im.int8_matmul_w8a8_cuda(
+                            x, qt["q"], qt["scale"], 1)),
+                        bound_ms=bound_ms(n_bytes, 2 * B * K * N, INT8_OPS_PER_S)[0])
+                else:
+                    got = im.int8_matmul_w8a8_cuda(x, qt["q"], qt["scale"], 1)
+                    check(torch.equal(got, recipe(x, qt))
+                          and torch.equal(got, im.int8_matmul_w8a8_cuda(x, qt["q"], qt["scale"],
+                                                                        1, own)),
+                          f"tp W8A8 {case}: without row_amax, not the plain version's bits "
+                          f"or not the call's with each row's own max")
+    log(f"tp W8A8: row_amax at the shard shapes and none at the whole, B {TP_W8A8_ROWS}: "
+        f"bit-equal to the plain version")
+    return out
+
+
+def tp_tiny(torch, cards, mode: str = "native") -> tuple[dict, dict]:
+    """tiny() f32 in quant mode `mode` over a (n/2) x 2 mesh of the cards
+    (1 x 2 on two, 2 x 2 on four) against one engine on cuda:0 in the same
+    mode, both warmed: TP_REQUESTS host
     requests at once and a drafted final give the single engine's tokens,
     TP_STREAMS ring streams its ring tokens; each rank's shards, pools and
     ring on its card with its share of the KV heads; each rank's
@@ -4420,10 +4517,10 @@ def tp_tiny(torch, cards) -> tuple[dict, dict]:
     from sonicscribe_tpu_torch.vad.model import EnergyVad
 
     mesh = make_mesh(devices=cards, model_parallel=TP_DEGREE)
-    single = BatchedEngine(tiny_transcriber(torch, "cuda"), EnergyVad(device="cuda"), slots=8,
-                           max_decode_tokens=64, n_streams=8)
-    engine = DataParallelEngine(tiny_transcriber(torch, "cuda"), EnergyVad(device="cuda"), mesh,
-                                slots=8, max_decode_tokens=64, n_streams=2 * TP_STREAMS)
+    single = BatchedEngine(tiny_transcriber(torch, "cuda", mode), EnergyVad(device="cuda"),
+                           slots=8, max_decode_tokens=64, n_streams=8)
+    engine = DataParallelEngine(tiny_transcriber(torch, "cuda", mode), EnergyVad(device="cuda"),
+                                mesh, slots=8, max_decode_tokens=64, n_streams=2 * TP_STREAMS)
     nkv = single.cfg.decoder.n_kv_heads
     for row, rep in zip(mesh.devices, engine.replicas):
         for dev, eng in zip(row, rep._ranks):
@@ -4503,7 +4600,10 @@ def tp_tiny(torch, cards) -> tuple[dict, dict]:
     check(all(n > 0 for rep in attn for n in rep) and all(n > 0 for rep in reduces for n in rep),
           f"tp tiny: decode-attention launches {attn}, all-reduces {reduces} by rank")
     check(stats["verify_rounds"] > 0, "tp tiny: the drafted final took no verify round")
-    log(f"tp tiny f32 over mesh {mesh.shape} on {[str(c) for c in cards]}: {w['graphs']} graphs "
+    check(mode != "int8-decoder-a8" or counts["int8_matmul_w8a8"] > 0,
+          f"tp tiny {mode}: W8A8 never launched")
+    log(f"tp tiny f32 {mode} over mesh {mesh.shape} on {[str(c) for c in cards]}: "
+        f"{w['graphs']} graphs "
         f"warmed on rank 0 of each row; {TP_REQUESTS} host requests, a drafted final and "
         f"{TP_STREAMS} ring streams = one engine's tokens; followers' slots = rank 0's; "
         f"decode-attention launches {attn}, all-reduces {reduces} by row and rank")
@@ -4540,15 +4640,21 @@ def tp_steps(torch, cfg, params, trees, cards, group) -> dict:
     cards[0], the whole tree) and the pair's (each rank's shard on its
     card, through the group): the first replay's logits held against one
     card's (logits_agree), the device ms of a step each way, each rank's
-    capture seconds, and the device ms of the step's 2 x n_layers
-    all-reduces of [rows, d_model] alone (a graph of them)."""
+    capture seconds, the all-reduces a replayed step launches on each rank
+    (counted: 2 x n_layers sums, and under W8A8 decode as many maxima),
+    and the device ms of the step's 2 x n_layers sums of [rows, d_model]
+    alone (a graph of them); under W8A8 decode also that of its 2 x
+    n_layers maxima of the rows' float32 max|x| alone."""
     from sonicscribe_tpu_torch.engine.exec_store import GraphRouter
     from sonicscribe_tpu_torch.models import glm_asr
     from sonicscribe_tpu_torch.models.config import tp_local
+    from sonicscribe_tpu_torch.ops import _build
 
     local = tp_local(cfg, TP_DEGREE)
     single, routers = GraphRouter(cards[0]), [GraphRouter(d) for d in cards]
     n_reduce = 2 * cfg.decoder.n_layers
+    a8 = cfg.decoder.act_int8_decode
+    want_reduces = 2 * n_reduce if a8 else n_reduce
 
     def program(tree, c):
         def step(bufs):
@@ -4557,10 +4663,10 @@ def tp_steps(torch, cfg, params, trees, cards, group) -> dict:
             return {"logits": logits}
         return step
 
-    def reduces(r):
+    def reduces(r, op="sum"):
         def program(bufs):
             for _ in range(n_reduce):
-                group.all_reduce(r, bufs["x"])
+                group.all_reduce(r, bufs["x"], op=op)
             return {}
         return program
 
@@ -4577,7 +4683,16 @@ def tp_steps(torch, cfg, params, trees, cards, group) -> dict:
         got = group.run(lambda r: routers[r].run(key, None, bufs[r]))["logits"]
         for d in cards:
             torch.cuda.synchronize(d)
-        agree = logits_agree(f"tp nano {rows} rows", got, want)
+        agree = logits_agree(f"tp nano {rows} rows", got, want,
+                             TP_A8_LOGIT_TOL if a8 else TP_LOGIT_TOL)
+        before = _build.launch_counts["all_reduce"]
+        group.run(lambda r: routers[r].run(key, None, bufs[r]))
+        for d in cards:
+            torch.cuda.synchronize(d)
+        step_reduces = (_build.launch_counts["all_reduce"] - before) / TP_DEGREE
+        check(step_reduces == want_reduces,
+              f"tp nano {rows} rows: {step_reduces} all-reduces a step and rank, want "
+              f"{want_reduces}")
         one_ms = events_ms(torch, lambda: single.run(key, None, bufs1), cards)
         tp_ms = events_ms(torch, lambda: group.run(lambda r: routers[r].run(key, None, bufs[r])),
                           cards)
@@ -4587,13 +4702,24 @@ def tp_steps(torch, cfg, params, trees, cards, group) -> dict:
         group.run(lambda r: routers[r].prepare(ar_key, reduces(r), xs[r], replay=False))
         ar_ms = events_ms(torch, lambda: group.run(lambda r: routers[r].run(ar_key, None, xs[r])),
                           cards)
+        max_ms = None
+        if a8:
+            ms_ = [{"x": torch.zeros((rows,), dtype=torch.float32, device=d)} for d in cards]
+            max_key = ("all_reduce_max", rows)
+            group.run(lambda r: routers[r].prepare(max_key, reduces(r, "max"), ms_[r],
+                                                   replay=False))
+            max_ms = events_ms(
+                torch, lambda: group.run(lambda r: routers[r].run(max_key, None, ms_[r])), cards)
         out[rows] = dict(agree, one_card_ms=one_ms, tp_ms=tp_ms, all_reduce_ms=ar_ms,
-                         all_reduces=n_reduce,
+                         all_reduces=n_reduce, step_all_reduces=step_reduces,
+                         max_reduce_ms=max_ms,
                          capture_s=[r.stats["capture_s"][key] for r in routers],
                          one_card_capture_s=single.stats["capture_s"][key])
-        log(f"tp nano bf16 decode step, {rows} rows: one card {one_ms:.3f} ms, tp=2 {tp_ms:.3f} "
-            f"ms ({n_reduce} all-reduces of [{rows}, {cfg.decoder.d_model}] alone "
-            f"{ar_ms:.3f} ms); logits {agree['max_abs_err']:.4f} from one card's (max "
+        log(f"tp nano {'int8-decoder-a8' if a8 else 'bf16'} decode step, {rows} rows: one card "
+            f"{one_ms:.3f} ms, tp=2 {tp_ms:.3f} ms ({step_reduces:.0f} all-reduces a step and "
+            f"rank; {n_reduce} sums of [{rows}, {cfg.decoder.d_model}] alone {ar_ms:.3f} ms"
+            + (f", {n_reduce} maxima of [{rows}] float32 alone {max_ms:.3f} ms" if a8 else "")
+            + f"); logits {agree['max_abs_err']:.4f} from one card's (max "
             f"{agree['max_abs_logit']:.3f}), greedy token the same in "
             f"{agree['argmax_same']:.3f} of rows; capture {out[rows]['capture_s']} s by rank")
     return out
@@ -4702,44 +4828,225 @@ def tp_int8(torch, cards) -> tuple[dict, dict]:
     return dict(wall=r["wall"], tokens=r["tokens"], steps=r["steps"]), c
 
 
+def tp_a8(torch, cards, native_steps: dict) -> tuple[dict, dict]:
+    """Nano int8-decoder-a8 (decoder W8A16 prefill, W8A8 decode; the tree
+    quantised whole, then cut) over a pair of cards: tp_steps (its
+    captured step at TP_ROWS rows against its one-card step, beside
+    `native_steps`, tp_nano's; 56 + 56 all-reduces a step), then a 1 x 2
+    dp x tp engine, unwarmed (each key captured on first use): the ~3 s
+    request through the file path, W8A8 launched 4 times per layer, step
+    and rank (the row-parallel ones with the row maxima max-reduced over
+    the ranks), the flat W8A16 in prefill; then its first segment again
+    with its own tokens as the draft (verify rounds on both ranks; where
+    the drafted tokens first part from the undrafted ones is printed, not
+    checked: bf16 near-ties part the verify and decode programs, and
+    tp_tiny holds -a8's drafted final token for token in f32). ->
+    (numbers, the request's launches)."""
+    from dataclasses import replace
+
+    from sonicscribe_tpu_torch.config import AppConfig
+    from sonicscribe_tpu_torch.engine.replicas import DataParallelEngine
+    from sonicscribe_tpu_torch.engine.transcriber import Transcriber
+    from sonicscribe_tpu_torch.models.config import nano
+    from sonicscribe_tpu_torch.models.tokenizer import ByteTokenizer
+    from sonicscribe_tpu_torch.models.weights import init_random
+    from sonicscribe_tpu_torch.ops.quant import quantize_params_int8
+    from sonicscribe_tpu_torch.parallel.mesh import make_mesh, shard_params_tp
+    from sonicscribe_tpu_torch.parallel.tp import TPGroup
+    from sonicscribe_tpu_torch.vad.model import EnergyVad
+
+    cfg, config = nano(), AppConfig()
+    cfg = replace(cfg, decoder=replace(cfg.decoder, act_int8_decode=True))
+    params = quantize_params_int8(init_random(cfg, SEED, dtype=torch.bfloat16, device=cards[0]),
+                                  decoder_only=True)
+    mesh = make_mesh(devices=cards, model_parallel=TP_DEGREE)
+    group = TPGroup(cards)
+    try:
+        trees = group.attach(shard_params_tp(params, mesh, cfg), cfg)
+        with torch.inference_mode():
+            steps = tp_steps(torch, cfg, params, trees, cards, group)
+        del trees
+    finally:
+        group.close()
+    for rows, st in steps.items():
+        st["native_tp_ms"] = native_steps[rows]["tp_ms"]
+        log(f"tp nano int8-decoder-a8 step, {rows} rows: {st['tp_ms']:.3f} ms at tp = 2 against "
+            f"native tp's {st['native_tp_ms']:.3f} ms (+{st['tp_ms'] - st['native_tp_ms']:.3f})")
+    release_memory(torch)
+    tr = Transcriber(cfg, params, ByteTokenizer(cfg), prefill_buckets=tuple(config.prefill_buckets))
+    vad = EnergyVad(device=cards[0])
+    engine = DataParallelEngine(tr, vad, mesh, slots=4, max_decode_tokens=config.file_max_new_tokens)
+    # unwarmed, a tick captures the keys it meets, ~1 s a graph with NCCL in
+    # it: the request's first tick took 50-73 s on the H100s, past the
+    # watchdog's 60 s stack dump (a stall is still 600 s)
+    engine.replicas[0].tick_stall_dump_s = 300.0
+    try:
+        r = serve_request(torch, engine, vad, config, "3s tp a8", payloads()["3s"],
+                          ranks=TP_DEGREE)
+        first = r["calls"][0]
+        rounds0 = engine.stats["verify_rounds"]
+        drafted = asyncio.run(engine.transcribe(first["audio"], first["sample_rate"],
+                                                **first["kw"],
+                                                draft_tokens=np.asarray(first["tokens"])))
+        rounds = engine.stats["verify_rounds"] - rounds0
+    finally:
+        engine.shutdown()
+        for rp in engine.replicas:
+            rp.tp.close()
+    c, L = r["counts"], cfg.decoder.n_layers
+    check(c["int8_matmul_w8a8"] == TP_DEGREE * 4 * L * r["steps"] and c["int8_matmul"] > 0
+          and c["int8_matmul_stacked"] == 0,
+          f"tp a8: {c['int8_matmul_w8a8']} W8A8 launches for {r['steps']} steps x {L} layers x "
+          f"4 x {TP_DEGREE} ranks, {c['int8_matmul']} flat W8A16, {c['int8_matmul_stacked']} "
+          f"stacked")
+    parted = first_divergence([list(drafted.tokens)], [list(first["tokens"])],
+                              ("drafted", "undrafted"))
+    check(rounds > 0 and len(drafted.tokens) > 0,
+          f"tp a8: the drafted final took {rounds} verify rounds, {len(drafted.tokens)} tokens")
+    log(f"tp nano int8-decoder-a8 3 s request: wall {r['wall']:.3f} s (graphs captured on the "
+        f"way), {r['tokens']} tokens; launches { {k: v for k, v in c.items() if v} }; a drafted "
+        f"final: {rounds} verify rounds, against the undrafted tokens: {parted}")
+    return dict(steps=steps, wall=r["wall"], tokens=r["tokens"], steps_decoded=r["steps"],
+                drafted_verify_rounds=rounds, drafted_vs_undrafted=parted), c
+
+
+class W8A8Calls:
+    """While active, every W8A8 product's x and row_amax (ops/quant.py's
+    call of the entry, which it still makes: launches count as ever), kept
+    by calling thread, so that the ranks' calls stay apart."""
+
+    def __enter__(self):
+        from sonicscribe_tpu_torch.ops import quant
+
+        self.calls, self.quant, self.entry = {}, quant, quant.int8_matmul_w8a8
+
+        def record(x, q, scale, layer, row_amax=None):
+            self.calls.setdefault(threading.get_ident(), []).append(
+                (x.clone(), None if row_amax is None else row_amax.clone()))
+            return self.entry(x, q, scale, layer, row_amax)
+
+        quant.int8_matmul_w8a8 = record
+        return self
+
+    def __exit__(self, *exc):
+        self.quant.int8_matmul_w8a8 = self.entry
+
+
+def tp_a8_codes(torch, whole_calls, rank_calls, n_layers: int) -> dict:
+    """One -a8 step's W8A8 products, the whole tree's and each rank's, in
+    order: at each row-parallel product (o and down, 2 a layer) both ranks'
+    row_amax equal, and equal to the max of |x| over both ranks' shares
+    side by side; each rank's int8 x (quantize_activations on CPU copies:
+    the kernels give its bits, tp_w8a8_kernels) is the slice of the whole
+    row's recipe, bit for bit; the column-parallel x is the same on both
+    ranks. -> the products checked, and how many int8 codes of the pair's
+    products differ from the whole tree's step (the flips TP_A8_LOGIT_TOL
+    describes)."""
+    from sonicscribe_tpu_torch.ops.int8_matmul import quantize_activations as quantize
+
+    row_parallel = flips = values = 0
+    check(len(whole_calls) == len(rank_calls[0]) == len(rank_calls[1]) == 4 * n_layers,
+          f"tp a8: W8A8 products {len(whole_calls)}, {[len(c) for c in rank_calls]} by rank")
+    for i, ((xs, _), (x0, a0), (x1, a1)) in enumerate(zip(whole_calls, *rank_calls)):
+        if a0 is None:
+            check(a1 is None and torch.equal(x0, x1), f"tp a8 product {i}: ranks' x differ")
+            got = quantize(x0.cpu())[0]
+        else:
+            row_parallel += 1
+            x = torch.cat([x0, x1], dim=-1).cpu()
+            check(torch.equal(a0, a1) and torch.equal(a0.cpu(), x.float().abs().amax(-1)),
+                  f"tp a8 product {i}: row_amax is not the max over both shares")
+            got, K = quantize(x)[0], x0.shape[-1]
+            for r, (xr, ar) in enumerate(((x0, a0), (x1, a1))):
+                check(torch.equal(quantize(xr.cpu(), ar.cpu())[0], got[:, r * K:(r + 1) * K]),
+                      f"tp a8 product {i}: rank {r}'s int8 x is not the whole row's slice")
+        want = quantize(xs.cpu())[0]
+        flips += int((got != want).sum())
+        values += want.numel()
+    check(row_parallel == 2 * n_layers, f"tp a8: {row_parallel} row-parallel products")
+    return dict(row_parallel=row_parallel, codes=values, codes_flipped=flips)
+
+
 def tp_one_card(torch) -> tuple[dict, dict]:
     """One card: both ranks' shards of one nano decode step at 32 rows on
-    cuda:0, natively and in int8-decoder (W8A16), each rank on its thread
-    and the partial sums added in rank order (OneCardPair), held against
-    the card's whole-tree step (logits_agree); decode attention once per
-    layer and rank, the stacked W8A16 kernel 4 times. -> (numbers, the
-    steps' launches)."""
+    cuda:0, natively, in int8-decoder (W8A16) and in int8-decoder-a8
+    (W8A8, each row-parallel product's row maxima taken over both ranks
+    first), each rank on its thread and the partial sums added in rank
+    order (OneCardPair), held against the card's whole-tree step
+    (logits_agree); decode attention once per layer and rank, the stacked
+    W8A16 or the W8A8 kernel 4 times, and under -a8 2 max-reduces a layer
+    beside the 2 sums. -a8 runs once more on float32 weights and cache
+    ("int8-decoder-a8 float32": one rounding difference there is the
+    partial sums' order alone), and each -a8 whole-tree step is also set
+    beside the native one of its dtype ("a8_vs_native", max |diff| over
+    max|native logits|): the two figures TP_A8_LOGIT_TOL rests on. ->
+    (numbers, the steps' launches)."""
+    from dataclasses import replace
+
     from sonicscribe_tpu_torch.models import glm_asr
     from sonicscribe_tpu_torch.models.config import nano, tp_local
     from sonicscribe_tpu_torch.models.weights import init_random
     from sonicscribe_tpu_torch.ops import _build
     from sonicscribe_tpu_torch.ops.quant import quantize_params_int8
 
-    cfg = nano()
-    L, local = cfg.decoder.n_layers, tp_local(cfg, TP_DEGREE)
+    L = nano().decoder.n_layers
     cards = [torch.device("cuda", 0)] * TP_DEGREE
-    params = init_random(cfg, SEED, dtype=torch.bfloat16, device="cuda")
-    out, counts = {}, {}
-    for mode in ("native", "int8-decoder"):
+    out, counts, native = {}, {}, {}
+    for mode in ("native", "int8-decoder", "int8-decoder-a8", "int8-decoder-a8 float32"):
+        a8 = mode.startswith("int8-decoder-a8")
+        dtype = torch.float32 if mode.endswith("float32") else torch.bfloat16
+        if mode in ("native", "int8-decoder-a8 float32"):
+            params = init_random(nano(), SEED, dtype=dtype, device="cuda")
+        cfg = nano()
+        if a8:
+            cfg = replace(cfg, decoder=replace(cfg.decoder, act_int8_decode=True))
+        local = tp_local(cfg, TP_DEGREE)
         tree = params if mode == "native" else quantize_params_int8(params, decoder_only=True)
         pair = OneCardPair(torch)
         trees = tp_trees(torch, tree, cfg, cards, pair)
         whole, shards, tok = step_inputs(torch, cfg, TP_ROWS[-1], cards)
-        with torch.inference_mode():
-            want = glm_asr.decode_step(tree, cfg, whole, tok)[1]
-        torch.cuda.synchronize()
-        _build.reset_launch_counts()
-        got = pair.run(lambda r: glm_asr.decode_step(trees[r], local, shards[r], tok)[1])
-        torch.cuda.synchronize()
-        c = dict(_build.launch_counts)
+        for cache in (whole, *shards):
+            cache["k"], cache["v"] = cache["k"].to(dtype), cache["v"].to(dtype)
+        idents = [None] * TP_DEGREE
+
+        def rank_step(r):
+            idents[r] = threading.get_ident()
+            return glm_asr.decode_step(trees[r], local, shards[r], tok)[1]
+
+        with W8A8Calls() as rec:
+            with torch.inference_mode():
+                if mode == "int8-decoder-a8 float32":  # the float32 native step beside it
+                    native[dtype] = glm_asr.decode_step(
+                        params, nano(), {k: v.clone() for k, v in whole.items()}, tok)[1]
+                want = glm_asr.decode_step(tree, cfg, whole, tok)[1]
+            torch.cuda.synchronize()
+            if mode == "native":
+                native[dtype] = want
+            whole_calls = rec.calls.pop(threading.get_ident(), [])
+            _build.reset_launch_counts()
+            got = pair.run(rank_step)
+            torch.cuda.synchronize()
+            c = dict(_build.launch_counts)
         check(torch.equal(got[0], got[1]), f"tp one card {mode}: the ranks' logits differ")
         check(c["decode_attention"] == TP_DEGREE * L
-              and c["int8_matmul_stacked"] == (0 if mode == "native" else TP_DEGREE * 4 * L),
+              and c["int8_matmul_stacked"] == (TP_DEGREE * 4 * L if mode == "int8-decoder" else 0)
+              and c["int8_matmul_w8a8"] == (TP_DEGREE * 4 * L if a8 else 0),
               f"tp one card {mode}: launches {c}")
-        out[mode] = logits_agree(f"tp one card {mode}", got[0], want)
+        check(pair.ops == [{"sum": 2 * L, "max": 2 * L if a8 else 0}] * TP_DEGREE,
+              f"tp one card {mode}: reduces by rank {pair.ops}")
+        out[mode] = dict(logits_agree(f"tp one card {mode}", got[0], want,
+                                      TP_A8_LOGIT_TOL if a8 else TP_LOGIT_TOL),
+                         reduces=pair.ops[0])
+        if a8:
+            out[mode].update(tp_a8_codes(torch, whole_calls,
+                                         [rec.calls[i] for i in idents], L))
+            ref = native[dtype].float()
+            out[mode]["a8_vs_native"] = ((want.float() - ref).abs().max()
+                                         / ref.abs().max()).item()
         for k, v in c.items():
             counts[k] = counts.get(k, 0) + v
-        del trees, tree
+        del trees, tree, whole, shards, whole_calls, rec
+    del params, native
     log(f"tp one card: both ranks' shards of a nano decode step at {TP_ROWS[-1]} rows on cuda:0, "
         f"partials summed in rank order: logits against the whole tree's {json.dumps(out)}; "
         f"the engine leg (NCCL, CUDA graphs, the dp x tp engine) needs two cards")
@@ -4749,12 +5056,16 @@ def tp_one_card(torch) -> tuple[dict, dict]:
 def tp_phase(torch) -> dict:
     """Tensor parallelism. The card count picks the leg: two cards or more
     run the engine leg (tp_tiny on a (n/2) x 2 mesh of up to four cards,
-    tp_nano and tp_int8 on the first two), one card the one-card leg
+    tp_nano, tp_int8 and tp_a8 on the first two), one card the one-card leg
     (tp_one_card); both hold the shard shapes' kernels against their plain
     versions (tp_shard_kernels). -> numbers, with the launches of the tp
     runs ("launches")."""
     n = torch.cuda.device_count()
     leg = "engine" if n >= TP_DEGREE else "one card"
+    if leg == "engine":  # the multi-card machine's own, read there
+        log("tp cards: " + "; ".join(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip().splitlines()))
     log(f"tp: {n} card(s) present: the {leg} leg")
     out = dict(leg=leg, cards=n, shard_kernels=tp_shard_kernels(torch))
     launches: dict = {}
@@ -4762,9 +5073,13 @@ def tp_phase(torch) -> dict:
         cards = [torch.device("cuda", i) for i in range(4 if n >= 4 else TP_DEGREE)]
         parts = {"tiny": tp_tiny(torch, cards)}
         release_memory(torch)
+        parts["tiny_a8"] = tp_tiny(torch, cards, "int8-decoder-a8")
+        release_memory(torch)
         parts["nano"] = tp_nano(torch, cards[:TP_DEGREE])
         release_memory(torch)
         parts["int8"] = tp_int8(torch, cards[:TP_DEGREE])
+        release_memory(torch)
+        parts["a8"] = tp_a8(torch, cards[:TP_DEGREE], parts["nano"][0]["steps"])
     else:
         parts = {"one_card": tp_one_card(torch)}
     for name, (numbers, counts) in parts.items():
@@ -4772,7 +5087,7 @@ def tp_phase(torch) -> dict:
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
     out["launches"] = {k: v for k, v in launches.items() if v}
-    ran = ("decode_attention", "int8_matmul_stacked") + (
+    ran = ("decode_attention", "int8_matmul_stacked", "int8_matmul_w8a8") + (
         ("verify_attention", "log_mel", "int8_matmul", "all_reduce") if leg == "engine" else ())
     for name in ran:
         check(launches.get(name, 0) > 0, f"tp: {name} never launched on the {leg} leg")
@@ -4849,6 +5164,39 @@ def prewarm_phase(torch) -> dict:
         f"{got['loads']} prebuilt, {got['tokens']} tokens; prewarm {prewarm_s:.1f} s, restart "
         f"process {child_s:.1f} s")
     return dict(line=line, prewarm_s=prewarm_s, restart_s=child_s, restart=got)
+
+
+def resilience_phase(torch) -> dict:
+    """tools/bench_resilience.py on the card: wait_for_device with its
+    default probe (a child interpreter's round trip on the card) answers
+    at the first probe, none hung; run_phase on a child that writes JSON
+    gives "ok" with its result, on one that exits 7 "crashed" with rc 7.
+    -> the statuses and seconds."""
+    import tempfile
+
+    from sonicscribe_tpu_torch.tools import bench_resilience as br
+
+    waited = br.wait_for_device(attempts=1)
+    check(waited["ok"] and waited["hung_probes"] == 0
+          and [a["status"] for a in waited["attempts"]] == ["ok"],
+          f"resilience: the card's probe did not answer: {waited}")
+    with tempfile.TemporaryDirectory(prefix="sonic-resilience-") as d:
+        out = os.path.join(d, "phase.json")
+        ok = br.run_phase([sys.executable, "-c",
+                           "import json, sys; json.dump({'value': 1}, open(sys.argv[1], 'w'))",
+                           out], out, timeout_s=60)
+        crashed = br.run_phase([sys.executable, "-c", "import sys; sys.exit(7)"], out,
+                               timeout_s=60)
+    check(ok["status"] == "ok" and ok["result"] == {"value": 1},
+          f"resilience: the JSON child gave {ok}")
+    check(crashed["status"] == "crashed" and crashed["rc"] == 7,
+          f"resilience: the failing child gave {crashed}")
+    result = dict(probe_s=waited["attempts"][0]["took_s"], waited_s=waited["waited_s"],
+                  hung_probes=waited["hung_probes"], ok_phase=ok["status"],
+                  ok_phase_s=ok["took_s"], crashed_phase=crashed["status"],
+                  crashed_rc=crashed["rc"])
+    log("resilience " + json.dumps(result))
+    return result
 
 
 def release_memory(torch) -> None:
@@ -4946,6 +5294,8 @@ def main() -> None:
     mark(f"tp ({tp['leg']} leg)")
     prewarmed = prewarm_phase(torch)
     mark("prewarm")
+    resilience_phase(torch)
+    mark("resilience")
     log("captured " + json.dumps(captured, default=float))
     log("stream " + json.dumps(stream, default=float))
     log("batched " + json.dumps(batched, default=float))
@@ -5021,8 +5371,10 @@ def main() -> None:
         k["batched_launches"] = batched_launches.get(k["name"], 0)
         if k["name"] in batched_rows:
             k["batched_shapes"] = batched_rows[k["name"]]
-    next(k for k in kernels if k["name"] == "int8_matmul_w8a8")["batched_mma_launches"] = (
-        batched_launches.get("int8_matmul_w8a8_mma", 0))
+    w8a8 = next(k for k in kernels if k["name"] == "int8_matmul_w8a8")
+    w8a8["batched_mma_launches"] = batched_launches.get("int8_matmul_w8a8_mma", 0)
+    # with a given row_amax at the tp = 2 shard shapes (tp_w8a8_kernels)
+    w8a8["tp_shapes"] = tp["shard_kernels"]["int8_matmul_w8a8"]
     # decode attention's launches in the fused runs of the dual A/B (two a
     # dual step and layer, one per pool), a part of its batched_launches
     kernels[0]["dual_launches"] = batched["native"]["dual"]["launches"][1]["decode_attention"]

@@ -41,6 +41,9 @@
 //   kActFloats, the floats of per-row state it keeps (W8A8's scales);
 // - stage(...), which puts x's rows over the slice into shared memory
 //   ([kHalves][BT][k_per_cta] values) and the per-row state into `act`;
+//   its last argument is the launch's `row_amax` (null unless the caller
+//   gives W8A8 each row's max|x|, see W8A8Rows; the float policies ignore
+//   it);
 // - step(acc, kRows 16-byte pieces, staged x, k_per_cta, r), which adds
 //   the products of rows r .. r + kRows - 1 into acc;
 // - finish(sum, b, act), the sum of row b as float before the scale.
@@ -86,7 +89,8 @@ struct FloatX {
   template <typename T, int BT>
   __device__ __forceinline__ static void stage(const T* __restrict__ x, unsigned char* smem,
                                                float*, int B, int r0, int Kq, int k_begin,
-                                               int rows, int k_per_cta, cg::cluster_group&) {
+                                               int rows, int k_per_cta, cg::cluster_group&,
+                                               const float*) {
     float* xs = reinterpret_cast<float*>(smem);
     const long long Kx = (long long)H * Kq;
     for (int i = threadIdx.x; i < H * BT * k_per_cta; i += kThreads) {
@@ -116,7 +120,8 @@ struct FloatX {
 template <typename T, int BT, typename W>
 __global__ void __launch_bounds__(kThreads)
 kernel(const T* __restrict__ x, const int8_t* __restrict__ q, const float* __restrict__ scale,
-       T* __restrict__ out, int B, int Kq, int N, int k_per_cta) {
+       T* __restrict__ out, int B, int Kq, int N, int k_per_cta,
+       const float* __restrict__ row_amax) {
   using Acc = typename W::Acc;
   constexpr int R = W::kRows;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -148,7 +153,8 @@ kernel(const T* __restrict__ x, const int8_t* __restrict__ q, const float* __res
     }
   };
   load_rows(0);  // the weight is in flight while x is staged
-  W::template stage<T, BT>(x, smem, act, B, r0, Kq, k_begin, rows, k_per_cta, cluster);
+  W::template stage<T, BT>(x, smem, act, B, r0, Kq, k_begin, rows, k_per_cta, cluster,
+                           row_amax);
   __syncthreads();
 
   Acc acc[BT][kColsPerThread];
@@ -215,7 +221,8 @@ inline bool bad_shape(int halves, int B, int Kq, int N, int rows, int cluster, i
 
 template <typename T, int BT, typename W>
 cudaError_t launch_tile(const void* x, const int8_t* q, const float* scale, void* out, int B,
-                        int Kq, int N, int cluster, int k_per_cta, cudaStream_t stream) {
+                        int Kq, int N, int cluster, int k_per_cta, cudaStream_t stream,
+                        const float* row_amax) {
   auto* kern = kernel<T, BT, W>;
   const int smem = static_cast<int>(smem_bytes(W::kHalves, BT, cluster, k_per_cta, W::kXBytes));
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -236,29 +243,33 @@ cudaError_t launch_tile(const void* x, const int8_t* q, const float* scale, void
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(x), q, scale, static_cast<T*>(out),
-                            B, Kq, N, k_per_cta);
+                            B, Kq, N, k_per_cta, row_amax);
 }
 
 template <typename T, typename W>
 cudaError_t launch_rows(int rows, const void* x, const int8_t* q, const float* scale, void* out,
-                        int B, int Kq, int N, int cluster, int k_per_cta, cudaStream_t s) {
+                        int B, int Kq, int N, int cluster, int k_per_cta, cudaStream_t s,
+                        const float* a) {
   switch (rows) {
-    case 1: return launch_tile<T, 1, W>(x, q, scale, out, B, Kq, N, cluster, k_per_cta, s);
-    case 2: return launch_tile<T, 2, W>(x, q, scale, out, B, Kq, N, cluster, k_per_cta, s);
-    case 4: return launch_tile<T, 4, W>(x, q, scale, out, B, Kq, N, cluster, k_per_cta, s);
-    default: return launch_tile<T, 8, W>(x, q, scale, out, B, Kq, N, cluster, k_per_cta, s);
+    case 1: return launch_tile<T, 1, W>(x, q, scale, out, B, Kq, N, cluster, k_per_cta, s, a);
+    case 2: return launch_tile<T, 2, W>(x, q, scale, out, B, Kq, N, cluster, k_per_cta, s, a);
+    case 4: return launch_tile<T, 4, W>(x, q, scale, out, B, Kq, N, cluster, k_per_cta, s, a);
+    default: return launch_tile<T, 8, W>(x, q, scale, out, B, Kq, N, cluster, k_per_cta, s, a);
   }
 }
 
 // dtype: 0 float32, 1 bfloat16 (of x and out); rows: x rows per CTA (1, 2,
-// 4 or 8). The caller has checked bad_shape.
+// 4 or 8); row_amax: [B] float32 for the policy's stage, or null. The
+// caller has checked bad_shape.
 template <typename W>
 cudaError_t launch(int dtype, int rows, const void* x, const int8_t* q, const float* scale,
-                   void* out, int B, int Kq, int N, int cluster, int k_per_cta, cudaStream_t s) {
+                   void* out, int B, int Kq, int N, int cluster, int k_per_cta, cudaStream_t s,
+                   const float* row_amax = nullptr) {
   return dtype == 0
-             ? launch_rows<float, W>(rows, x, q, scale, out, B, Kq, N, cluster, k_per_cta, s)
+             ? launch_rows<float, W>(rows, x, q, scale, out, B, Kq, N, cluster, k_per_cta, s,
+                                     row_amax)
              : launch_rows<__nv_bfloat16, W>(rows, x, q, scale, out, B, Kq, N, cluster,
-                                             k_per_cta, s);
+                                             k_per_cta, s, row_amax);
 }
 
 }  // namespace splitk

@@ -27,7 +27,11 @@
 // from the plain version.
 //
 // W8A8 quantises x itself (act_quant.cuh: the JAX recipe bit for bit, an
-// IEEE division for sx), so a call launches only this file's kernels. The
+// IEEE division for sx), so a call launches only this file's kernels. A
+// caller may give each row's max|x| (`row_amax`, [B] float32): a
+// tensor-parallel rank whose x is its share of each row's K passes the
+// max over every rank's share, so that its xq is the matching slice of
+// the whole row's; the scale is then made from that value alone. The
 // int32 sums are exact, so both of its designs give the plain version's
 // bits. Two designs (the wrapper picks by B, ops/int8_matmul.py
 // w8a8_uses_mma):
@@ -155,7 +159,10 @@ __device__ __forceinline__ void regroup(const uint4* r, int (&c)[kColsPerThread]
 // every CTA reads its rows over the whole K (4-11 KB of bf16 a row at
 // nano, from L2, under the weight loads' latency). Sharing the slices'
 // maxima through the cluster instead (one more cluster barrier) measured
-// slower at 1-2 rows on the H100 (PERF.md).
+// slower at 1-2 rows on the H100 (PERF.md). Where the caller gives
+// `row_amax` (a tensor-parallel rank, whose x is its K / tp share of each
+// row: the max over every rank's share), that pass is skipped and row b's
+// scale is made from row_amax[b] alone.
 struct W8A8Rows {
   using Acc = int;
   static constexpr int kHalves = 1, kRows = 4, kXBytes = 1;
@@ -166,38 +173,45 @@ struct W8A8Rows {
   __device__ __forceinline__ static void stage(const T* __restrict__ x, unsigned char* smem,
                                                float* act, int B, int r0, int K, int k_begin,
                                                int rows, int k_per_cta,
-                                               splitk::cg::cluster_group&) {
+                                               splitk::cg::cluster_group&,
+                                               const float* __restrict__ row_amax) {
     float *sxs = act, *rsxs = act + 8, *wmax = act + 16;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    float m[BT];
+    if (row_amax == nullptr) {  // each row's max|x| over the whole K
+      float m[BT];
 #pragma unroll
-    for (int b = 0; b < BT; ++b) m[b] = 0.f;
-    constexpr int E = 16 / sizeof(T);
-    if (K % E == 0) {  // rows 16-byte aligned: 16-byte loads
-      for (int v = tid; v < K / E; v += kThreads) {
+      for (int b = 0; b < BT; ++b) m[b] = 0.f;
+      constexpr int E = 16 / sizeof(T);
+      if (K % E == 0) {  // rows 16-byte aligned: 16-byte loads
+        for (int v = tid; v < K / E; v += kThreads) {
 #pragma unroll
-        for (int b = 0; b < BT; ++b) {
-          if (r0 + b < B) m[b] = fmaxf(m[b], absmax16(x + (long long)(r0 + b) * K + (long long)v * E));
+          for (int b = 0; b < BT; ++b) {
+            if (r0 + b < B) m[b] = fmaxf(m[b], absmax16(x + (long long)(r0 + b) * K + (long long)v * E));
+          }
+        }
+      } else {
+        for (int v = tid; v < K / 4; v += kThreads) {
+#pragma unroll
+          for (int b = 0; b < BT; ++b) {
+            if (r0 + b < B) m[b] = fmaxf(m[b], absmax4(x + (long long)(r0 + b) * K + 4 * v));
+          }
         }
       }
-    } else {
-      for (int v = tid; v < K / 4; v += kThreads) {
 #pragma unroll
-        for (int b = 0; b < BT; ++b) {
-          if (r0 + b < B) m[b] = fmaxf(m[b], absmax4(x + (long long)(r0 + b) * K + 4 * v));
-        }
+      for (int b = 0; b < BT; ++b) {
+        const float w = warp_max(m[b]);
+        if (lane == 0) wmax[warp * 8 + b] = w;
       }
+      __syncthreads();
     }
-#pragma unroll
-    for (int b = 0; b < BT; ++b) {
-      const float w = warp_max(m[b]);
-      if (lane == 0) wmax[warp * 8 + b] = w;
-    }
-    __syncthreads();
     if (tid < BT) {
       float mx = 0.f;
+      if (row_amax != nullptr) {  // given: the whole row's, from the caller
+        if (r0 + tid < B) mx = row_amax[r0 + tid];
+      } else {
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wmax[w * 8 + tid]);
+        for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wmax[w * 8 + tid]);
+      }
       sxs[tid] = act_scale(mx);
       rsxs[tid] = __frcp_rn(sxs[tid]);
     }
@@ -253,8 +267,8 @@ struct S8Plane {
 template <typename T>
 __global__ void __launch_bounds__(s8mma::kThreads)
 w8a8_quant_kernel(const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ sx,
-                  int K, int Kp) {
-  s8mma::quantize_row<T, 1>(x, xq, sx, K, Kp);
+                  int K, int Kp, const float* __restrict__ row_amax) {
+  s8mma::quantize_row<T, 1>(x, xq, sx, K, Kp, row_amax);
 }
 
 template <typename T>
@@ -276,10 +290,10 @@ __global__ void w8a8_reduce(const int* __restrict__ partial, const float* __rest
 template <typename T>
 int launch_w8a8_mma(const void* x, const int8_t* q, const float* scale, void* out, int* partial,
                     int8_t* xq, float* sx, int B, int K, int N, int splits, int k_per_split,
-                    cudaStream_t stream) {
+                    const float* row_amax, cudaStream_t stream) {
   const int Kp = (K + s8mma::kBK - 1) / s8mma::kBK * s8mma::kBK;
   w8a8_quant_kernel<T><<<B, s8mma::kThreads, 0, stream>>>(static_cast<const T*>(x), xq, sx, K,
-                                                          Kp);
+                                                          Kp, row_amax);
   const int smem = s8mma::smem_bytes(1, k_per_split);
   const cudaError_t e = cudaFuncSetAttribute(
       w8a8_mma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -472,11 +486,12 @@ extern "C" int int8_matmul_w8a16(const void* x, const void* q, const void* scale
 }
 
 // W8A8 at decode rows (cluster_splitk.cuh): x [B, K] float32 / bfloat16
-// (16-byte aligned, K % 4 == 0), quantised per row in the kernel; the
-// other arguments as int8_matmul_w8a16's.
+// (16-byte aligned, K % 4 == 0), quantised per row in the kernel, each
+// row's scale from its own max|x| or, where row_amax ([B] float32) is
+// given, from row_amax[b]; the other arguments as int8_matmul_w8a16's.
 extern "C" int int8_matmul_w8a8(const void* x, const void* q, const void* scale, void* out,
                                 int dtype, int B, int K, int N, int layer, int rows, int cluster,
-                                int k_per_cta, void* stream) {
+                                int k_per_cta, const void* row_amax, void* stream) {
   if (splitk::bad_shape(1, B, K, N, rows, cluster, k_per_cta, 1) || K % 4 || layer < 0 ||
       dtype < 0 || dtype > 1 || reinterpret_cast<uintptr_t>(x) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -485,11 +500,12 @@ extern "C" int int8_matmul_w8a8(const void* x, const void* q, const void* scale,
   const float* sl = static_cast<const float*>(scale) + (long long)layer * N;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t e = splitk::launch<W8A8Rows>(dtype, rows, x, ql, sl, out, B, K, N, cluster,
-                                                 k_per_cta, s);
+                                                 k_per_cta, s,
+                                                 static_cast<const float*>(row_amax));
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-// W8A8 on the s8 tensor cores: x as above, N % 128 == 0, K split into
+// W8A8 on the s8 tensor cores: x and row_amax as above, N % 128 == 0, K split into
 // `splits` ranges of k_per_split rows (a multiple of 64, at most
 // max_k_per_split(1) = 3008);
 // xq scratch of B * Kp bytes (Kp = K rounded up to 64) and sx of B float32
@@ -497,7 +513,8 @@ extern "C" int int8_matmul_w8a8(const void* x, const void* q, const void* scale,
 // layer) and xq 16-byte aligned.
 extern "C" int int8_matmul_w8a8_mma(const void* x, const void* q, const void* scale, void* out,
                                     void* partial, void* xq, void* sx, int dtype, int B, int K,
-                                    int N, int layer, int splits, int k_per_split, void* stream) {
+                                    int N, int layer, int splits, int k_per_split,
+                                    const void* row_amax, void* stream) {
   const int8_t* ql = static_cast<const int8_t*>(q) + (long long)layer * K * N;
   const float* sl = static_cast<const float*>(scale) + (long long)layer * N;
   if (B <= 0 || K <= 0 || K % 4 || N <= 0 || N % s8mma::kBN || layer < 0 || dtype < 0 ||
@@ -513,8 +530,9 @@ extern "C" int int8_matmul_w8a8_mma(const void* x, const void* q, const void* sc
   int* pt = static_cast<int*>(partial);
   int8_t* xb = static_cast<int8_t*>(xq);
   float* sxf = static_cast<float*>(sx);
-  return dtype == 0
-             ? launch_w8a8_mma<float>(x, ql, sl, out, pt, xb, sxf, B, K, N, splits, k_per_split, s)
-             : launch_w8a8_mma<__nv_bfloat16>(x, ql, sl, out, pt, xb, sxf, B, K, N, splits,
-                                              k_per_split, s);
+  const float* am = static_cast<const float*>(row_amax);
+  return dtype == 0 ? launch_w8a8_mma<float>(x, ql, sl, out, pt, xb, sxf, B, K, N, splits,
+                                             k_per_split, am, s)
+                    : launch_w8a8_mma<__nv_bfloat16>(x, ql, sl, out, pt, xb, sxf, B, K, N, splits,
+                                                     k_per_split, am, s);
 }

@@ -86,10 +86,13 @@ __device__ __forceinline__ int xq_slot(int u, int j) {
 }
 
 // The quantise kernel's body, one block per row of x [B, P * Kr]: sx[r],
-// and xq [B][P][Krp] in the fragments' k order.
+// and xq [B][P][Krp] in the fragments' k order. sx[r] comes from the row's
+// own max|x|, or from row_amax[r] where that is given (W8A8 on a
+// tensor-parallel rank's share of the row).
 template <typename T, int P>
 __device__ __forceinline__ void quantize_row(const T* __restrict__ x, int8_t* __restrict__ xq,
-                                             float* __restrict__ sx, int Kr, int Krp) {
+                                             float* __restrict__ sx, int Kr, int Krp,
+                                             const float* __restrict__ row_amax = nullptr) {
   __shared__ float wmax[kWarps];
   __shared__ float sxr[2];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, r = blockIdx.x;
@@ -97,17 +100,23 @@ __device__ __forceinline__ void quantize_row(const T* __restrict__ x, int8_t* __
   const T* xr = x + r * K;
   constexpr int E = 16 / sizeof(T);
   float m = 0.f;
-  if (K % E == 0) {  // rows 16-byte aligned: 16-byte loads
-    for (int v = tid; v < K / E; v += kThreads) m = fmaxf(m, absmax16(xr + (long long)v * E));
-  } else {
-    for (int v = tid; v < K / 4; v += kThreads) m = fmaxf(m, absmax4(xr + 4LL * v));
+  if (row_amax == nullptr) {
+    if (K % E == 0) {  // rows 16-byte aligned: 16-byte loads
+      for (int v = tid; v < K / E; v += kThreads) m = fmaxf(m, absmax16(xr + (long long)v * E));
+    } else {
+      for (int v = tid; v < K / 4; v += kThreads) m = fmaxf(m, absmax4(xr + 4LL * v));
+    }
+    m = warp_max(m);
+    if (lane == 0) wmax[warp] = m;
+    __syncthreads();
   }
-  m = warp_max(m);
-  if (lane == 0) wmax[warp] = m;
-  __syncthreads();
   if (tid == 0) {
+    if (row_amax != nullptr) {
+      m = row_amax[r];
+    } else {
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) m = fmaxf(m, wmax[w]);
+      for (int w = 1; w < kWarps; ++w) m = fmaxf(m, wmax[w]);
+    }
     sxr[0] = act_scale(m);
     sxr[1] = __frcp_rn(sxr[0]);
     sx[r] = sxr[0];

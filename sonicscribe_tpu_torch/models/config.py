@@ -179,13 +179,12 @@ def tp_local(cfg: GlmAsrConfig, tp: int) -> GlmAsrConfig:
     heads, decoder ffn_hidden and adapter_hidden of each split block
     divided by tp; a replicated block keeps its whole widths. The encoder
     keeps the whole model's head size; its MLP's width is its weights'
-    (ffn_mult stays the model's). W8A8 decode (act_int8_decode) raises:
-    ops/quant.py:check_tp."""
+    (ffn_mult stays the model's). W8A8 decode (act_int8_decode) carries
+    over: at each row-parallel product the rank's row scale comes from the
+    max of |x| over every rank's share (models/glm_asr.py), so its xq is
+    the matching slice of the whole row's."""
     if tp == 1:
         return cfg
-    from sonicscribe_tpu_torch.ops.quant import check_tp
-
-    check_tp(cfg.decoder.act_int8_decode, tp)
     split = tp_blocks(cfg, tp)
     enc, dec = cfg.encoder, cfg.decoder
     enc_heads = enc.n_heads // tp if "encoder_attn" in split else enc.n_heads

@@ -28,7 +28,10 @@ index.
 Tensor parallelism: a rank's tree (parallel/tp.py) carries its reduce
 hook under "tp", and each row-parallel product (encoder o and fc2, the
 adapter's fc2, decoder o and down) goes through it before its bias, so a
-bias after the sum counts once. Without a hook nothing is added to the
+bias after the sum counts once. Under W8A8 decode the decoder's o and
+down products first max-reduce each row's max|x| over the ranks, and
+the kernels quantise the rank's share of the row with the whole row's
+scale (``_decode_mm``). Without a hook nothing is added to the
 single-card programs. The rank's config (models/config.py:tp_local) holds
 its share of the heads; the encoder's head size stays the model's.
 
@@ -76,6 +79,31 @@ def _reducer(params: Params):
     the blocks its degree splits), or the identity."""
     tp = params.get("tp")
     return _no_reduce if tp is None else tp.reduce
+
+
+def _mm_plain(x, w, block=None):
+    return matmul(x, w)
+
+
+def _decode_mm(params: Params, dec: DecoderConfig):
+    """The product of the decode and verify steps (the JAX package's
+    _decode_mm): W8A16 (``matmul``), or W8A8 (``matmul_w8a8``) when the
+    config selects it, as ``mm(x, w, block=None)``, where `block` names a
+    row-parallel product's block. Under W8A8 on a tensor-parallel rank,
+    each row's max|x| over the rank's share of K is max-reduced over the
+    ranks there (the "tp" hook; the identity for a block the degree does
+    not split) and given to the kernels: the rank quantises its share with
+    the scale JAX takes over the whole K. A column-parallel product's x is
+    whole on every rank and needs no reduce."""
+    if not dec.act_int8_decode:
+        return _mm_plain
+    tp = params.get("tp")
+
+    def mm(x, w, block=None):
+        if tp is None or block is None:
+            return matmul_w8a8(x, w)
+        return matmul_w8a8(x, w, row_amax=tp.reduce_max(block, x.float().abs().amax(-1)))
+    return mm
 
 
 # =====================================================================
@@ -270,11 +298,11 @@ def _decoder_qkv(lp, h, dec: DecoderConfig, mm=matmul):
     return q, k, v
 
 
-def _decoder_layer_mlp(h, lp, dec: DecoderConfig, mm=matmul, reduce=_no_reduce):
-    """Post-attention half of every decoder layer."""
+def _decoder_layer_mlp(h, lp, dec: DecoderConfig, mm=_mm_plain, reduce=_no_reduce):
+    """Post-attention half of every decoder layer (mm as _decode_mm's)."""
     hn = _rms_norm(h, lp["ln2_scale"], dec.rms_eps)
     gate, up = torch.chunk(mm(hn, lp["gate_up_w"]), 2, dim=-1)
-    return h + reduce("decoder_mlp", mm(F.silu(gate) * up, lp["down_w"]))
+    return h + reduce("decoder_mlp", mm(F.silu(gate) * up, lp["down_w"], "decoder_mlp"))
 
 
 def _decoder_layer_prefill(x, lp, dec: DecoderConfig, cos, sin, rot, mask_bias,
@@ -429,8 +457,7 @@ def _decode_pools(params: Params, cfg: GlmAsrConfig, caches: list, tokens: list,
         writes.append((torch.arange(p.shape[0], device=device),
                        torch.clamp(p.long(), max=max_len - 1), (p < max_len)[:, None, None]))
 
-    # the JAX package's _decode_mm: W8A8 when the config selects it
-    mm = matmul_w8a8 if dec.act_int8_decode else matmul
+    mm = _decode_mm(params, dec)
     reduce = _reducer(params)
     h = x
     for i in range(dec.n_layers):
@@ -449,7 +476,7 @@ def _decode_pools(params: Params, cfg: GlmAsrConfig, caches: list, tokens: list,
             v_cache[rows, write_at] = torch.where(in_range, v_c, v_cache[rows, write_at])
             ctx.append(decode_attention(q[r0 : r0 + n], k_cache, v_cache, p).to(h.dtype))
             r0 += n
-        h = h + reduce("decoder_attn", mm(cat(ctx), lp["o_w"]))
+        h = h + reduce("decoder_attn", mm(cat(ctx), lp["o_w"], "decoder_attn"))
         h = _decoder_layer_mlp(h, lp, dec, mm, reduce)
 
     # in place: a CUDA graph of the step carries len from one replay to the next
@@ -507,7 +534,7 @@ def verify_step(
     src = src[:, :, None, None].expand(B, W1, dec.n_kv_heads, dec.head_dim)
     full = (pos0 >= max_len)[:, None, None, None]  # no write in range: keep the old value
 
-    mm = matmul_w8a8 if dec.act_int8_decode else matmul
+    mm = _decode_mm(params, dec)
     reduce = _reducer(params)
     h = x
     for i in range(dec.n_layers):
@@ -522,7 +549,7 @@ def verify_step(
         v_cache[rows, write_at] = torch.where(full, v_cache[rows, write_at], v_new.gather(1, src))
 
         ctx = verify_attention(q, k_cache, v_cache, pos0).to(h.dtype)  # [B, W1, nh*hd]
-        h = h + reduce("decoder_attn", mm(ctx, lp["o_w"]))
+        h = h + reduce("decoder_attn", mm(ctx, lp["o_w"], "decoder_attn"))
         h = _decoder_layer_mlp(h, lp, dec, mm, reduce)
     return cache, _lm_logits(params, cfg, h)
 

@@ -12,6 +12,10 @@ CPU; there is no other fallback. Weights keep the JAX layout: q int8
 W8A8 quantises x per row inside the CUDA code (the JAX recipe, bit for
 bit), so a W8A8 call on the card launches only kernels of
 ``csrc/int8_matmul.cu``; ``quantize_activations`` is its plain version.
+A caller may give each row's max|x| (``row_amax``, float32 [B]): a
+tensor-parallel rank, whose x holds its K / tp share of each row, passes
+the max over every rank's share (models/glm_asr.py), and each row's scale
+is made from that value instead of the row's own.
 It has two designs (``w8a8_uses_mma`` picks): decode rows run the
 one-launch cluster split-K design with int32 ``__dp4a``
 (``w8a8_cluster_shape``); from W8A8_MMA_MIN_ROWS rows a quantise
@@ -87,24 +91,40 @@ def div127(v: torch.Tensor) -> torch.Tensor:
     return v / torch.full((), 127.0, device=v.device)
 
 
-def quantize_activations(x) -> tuple[torch.Tensor, torch.Tensor]:
+def check_row_amax(name: str, x: torch.Tensor, row_amax) -> None:
+    """Raise unless row_amax is None or float32 [B] on x's device (x [B, K])."""
+    if row_amax is None:
+        return
+    if row_amax.dtype != torch.float32:
+        raise TypeError(f"{name}: row_amax must be float32, got {row_amax.dtype}")
+    if tuple(row_amax.shape) != (x.shape[0],):
+        raise ValueError(f"{name}: row_amax must be [{x.shape[0]}] for x {tuple(x.shape)}, "
+                         f"got {tuple(row_amax.shape)}")
+    if row_amax.device != x.device:
+        raise ValueError(f"{name}: row_amax must be on {x.device}, got {row_amax.device}")
+
+
+def quantize_activations(x, row_amax=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Dynamic symmetric per-row int8 of x [B, K] -> (xq int8 [B, K], sx
     float32 [B, 1]): sx = max(max|x|, 1e-8) / 127, xq = clip(round(x /
     sx), -127, 127), round half to even (ops/quant.py:matmul_w8a8), with
-    IEEE divisions wherever it runs."""
+    IEEE divisions wherever it runs. A given row_amax (float32 [B]) stands
+    in for each row's max|x|."""
     xf = x.float()
-    sx = div127(torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8))
+    amax = xf.abs().amax(dim=-1, keepdim=True) if row_amax is None else row_amax[:, None]
+    sx = div127(torch.clamp(amax, min=1e-8))
     xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
     return xq, sx
 
 
-def int8_matmul_w8a8_plain(x, q, scale, layer: int) -> torch.Tensor:
-    """x [B, K] with dynamic per-row int8, times layer `layer` of q
-    [L, K, N] int8 -> float32(int32 sums) * sx * scale -> [B, N] in
-    x.dtype. The integer product is formed in float64, which holds every
-    sum exactly (|sum| < 127 * 127 * K < 2**53), on the CPU and the card
-    alike."""
-    xq, sx = quantize_activations(x)
+def int8_matmul_w8a8_plain(x, q, scale, layer: int, row_amax=None) -> torch.Tensor:
+    """x [B, K] with dynamic per-row int8 (each row's scale from row_amax
+    where given), times layer `layer` of q [L, K, N] int8 ->
+    float32(int32 sums) * sx * scale -> [B, N] in x.dtype. The integer
+    product is formed in float64, which holds every sum exactly (|sum| <
+    127 * 127 * K < 2**53), on the CPU and the card alike."""
+    check_row_amax("int8_matmul_w8a8", x, row_amax)
+    xq, sx = quantize_activations(x, row_amax)
     acc = xq.double() @ q[layer].double()
     return (acc.float() * sx * scale[layer].reshape(-1)).to(x.dtype)
 
@@ -215,8 +235,8 @@ def _lib():
     lib = _build.load("int8_matmul")
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.int8_matmul_w8a16.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I, P]
-    lib.int8_matmul_w8a8.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I, P]
-    lib.int8_matmul_w8a8_mma.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P]
+    lib.int8_matmul_w8a8.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I, P, P]
+    lib.int8_matmul_w8a8_mma.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P, P]
     lib.int8_matmul_w8a16_mma.argtypes = [P, P, P, P, I, I, I, P]
     for fn in (lib.int8_matmul_w8a16, lib.int8_matmul_w8a8, lib.int8_matmul_w8a8_mma,
                lib.int8_matmul_w8a16_mma):
@@ -268,27 +288,29 @@ def _launch_streaming(x, q, scale, layer: int,
 
 
 @_build.on_tensor_device
-def _launch_w8a8_cluster(x, q, scale, layer: int,
-                         cluster: int | None = None) -> tuple[torch.Tensor, int]:
-    """The cluster split-K W8A8 design on layer `layer` of a checked stack:
-    one launch, no scratch; `cluster` forces a cluster size (chip_smoke.py
-    times them). -> (out, cudaError of the launch). Counts nothing."""
+def _launch_w8a8_cluster(x, q, scale, layer: int, cluster: int | None = None,
+                         row_amax=None) -> tuple[torch.Tensor, int]:
+    """The cluster split-K W8A8 design on layer `layer` of a checked stack
+    (and a checked row_amax or None): one launch, no scratch; `cluster`
+    forces a cluster size (chip_smoke.py times them). -> (out, cudaError of
+    the launch). Counts nothing."""
     B, K, N = x.shape[0], q.shape[1], q.shape[2]
     shape = w8a8_cluster_shape(B, K, N, cluster)
     out = torch.empty((B, N), device=x.device, dtype=x.dtype)
     err = _lib().int8_matmul_w8a8(
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), _DTYPES[x.dtype], B, K, N,
         layer, shape.rows, shape.cluster, shape.k_per_cta,
+        row_amax.data_ptr() if row_amax is not None else None,
         torch.cuda.current_stream(x.device).cuda_stream)
     return out, err
 
 
 @_build.on_tensor_device
-def _launch_w8a8_mma(x, q, scale, layer: int) -> tuple[torch.Tensor, int]:
+def _launch_w8a8_mma(x, q, scale, layer: int, row_amax=None) -> tuple[torch.Tensor, int]:
     """The s8 tensor-core W8A8 design (N % 128 == 0) on layer `layer` of a
-    checked stack: a quantise kernel writes xq and sx, then the mma kernel
-    (and the split-K pass). -> (out, cudaError of the launches). Counts
-    nothing."""
+    checked stack (and a checked row_amax or None): a quantise kernel
+    writes xq and sx, then the mma kernel (and the split-K pass). -> (out,
+    cudaError of the launches). Counts nothing."""
     B, K, N = x.shape[0], q.shape[1], q.shape[2]
     splits, k_per_split = s8_mma_shape(B, K, N, _build.n_sms(x.device), W8A8_MMA_MAX_K_PER_SPLIT)
     out = torch.empty((B, N), device=x.device, dtype=x.dtype)
@@ -301,16 +323,17 @@ def _launch_w8a8_mma(x, q, scale, layer: int) -> tuple[torch.Tensor, int]:
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
         partial.data_ptr() if partial is not None else None, xq.data_ptr(), sx.data_ptr(),
         _DTYPES[x.dtype], B, K, N, layer, splits, k_per_split,
+        row_amax.data_ptr() if row_amax is not None else None,
         torch.cuda.current_stream(x.device).cuda_stream)
     return out, err
 
 
 @_build.on_tensor_device
-def _launch(name, x, q, scale, layer: int) -> torch.Tensor:
+def _launch(name, x, q, scale, layer: int, row_amax=None) -> torch.Tensor:
     """Launch a W8A16 kernel (the tensor-core design where uses_mma says
     so), or the W8A8 design that w8a8_uses_mma picks (its kernels quantise
-    x themselves), on layer `layer` of the whole stack. Only torch.empty
-    runs beside the kernels."""
+    x themselves, each row's scale from row_amax where given), on layer
+    `layer` of the whole stack. Only torch.empty runs beside the kernels."""
     B, K, N = _check(name, x, q, scale, layer)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     mma = False
@@ -319,8 +342,12 @@ def _launch(name, x, q, scale, layer: int) -> torch.Tensor:
             raise ValueError(f"{name}: K must be a multiple of 4, got {K}")
         if x.data_ptr() % 16:
             raise ValueError(f"{name}: x must be 16-byte aligned")
+        check_row_amax(name, x, row_amax)
+        if row_amax is not None and not row_amax.is_contiguous():
+            raise ValueError(f"{name}: row_amax must be contiguous")
         mma = w8a8_uses_mma(B, N)
-        out, err = (_launch_w8a8_mma if mma else _launch_w8a8_cluster)(x, q, scale, layer)
+        out, err = (_launch_w8a8_mma(x, q, scale, layer, row_amax) if mma
+                    else _launch_w8a8_cluster(x, q, scale, layer, row_amax=row_amax))
     elif uses_mma(B, K, x.dtype,
                   x.data_ptr() % 16 == 0 and scale[layer].data_ptr() % 16 == 0):
         mma = True
@@ -354,12 +381,12 @@ def int8_matmul_stacked_cuda(x, q, scale, layer: int) -> torch.Tensor:
     return _launch("int8_matmul_stacked", x, q, scale, layer)
 
 
-def int8_matmul_w8a8_cuda(x, q, scale, layer: int) -> torch.Tensor:
+def int8_matmul_w8a8_cuda(x, q, scale, layer: int, row_amax=None) -> torch.Tensor:
     """Launch the W8A8 design that w8a8_uses_mma picks on layer `layer` of
     the whole stack: one cluster split-K kernel at decode rows, else the
     quantise kernel and the s8 tensor cores; x is quantised per row in
-    CUDA."""
-    return _launch("int8_matmul_w8a8", x, q, scale, layer)
+    CUDA, with each row's scale from row_amax (float32 [B]) where given."""
+    return _launch("int8_matmul_w8a8", x, q, scale, layer, row_amax)
 
 
 # ---------------------------------------------------------------- entries
@@ -380,9 +407,11 @@ def int8_matmul_stacked(x, q, scale, layer: int) -> torch.Tensor:
     return int8_matmul_stacked_cuda(x, q, scale, layer)
 
 
-def int8_matmul_w8a8(x, q, scale, layer: int) -> torch.Tensor:
+def int8_matmul_w8a8(x, q, scale, layer: int, row_amax=None) -> torch.Tensor:
     """x [B, K] with dynamic per-row int8 @ q [L, K, N][layer] (s8 x s8,
-    int32 sums) * sx * scale -> [B, N] in x.dtype."""
+    int32 sums) * sx * scale -> [B, N] in x.dtype. row_amax (float32 [B],
+    on x's device) gives each row's max|x| for its scale, where x is a
+    share of the row (tensor parallelism); None takes x's own."""
     if x.device.type == "cpu":
-        return int8_matmul_w8a8_plain(x, q, scale, layer)
-    return int8_matmul_w8a8_cuda(x, q, scale, layer)
+        return int8_matmul_w8a8_plain(x, q, scale, layer, row_amax)
+    return int8_matmul_w8a8_cuda(x, q, scale, layer, row_amax)

@@ -82,35 +82,28 @@ def matmul(x: torch.Tensor, w) -> torch.Tensor:
     return out.reshape(*x.shape[:-1], out.shape[-1])
 
 
-def matmul_w8a8(x: torch.Tensor, w) -> torch.Tensor:
+def matmul_w8a8(x: torch.Tensor, w, row_amax: torch.Tensor | None = None) -> torch.Tensor:
     """x @ w with dynamic per-row int8 activations on top of the int8
     weight (s8 x s8, int32 sums, then * sx * scale). Plain tensors pass
-    through to ``x @ w``, as in JAX."""
+    through to ``x @ w``, as in JAX. ``row_amax`` (float32, x.shape[:-1])
+    gives each row's max|x| for its scale: a tensor-parallel rank's x at a
+    row-parallel product holds its K / tp share of each row, and the row's
+    scale is the JAX recipe's over the whole K only with the max over every
+    rank's share (the max GSPMD takes across the "model" axis); None takes
+    x's own, over its K."""
     if not is_qtensor(w):
         return x @ w
     if "layer" in w:
         q, scale, layer = w["q"], w["scale"], w["layer"]
     else:  # a stack of one
         q, scale, layer = w["q"][None], w["scale"][None], 0
-    out = int8_matmul_w8a8(_rows(x), q, scale, layer)
+    if row_amax is not None:
+        if tuple(row_amax.shape) != tuple(x.shape[:-1]):
+            raise ValueError(f"matmul_w8a8: row_amax must be {tuple(x.shape[:-1])} for x "
+                             f"{tuple(x.shape)}, got {tuple(row_amax.shape)}")
+        row_amax = row_amax.reshape(-1)
+    out = int8_matmul_w8a8(_rows(x), q, scale, layer, row_amax)
     return out.reshape(*x.shape[:-1], out.shape[-1])
-
-
-def check_tp(act_int8_decode: bool, tp: int) -> None:
-    """Raise for W8A8 decode (``act_int8_decode``, quant mode
-    int8-decoder-a8) under tensor parallelism (tp > 1): not ported.
-    matmul_w8a8 quantises each activation row over its whole K (the JAX
-    recipe, whose amax GSPMD takes across the ranks); the W8A8 kernels
-    compute the row scale inside CUDA from the K they are given, which on
-    a row-parallel shard is the rank's K / tp, so the product would
-    differ. Exact parity needs the row amax max-reduced over the ranks and
-    handed to the kernels' quantise step (csrc/act_quant.cuh takes none
-    yet). W8A16 (int8, int8-decoder) is exact per shard."""
-    if act_int8_decode and tp > 1:
-        raise NotImplementedError(
-            f"W8A8 decode (int8-decoder-a8) under tensor parallelism (tp={tp}) is not ported: "
-            "its per-row activation scale needs the amax over every rank's K shard; serve "
-            "int8-decoder, int8 or native under tensor parallelism")
 
 
 def quantize_params_int8(params: dict, decoder_only: bool = False) -> dict:

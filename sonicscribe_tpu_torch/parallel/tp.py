@@ -17,7 +17,10 @@ contracts the sharded axis. In PyTorch that reduce is explicit:
   a CUDA graph of it captures each rank's NCCL all-reduce;
 - ``attach`` puts each rank's ``TPRank`` into its tree under "tp": the
   model's reduce hook (models/glm_asr.py), which all-reduces the partial
-  sums of the blocks the degree splits (models/config.py:tp_blocks).
+  sums of the blocks the degree splits (models/config.py:tp_blocks), and,
+  under W8A8 decode, max-reduces each row's max|x| before a row-parallel
+  product (``reduce_max``), whose kernel quantises the rank's share of the
+  row with the whole row's scale.
 
 Every rank must hold the same bits after a reduce: each rank picks its own
 greedy tokens and writes its own KV from them, and they stay equal to rank
@@ -50,13 +53,15 @@ import torch.distributed as dist
 from sonicscribe_tpu_torch.ops import _build
 
 TIMEOUT_S = 120.0  # a collective, or a rank's part of run() after rank 0's, past this fails
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 _group_ids = itertools.count()
 
 
 class TPRank:
     """One rank's side of a group, carried in its shard tree under "tp":
-    ``reduce(block, x)`` all-reduces x in place when the group's degree
-    splits that block, and returns x as it is otherwise."""
+    ``reduce(block, x)`` sums x over the ranks in place when the group's
+    degree splits that block, ``reduce_max(block, x)`` takes its maximum;
+    both return x as it is otherwise."""
 
     def __init__(self, group: "TPGroup", rank: int, blocks: frozenset):
         self.group, self.rank, self.blocks = group, rank, blocks
@@ -65,6 +70,11 @@ class TPRank:
         if block not in self.blocks:
             return x
         return self.group.all_reduce(self.rank, x)
+
+    def reduce_max(self, block: str, x: torch.Tensor) -> torch.Tensor:
+        if block not in self.blocks:
+            return x
+        return self.group.all_reduce(self.rank, x, op="max")
 
 
 class TPGroup:
@@ -168,14 +178,20 @@ class TPGroup:
             raise
         return out
 
-    def all_reduce(self, rank: int, x: torch.Tensor) -> torch.Tensor:
-        """Sum x over the ranks, in place (rank `rank`'s call; every rank
-        calls it with the same shape, in the same order). -> x, the same
-        bits on every rank. Counted under "all_reduce" in the launch
-        counters (a graph's replays count theirs through its router)."""
+    def all_reduce(self, rank: int, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """Reduce x over the ranks in place, its sum (op "sum") or its
+        elementwise maximum ("max"), as rank `rank`'s call; every rank
+        calls it with the same shape and op, in the same order. -> x, the
+        same bits on every rank. Either op counts under "all_reduce" in
+        the launch counters (a graph's replays count theirs through its
+        router)."""
         if not x.is_contiguous():
             raise ValueError("all_reduce needs a contiguous tensor")
-        self._pgs[rank].allreduce([x]).wait()
+        if op not in _OPS:
+            raise ValueError(f"all_reduce: op must be one of {sorted(_OPS)}, got {op!r}")
+        opts = dist.AllreduceOptions()
+        opts.reduceOp = _OPS[op]
+        self._pgs[rank].allreduce([x], opts).wait()
         _build.count_launch("all_reduce")
         return x
 

@@ -695,11 +695,11 @@ def test_quantize_tensor_on_the_card_equals_the_cpu(cuda, key):
     assert torch.equal(got["q"].cpu(), want["q"])
 
 
-def _w8a8_designs(x, q, scale, layer):
+def _w8a8_designs(x, q, scale, layer, row_amax=None):
     """Both W8A8 designs forced through the private launchers."""
     outs = []
     for launch in (im._launch_w8a8_cluster, im._launch_w8a8_mma):
-        out, err = launch(x, q, scale, layer)
+        out, err = launch(x, q, scale, layer, row_amax=row_amax)
         assert err == 0, (launch.__name__, err)
         outs.append(out)
     return outs
@@ -751,6 +751,36 @@ def test_int8_w8a8_crafted_rows(cuda, B):
                     *_w8a8_designs(xd, qt["q"], qt["scale"], 0)]:
             assert torch.equal(got, want)
             assert not bool(got[0].any())  # a zero row stays zero
+
+
+# nano's decoder projections cut for tp = 2: o and down at K / 2 (row
+# parallel, the products that take a row_amax), qkv and gate_up at N / 2
+NANO_TP_SHARDS = {"qkv_w": (2048, 1536), "o_w": (1024, 2048), "gate_up_w": (2048, 5504),
+                  "down_w": (2752, 2048)}
+
+
+@pytest.mark.parametrize("B", [1, 4, 16, 33])
+def test_int8_w8a8_row_amax_equals_the_plain_version(cuda, B):
+    """A given row_amax (a tensor-parallel rank's: the max over every
+    rank's share of the row, so at or above the share's own) at nano's
+    tp = 2 shard shapes: through the entry and both designs forced, equal
+    bits with the plain version under the same row_amax on CPU copies,
+    float32 and bf16 x, with a zero row (the 1e-8 floor); with each row's
+    own max, the bits of the call without one."""
+    g = torch.Generator(device=cuda).manual_seed(100 + B)
+    for K, N in NANO_TP_SHARDS.values():
+        qt = quantize_tensor(torch.randn((2, K, N), generator=g, device=cuda) * 0.02)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((B, K), generator=g, device=cuda).to(dtype)
+            x[-1] = 0.0
+            own = x.float().abs().amax(-1)
+            amax = own * (1.0 + torch.rand((B,), generator=g, device=cuda))
+            want = _on_cpu(int8_matmul_w8a8_plain, x, qt["q"], qt["scale"], 1, amax)
+            for got in [int8_matmul_w8a8(x, qt["q"], qt["scale"], 1, amax),
+                        *_w8a8_designs(x, qt["q"], qt["scale"], 1, amax)]:
+                assert torch.equal(got, want)
+            assert torch.equal(int8_matmul_w8a8(x, qt["q"], qt["scale"], 1, own),
+                               int8_matmul_w8a8(x, qt["q"], qt["scale"], 1))
 
 
 def _kernel_names(fn):

@@ -285,14 +285,15 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
 
 
 # the load harness, the serving benches on it, the decode microbenches, the
-# deploy tools and the Silero twin, and data- and tensor-parallel serving (the
+# deploy tools, the Silero twin and the probe-retry layer (bench_resilience),
+# and data- and tensor-parallel serving (the
 # mesh, the tp group, the dry run, the replicas' router): each imported with
 # jax and the JAX package blocked (and, below, aiohttp too)
 NEW_TOOLS = tuple(f"sonicscribe_tpu_torch.tools.{m}" for m in (
     "golden", "loadtest", "bench_nn_vad", "bench_interim", "bench_commit", "bench_eager",
     "bench_spec", "bench_kcap", "bench_mixed", "bench_scale", "bench_hbm",
     "bench_decode_parts", "bench_decode", "bench_rows", "bench_flash", "prewarm",
-    "bench_warmup", "torch_silero")) + (
+    "bench_warmup", "torch_silero", "bench_resilience")) + (
     "sonicscribe_tpu_torch.parallel", "sonicscribe_tpu_torch.parallel.mesh",
     "sonicscribe_tpu_torch.parallel.tp", "sonicscribe_tpu_torch.parallel.dryrun",
     "sonicscribe_tpu_torch.engine.replicas")

@@ -10,8 +10,13 @@ prefill logits, a decode step, a verify step) against JAX's unsharded
 functions within 2e-4. The dp x tp engine (engine/replicas.py) on a 4 x 2
 mesh against JAX's Transcriber token for token, each follower's slots
 equal to rank 0's; ring streams and a drafted final on a 1 x 2 mesh, and
-the int8 modes, against the port's single engine; -a8 refused; the group
-failing, not hanging, on a collective nobody meets; the dry run's tp leg.
+the int8 modes, against the port's single engine. W8A8 decode
+(int8-decoder-a8) under tp: each rank's int8 activations at the
+row-parallel products equal the slice of JAX's whole-row recipe, the -a8
+decode and verify steps JAX's unsharded -a8 functions within 2e-4, the
+4 x 2 -a8 engine JAX's -a8 Transcriber token for token, the fused dual
+decode and a drafted final the single engine's. The group failing, not
+hanging, on a collective nobody meets; the dry run's tp leg.
 
 Tiny f32 weights from PRNGKey(0), x4 as the parity tests scale them,
 carried across bit-exact; audio from numpy seeds. Every test that starts
@@ -19,7 +24,9 @@ ranks is bounded by the group's timeout (TPGroup.timeout_s), after which
 the group raises."""
 
 import asyncio
+import threading
 import time
+from dataclasses import replace
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +48,8 @@ from sonicscribe_tpu_torch.models import tiny
 from sonicscribe_tpu_torch.models.config import tp_blocks, tp_local
 from sonicscribe_tpu_torch.models.tokenizer import ByteTokenizer
 from sonicscribe_tpu_torch.models.weights import params_from_jax
+from sonicscribe_tpu_torch.ops import int8_matmul as im
+from sonicscribe_tpu_torch.ops import quant as quant_module
 from sonicscribe_tpu_torch.ops.quant import quantize_params_int8
 from sonicscribe_tpu_torch.parallel import make_mesh, shard_params_tp
 from sonicscribe_tpu_torch.parallel.dryrun import dryrun_multichip
@@ -71,10 +80,16 @@ def trees():
     return params_j, params_from_jax(jax.tree.map(np.asarray, params_j), device="cpu")
 
 
+def _a8(cfg):
+    """cfg with W8A8 decode on (quant mode int8-decoder-a8), either package's."""
+    return replace(cfg, decoder=replace(cfg.decoder, act_int8_decode=True))
+
+
 def _transcriber(params, mode="native"):
+    cfg = _a8(tiny()) if mode == "int8-decoder-a8" else tiny()
     if mode != "native":
         params = quantize_params_int8(params, decoder_only=mode != "int8")
-    return Transcriber(tiny(), params, ByteTokenizer(tiny()), prefill_buckets=(64, 128))
+    return Transcriber(cfg, params, ByteTokenizer(cfg), prefill_buckets=(64, 128))
 
 
 def _serve(engine, run):
@@ -278,18 +293,21 @@ def _rank_cache(k, v, ln, r):
             "len": torch.from_numpy(ln.copy())}
 
 
-@pytest.mark.parametrize("step", ["decode", "verify"])
-def test_decode_and_verify_steps_match_jax(trees, ranks, step):
-    """One decode_step ([B] tokens) and one verify_step ([B, 9] tokens) on
-    each rank's share of a random cache: JAX's logits within 2e-4, equal
-    bits on both ranks, each rank's KV heads written as JAX writes them."""
-    params_j, _ = trees
-    group, rank_trees, local = ranks
-    cfg_j = tiny_jax()
-    k, v, ln = _history([3, 17, 30], 48, seed=9)
-    rng = np.random.default_rng(13)
+def _step_inputs(step, seed=0):
+    """A random cache history for 3 slots and the step's tokens ([3] or
+    [3, 9])."""
+    k, v, ln = _history([3, 17, 30], 48, seed=9 + seed)
+    rng = np.random.default_rng(13 + seed)
     shape = (3,) if step == "decode" else (3, 9)
-    tokens = rng.integers(5, cfg_j.decoder.vocab_size - 1, shape).astype(np.int32)
+    return k, v, ln, rng.integers(5, tiny().decoder.vocab_size - 1, shape).astype(np.int32)
+
+
+def _steps_against_jax(params_j, cfg_j, group, rank_trees, local, step, seed=0):
+    """One decode_step or verify_step of JAX's on the whole tree and of the
+    port's on each rank's share of the cache: JAX's logits within 2e-4,
+    equal bits on both ranks, each rank's KV heads written as JAX writes
+    them."""
+    k, v, ln, tokens = _step_inputs(step, seed)
     fn_j, fn = (jm.decode_step, tm.decode_step) if step == "decode" else (jm.verify_step,
                                                                           tm.verify_step)
     cache_j, want = fn_j(params_j, cfg_j, {"k": jnp.asarray(k), "v": jnp.asarray(v),
@@ -312,23 +330,196 @@ def test_decode_and_verify_steps_match_jax(trees, ranks, step):
         np.testing.assert_array_equal(caches[r]["len"].numpy(), np.asarray(cache_j["len"]))
 
 
+@pytest.mark.parametrize("step", ["decode", "verify"])
+def test_decode_and_verify_steps_match_jax(trees, ranks, step):
+    """One decode_step ([B] tokens) and one verify_step ([B, 9] tokens) on
+    each rank's share of a random cache: JAX's logits within 2e-4, equal
+    bits on both ranks, each rank's KV heads written as JAX writes them."""
+    params_j, _ = trees
+    group, rank_trees, local = ranks
+    _steps_against_jax(params_j, tiny_jax(), group, rank_trees, local, step)
+
+
+# ---------------------------------------------------------------------
+# W8A8 decode (int8-decoder-a8) under tp
+# ---------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def a8_ranks(trees):
+    """The -a8 trees (decoder int8, quantised whole, then cut): JAX's whole
+    tree and config, and a gloo pair with each rank's -a8 tree, its hook
+    and the local config."""
+    params_j, params = trees
+    cfg = _a8(tiny())
+    group = TPGroup(["cpu"] * 2, timeout_s=TP_TIMEOUT_S)
+    shards = shard_params_tp(quantize_params_int8(params, decoder_only=True),
+                             make_mesh(devices=["cpu"] * 2, model_parallel=2), cfg)
+    yield (quantize_jax(params_j, decoder_only=True), _a8(tiny_jax()), group,
+           group.attach(shards, cfg), tp_local(cfg, 2))
+    group.close()
+
+
+def test_tp_local_keeps_w8a8_decode(trees):
+    """-a8 under tp is served: the rank's config keeps act_int8_decode."""
+    local = tp_local(_a8(tiny()), 2)
+    assert local.decoder.act_int8_decode
+    assert local.decoder.n_heads == tiny().decoder.n_heads // 2
+
+
+class _W8A8Calls:
+    """Every W8A8 product's x and row_amax (ops/quant.py's call of the
+    entry), by calling thread: the ranks' calls apart."""
+
+    def __init__(self, monkeypatch):
+        self.calls: dict = {}
+        entry = quant_module.int8_matmul_w8a8
+
+        def record(x, q, scale, layer, row_amax=None):
+            self.calls.setdefault(threading.get_ident(), []).append(
+                (x.clone(), None if row_amax is None else row_amax.clone()))
+            return entry(x, q, scale, layer, row_amax)
+
+        monkeypatch.setattr(quant_module, "int8_matmul_w8a8", record)
+
+    def take(self, ident=None):
+        return self.calls.pop(threading.get_ident() if ident is None else ident)
+
+
+def _jax_xq(x):
+    """The JAX package's activation recipe (ops/quant.py:matmul_w8a8) on
+    the whole row: xq int8."""
+    xf = jnp.asarray(x, jnp.float32)
+    sx = jnp.maximum(jnp.max(jnp.abs(xf), axis=-1, keepdims=True), 1e-8) / 127.0
+    return np.asarray(jnp.clip(jnp.round(xf / sx), -127, 127).astype(jnp.int8))
+
+
+def _rank_calls(group, rank_trees, local, step, calls, seed=0):
+    """One -a8 step on both ranks; -> each rank's W8A8 calls in order."""
+    k, v, ln, tokens = _step_inputs(step, seed)
+    fn = tm.decode_step if step == "decode" else tm.verify_step
+    caches = [_rank_cache(k, v, ln, r) for r in range(2)]
+    idents = [None, None]
+
+    def run(r):
+        idents[r] = threading.get_ident()
+        fn(rank_trees[r], local, caches[r], torch.from_numpy(tokens))
+
+    with torch.inference_mode():
+        group.run(run)
+    return [calls.take(i) for i in idents]
+
+
+@pytest.mark.parametrize("step", ["decode", "verify"])
+def test_a8_rank_xq_is_the_slice_of_jaxs_whole_xq(a8_ranks, monkeypatch, step):
+    """At every row-parallel W8A8 product (decoder o_w and down_w, 2 a
+    layer) each rank's row_amax is the max of |x| over both ranks' shares
+    of the row, the same bits on both ranks, and the rank's int8 x is the
+    matching slice of JAX's recipe on the whole row (both shares side by
+    side, as the shards are head- and column-aligned) bit for bit. The
+    column-parallel products (qkv_w, gate_up_w) take x whole on each rank,
+    with no row_amax."""
+    *_, group, rank_trees, local = a8_ranks
+    calls = _W8A8Calls(monkeypatch)
+    per_rank = _rank_calls(group, rank_trees, local, step, calls)
+    assert len(per_rank[0]) == len(per_rank[1]) == 4 * tiny().decoder.n_layers
+    row_parallel = 0
+    for (x0, a0), (x1, a1) in zip(*per_rank):
+        if a0 is None:  # column-parallel: the same whole x on both ranks
+            assert a1 is None and torch.equal(x0, x1)
+            continue
+        row_parallel += 1
+        whole = torch.cat([x0, x1], dim=-1)
+        assert torch.equal(a0, a1) and torch.equal(a0, whole.abs().amax(-1))
+        want = _jax_xq(whole.numpy())
+        K = x0.shape[-1]
+        for r, x in enumerate((x0, x1)):
+            got = im.quantize_activations(x, a0)[0].numpy()
+            np.testing.assert_array_equal(got, want[:, r * K:(r + 1) * K])
+    assert row_parallel == 2 * tiny().decoder.n_layers
+
+
+@pytest.mark.parametrize("step", ["decode", "verify"])
+def test_a8_decode_and_verify_steps_match_jax(a8_ranks, step):
+    """The -a8 decode and verify steps at tp = 2 against JAX's unsharded -a8
+    functions, as test_decode_and_verify_steps_match_jax holds the native
+    ones: within 2e-4 (TOL, the same float32 sums split over two ranks)."""
+    params_j, cfg_j, group, rank_trees, local = a8_ranks
+    for seed in range(3):
+        _steps_against_jax(params_j, cfg_j, group, rank_trees, local, step, seed)
+
+
+def test_a8_int8_activations_at_tp_equal_the_single_cards(trees, a8_ranks, monkeypatch):
+    """How often an int8 step flips: each W8A8 product's int8 x at tp = 2
+    (the ranks' row-parallel shares side by side) against the port's
+    single-card -a8 step on the whole tree, call by call. A residual that
+    an earlier sum-reduce rounded differently could move x / sx across a
+    rounding boundary; on these inputs (3 seeds, decode and verify: 48
+    products, 115,200 int8 values) it happened 0 times."""
+    _, params = trees
+    *_, group, rank_trees, local = a8_ranks
+    whole = quantize_params_int8(params, decoder_only=True)
+    calls = _W8A8Calls(monkeypatch)
+    values = flips = products = 0
+    for seed in range(3):
+        for step in ("decode", "verify"):
+            k, v, ln, tokens = _step_inputs(step, seed)
+            fn = tm.decode_step if step == "decode" else tm.verify_step
+            with torch.inference_mode():
+                fn(whole, _a8(tiny()), {"k": torch.from_numpy(k), "v": torch.from_numpy(v),
+                                        "len": torch.from_numpy(ln)}, torch.from_numpy(tokens))
+            single = calls.take()
+            per_rank = _rank_calls(group, rank_trees, local, step, calls, seed)
+            for (xs, _), (x0, a0), (x1, a1) in zip(single, *per_rank):
+                want = im.quantize_activations(xs)[0]
+                got = (im.quantize_activations(x0)[0] if a0 is None else torch.cat(
+                    [im.quantize_activations(x0, a0)[0], im.quantize_activations(x1, a1)[0]],
+                    dim=-1))
+                values += want.numel()
+                flips += int((got != want).sum())
+                products += 1
+    assert (products, values) == (48, 115200)
+    assert flips == 0
+
+
+def test_row_amax_none_leaves_the_plain_w8a8_as_it_was():
+    """int8_matmul_w8a8_plain without row_amax: bit for bit the recipe it
+    computed before row_amax existed (each row's own max|x|, IEEE
+    divisions, the integer sums in float64), float32 and bf16 x; with the
+    row's own max given, the same bits."""
+    from sonicscribe_tpu_torch.ops.quant import quantize_tensor
+
+    g = torch.Generator().manual_seed(3)
+    qt = quantize_tensor(torch.randn((2, 96, 64), generator=g) * 0.05)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn((5, 96), generator=g) * 2.0).to(dtype)
+        xf = x.float()
+        sx = im.div127(torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8))
+        xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
+        want = ((xq.double() @ qt["q"][1].double()).float() * sx
+                * qt["scale"][1].reshape(-1)).to(dtype)
+        assert torch.equal(im.int8_matmul_w8a8_plain(x, qt["q"], qt["scale"], 1), want)
+        assert torch.equal(im.int8_matmul_w8a8_plain(x, qt["q"], qt["scale"], 1,
+                                                     xf.abs().amax(-1)), want)
+
+
 # ---------------------------------------------------------------------
 # the dp x tp engine
 # ---------------------------------------------------------------------
 
 
-def test_four_by_two_engine_matches_jax(trees):
-    """The twin of test_parallel.py's tensor-parallel parity test: 8
-    requests at budget 8 on a 4 x 2 mesh of "cpu" give JAX's Transcriber
-    tokens exactly; each follower's slots hold rank 0's tokens, lengths,
-    counts and done flags; every rank's KV heads are its own; the
-    all-reduces are counted."""
-    params_j, params = trees
-    tr_j = TranscriberJax(tiny_jax(), params_j, ByteTokenizerJax(tiny_jax()),
-                          prefill_buckets=(64, 128))
+def _four_by_two_against_jax(params_j, params, mode):
+    """8 requests at budget 8 on a 4 x 2 mesh of "cpu" in quant mode `mode`
+    against JAX's Transcriber in the same mode, token for token; each
+    follower's slots hold rank 0's tokens, lengths, counts and done flags;
+    every rank's KV heads are its own; the all-reduces are counted."""
+    cfg_j = tiny_jax()
+    if mode == "int8-decoder-a8":
+        params_j, cfg_j = quantize_jax(params_j, decoder_only=True), _a8(cfg_j)
+    tr_j = TranscriberJax(cfg_j, params_j, ByteTokenizerJax(cfg_j), prefill_buckets=(64, 128))
     audios = [_audio(0.3 + 0.05 * i, f=200 + 70 * i, seed=i) for i in range(8)]
     golden = [tr_j.transcribe(a, SR, max_new_tokens=8).tokens for a in audios]
-    engine = _tp_engine(_transcriber(params), 4, 2, slots=8, max_decode_tokens=32)
+    engine = _tp_engine(_transcriber(params, mode), 4, 2, slots=8, max_decode_tokens=32)
     assert engine.data_parallel == 4 and engine.model_parallel == 2
     dec = tiny().decoder
     for rep in engine.replicas:
@@ -336,6 +527,7 @@ def test_four_by_two_engine_matches_jax(trees):
         for eng in rep._ranks:
             assert eng.long.state["k"].shape[3] == dec.n_kv_heads // 2
             assert eng.transcriber.cfg.decoder.n_heads == dec.n_heads // 2
+            assert eng.transcriber.cfg.decoder.act_int8_decode == (mode == "int8-decoder-a8")
 
     async def run(eng):
         rs = await asyncio.gather(*[eng.transcribe(a, SR, max_new_tokens=8) for a in audios])
@@ -344,6 +536,7 @@ def test_four_by_two_engine_matches_jax(trees):
     got = _serve(engine, run)
     for i, (g, w) in enumerate(zip(got, golden)):
         np.testing.assert_array_equal(g, w, err_msg=f"request {i}")
+    assert any(len(w) for w in golden)
     for rep in engine.replicas:
         lead, follower = rep._ranks
         for pool in ("short", "long"):
@@ -353,6 +546,20 @@ def test_four_by_two_engine_matches_jax(trees):
     stats = engine.stats["replicas"]
     assert [s["tp"] for s in stats] == [2] * 4
     assert all(s["all_reduces"] > 0 for s in stats if s["decode_steps"]), stats
+
+
+def test_four_by_two_engine_matches_jax(trees):
+    """The twin of test_parallel.py's tensor-parallel parity test: 8
+    requests at budget 8 on a 4 x 2 mesh of "cpu" give JAX's Transcriber
+    tokens exactly (_four_by_two_against_jax)."""
+    _four_by_two_against_jax(*trees, "native")
+
+
+def test_four_by_two_a8_engine_matches_jax(trees):
+    """int8-decoder-a8 on the 4 x 2 mesh: JAX's int8-decoder-a8
+    Transcriber's tokens exactly (W8A16 prefill, W8A8 decode with each
+    row's max|x| max-reduced over the ranks)."""
+    _four_by_two_against_jax(*trees, "int8-decoder-a8")
 
 
 def _single_and_tp(tr_single, tr_tp, run, **kw):
@@ -447,16 +654,30 @@ def test_int8_modes_match_the_single_engine(trees, mode):
     assert got == want and any(want)
 
 
-def test_w8a8_under_tp_raises(trees):
-    from dataclasses import replace
-
+def test_a8_fused_dual_decode_and_drafted_final_match_the_single_engine(trees):
+    """int8-decoder-a8 on a 1 x 2 mesh with FUSE_DUAL_DECODE: a short and a
+    long request at once (the dual program on both ranks), then a final
+    and the same final with its own tokens as the draft (verify rounds on
+    both ranks), give the single -a8 engine's tokens."""
     _, params = trees
-    tr = _transcriber(params, "int8-decoder")
-    tr.cfg = replace(tr.cfg, decoder=replace(tr.cfg.decoder, act_int8_decode=True))
-    with pytest.raises(NotImplementedError, match="int8-decoder-a8"):
-        _tp_engine(tr, 1, 2, slots=2, max_decode_tokens=16)
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        tp_local(tr.cfg, 2)
+    short, long = _audio(0.3, f=210, seed=50), _audio(0.5, f=420, seed=60)
+    final = _audio(0.5, f=330, seed=21)
+
+    async def run(eng):
+        rs = await asyncio.gather(eng.transcribe(short, SR, max_new_tokens=8),
+                                  eng.transcribe(long, SR, max_new_tokens=24))
+        plain = await eng.transcribe(final, SR, max_new_tokens=20)
+        drafted = await eng.transcribe(final, SR, max_new_tokens=20,
+                                       draft_tokens=np.asarray(plain.tokens))
+        return ([r.tokens.tolist() for r in rs], plain.tokens.tolist(), drafted.tokens.tolist(),
+                eng.stats["dual_decodes"], eng.stats["verify_rounds"])
+
+    mode = "int8-decoder-a8"
+    want, got = _single_and_tp(_transcriber(params, mode), _transcriber(params, mode), run,
+                               slots=4, max_decode_tokens=32, fuse_dual_decode=True)
+    assert got[:3] == want[:3] and got[2] == got[1] and len(got[1]) > 1
+    assert want[3] > 0 and got[3] == want[3]
+    assert want[4] > 0 and got[4] == want[4]
 
 
 def test_a_rank_transcriber_refuses_to_serve_alone(trees):
@@ -538,3 +759,4 @@ def test_group_refuses_two_ranks_on_one_card():
 def test_dryrun_tp_leg_on_the_cpu():
     out = dryrun_multichip(2, ["cpu"] * 2)
     assert out["tp_tokens"] is not None and len(out["tp_tokens"]) >= 1
+    assert out["tp_a8_tokens"] is not None and len(out["tp_a8_tokens"]) >= 1

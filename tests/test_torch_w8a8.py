@@ -4,7 +4,11 @@ tensor-core design, the routing between them, and numpy emulations of the
 two kernels' byte handling (the `__dp4a` lane grouping of
 csrc/int8_matmul.cu `regroup`, and the mma B fragment of csrc/s8_mma.cuh
 `load_b` with xq in `xq_slot` order), each held to the plain int32
-product and, end to end, to the JAX package's matmul_w8a8."""
+product and, end to end, to the JAX package's matmul_w8a8. The plain
+version under a given row_amax (a tensor-parallel rank's row scale):
+with each row's own max it is the plain version without one, with a
+larger max the JAX recipe at that scale, and a row_amax of the wrong
+dtype, shape or device raises."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -135,6 +139,85 @@ def test_w8a8_entries_launch_nothing_on_the_cpu():
         before = dict(_build.launch_counts)
         im.int8_matmul_w8a8(x, qt["q"], qt["scale"], 1)
         assert _build.launch_counts == before
+
+
+# ---------------------------------------------------------------- row_amax
+
+
+def _row_amax_case(dtype, seed=4, B=5, K=96, N=64):
+    rng = np.random.default_rng(seed)
+    qt = quantize_tensor(torch.from_numpy(rng.standard_normal((2, K, N)).astype(np.float32))
+                         * 0.05)
+    x = torch.from_numpy((rng.standard_normal((B, K)) * 2.0).astype(np.float32)).to(dtype)
+    return x, qt
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_w8a8_plain_with_each_rows_own_amax_is_the_plain_version(dtype):
+    """row_amax = each row's own max|x| (float32, exact for bf16 x): the
+    same bits as the plain version without one, on CPU and through the
+    entry."""
+    x, qt = _row_amax_case(dtype)
+    want = im.int8_matmul_w8a8_plain(x, qt["q"], qt["scale"], 1)
+    amax = x.float().abs().amax(-1)
+    assert torch.equal(im.int8_matmul_w8a8_plain(x, qt["q"], qt["scale"], 1, amax), want)
+    assert torch.equal(im.int8_matmul_w8a8(x, qt["q"], qt["scale"], 1, amax), want)
+    xq, sx = im.quantize_activations(x, amax)
+    assert torch.equal(xq, im.quantize_activations(x)[0])
+    assert torch.equal(sx, im.quantize_activations(x)[1])
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_w8a8_plain_with_a_larger_amax_is_jaxs_recipe_at_that_scale(dtype):
+    """A rank's share of a row holds at most the row's max: with row_amax
+    above each row's own max (the other shares' max), the plain version is
+    the JAX package's recipe (ops/quant.py:matmul_w8a8) with that value as
+    the row's max, bit for bit: sx = max(amax, 1e-8) / 127, xq =
+    clip(round(x / sx)), the int32 product * sx * scale. A zero row takes
+    the 1e-8 floor."""
+    rng = np.random.default_rng(7)
+    K, N, B = 128, 64, 4
+    qt = jq.quantize_tensor(jnp.asarray(rng.standard_normal((K, N)), jnp.float32) * 0.02)
+    x = jnp.asarray(rng.standard_normal((B, K)), dtype).at[3].set(0.0)
+    xf = x.astype(jnp.float32)
+    amax = jnp.max(jnp.abs(xf), axis=-1) * jnp.asarray([1.0, 1.5, 7.25, 1.0])
+    amax = amax.at[3].set(0.0)
+    sx = jnp.maximum(amax[:, None], 1e-8) / 127.0
+    xq = jnp.clip(jnp.round(xf / sx), -127, 127).astype(jnp.int8)
+    acc = jnp.matmul(xq.astype(jnp.int32), qt["q"].astype(jnp.int32))
+    want = np.asarray((acc.astype(jnp.float32) * sx * qt["scale"][0]).astype(dtype), np.float32)
+    tdtype = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
+    xt = torch.from_numpy(np.array(xf)).to(tdtype)
+    q = torch.from_numpy(np.array(qt["q"]))[None]
+    scale = torch.from_numpy(np.array(qt["scale"]))[None]
+    got = im.int8_matmul_w8a8_plain(xt, q, scale, 0, torch.from_numpy(np.array(amax)))
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    assert not got[3].any()
+    # and it is not the row's own scale: rows 1 and 2 moved
+    own = im.int8_matmul_w8a8_plain(xt, q, scale, 0)
+    assert torch.equal(got[0], own[0]) and not torch.equal(got[2], own[2])
+
+
+@pytest.mark.parametrize("bad, error, match", [
+    (lambda x: x.abs().amax(-1).double(), TypeError, "float32"),
+    (lambda x: x.abs().amax(-1, keepdim=True), ValueError, r"\[5\]"),
+    (lambda x: x.abs().amax(-1)[:4], ValueError, r"\[5\]"),
+    (lambda x: torch.empty(5, device="meta"), ValueError, "must be on cpu"),
+])
+def test_w8a8_refuses_a_bad_row_amax(bad, error, match):
+    """row_amax of another dtype, shape or device raises, in the plain
+    version and the entry; matmul_w8a8 wants x's leading shape."""
+    from sonicscribe_tpu_torch.ops.quant import matmul_w8a8
+
+    x, qt = _row_amax_case(torch.float32)
+    for fn in (im.int8_matmul_w8a8_plain, im.int8_matmul_w8a8):
+        with pytest.raises(error, match=match):
+            fn(x, qt["q"], qt["scale"], 1, bad(x))
+    w = {"q": qt["q"], "scale": qt["scale"], "layer": 1}
+    with pytest.raises(ValueError, match="row_amax"):
+        matmul_w8a8(x[None], w, row_amax=x.abs().amax(-1))
+    got = matmul_w8a8(x[None], w, row_amax=x.abs().amax(-1)[None])
+    assert torch.equal(got[0], im.int8_matmul_w8a8_plain(x, qt["q"], qt["scale"], 1))
 
 
 # ---------------------------------------------------------------- emulations
