@@ -1,0 +1,7 @@
+"""95th percentile of the long pool's queue ms (enqueue to prefill) over the window."""
+
+from gpubench.stats import percentile
+
+
+def read(r):
+    return percentile(r.class_lat.get("long", {}).get("queue", []), 95)
