@@ -1857,14 +1857,13 @@ def cut_depth(engine, n_layers: int):
 
 def cut_batched(engine, n_layers: int):
     """`engine` (a BatchedEngine) rebuilt over the first n_layers decoder
-    layers of its transcriber, with its sizes, fusion and tick trace."""
+    layers of its transcriber, with its sizes and fusion."""
     from sonicscribe_tpu_torch.engine.batcher import BatchedEngine
 
     engine.shutdown()
     cut = BatchedEngine(cut_transcriber(engine.transcriber, n_layers), engine.vad,
                         slots=len(engine.long.slots), max_decode_tokens=engine.MAX_NEW,
                         n_streams=engine.N_STREAMS, fuse_dual_decode=engine.fuse_dual)
-    cut.tick_trace = engine.tick_trace
     return cut
 
 
@@ -2739,8 +2738,7 @@ def batched_streams(torch, engine, vad, mode: str) -> dict:
 
     graphs0 = engine.router.stats["graphs"]
     stats0 = dict(engine.stats)
-    if engine.tick_trace is not None:
-        engine.tick_trace.clear()
+    engine.spans.clear()
     session_log.addHandler(errors)
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
@@ -2820,12 +2818,11 @@ def batched_streams(torch, engine, vad, mode: str) -> dict:
         f"{out['speech_end_to_committed_p50_s']:.3f} s max "
         f"{out['speech_end_to_committed_max_s']:.3f} s; ring VAD program (B={B}) "
         f"{vad_ms:.4f} ms; file RTF {out['file_rtf']}; {delta}")
-    if engine.tick_trace is not None:
-        out["tick_trace"] = tick_split(engine.tick_trace)
-        log(f"batched {mode} streams, tick phases (host ms, p50 / p95 of "
-            f"{out['tick_trace']['ticks']} ticks): "
-            + ", ".join(f"{k} {v[0]:.3f} / {v[1]:.3f}" for k, v in out["tick_trace"].items()
-                        if k != "ticks"))
+    out["tick_phases"] = tick_split(engine)
+    log(f"batched {mode} streams, tick phases (host ms, p50 / p95 of "
+        f"{out['tick_phases']['ticks']} ticks, {out['tick_phases']['ticks_lost']} lost): "
+        + ", ".join(f"{k} {v[0]:.3f} / {v[1]:.3f}" for k, v in out["tick_phases"].items()
+                    if k not in ("ticks", "ticks_lost")))
     log(f"batched {mode} streams, speculation: {delta['eager_granted']} eager finals launched, "
         f"{delta['eager_denied']} gated, eager_accept_ema {engine.eager_accept_ema:.3f}; "
         f"{delta['verify_rounds']} verify rounds; spec_accept_ema {engine.spec_accept_ema:.3f} "
@@ -3117,13 +3114,16 @@ def fast_boot(torch, engine, mode: str) -> dict:
     return out
 
 
-def tick_split(trace) -> dict:
-    """p50 and p95 of each traced tick phase and admit detail (host ms)."""
-    ticks = list(trace)
+def tick_split(engine) -> dict:
+    """p50 and p95 of each tick phase and admit detail (host ms) of the
+    ticks in the engine's span ring, and the ticks that fell off it."""
+    from sonicscribe_tpu_torch.engine.spans import tick_phases
+
+    ticks = tick_phases(engine.spans.records())
     phases = ("ingest_ms", "vad_dispatch_ms", "admit_ms", "early_resolve_ms",
-              "decode_dispatch_ms", "resolve_ms", "total_ms")
+              "decode_dispatch_ms", "resolve_ms", "sync_ms", "total_ms")
     detail = ("prep_ms", "write_ms", "dispatch_ms", "groups_short", "groups_long")
-    out: dict = {"ticks": len(ticks)}
+    out: dict = {"ticks": len(ticks), "ticks_lost": engine.spans.lost}
     for name, rows in [(k, [t[k] for t in ticks]) for k in phases] + [
             ("admit_" + k, [t["admit_detail"][k] for t in ticks]) for k in detail]:
         out[name] = (float(np.percentile(rows, 50)), float(np.percentile(rows, 95))) if rows \
@@ -3277,8 +3277,7 @@ def load_phase(torch, engine) -> dict:
     engine._eager_pending.clear()
     engine.stats.pop("short_lat_ms", None)
     engine.stats.pop("long_lat_ms", None)
-    if engine.tick_trace is not None:
-        engine.tick_trace.clear()
+    engine.spans.clear()
     host_path = host_path_sessions(engine, LOAD_STREAMS)
     stats0 = dict(engine.stats)
     on_run0 = engine.router.stats["captured_on_run"]
@@ -3305,9 +3304,8 @@ def load_phase(torch, engine) -> dict:
                captured_on_run=captured, seconds=seconds, engine=delta,
                spec_accept_ema=engine.spec_accept_ema, eager_accept_ema=engine.eager_accept_ema,
                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-               launches={k: v for k, v in counts.items() if v})
-    if engine.tick_trace is not None:
-        out["tick_trace"] = tick_split(engine.tick_trace)
+               launches={k: v for k, v in counts.items() if v},
+               tick_phases=tick_split(engine))
     log("load " + json.dumps(out, default=float))
     return out
 
@@ -3327,23 +3325,17 @@ def batched_phase(torch, mode: str) -> tuple[dict, dict]:
     config.quant_mode = mode
     native = mode == "native"
     # native: the dual programs in the grid (the A/B below; off for the other
-    # runs) and the tick trace on (read on the streams run)
+    # runs)
     config.fuse_dual_decode = native
-    if native:
-        os.environ["SONIC_TICK_TRACE"] = "1"
-    try:
-        engine, vad, info = build_runtime("nano-random", "energy", config, seed=SEED)
-    finally:
-        os.environ.pop("SONIC_TICK_TRACE", None)
+    engine, vad, info = build_runtime("nano-random", "energy", config, seed=SEED)
     check(isinstance(engine, BatchedEngine) and info["engine"] == "batched",
           f"build_runtime built {type(engine).__name__} by default")
     if not native:  # the script's time: the int8 modes' batched runs at a cut depth
         engine = cut_batched(engine, BATCHED_INT8_LAYERS)
         gc.collect()
         log(f"batched {mode}: cut to {BATCHED_INT8_LAYERS} decoder layers")
-    check(engine.fuse_dual == native and info["fuse_dual_decode"] == native
-          and (engine.tick_trace is not None) == native,
-          f"batched {mode}: fuse_dual {engine.fuse_dual}, tick trace {engine.tick_trace is not None}")
+    check(engine.fuse_dual == native and info["fuse_dual_decode"] == native,
+          f"batched {mode}: fuse_dual {engine.fuse_dual}")
     try:
         torch.cuda.synchronize()
         resident0 = torch.cuda.memory_allocated() / 2**30

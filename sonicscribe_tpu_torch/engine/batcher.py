@@ -59,6 +59,18 @@ Design, as in JAX:
   ``warmup(full=True)`` every batch size of each pool; ``warmup(fast=True)``
   leaves what serving can start without (the JAX package's deferred set) to
   the scheduler's idle ticks, one capture each, in JAX's priority order.
+- SPANS (engine/spans.py, always on): the scheduler's time split into
+  ``sched.idle``, ``sched.vad_gather``, ``sched.capture``, ``sched.loop``
+  and ``tick``; each tick's phases (the JAX package's tick keys), its waits
+  on the card (``sync``) and each request's life, folded into ``stats`` as
+  ``span_s.<name>`` / ``span_n.<name>``, the newest 4096 ticks' records
+  in ``spans.ring`` (``spans.records()``).
+  Besides: the decode family's device time (``device_s.decode`` over
+  ``device_steps.decode``, a CUDA event pair around each replay, read at
+  resolve), each pool's decode row steps and the tokens its rows emitted
+  (``decode_row_steps.<pool>``, ``decode_tokens.<pool>``), and a ring
+  request's lead (enqueue less its newest chunk's arrival) beside queue
+  and run in ``<pool>_lat_ms``.
 
 Programs are functions of one dict of static buffers, written in place:
 each pool's state is the graphs' static memory, and admission copies a
@@ -93,8 +105,8 @@ import asyncio
 import contextlib
 import faulthandler
 import functools
+import itertools
 import logging
-import os
 import threading
 import time
 from collections import deque
@@ -115,6 +127,7 @@ from sonicscribe_tpu_torch.engine.ring import (
     ring_prompt_inputs,
     scatter_chunks_program,
 )
+from sonicscribe_tpu_torch.engine.spans import Spans
 from sonicscribe_tpu_torch.engine.transcriber import (
     MAX_SUFFIX_TOKENS,
     Transcriber,
@@ -399,6 +412,7 @@ class _SlotState:
     # verify rounds the draft can still use: ceil(draft_len / w) at admit,
     # less the rounds dispatched (the status flag arrives a tick late)
     spec_rounds: int = 0
+    n_seen: int = 1  # tokens emitted as of the last status read (the prefill's: 1)
 
 
 @dataclass
@@ -457,6 +471,7 @@ class _TranscribeReq:
     hotwords: Optional[list[str]]
     future: asyncio.Future
     t_enqueue: float
+    rid: int = 0  # the request's identity in its span
     # resolved-pool hint: set when prep finds that the true mel bucket routes
     # elsewhere than the pre-resample estimate (no re-route bounce loop)
     pool_hint: Any = None
@@ -495,6 +510,8 @@ class _RingTranscribeReq:
     t_admit: float = 0.0
     draft_tokens: Any = None  # as in _TranscribeReq
     speculative: bool = False
+    # perf_counter() when the newest chunk it covers reached the session
+    t_arrival: Optional[float] = None
 
 
 class BatchedEngine:
@@ -650,17 +667,19 @@ class BatchedEngine:
         # mel was made (one log-mel launch each)
         # steps of the verify program (verify_rounds is a part of decode_steps);
         # eager_granted / eager_denied: eager_ok's answers
+        # device_s.decode / device_steps.decode: the decode family's device
+        # seconds and the k (or rounds) of its programs, each program once;
+        # decode_row_steps.<pool>: rows computed times k, decode_tokens.<pool>:
+        # the tokens those rows emitted (plain and dual decode programs)
         self.stats = {"ticks": 0, "decode_steps": 0, "prefills": 0, "prefill_programs": 0,
                       "ring_prefill_programs": 0, "mel_preps": 0, "vad_batches": 0,
                       "requests": 0, "tokens": 0, "verify_rounds": 0, "eager_granted": 0,
-                      "eager_denied": 0, "dual_decodes": 0, "warmup_capture_failures": 0}
-        # per-tick phase times (SONIC_TICK_TRACE set): host times of
-        # dispatch, as in the JAX package; no device sync is added
-        self.tick_trace: Optional[deque] = (
-            deque(maxlen=4096) if os.environ.get("SONIC_TICK_TRACE") else None)
-        # the admit phase's split while tracing: host prep, input writes,
-        # program dispatch, and groups per pool
-        self._trace_admit: Optional[dict] = None
+                      "eager_denied": 0, "dual_decodes": 0, "warmup_capture_failures": 0,
+                      "device_s.decode": 0.0, "device_steps.decode": 0,
+                      "decode_row_steps.short": 0, "decode_row_steps.long": 0,
+                      "decode_tokens.short": 0, "decode_tokens.long": 0}
+        self.spans = Spans(self.stats)
+        self._rids = itertools.count(1)
         # decode-k caps (the JAX package's values, tuned there on the chip):
         # an arrival mid-program waits for it, so these bound queueing
         self.pending_k_cap = 16
@@ -777,7 +796,7 @@ class BatchedEngine:
         fut = asyncio.get_running_loop().create_future()
         await self._requests.put(_TranscribeReq(
             np.asarray(audio, np.float32), sample_rate, min(max_new_tokens, self.MAX_NEW),
-            hotwords, fut, time.perf_counter(), draft_tokens=draft_tokens,
+            hotwords, fut, time.perf_counter(), rid=next(self._rids), draft_tokens=draft_tokens,
             speculative=speculative))
         self._wake.set()
         return await fut
@@ -843,15 +862,19 @@ class BatchedEngine:
     async def transcribe_ring(self, stream_idx: int, start_chunk: int, chunk_count: int,
                               max_new_tokens: int, hotwords: Optional[list[str]] = None,
                               duration_s: float = 0.0, draft_tokens=None,
-                              speculative: bool = False) -> TranscribeResult:
+                              speculative: bool = False,
+                              t_arrival: Optional[float] = None) -> TranscribeResult:
         """Transcribe ring chunks [start_chunk, start_chunk + chunk_count):
-        no audio upload. draft_tokens, speculative: as in transcribe."""
+        no audio upload. draft_tokens, speculative: as in transcribe.
+        t_arrival: time.perf_counter() when the newest of those chunks
+        arrived; the request's lead (its enqueue less that) goes into
+        ``stats["<pool>_lat_ms"]["lead"]``."""
         await self.start()
         fut = asyncio.get_running_loop().create_future()
         await self._ring_requests.put(_RingTranscribeReq(
             stream_idx, start_chunk, chunk_count, min(max_new_tokens, self.MAX_NEW), hotwords,
             duration_s or chunk_count * CHUNK_SAMPLES / 16000.0, fut, time.perf_counter(),
-            draft_tokens=draft_tokens, speculative=speculative))
+            draft_tokens=draft_tokens, speculative=speculative, t_arrival=t_arrival))
         self._wake.set()
         return await fut
 
@@ -1058,6 +1081,15 @@ class BatchedEngine:
             self._executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="batcher",
                                                 initializer=self._pin_device)
         return self._executor
+
+    async def between_ticks(self, fn):
+        """fn() on the engine's device thread between two ticks -> its
+        result. That thread runs the ticks, the deferred captures and fn one
+        after another, so no tick runs while fn does and no other thread
+        launches on the engine's card meanwhile (a follower rank's threads
+        run only inside a tick). A torch.profiler started and stopped this
+        way records the thread that launches every kernel, spans and all."""
+        return await asyncio.get_running_loop().run_in_executor(self._device_thread(), fn)
 
     def _pin_device(self) -> None:
         if self.device.type == "cuda":
@@ -1444,7 +1476,9 @@ class BatchedEngine:
         with self._tick_lock:
             self._tick_busy += 1
         try:
-            self._run_tick(vad_batch, ring_vad_batch)
+            with self.spans.piece("tick") as tick:
+                self._run_tick(vad_batch, ring_vad_batch)
+                tick.ident = tuple((p.name, p.n_active) for p in self.pools)
         finally:
             with self._tick_lock:
                 self._tick_busy -= 1
@@ -1480,14 +1514,25 @@ class BatchedEngine:
                     raise RuntimeError(f"device tick wedged > {waited:.1f} s; abandoning the "
                                        "engine; restart the process")
 
+    def _capture_piece(self, item: _GridKey) -> None:
+        with self.spans.piece("sched.capture"):
+            self._run_replay_thunk(item)
+
     async def _scheduler(self) -> None:
+        """The scheduling loop. Its wall time is spans.piece's partition:
+        sched.vad_gather (the VAD gathering sleep), tick (on the device
+        thread), sched.capture (an idle deferred capture), sched.idle
+        (awaiting a wake with nothing to do) and, between those,
+        sched.loop (the event loop's turn and the executor hop)."""
         loop = asyncio.get_running_loop()
+        self.spans.t_mark = time.perf_counter()
         try:
             while self._running:
                 # a 3 ms window lets lockstep sessions' gate windows and
                 # chunks share one batch and upload
                 if not self._vad_requests.empty() or not self._vad_ring_requests.empty():
-                    await asyncio.sleep(0.003)
+                    with self.spans.piece("sched.vad_gather"):
+                        await asyncio.sleep(0.003)
                 vad_batch, ring_vad_batch = [], []
                 while not self._vad_requests.empty():
                     vad_batch.append(self._vad_requests.get_nowait())
@@ -1513,13 +1558,14 @@ class BatchedEngine:
                     if item is not None:
                         # fully idle: capture one deferred grid key on the
                         # tick thread, then look at the queues again
-                        await loop.run_in_executor(self._executor, self._run_replay_thunk, item)
+                        await loop.run_in_executor(self._executor, self._capture_piece, item)
                         continue
                     self._wake.clear()
-                    try:
-                        await asyncio.wait_for(self._wake.wait(), timeout=1.0)
-                    except asyncio.TimeoutError:
-                        pass
+                    with self.spans.piece("sched.idle"):
+                        try:
+                            await asyncio.wait_for(self._wake.wait(), timeout=1.0)
+                        except asyncio.TimeoutError:
+                            pass
                 else:
                     await asyncio.sleep(0)  # let the serving layer ingest
         except asyncio.CancelledError:
@@ -1553,9 +1599,11 @@ class BatchedEngine:
                     fail(r.future)
         for pool in self.pools:
             for s in pool.slots:
-                if s.active and s.request is not None:
-                    fail(s.request.future)
+                # the slot is free before its caller hears of the failure
+                req = s.request if s.active else None
                 s.active, s.request, s.drafted = False, None, False
+                if req is not None:
+                    fail(req.future)
         backlogs = self._ring_backlog + self._host_backlog
         self._ring_backlog, self._host_backlog = [], []
         for req in backlogs:
@@ -1573,81 +1621,63 @@ class BatchedEngine:
         tick's programs (each decode followed by the copy of its status and
         token rows to the host and an event), then resolve the previous
         tick's copies. Finished requests are reaped one tick late; the host
-        waits only on work it dispatched a tick earlier. With tick_trace on,
-        one record of its phases' host times (the JAX package's keys)."""
-        trace = self.tick_trace
-        if trace is not None:
-            self._trace_admit = {"prep_ms": 0.0, "write_ms": 0.0, "dispatch_ms": 0.0,
-                                 "groups_short": 0, "groups_long": 0}
-        t0 = time.perf_counter()
+        waits only on work it dispatched a tick earlier. Each phase that
+        does something is a span (tick.<phase>, the JAX package's keys)."""
+        span = self.spans.span
         self._sweep_cancelled()
-        if self._stream_resets:
-            self._reset_streams()
-        if self._ingest_pending:
-            self._scatter_ingest()
-        t_ingest = time.perf_counter()
-        if vad_batch:
-            self._run_vad_batch(vad_batch)
-        ring_vad_chunks = _chunked(ring_vad_batch, _VAD_BATCH_BUCKETS[-1])
-        ring_vad = [(self._dispatch_vad_ring(c), c) for c in ring_vad_chunks]
-        ring_vad = [(p, c) for p, c in ring_vad if p is not None]  # a failed one failed its futures
-        t_vad = time.perf_counter()
+        if self._stream_resets or self._ingest_pending:
+            with span("tick.ingest"):
+                if self._stream_resets:
+                    self._reset_streams()
+                if self._ingest_pending:
+                    self._scatter_ingest()
+        ring_vad = []
+        if vad_batch or ring_vad_batch:
+            with span("tick.vad_dispatch"):
+                if vad_batch:
+                    self._run_vad_batch(vad_batch)
+                ring_vad_chunks = _chunked(ring_vad_batch, _VAD_BATCH_BUCKETS[-1])
+                ring_vad = [(self._dispatch_vad_ring(c), c) for c in ring_vad_chunks]
+                # a failed one failed its futures
+                ring_vad = [(p, c) for p, c in ring_vad if p is not None]
 
         # admits; a starved pool with a waiting burst resolves the previous
         # tick first, to free its finished slots. Rationing admits the long
         # class after the short decode; the dual decode needs both admitted
         ration = self.ration_long_admits and not self.fuse_dual
         if self._ring_backlog or self._host_backlog:
-            if self._pending_results is not None and self._any_pool_starved():
-                self._resolve_pending()
-            self._admit_backlogs(only=self.short if ration else None)
+            with span("tick.admit"):
+                if self._pending_results is not None and self._any_pool_starved():
+                    self._resolve_pending()
+                self._admit_backlogs(only=self.short if ration else None)
         else:
             self._backlog_has_short = False
-        t_admit = time.perf_counter()
 
         # decode k steps per pool, short first. If every active slot has
         # surely run out its budget, resolve first instead of a wasted step
-        early = self._pending_results is not None and self._all_surely_done()
-        if early:
-            self._resolve_pending()
-        t_early = time.perf_counter()
+        if self._pending_results is not None and self._all_surely_done():
+            with span("tick.early_resolve"):
+                self._resolve_pending()
         parked: list = []
-        if self.fuse_dual:
-            self._dispatch_decode_all(parked)
-        else:
-            if self.short.n_active > 0:
-                self._dispatch_decode_pool(self.short, parked)
-            if ration and (self._ring_backlog or self._host_backlog):
-                self._admit_backlogs(only=self.long)
-            if self.long.n_active > 0:
-                self._dispatch_decode_pool(self.long, parked)
-        t_decode = time.perf_counter()
+        if self._n_active or (ration and (self._ring_backlog or self._host_backlog)):
+            with span("tick.decode_dispatch"):
+                if self.fuse_dual:
+                    self._dispatch_decode_all(parked)
+                else:
+                    if self.short.n_active > 0:
+                        self._dispatch_decode_pool(self.short, parked)
+                    if ration and (self._ring_backlog or self._host_backlog):
+                        self._admit_backlogs(only=self.long)
+                    if self.long.n_active > 0:
+                        self._dispatch_decode_pool(self.long, parked)
 
-        self._resolve_pending()
-        t_resolve = time.perf_counter()
+        if self._pending_results:
+            with span("tick.resolve"):
+                self._resolve_pending()
         if ring_vad or parked:
             self._pending_results = {"ring_vad": [p for p, _ in ring_vad],
                                      "ring_vad_batch": [c for _, c in ring_vad],
                                      "pools": parked}
-        if trace is not None:
-            trace.append({
-                "t": t0,
-                "ingest_ms": (t_ingest - t0) * 1e3,
-                "vad_dispatch_ms": (t_vad - t_ingest) * 1e3,
-                "admit_ms": (t_admit - t_vad) * 1e3,
-                "early_resolve_ms": (t_early - t_admit) * 1e3,
-                "decode_dispatch_ms": (t_decode - t_early) * 1e3,
-                "resolve_ms": (t_resolve - t_decode) * 1e3,
-                "total_ms": (t_resolve - t0) * 1e3,
-                "early": early,
-                "n_vad": len(vad_batch) + len(ring_vad_batch),
-                # steps left after this tick's dispatch (0: surely done next tick)
-                "remain_max": [(p.name, max(s.budget - 1 - s.steps_seen
-                                            for s in p.slots if s.active))
-                               for p in self.pools if p.n_active],
-                "active": [(p.name, p.n_active) for p in self.pools],
-                "admit_detail": self._trace_admit,
-            })
 
     def _all_surely_done(self) -> bool:
         """True if every active slot has been driven past its budget (n
@@ -1674,15 +1704,40 @@ class BatchedEngine:
             return
         for (probs, ev), chunk in zip(prev["ring_vad"], prev["ring_vad_batch"]):
             if ev is not None:
-                ev.synchronize()
+                with self.spans.span("sync"):
+                    ev.synchronize()
             self.stats["vad_batches"] += 1
             for j, r in enumerate(chunk):
                 r.future.get_loop().call_soon_threadsafe(_resolve_quietly, r.future,
                                                          float(probs[j]))
-        for pool, status, tokens, ev, reqs in prev["pools"]:
+        for pool, status, tokens, ev, reqs, timing, plain in prev["pools"]:
             if ev is not None:
-                ev.synchronize()
-            self._reap_decode(pool, status.numpy(), tokens.numpy(), reqs)
+                with self.spans.span("sync"):
+                    ev.synchronize()
+            if timing is not None:
+                start, end, steps = timing
+                self.stats["device_s.decode"] += (
+                    end if start is None else start.elapsed_time(end) / 1e3)
+                self.stats["device_steps.decode"] += steps
+            status = status.numpy()
+            self._count_emitted(pool, status, reqs, plain)
+            self._reap_decode(pool, status, tokens.numpy(), reqs)
+
+    def _count_emitted(self, pool: _CachePool, status: np.ndarray, reqs: list,
+                       plain: bool) -> None:
+        """Each slot's tokens emitted since its last status read, from a
+        program's status row, into decode_tokens.<pool> where the program
+        was a plain or dual decode (not verify)."""
+        emitted = 0
+        for i, s in enumerate(pool.slots):
+            if not (s.active and s.request is not None and s.request is reqs[i]):
+                continue
+            st = int(status[i])
+            n = -st - 1 if st < 0 else (st & (_SPEC_LIVE_FLAG - 1)) - 1
+            emitted += n - s.n_seen
+            s.n_seen = n
+        if plain:
+            self.stats["decode_tokens." + pool.name] += emitted
 
     def _reset_streams(self) -> None:
         """Fresh VAD state rows for the streams allocated since the last tick."""
@@ -1757,8 +1812,9 @@ class BatchedEngine:
             self._put_all(bufs, windows=windows.reshape(B, n_sub, WINDOW_SAMPLES))
             self._put_all(bufs["states"], **states)
             self.router.run(key, fn, bufs)
-            probs = bufs["probs"].cpu().numpy()  # one wait for the whole batch
-            new = {k: v.cpu() for k, v in bufs["states"].items()}
+            with self.spans.span("sync"):  # one wait for the whole batch
+                probs = bufs["probs"].cpu().numpy()
+                new = {k: v.cpu() for k, v in bufs["states"].items()}
             self.stats["vad_batches"] += 1
             for j, r in enumerate(batch):
                 state_j = {k: v[j : j + 1].clone() for k, v in new.items()}
@@ -1840,6 +1896,7 @@ class BatchedEngine:
             req.t_admit = t_admit
             st = pool.slots[slot_idx]
             st.request, st.budget, st.active, st.steps_seen = req, req.max_new_tokens, True, 0
+            st.n_seen = 1
         self.stats["prefills"] += len(items)
         self.stats["prefill_programs"] += 1
 
@@ -1879,12 +1936,11 @@ class BatchedEngine:
             stream_idx[j], start[j] = req.stream_idx, req.start_chunk
             count[j] = max(1, min(req.chunk_count, bucket))
             budgets[j] = req.max_new_tokens
-        ta, t_w = self._trace_admit, time.perf_counter()
+        write = self.spans.span("admit.write", pool.name).__enter__()
         try:
             slot_bias = [(s, self._hotword_ids(r.hotwords)) for s, r in zip(slot_list, items)]
             draft_rows, draft_lens = self._prep_draft_rows(
                 pool, [(s, r.draft_tokens) for s, r in zip(slot_list, items)], B)
-            t_d = [0.0]  # rank 0's program dispatch
 
             def admit(eng):  # on every rank, its own pool of that name
                 rp = eng._pool(pool.name)
@@ -1894,16 +1950,14 @@ class BatchedEngine:
                              chunk_count=count, suffix_ids=suffixes, suffix_lens=suffix_lens,
                              slots=slot_list + [rp.trash_slot] * (B - len(items)),
                              budget_vals=budgets, draft_rows=draft_rows, draft_lens=draft_lens)
-                if eng is self:
-                    t_d[0] = time.perf_counter()
-                eng.router.run(key, fn, bufs)
+                self._dispatch_admit(eng, write, key, fn, bufs)
 
             self._ranks_do(admit)
         except Exception as e:
             self._fail_group(items, e)
             return
-        if ta is not None:
-            self._trace_group(ta, pool, t_w, t_d[0])
+        finally:
+            write.close()
         self._activate(pool, items, slot_list)
         self.stats["ring_prefill_programs"] += 1
 
@@ -1986,33 +2040,35 @@ class BatchedEngine:
                 req.future.get_loop().call_soon_threadsafe(req.future.set_exception, e)
             return None
 
-    def _trace_group(self, ta: dict, pool: _CachePool, t_write: float, t_dispatch: float) -> None:
-        """Add an admitted group to the traced tick's admit detail: its
-        input writes (bias rows, drafts, host-to-device copies) from
-        t_write, its program's dispatch from t_dispatch to now."""
-        ta["write_ms"] += (t_dispatch - t_write) * 1e3
-        ta["dispatch_ms"] += (time.perf_counter() - t_dispatch) * 1e3
-        ta[f"groups_{pool.name}"] += 1
+    def _dispatch_admit(self, eng: "BatchedEngine", write, key, fn, bufs) -> None:
+        """An admit group's prefill program on rank `eng`; on rank 0 its
+        input writes (bias rows, drafts, host-to-device copies: the span
+        `write`) end here and the dispatch is the span admit.dispatch (one a
+        group; its ident the pool)."""
+        if eng is not self:
+            eng.router.run(key, fn, bufs)
+            return
+        write.close()
+        with self.spans.span("admit.dispatch", write.ident):
+            eng.router.run(key, fn, bufs)
 
     def _admit_grouped(self, pool: _CachePool, reqs: list[_TranscribeReq]) -> None:
         """Prepare each request, group by (mel bucket, suffix bucket), one
         prefill program per group of a registered size."""
         by_key: dict = {}
-        t_prep = time.perf_counter()
-        for req in reqs:
-            prep = self._prepare_request(req)
-            if prep is None:
-                continue
-            # the routing estimate used the pre-resample length; if the true
-            # bucket routes elsewhere, requeue with the resolved pool
-            real_pool = self._pool_for(prep[0], req.max_new_tokens, prep[6])
-            if real_pool is not pool:
-                req.pool_hint = real_pool
-                self._host_backlog.append(req)
-                continue
-            by_key.setdefault((prep[0], prep[6]), []).append((req, prep))
-        if self._trace_admit is not None:  # host prep: resample, mel dispatch, prompt
-            self._trace_admit["prep_ms"] += (time.perf_counter() - t_prep) * 1e3
+        with self.spans.span("admit.prep", pool.name):  # resample, mel dispatch, prompt
+            for req in reqs:
+                prep = self._prepare_request(req)
+                if prep is None:
+                    continue
+                # the routing estimate used the pre-resample length; if the
+                # true bucket routes elsewhere, requeue with the resolved pool
+                real_pool = self._pool_for(prep[0], req.max_new_tokens, prep[6])
+                if real_pool is not pool:
+                    req.pool_hint = real_pool
+                    self._host_backlog.append(req)
+                    continue
+                by_key.setdefault((prep[0], prep[6]), []).append((req, prep))
         for (bucket, sb), items in by_key.items():
             idx = 0
             for B in self._group_sizes(pool, pool.compiled_prefill, bucket, sb, bucket,
@@ -2024,13 +2080,12 @@ class BatchedEngine:
         slot_list = self._claim_slots(pool, len(items))
         pad = B - len(items)
         preps = [p for _, p in items] + [items[0][1]] * pad  # padding repeats the first row
-        ta, t_w = self._trace_admit, time.perf_counter()
+        write = self.spans.span("admit.write", pool.name).__enter__()
         try:
             slot_bias = [(s, self._hotword_ids(r.hotwords)) for s, (r, _) in zip(slot_list, items)]
             draft_rows, draft_lens = self._prep_draft_rows(
                 pool, [(s, r.draft_tokens) for s, (r, _) in zip(slot_list, items)], B)
             reqs = [r for r, _ in items] + [items[0][0]] * pad
-            t_d = [0.0]  # rank 0's program dispatch
 
             def admit(eng):  # on every rank, its own pool of that name
                 rp = eng._pool(pool.name)
@@ -2050,16 +2105,14 @@ class BatchedEngine:
                     slots=slot_list + [rp.trash_slot] * pad,
                     budget_vals=[r.max_new_tokens for r, _ in items] + [0] * pad,
                     draft_rows=draft_rows, draft_lens=draft_lens)
-                if eng is self:
-                    t_d[0] = time.perf_counter()
-                eng.router.run(key, fn, bufs)
+                self._dispatch_admit(eng, write, key, fn, bufs)
 
             self._ranks_do(admit)
         except Exception as e:
             self._fail_group([r for r, _ in items], e)
             return
-        if ta is not None:
-            self._trace_group(ta, pool, t_w, t_d[0])
+        finally:
+            write.close()
         self._activate(pool, [r for r, _ in items], slot_list)
 
     # ---------------- decode ----------------
@@ -2132,12 +2185,14 @@ class BatchedEngine:
             for pool in active:
                 self._dispatch_decode_pool(pool, parked)
             return
-        self._ranks_do(lambda eng: eng.router.run(("decode_dual", k), eng._dual_fn(k),
-                                                  eng._dual_bufs))
+        timing = self._timed(lambda: self._ranks_do(
+            lambda eng: eng.router.run(("decode_dual", k), eng._dual_fn(k), eng._dual_bufs)), k)
         self._compiled_dual.add(k)
         self.stats["dual_decodes"] += 1
-        self._park(self.short, k, parked)
-        self._park(self.long, k, parked)
+        for pool in self.pools:
+            self._count_rows(pool, k, None)
+        self._park(self.short, k, parked, None, True)
+        self._park(self.long, k, parked, timing, True)
 
     def _dispatch_decode_pool(self, pool: _CachePool, parked: list) -> None:
         """Pick k and rows, replay the pool's decode program (or, with a
@@ -2147,9 +2202,10 @@ class BatchedEngine:
         rounds = self._pick_verify_rounds(pool, k)
         if rounds is not None:
             rows = self._pick_verify_rows(pool, rounds)
-            self._ranks_do(lambda eng: eng.router.run(eng._verify_key(pool, rounds, rows),
-                                                      eng._verify_fn(rounds, rows),
-                                                      eng._pool(pool.name).state))
+            timing = self._timed(lambda: self._ranks_do(
+                lambda eng: eng.router.run(eng._verify_key(pool, rounds, rows),
+                                           eng._verify_fn(rounds, rows),
+                                           eng._pool(pool.name).state)), rounds)
             pool.compiled_verify.add((rounds, rows))
             self.stats["verify_rounds"] += rounds
             for s in pool.slots:
@@ -2159,25 +2215,53 @@ class BatchedEngine:
                     # ladder without waiting for the (one tick late) flag
                     if s.spec_rounds <= 0:
                         s.drafted = False
-            self._park(pool, rounds, parked)
+            self._park(pool, rounds, parked, timing, False)
             return
         rows = self._pick_rows(pool, k)
-        self._ranks_do(lambda eng: eng.router.run(("decode", pool.name, k, rows),
-                                                  eng._decode_fn(k, rows),
-                                                  eng._pool(pool.name).state))
+        timing = self._timed(lambda: self._ranks_do(
+            lambda eng: eng.router.run(("decode", pool.name, k, rows), eng._decode_fn(k, rows),
+                                       eng._pool(pool.name).state)), k)
         pool.compiled_decode.add((k, rows))
-        self._park(pool, k, parked)
+        self._count_rows(pool, k, rows)
+        self._park(pool, k, parked, timing, True)
 
-    def _park(self, pool: _CachePool, steps: int, parked: list) -> None:
+    def _timed(self, run, steps: int) -> tuple:
+        """run() (a decode-family dispatch) -> (start, end, steps) for
+        device_s.decode, read at resolve: on the card a timing event pair
+        on rank 0's stream right around the replay (read after the
+        resolve's own wait, so it adds none), on the CPU (start None) the
+        eager program's seconds."""
+        if self.device.type != "cuda":
+            t0 = time.perf_counter()
+            run()
+            return None, time.perf_counter() - t0, steps
+        stream = torch.cuda.current_stream(self.device)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        run()
+        end.record(stream)
+        return start, end, steps
+
+    def _count_rows(self, pool: _CachePool, k: int, rows: Optional[int]) -> None:
+        """Add a plain or dual decode program's rows times k to
+        decode_row_steps.<pool> (rows None: every row, the trash slot's
+        too, as the program computes them)."""
+        every = pool.state["out"].shape[0]
+        self.stats["decode_row_steps." + pool.name] += (every if rows is None
+                                                        else min(rows, every)) * k
+
+    def _park(self, pool: _CachePool, steps: int, parked: list, timing, plain: bool) -> None:
         """Count a dispatched program's steps and park its status and token
         rows (host copies after it on the stream, and an event) with the
-        slots' request identities."""
+        slots' request identities, its timing (None: counted with another
+        pool's park) and whether it was a plain or dual decode."""
         self.stats["decode_steps"] += steps
         for s in pool.slots:
             if s.active:
                 s.steps_seen += steps
         status, tokens = self._to_host(pool.state["status"]), self._to_host(pool.state["out"])
-        parked.append((pool, status, tokens, self._event(), [s.request for s in pool.slots]))
+        parked.append((pool, status, tokens, self._event(), [s.request for s in pool.slots],
+                       timing, plain))
 
     def _pick_verify_rounds(self, pool: _CachePool, k: int) -> Optional[int]:
         """Rounds of the verify program while a drafted slot is live in the
@@ -2245,11 +2329,18 @@ class BatchedEngine:
             timings={"total_s": dt, "rtf": dt / max(duration, 1e-6), "queue_s": queue_s,
                      "run_s": dt - queue_s},
         )
-        lat = self.stats.setdefault(pool.name + "_lat_ms", {"queue": [], "run": [], "tokens": []})
+        # lead = a ring request's enqueue less its newest chunk's arrival
+        lat = self.stats.setdefault(pool.name + "_lat_ms",
+                                    {"queue": [], "run": [], "tokens": [], "lead": []})
         if len(lat["queue"]) < 4000:
             lat["queue"].append(round(queue_s * 1e3, 1))
             lat["run"].append(round((dt - queue_s) * 1e3, 1))
             lat["tokens"].append(n_tokens)
+            if getattr(req, "t_arrival", None) is not None:
+                lat["lead"].append(round((req.t_enqueue - req.t_arrival) * 1e3, 1))
+        self.spans.add("request." + pool.name, req.t_enqueue, req.t_enqueue + dt,
+                       ident=(("stream", req.stream_idx, req.start_chunk)
+                              if isinstance(req, _RingTranscribeReq) else ("host", req.rid)))
         if pool is self.short:
             self._note_short_queue(queue_s * 1e3)
         draft = req.draft_tokens

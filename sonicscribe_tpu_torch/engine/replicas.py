@@ -45,6 +45,8 @@ fails to form, or a collective that times out, raises.
 
 from __future__ import annotations
 
+import asyncio
+import threading
 import time
 from typing import Optional
 
@@ -180,16 +182,39 @@ class DataParallelEngine:
         for r in self.replicas:
             r.shutdown()
 
+    async def between_ticks(self, fn):
+        """fn() on the first replica's device thread between two of its
+        ticks (BatchedEngine.between_ticks), every other replica's device
+        thread parked meanwhile, so that no thread launches while fn runs.
+        -> fn's result."""
+        loop = asyncio.get_running_loop()
+        release = threading.Event()
+        parked = [loop.create_future() for _ in self.replicas[1:]]
+
+        def hold(fut: asyncio.Future) -> None:
+            loop.call_soon_threadsafe(lambda: fut.done() or fut.set_result(None))
+            release.wait()
+
+        holds = [loop.run_in_executor(r._device_thread(), hold, fut)
+                 for r, fut in zip(self.replicas[1:], parked)]
+        try:
+            await asyncio.gather(*parked)
+            return await self.replicas[0].between_ticks(fn)
+        finally:
+            release.set()
+            await asyncio.gather(*holds)
+
     @property
     def stats(self) -> dict:
-        """The replicas' integer counters summed under their keys, and each
-        replica's stats under "replicas", with its tp degree ("tp") and the
-        all-reduces its rank 0 ran ("all_reduces": eager on the CPU, graph
-        replays on the card)."""
+        """The replicas' integer counters and span and device seconds
+        summed under their keys, and each replica's stats under
+        "replicas", with its tp degree ("tp") and the all-reduces its rank 0
+        ran ("all_reduces": eager on the CPU, graph replays on the card)."""
         out: dict = {}
         for r in self.replicas:
             for k, v in r.stats.items():
-                if isinstance(v, int) and not isinstance(v, bool):
+                if (isinstance(v, int) and not isinstance(v, bool)
+                        or k.startswith(("span_s.", "device_s."))):
                     out[k] = out.get(k, 0) + v
         out["replicas"] = [dict(r.stats, tp=r.tp_degree,
                                 all_reduces=r.router.stats["launches"].get("all_reduce", 0))

@@ -110,7 +110,11 @@ async def debug_profile(request: web.Request) -> web.Response:
     """A torch.profiler trace (host ops, and the card's kernels where one is
     in use) of the next `seconds` (at most 30), written as a Chrome trace
     into `dir` (default ./profile_traces). Fetch with
-    curl 'http://host/debug/profile?seconds=3', open in Perfetto."""
+    curl 'http://host/debug/profile?seconds=3', open in Perfetto. On the
+    batched engine the profiler starts and stops on its device thread
+    between two ticks (``between_ticks``): no thread launches while it
+    starts, and the trace holds the ticks' spans (tick, tick.<phase>,
+    admit.<part>, sync) beside the kernels they launched."""
     from torch.profiler import ProfilerActivity, profile
 
     seconds = min(float(request.query.get("seconds", "3")), 30.0)
@@ -119,8 +123,17 @@ async def debug_profile(request: web.Request) -> web.Response:
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
+    prof = profile(activities=activities)
+    between = getattr(request.app.get("engine"), "between_ticks", None)
+
+    async def on_device_thread(fn):
+        return fn() if between is None else await between(fn)
+
+    await on_device_thread(prof.start)
+    try:
         await asyncio.sleep(seconds)
+    finally:
+        await on_device_thread(prof.stop)
     path = os.path.join(trace_dir, f"trace_{time.strftime('%Y%m%d_%H%M%S')}_{os.getpid()}.json")
     prof.export_chrome_trace(path)
     return web.json_response({"trace_dir": trace_dir, "trace": path, "seconds": seconds})

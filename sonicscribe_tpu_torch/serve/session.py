@@ -35,6 +35,8 @@ from sonicscribe_tpu_torch.vad.gate import VadGate, VadGateConfig
 logger = logging.getLogger(__name__)
 
 SendFn = Callable[[dict], Awaitable[None]]
+# chunk arrivals kept (by chunk id modulo this): ~33 s of 64 ms chunks
+_ARRIVALS = 512
 
 
 class StreamSession:
@@ -79,6 +81,9 @@ class StreamSession:
         if getattr(engine, "has_ring", False):
             self.stream_idx = engine.alloc_stream()
         self._window_chunks: list[int] = []  # chunk ids awaiting a VAD decision
+        # (chunk id, time.perf_counter() at its arrival) by id modulo
+        # _ARRIVALS: a ring request's t_arrival is its newest chunk's
+        self._arrivals: list[tuple[int, float]] = [(-1, 0.0)] * _ARRIVALS
         self._last_interim_t = 0.0
         self._saved_interim_text = ""
         self._last_interim_current = ""
@@ -110,6 +115,7 @@ class StreamSession:
         """One size-repaired 2048-byte frame."""
         chunk = self.buffer.add_chunk(data)
         if self.stream_idx is not None:
+            self._arrivals[chunk.chunk_id % _ARRIVALS] = (chunk.chunk_id, time.perf_counter())
             self.engine.ingest(self.stream_idx, chunk.chunk_id, data)
         # per-chunk RMS/peak telemetry (reference main.py:687-699), sampled
         if logger.isEnabledFor(logging.DEBUG) and chunk.chunk_id % 100 == 0:
@@ -227,6 +233,9 @@ class StreamSession:
             # k-escalation until confirm_speculative() promotes it
             extra["speculative"] = True
         if self.stream_idx is not None:
+            seen, t = self._arrivals[end_id % _ARRIVALS]
+            if seen == end_id:
+                extra["t_arrival"] = t
             return await self.engine.transcribe_ring(
                 self.stream_idx,
                 start_id,

@@ -5,8 +5,8 @@ splits the tentative (interim) latency under load with:
 
 1. the short class's queue / run latency samples (``engine.stats``: queue
    = enqueue -> prefill dispatch, run = dispatch -> reap);
-2. the per-tick phase timeline (``BatchedEngine.tick_trace``, as
-   SONIC_TICK_TRACE=1 turns it on): ingest, VAD dispatch, admit + prefill
+2. the per-tick phase timeline (the engine's span ring,
+   engine/spans.py:tick_phases): ingest, VAD dispatch, admit + prefill
    dispatch, decode dispatch, the previous tick's resolve, and the gaps
    between busy ticks.
 
@@ -38,10 +38,11 @@ PHASES = ("ingest_ms", "vad_dispatch_ms", "admit_ms", "early_resolve_ms", "decod
           "resolve_ms", "total_ms")
 
 
-def tick_decomposition(ticks) -> dict:
+def tick_decomposition(engine) -> dict:
     """Busy ticks' phase p50 / p95 / mean, the gaps between them (idle
-    waits of a second or more dropped) and the short slots active a tick."""
-    busy = busy_ticks(ticks)
+    waits of a second or more dropped), the short slots active a tick and
+    the ticks that fell off the span ring (the window reached past it)."""
+    busy = busy_ticks(engine)
     gaps = [(b["t"] - a["t"]) * 1e3 - a["total_ms"]
             for a, b in zip(busy, busy[1:]) if (b["t"] - a["t"]) < 1.0]
     phases = {}
@@ -52,6 +53,7 @@ def tick_decomposition(ticks) -> dict:
     short_active = [dict(t["active"]).get("short", 0) for t in busy]
     return {
         "busy_ticks": len(busy),
+        "ticks_lost": engine.spans.lost,
         "early_resolve_ticks": sum(1 for t in busy if t["early"]),
         "tick_phases_ms": phases,
         "inter_tick_gap_ms": {"p50": pct(gaps, 50, 2), "p95": pct(gaps, 95, 2)},
@@ -62,13 +64,13 @@ def tick_decomposition(ticks) -> dict:
 
 async def measure(engine, config: AppConfig, n_streams: int, seconds: float,
                   realtime: bool = True) -> dict:
-    """A settle run, then the measured run with the tick trace cleared ->
+    """A settle run, then the measured run with the span ring cleared ->
     the interim and committed percentiles, verify rounds, the short
     class's split and the tick decomposition."""
     await run_load(engine, config, n_streams, max(4.0, seconds / 2), realtime=realtime)
     engine.stats.pop("short_lat_ms", None)
     engine.stats.pop("long_lat_ms", None)
-    engine.tick_trace.clear()
+    engine.spans.clear()
     v0 = engine.stats.get("verify_rounds", 0)
     captured0 = engine.router.stats["captured_on_run"]
     m = await run_load(engine, config, n_streams, seconds, realtime=realtime)
@@ -86,12 +88,12 @@ async def measure(engine, config: AppConfig, n_streams: int, seconds: float,
         "short_class": None if short is None else {
             k: short[k] for k in ("n", "queue_p50_ms", "queue_p95_ms", "run_p50_ms",
                                   "run_p95_ms")},
-        **tick_decomposition(list(engine.tick_trace)),
+        **tick_decomposition(engine),
     }
 
 
 def make_engine(quick: bool, device):
-    return bench_engine(quick, device, vad="probe", no_eos=False, no_pad=False, trace=True)
+    return bench_engine(quick, device, vad="probe", no_eos=False, no_pad=False)
 
 
 def main(argv=None) -> None:

@@ -95,11 +95,12 @@ async def run_both(engine, config: AppConfig, segments, file_budget: int, n_stre
     return m, await file_task
 
 
-def window_split(ticks, span) -> dict:
-    """Busy ticks in and out of the file window: tick total, admit and
-    resolve p50 / p95 ms, the admit split's means and groups a pool."""
+def window_split(engine, span) -> dict:
+    """Busy ticks (loadtest.busy_ticks: the engine's span ring) in and out
+    of the file window: tick total, admit and resolve p50 / p95 ms, the
+    admit split's means and groups a pool."""
     t_f0, t_f1 = span
-    busy = busy_ticks(ticks)
+    busy = busy_ticks(engine)
     out = {}
     for name, tset in (("in_file", [t for t in busy if t_f0 <= t["t"] <= t_f1]),
                        ("out_file", [t for t in busy if not t_f0 <= t["t"] <= t_f1])):
@@ -139,7 +140,7 @@ async def leg(engine, config: AppConfig, tag: str, kcap: int, admit_cap: int, se
     engine._eager_pending.clear()
     args = (engine, config, segments, file_budget, n_streams, window_s, realtime, file_delay_s)
     await run_both(*args)
-    engine.tick_trace.clear()
+    engine.spans.clear()
     captured0 = engine.router.stats["captured_on_run"]
     samples, span = [], []
     m, file_s = await run_both(*args, samples=samples, span=span)
@@ -166,14 +167,15 @@ async def leg(engine, config: AppConfig, tag: str, kcap: int, admit_cap: int, se
         f"{tag}_captured_on_run": engine.router.stats["captured_on_run"] - captured0,
         f"{tag}_file_wall_s": round(file_s, 3),
         f"{tag}_file_rtf": round(file_s / (len(segments) * seg_seconds), 5),
-        f"{tag}_tick_decomposition": window_split(list(engine.tick_trace), span),
+        f"{tag}_tick_decomposition": window_split(engine, span),
+        f"{tag}_ticks_lost": engine.spans.lost,
     }
 
 
 def make_engine(quick: bool, device, quant: str = "native"):
     _, bucket, _ = file_segments(quick)
     return bench_engine(quick, device, max_decode_tokens=64 if quick else 256,
-                        buckets=(128, bucket), quant=quant, trace=True)
+                        buckets=(128, bucket), quant=quant)
 
 
 async def measure(engine, quick: bool, n_streams: int, window_s: float, realtime: bool = True,

@@ -27,7 +27,6 @@ import asyncio
 import json
 import subprocess
 import time
-from collections import deque
 
 import numpy as np
 import torch
@@ -274,16 +273,23 @@ def pct(xs, p, nd: int = 1):
     return round(float(np.percentile(xs, p)), nd) if len(xs) else None
 
 
-def busy_ticks(ticks) -> list:
-    """Traced ticks with work: a pool active or a VAD batch (idle wake-up
-    ticks would drown the percentiles)."""
-    return [t for t in ticks if t["n_vad"] or any(n for _, n in t["active"])]
+def busy_ticks(engine) -> list:
+    """The ticks in the engine's span ring (engine/spans.py:tick_phases)
+    that decoded or ran a VAD batch: a pool active at the tick's end, or
+    its VAD phase (ticks that only uploaded chunks would drown the
+    percentiles)."""
+    from sonicscribe_tpu_torch.engine.spans import tick_phases
+
+    return [t for t in tick_phases(engine.spans.records())
+            if t["vad_dispatch_ms"] > 0 or any(n for _, n in t["active"])]
 
 
 def class_latency(engine) -> dict:
     """Pop the engine's per-class latency samples (queue: enqueue ->
-    prefill dispatch; run: dispatch -> reap) -> {"short" | "long": {n,
-    queue and run p50 / p95 ms, tokens_p50}} for the classes that ran."""
+    prefill dispatch; run: dispatch -> reap; lead: a ring request's enqueue
+    less its newest chunk's arrival) -> {"short" | "long": {n, queue, run
+    and lead p50 / p95 ms (lead None without ring requests), tokens_p50}}
+    for the classes that ran."""
     out = {}
     for cls in ("short", "long"):
         lat: dict = {}
@@ -297,6 +303,8 @@ def class_latency(engine) -> dict:
                 "queue_p95_ms": pct(lat["queue"], 95),
                 "run_p50_ms": pct(lat["run"], 50),
                 "run_p95_ms": pct(lat["run"], 95),
+                "lead_p50_ms": pct(lat.get("lead", []), 50),
+                "lead_p95_ms": pct(lat.get("lead", []), 95),
                 "tokens_p50": pct(lat["tokens"], 50),
             }
     return out
@@ -316,15 +324,14 @@ def bench_parser(doc: str) -> argparse.ArgumentParser:
 def bench_engine(quick: bool, device, vad: str = "energy", slots=None,
                  max_decode_tokens: int = 200, n_streams: int = 64, buckets=(128, 512),
                  no_eos: bool = True, no_pad: bool = True, quant: str = "native",
-                 trace: bool = False, **engine_kw):
+                 **engine_kw):
     """The benches' BatchedEngine: nano in bf16 (quick: tiny in f32) with
     random weights from seed 0 on `device`; `slots` long slots (default
     32, quick 4); vad "energy" or "probe" (SileroCostProbeVad: the Silero
     network's device cost, the energy gate's decisions); EOS (and pad)
     suppressed through the base logit bias, so that every decode runs its
     budget; quant "native", "int8" or "int8-decoder" (build_runtime's
-    modes of those names); trace: the tick trace on (as SONIC_TICK_TRACE=1
-    sets it)."""
+    modes of those names)."""
     from sonicscribe_tpu_torch.engine.batcher import BatchedEngine
     from sonicscribe_tpu_torch.engine.transcriber import Transcriber
     from sonicscribe_tpu_torch.models.config import nano, tiny
@@ -351,8 +358,6 @@ def bench_engine(quick: bool, device, vad: str = "energy", slots=None,
     engine = BatchedEngine(tr, gate, slots=slots or (4 if quick else 32),
                            max_decode_tokens=max_decode_tokens, n_streams=n_streams,
                            base_logit_bias=bias, **engine_kw)
-    if trace:
-        engine.tick_trace = deque(maxlen=4096)
     return engine
 
 

@@ -28,7 +28,9 @@ from sonicscribe_tpu.serve.app import build_app as build_app_jax
 from sonicscribe_tpu.serve.session import StreamSession as StreamSessionJax
 from sonicscribe_tpu.vad.model import EnergyVad as EnergyVadJax
 from sonicscribe_tpu_torch.config import AppConfig
+from sonicscribe_tpu_torch.engine import spans
 from sonicscribe_tpu_torch.engine.batcher import BatchedEngine, _RingTranscribeReq
+from sonicscribe_tpu_torch.engine.spans import tick_phases
 from sonicscribe_tpu_torch.engine.transcriber import Transcriber
 from sonicscribe_tpu_torch.models import tiny
 from sonicscribe_tpu_torch.models.tokenizer import ByteTokenizer
@@ -289,27 +291,40 @@ def test_ration_flag_token_parity(stack, ration):
 
 
 def test_tick_trace_keys_match_jax(stack, monkeypatch):
-    """tick_trace is None unless SONIC_TICK_TRACE is set; with it, each
-    tick's record and its admit_detail carry the JAX engine's keys, and the
-    admit detail counts the admitted groups per pool."""
-    for eng in _engines(stack, slots=4, max_decode_tokens=32):
-        assert eng.tick_trace is None
-        eng.shutdown()
+    """The port's tick spans carry the keys of the JAX engine's per-tick
+    records (its tick_trace, which SONIC_TICK_TRACE turns on; the port has
+    neither): each phase of a JAX tick record ("<phase>_ms") is a span
+    "tick.<phase>" under the span "tick" (its "total_ms"), each part of its
+    admit detail a span "admit.<part>"; and the port's admit.dispatch spans
+    count the prefill groups that the JAX records count."""
     monkeypatch.setenv("SONIC_TICK_TRACE", "1")
 
     async def run(eng):
         await asyncio.gather(eng.transcribe(_audio(0.3, seed=3), SR, max_new_tokens=8),
                              eng.transcribe(_audio(0.5, seed=4), SR, max_new_tokens=24))
-        trace = list(eng.tick_trace)
-        return ([sorted(r) for r in trace], [sorted(r["admit_detail"]) for r in trace],
-                sum(r["admit_detail"]["groups_short"] + r["admit_detail"]["groups_long"]
-                    for r in trace))
+        if not isinstance(eng, BatchedEngine):
+            return list(eng.tick_trace)
+        await eng.between_ticks(lambda: None)  # the tick that resolved them has closed
+        return eng.spans.records()
 
-    (keys_j, detail_j, groups_j), (keys, detail, groups) = _both(
-        stack, run, slots=4, max_decode_tokens=32)
-    assert keys and set(map(tuple, keys)) == set(map(tuple, keys_j))
-    assert set(map(tuple, detail)) == set(map(tuple, detail_j))
-    assert groups == groups_j == 2
+    records_j, records = _both(stack, run, slots=4, max_decode_tokens=32)
+    assert records_j
+    phase_keys = {k[:-3] for r in records_j for k in r if k.endswith("_ms")} - {"total"}
+    admit_keys = {k[:-3] for r in records_j for k in r["admit_detail"] if k.endswith("_ms")}
+    groups_j = sum(r["admit_detail"]["groups_short"] + r["admit_detail"]["groups_long"]
+                   for r in records_j)
+    assert phase_keys == set(spans.TICK_PHASES) and admit_keys == set(spans.ADMIT_PARTS)
+
+    under_tick = {n for n, _, _, parent, _ in records if parent == "tick"}
+    assert {"tick.admit", "tick.decode_dispatch"} <= under_tick
+    assert under_tick & {"tick.early_resolve", "tick.resolve"}
+    assert under_tick <= {"tick." + k for k in phase_keys}
+    assert {n for n, *_ in records if n.startswith("admit.")} == {"admit." + k for k in admit_keys}
+    ticks = tick_phases(records)
+    assert ticks and all(set(t) >= {k + "_ms" for k in phase_keys} | {"total_ms"} for t in ticks)
+    groups = sum(n == "admit.dispatch" for n, *_ in records)
+    assert groups == groups_j == sum(t["admit_detail"]["groups_short"]
+                                     + t["admit_detail"]["groups_long"] for t in ticks) == 2
 
 
 def test_base_bias_and_hotwords():
