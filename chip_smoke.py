@@ -485,6 +485,114 @@ def kernel_names(torch, fn) -> list[str]:
     return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
+GLUE_KERNELS = ("add_rms_norm", "qkv_rope_kv_write", "silu_mul")  # csrc/decode_glue.cu
+GLUE_ROWS = (33, 65)  # the long pool's rows (32 slots and the trash row), the short pool's
+
+
+def glue_inputs(torch, dtype, R: int, nh: int, nkv: int, W1: int = 1, M: int = 803,
+                seed: int = SEED) -> dict:
+    """The decode glue's inputs at nano's width (D 2048, hd 128, rot 64,
+    FFN 5504) and R rows (B = R / W1 slots, W1 query positions a slot):
+    h, delta, the norm's scale, gate_up, qkv, its bias, the RoPE tables and
+    one layer of a [2, B + 3, M, nkv, hd] pool's [:, :B] view, the first
+    slot's position at M (dropped), the last's at M - 1."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B, half, D, Fh = R // W1, 32, 2048, 5504
+    n = (nh + 2 * nkv) * 128
+    lead = (B,) if W1 == 1 else (B, W1)
+    pos = torch.randint(0, M - W1, (B,), generator=g, device="cuda", dtype=torch.int32)
+    pos[0], pos[-1] = M, M - 1
+    qpos = pos.long()[:, None] + torch.arange(W1, device="cuda")[None]
+    inv = 1.0 / (10000.0 ** (torch.arange(0, 2 * half, 2, device="cuda", dtype=torch.float32)
+                             / (2 * half)))
+    ang = (qpos.float()[..., None] * inv).reshape(*lead, half)
+
+    def rnd(*shape, s=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * s).to(dtype)
+
+    return dict(h=rnd(*lead, D), delta=rnd(*lead, D), scale=rnd(D, s=0.1) + 1,
+                gate_up=rnd(*lead, 2 * Fh, s=3.0), qkv=rnd(*lead, n), bias=rnd(n, s=0.5),
+                cos=torch.cos(ang).contiguous(), sin=torch.sin(ang).contiguous(), pos=pos,
+                pool={k: rnd(2, B + 3, M, nkv, 128) for k in "kv"}, B=B, rot=2 * half)
+
+
+def glue_kernel_phase(torch, timer) -> dict:
+    """The decode family's fused glue (csrc/decode_glue.cu) against its
+    plain versions on the card, f32 and bf16, at 33 and 65 rows with nano's
+    heads and a tp = 2 rank's (8 / 2), and a verify round's 4 x 9 rows:
+    qkv_rope_kv_write (q and the caches) and silu_mul bit-equal,
+    add_rms_norm's h + delta bit-equal and its norm within one bf16 step
+    (f32: 1e-5 relative). Times in bf16 at 33 and 65 rows (nano's heads),
+    kernel and plain, beside the bytes bound. -> {kernel: row}."""
+    from sonicscribe_tpu_torch.ops import decode_glue as dg
+
+    def views(pool, B):
+        return pool["k"][:, :B][1], pool["v"][:, :B][1]
+
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for R, nh, nkv, W1 in ((33, 16, 4, 1), (65, 16, 4, 1), (33, 8, 2, 1), (36, 16, 4, 9)):
+            x = glue_inputs(torch, dtype, R, nh, nkv, W1)
+            case = f"{dtype} R={R} heads {nh}/{nkv} W1={W1}"
+            h_new, hn = dg.add_rms_norm_cuda(x["h"], x["delta"], x["scale"], 1e-5)
+            want_h, want_hn = dg.add_rms_norm_plain(x["h"], x["delta"], x["scale"], 1e-5)
+            _, hn0 = dg.add_rms_norm_cuda(x["h"], None, x["scale"], 1e-5)
+            _, want_hn0 = dg.add_rms_norm_plain(x["h"], None, x["scale"], 1e-5)
+            for got, want in ((hn, want_hn), (hn0, want_hn0)):
+                err = (got.float() - want.float()).abs()
+                if dtype == torch.bfloat16:
+                    _, e = torch.frexp(want.float())
+                    ok = bool((err <= torch.ldexp(torch.ones_like(err), e - 8)).all())
+                else:
+                    ok = bool((err <= 1e-5 * want.float().abs() + 1e-6).all())
+                check(ok, f"add_rms_norm {case}: the norm beyond its tolerance, max err "
+                          f"{err.max().item()}")
+                worst = max(worst, err.max().item())
+            check(torch.equal(h_new, want_h), f"add_rms_norm {case}: h + delta differs")
+            plain_pool = {k: v.clone() for k, v in x["pool"].items()}
+            args = (x["qkv"], x["bias"], x["cos"], x["sin"], x["rot"])
+            q = dg.qkv_rope_kv_write_cuda(*args, *views(x["pool"], x["B"]), x["pos"])
+            want_q = dg.qkv_rope_kv_write_plain(*args, *views(plain_pool, x["B"]), x["pos"])
+            check(torch.equal(q, want_q) and all(torch.equal(x["pool"][k], plain_pool[k])
+                                                 for k in "kv"),
+                  f"qkv_rope_kv_write {case}: q or the caches differ from the plain version")
+            check(torch.equal(dg.silu_mul_cuda(x["gate_up"]), dg.silu_mul_plain(x["gate_up"])),
+                  f"silu_mul {case}: differs from the plain version")
+    log(f"decode glue: qkv_rope_kv_write and silu_mul bit-equal to their plain versions, "
+        f"add_rms_norm's sum bit-equal and its norm within one bf16 step (f32 1e-5), max err "
+        f"{worst:.3g} (f32 and bf16; 33, 65 rows; heads 16/4 and 8/2; 4 x 9 verify rows)")
+
+    rows = {name: {"shapes": []} for name in ("add_rms_norm", "qkv_rope_kv_write", "silu_mul")}
+    for R in GLUE_ROWS:
+        x = glue_inputs(torch, torch.bfloat16, R, 16, 4)
+        B, D, Fh, n = x["B"], x["h"].shape[-1], x["gate_up"].shape[-1] // 2, x["qkv"].shape[-1]
+        kv = views(x["pool"], B)
+        targs = (x["qkv"], x["bias"], x["cos"], x["sin"], x["rot"], *kv, x["pos"])
+        # bytes: inputs read once, outputs written once (the dropped row writes no K/V)
+        cases = {
+            "add_rms_norm": ((lambda: dg.add_rms_norm_cuda(x["h"], x["delta"], x["scale"], 1e-5)),
+                             (lambda: dg.add_rms_norm_plain(x["h"], x["delta"], x["scale"], 1e-5)),
+                             2 * (4 * R * D + D)),
+            "qkv_rope_kv_write": ((lambda: dg.qkv_rope_kv_write_cuda(*targs)),
+                                  (lambda: dg.qkv_rope_kv_write_plain(*targs)),
+                                  2 * (R * n + n + R * 16 * 128 + 2 * (R - 1) * 4 * 128)
+                                  + 4 * (2 * R * 32 + B)),
+            "silu_mul": ((lambda: dg.silu_mul_cuda(x["gate_up"])),
+                         (lambda: dg.silu_mul_plain(x["gate_up"])), 2 * 3 * R * Fh),
+        }
+        for name, (kernel, plain, n_bytes) in cases.items():
+            ms, plain_ms = timer.ms(kernel), timer.ms(plain)
+            b_ms, b_by = bound_ms(n_bytes, 0.0)
+            log(f"{name} R={R} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{b_ms:.5f} ms ({b_by})")
+            rows[name]["shapes"].append(dict(rows=R, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                             bound_by=b_by))
+    for name, row in rows.items():
+        row.update(row["shapes"][0])
+    rows["add_rms_norm"]["max_abs_err"] = worst
+    return rows
+
+
 def kernel_phase(torch, timer):
     import torch.nn.functional as F
 
@@ -1516,6 +1624,19 @@ class Recording:
         return r
 
 
+def check_glue_launches(counts: dict, n_layers: int, steps: int, label: str,
+                        ranks: int = 1) -> None:
+    """The decode family's fused glue (ops/decode_glue.py) launched as a
+    one-pool decode step launches it, on every rank: two add_rms_norm a
+    layer and ln_f's, one qkv_rope_kv_write and one silu_mul a layer."""
+    want = {"add_rms_norm": 2 * n_layers + 1, "qkv_rope_kv_write": n_layers,
+            "silu_mul": n_layers}
+    for name, per_step in want.items():
+        check(counts[name] == ranks * per_step * steps,
+              f"{label}: {name} launched {counts[name]} times for {steps} decode steps x "
+              f"{per_step} x {ranks} rank(s)")
+
+
 def serve_request(torch, engine, vad, config, name: str, audio: np.ndarray,
                   budget: int | None = None, ranks: int = 1) -> dict:
     """One request through the file path (decode_audio +
@@ -1561,6 +1682,7 @@ def serve_request(torch, engine, vad, config, name: str, audio: np.ndarray,
     check(steps > 0 and counts["decode_attention"] == ranks * n_layers * steps,
           f"{name}: decode_attention launched {counts['decode_attention']} times "
           f"for {steps} decode steps x {n_layers} layers x {ranks} rank(s)")
+    check_glue_launches(counts, n_layers, steps, name, ranks)
     duration = len(decoded) / SR
     # segments that decoded their whole budget without an EOS
     at_budget = sum(len(c["tokens"]) == file_cfg.max_new_tokens for c in rec.calls)
@@ -1810,7 +1932,7 @@ def main_path_phase(torch):
     try:
         torch.cuda.reset_peak_memory_stats()
         grid = warm_grid(torch, engine, "native")
-        launches = {"decode_attention": 0, "log_mel": 0}
+        launches = {name: 0 for name in ("decode_attention", "log_mel", *GLUE_KERNELS)}
         # the ~35 s request runs captured only: its eager run and profile
         # (~30 s) were the script's largest single item
         rows = compare_requests(torch, engine, eager, vad, config, "native", ("3s", "12s", "35s"),
@@ -2375,6 +2497,7 @@ def stream_phase(torch, engine, grid: dict) -> dict:
     check(steps > 0 and counts["decode_attention"] == n_layers * steps,
           f"stream: decode_attention launched {counts['decode_attention']} times for {steps} "
           f"decode steps x {n_layers} layers")
+    check_glue_launches(counts, n_layers, steps, "stream")
 
     def pct(xs, q):
         return float(np.percentile(xs, q)) if len(xs) else None
@@ -2659,6 +2782,7 @@ def batched_files(torch, engine, vad, mode: str) -> dict:
     check(counts["decode_attention"] == n_layers * delta["decode_steps"] > 0,
           f"batched {mode} files: decode_attention launched {counts['decode_attention']} times "
           f"for {delta['decode_steps']} pool decode steps x {n_layers} layers")
+    check_glue_launches(counts, n_layers, delta["decode_steps"], f"batched {mode} files")
     log(f"batched {mode} files at once: wall {wall:.3f} s, {delta['tokens']} tokens, "
         f"{out['tokens_per_s']:.1f} tokens/s, {delta['decode_steps']} pool decode steps, "
         f"{delta['prefill_programs']} prefill programs, peak {peak:.2f} GiB, launches "
@@ -5237,6 +5361,7 @@ def main() -> None:
     int8_errs, int8_rows = int8_kernel_phase(torch, timer)
     int4_errs, int4_rows, int4_launches = int4_kernel_phase(torch, timer)
     batched_rows = batched_kernel_phase(torch, timer)
+    glue_rows = glue_kernel_phase(torch, timer)
     del timer
     mark("kernel phases")
     bench_launches, slice_steps = bench_phase(torch)
@@ -5342,6 +5467,13 @@ def main() -> None:
              launches=launches["int8_matmul_w8a8"], mma_launches=launches["int8_matmul_w8a8_mma"],
              max_abs_err=int8_errs["int8_matmul_w8a8"],
              **int8_rows["int8_matmul_w8a8"]),
+    ] + [
+        # no Pallas kernel: XLA fuses the decode family's glue in the JAX package
+        dict(name=name, route="cuda", source="sonicscribe_tpu_torch/csrc/decode_glue.cu",
+             replaces="none (XLA fusion of sonicscribe_tpu/models/glm_asr.py decode_step)",
+             path="serve", launches=launches[name],
+             stream_launches=stream["launches"].get(name, 0), **glue_rows[name])
+        for name in GLUE_KERNELS
     ] + [
         dict(name=name, route="cuda", source="sonicscribe_tpu_torch/csrc/int4_matmul.cu",
              replaces=f"sonicscribe_tpu/ops/int4_pallas.py:{line}", path=path,

@@ -16,8 +16,11 @@ held against the JAX functions:
   (W1 query positions per slot in one pass: speculative verification).
 
 Decode and verify attention go through ``ops.decode_attention`` (the CUDA
-kernel on the card). Encoder and prefill attention are written as the JAX package
-writes them: einsum, float32 softmax, additive NEG_INF masks.
+kernel on the card), and the decode family's glue between products and
+attention through ``ops.decode_glue`` (residual add + RMSNorm; QKV bias +
+RoPE + K/V write; SiLU x up: one CUDA kernel each on the card, where XLA
+fuses them in JAX). Encoder and prefill attention are written as the JAX
+package writes them: einsum, float32 softmax, additive NEG_INF masks.
 
 Every quantizable projection goes through ``ops.quant``: a plain weight is
 ``x @ w``; an int8 QTensor takes the flat W8A16 kernel in the encoder and
@@ -53,6 +56,13 @@ import torch.nn.functional as F
 
 from sonicscribe_tpu_torch.models.config import DecoderConfig, GlmAsrConfig
 from sonicscribe_tpu_torch.ops.decode_attention import decode_attention, verify_attention
+from sonicscribe_tpu_torch.ops.decode_glue import (
+    add_rms_norm,
+    qkv_rope_kv_write,
+    silu_mul,
+)
+from sonicscribe_tpu_torch.ops.decode_glue import apply_rope as _apply_rope  # prefill's
+from sonicscribe_tpu_torch.ops.decode_glue import rms_norm as _rms_norm  # prefill's
 from sonicscribe_tpu_torch.ops.quant import is_qtensor, matmul, matmul_w8a8
 
 Params = Dict[str, Any]
@@ -119,12 +129,6 @@ def _layer_norm(x, scale, bias, eps=1e-5):
     return (out * scale.float() + bias.float()).to(x.dtype)
 
 
-def _rms_norm(x, scale, eps):
-    xf = x.float()
-    out = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
-    return (out * scale.float()).to(x.dtype)
-
-
 def _gelu(x):
     return F.gelu(x, approximate="none")
 
@@ -162,17 +166,6 @@ def _rope_tables(cfg: DecoderConfig, positions: torch.Tensor):
     inv_freq = 1.0 / (cfg.rope_theta ** exps)
     ang = positions.float()[..., None] * inv_freq  # [..., rot//2]
     return torch.cos(ang), torch.sin(ang), rot
-
-
-def _apply_rope(x, cos, sin, rot):
-    """x: [..., H, head_dim]; cos/sin: [..., rot//2] broadcast over heads."""
-    x1 = x[..., : rot // 2].float()
-    x2 = x[..., rot // 2 : rot].float()
-    c = cos[..., None, :]
-    s = sin[..., None, :]
-    out1 = x1 * c - x2 * s
-    out2 = x2 * c + x1 * s
-    return torch.cat([out1.to(x.dtype), out2.to(x.dtype), x[..., rot:]], dim=-1)
 
 
 def _layer(stacked: Params, i: int, whole_qtensors: bool = False) -> Params:
@@ -285,9 +278,9 @@ def embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
     return embed[tokens.to(embed.device, torch.long)]
 
 
-def _decoder_qkv(lp, h, dec: DecoderConfig, mm=matmul):
+def _decoder_qkv(lp, h, dec: DecoderConfig):
     lead = h.shape[:-1]
-    qkv = mm(h, lp["qkv_w"])
+    qkv = matmul(h, lp["qkv_w"])
     if dec.qkv_bias:
         qkv = qkv + lp["qkv_b"]
     nq = dec.n_heads * dec.head_dim
@@ -298,11 +291,12 @@ def _decoder_qkv(lp, h, dec: DecoderConfig, mm=matmul):
     return q, k, v
 
 
-def _decoder_layer_mlp(h, lp, dec: DecoderConfig, mm=_mm_plain, reduce=_no_reduce):
-    """Post-attention half of every decoder layer (mm as _decode_mm's)."""
+def _decoder_layer_mlp(h, lp, dec: DecoderConfig, reduce=_no_reduce):
+    """Post-attention half of a prefill layer (the decode family fuses its
+    glue: _decode_layers)."""
     hn = _rms_norm(h, lp["ln2_scale"], dec.rms_eps)
-    gate, up = torch.chunk(mm(hn, lp["gate_up_w"]), 2, dim=-1)
-    return h + reduce("decoder_mlp", mm(F.silu(gate) * up, lp["down_w"], "decoder_mlp"))
+    gate, up = torch.chunk(matmul(hn, lp["gate_up_w"]), 2, dim=-1)
+    return h + reduce("decoder_mlp", matmul(F.silu(gate) * up, lp["down_w"]))
 
 
 def _decoder_layer_prefill(x, lp, dec: DecoderConfig, cos, sin, rot, mask_bias,
@@ -324,14 +318,44 @@ def _decoder_layer_prefill(x, lp, dec: DecoderConfig, cos, sin, rot, mask_bias,
     return _decoder_layer_mlp(x, lp, dec, reduce=reduce), (k, v)
 
 
-def _lm_logits(params: Params, cfg: GlmAsrConfig, h: torch.Tensor) -> torch.Tensor:
-    dec = cfg.decoder
-    h = _rms_norm(h, params["decoder"]["ln_f_scale"], dec.rms_eps)
-    if dec.tie_embeddings:
+def _lm_head(params: Params, cfg: GlmAsrConfig, hn: torch.Tensor) -> torch.Tensor:
+    """float32 logits of the final norm's output hn."""
+    if cfg.decoder.tie_embeddings:
         w = params["decoder"]["embed"].T
     else:
         w = params["decoder"]["lm_head"]
-    return _mm_f32(h, w)
+    return _mm_f32(hn, w)
+
+
+def _lm_logits(params: Params, cfg: GlmAsrConfig, h: torch.Tensor) -> torch.Tensor:
+    dec = cfg.decoder
+    return _lm_head(params, cfg, _rms_norm(h, params["decoder"]["ln_f_scale"], dec.rms_eps))
+
+
+def _decode_layers(params: Params, cfg: GlmAsrConfig, x: torch.Tensor, attend) -> torch.Tensor:
+    """The decoder's layers over the rows of a decode or verify step, with
+    the glue between products and attention fused (ops/decode_glue.py): a
+    layer runs two add_rms_norm (ln2 with o's output added; the next ln1,
+    or ln_f after the last layer, with down's), one silu_mul, and what
+    ``attend(i, lp, qkv)`` launches: the QKV bias, RoPE and K/V write and
+    the attention of layer i, -> ctx [..., nh*hd]. x: embeddings [..., D]
+    -> float32 logits [..., V]."""
+    dec = cfg.decoder
+    layers = params["decoder"]["layers"]
+    mm = _decode_mm(params, dec)
+    reduce = _reducer(params)
+    h, hn = add_rms_norm(x, None, layers["ln1_scale"][0], dec.rms_eps)
+    for i in range(dec.n_layers):
+        lp = _layer(layers, i, whole_qtensors=True)
+        ctx = attend(i, lp, mm(hn, lp["qkv_w"]))
+        h, hn = add_rms_norm(h, reduce("decoder_attn", mm(ctx, lp["o_w"], "decoder_attn")),
+                             lp["ln2_scale"], dec.rms_eps)
+        act = silu_mul(mm(hn, lp["gate_up_w"]))
+        scale = (layers["ln1_scale"][i + 1] if i + 1 < dec.n_layers
+                 else params["decoder"]["ln_f_scale"])
+        h, hn = add_rms_norm(h, reduce("decoder_mlp", mm(act, lp["down_w"], "decoder_mlp")),
+                             scale, dec.rms_eps)
+    return _lm_head(params, cfg, hn)
 
 
 def prefill_kv(
@@ -440,7 +464,8 @@ def _decode_pools(params: Params, cfg: GlmAsrConfig, caches: list, tokens: list,
                   actives: list) -> list:
     """decode_step over one or more caches at once: the row-independent ops
     on the rows of all of them (concatenated only when there are several),
-    the cache writes and attention per cache. -> logits per cache."""
+    the QKV bias, RoPE, cache writes and attention per cache. -> logits per
+    cache."""
     dec = cfg.decoder
     sizes = [t.shape[0] for t in tokens]
     cat = (lambda xs: xs[0]) if len(caches) == 1 else (lambda xs: torch.cat(xs))
@@ -449,43 +474,24 @@ def _decode_pools(params: Params, cfg: GlmAsrConfig, caches: list, tokens: list,
     x = embed_tokens(params, cat(tokens))  # [sum B, D]
     cos, sin, rot = _rope_tables(dec, cat(pos))  # [sum B, rot//2]
 
-    # torch indexing has no drop mode: rows past the end rewrite their own
-    # last entry with its old value instead
-    writes = []
-    for c, p in zip(caches, pos):
-        max_len = c["k"].shape[2]
-        writes.append((torch.arange(p.shape[0], device=device),
-                       torch.clamp(p.long(), max=max_len - 1), (p < max_len)[:, None, None]))
-
-    mm = _decode_mm(params, dec)
-    reduce = _reducer(params)
-    h = x
-    for i in range(dec.n_layers):
-        lp = _layer(params["decoder"]["layers"], i, whole_qtensors=True)
-        hn = _rms_norm(h, lp["ln1_scale"], dec.rms_eps)
-        q, k_new, v_new = _decoder_qkv(lp, hn, dec, mm)
-        q = _apply_rope(q[:, None], cos[:, None], sin[:, None], rot)[:, 0]
-        k_new = _apply_rope(k_new[:, None], cos[:, None], sin[:, None], rot)[:, 0]
+    def attend(i, lp, qkv):
         ctx, r0 = [], 0
-        for c, p, (rows, write_at, in_range), n in zip(caches, pos, writes, sizes):
+        for c, p, n in zip(caches, pos, sizes):
+            rows = slice(r0, r0 + n)
             k_cache, v_cache = c["k"][i], c["v"][i]
-            # match the numerics of reading the stored (cache-dtype) K/V back
-            k_c = k_new[r0 : r0 + n].to(k_cache.dtype)
-            v_c = v_new[r0 : r0 + n].to(v_cache.dtype)
-            k_cache[rows, write_at] = torch.where(in_range, k_c, k_cache[rows, write_at])
-            v_cache[rows, write_at] = torch.where(in_range, v_c, v_cache[rows, write_at])
-            ctx.append(decode_attention(q[r0 : r0 + n], k_cache, v_cache, p).to(h.dtype))
+            q = qkv_rope_kv_write(qkv[rows], lp["qkv_b"] if dec.qkv_bias else None, cos[rows],
+                                  sin[rows], rot, k_cache, v_cache, p)
+            ctx.append(decode_attention(q, k_cache, v_cache, p).to(qkv.dtype))
             r0 += n
-        h = h + reduce("decoder_attn", mm(cat(ctx), lp["o_w"], "decoder_attn"))
-        h = _decoder_layer_mlp(h, lp, dec, mm, reduce)
+        return cat(ctx)
 
+    logits = _decode_layers(params, cfg, x, attend)
     # in place: a CUDA graph of the step carries len from one replay to the next
     for c, p, active in zip(caches, pos, actives):
         max_len = c["k"].shape[2]
         if active is None:
             active = torch.ones(p.shape, dtype=torch.bool, device=device)
         c["len"].copy_(torch.where(active, torch.clamp(p + 1, max=max_len), p))
-    logits = _lm_logits(params, cfg, h)
     return [logits] if len(caches) == 1 else list(torch.split(logits, sizes))
 
 
@@ -507,51 +513,23 @@ def verify_step(
     ops.decode_attention.verify_attention. ``cache["len"]`` is left as it
     was: the caller advances it by what it accepts.
 
-    JAX drops the writes past the cache's end (mode="drop"). Here they are
-    aimed at position max_len-1, each carrying the value the row's
-    in-range write puts there (or the value already there when the row has
-    none), so that duplicate indices store equal values whatever order the
-    device writes them in.
+    JAX drops the writes past the cache's end (mode="drop"), and so does
+    ops/decode_glue.py's qkv_rope_kv_write.
     """
     dec = cfg.decoder
-    B, W1 = tokens.shape
-    k_all, v_all = cache["k"], cache["v"]
-    max_len = k_all.shape[2]
-    device = k_all.device
+    W1 = tokens.shape[1]
     pos0 = cache["len"]  # [B]
-    j_idx = torch.arange(W1, device=device)
-    qpos = pos0.long()[:, None] + j_idx[None, :]  # [B, W1]
-
+    qpos = pos0.long()[:, None] + torch.arange(W1, device=pos0.device)[None, :]  # [B, W1]
     x = embed_tokens(params, tokens)  # [B, W1, D]
     cos, sin, rot = _rope_tables(dec, qpos)  # [B, W1, rot//2]
 
-    rows = torch.arange(B, device=device)[:, None]
-    write_at = torch.clamp(qpos, max=max_len - 1)
-    # the input each write takes: its own, or for a write past the end the
-    # one that lands on max_len-1 in range (j = max_len-1-len)
-    j_last = torch.clamp(max_len - 1 - pos0.long(), 0, W1 - 1)
-    src = torch.where(qpos < max_len, j_idx[None, :], j_last[:, None])
-    src = src[:, :, None, None].expand(B, W1, dec.n_kv_heads, dec.head_dim)
-    full = (pos0 >= max_len)[:, None, None, None]  # no write in range: keep the old value
+    def attend(i, lp, qkv):  # qkv [B, W1, (nh + 2 nkv) hd]
+        k_cache, v_cache = cache["k"][i], cache["v"][i]
+        q = qkv_rope_kv_write(qkv, lp["qkv_b"] if dec.qkv_bias else None, cos, sin, rot,
+                              k_cache, v_cache, pos0)
+        return verify_attention(q, k_cache, v_cache, pos0).to(qkv.dtype)  # [B, W1, nh*hd]
 
-    mm = _decode_mm(params, dec)
-    reduce = _reducer(params)
-    h = x
-    for i in range(dec.n_layers):
-        lp = _layer(params["decoder"]["layers"], i, whole_qtensors=True)
-        k_cache, v_cache = k_all[i], v_all[i]
-        hn = _rms_norm(h, lp["ln1_scale"], dec.rms_eps)
-        q, k_new, v_new = _decoder_qkv(lp, hn, dec, mm)  # [B, W1, nh | nkv, hd]
-        q = _apply_rope(q, cos, sin, rot)
-        k_new = _apply_rope(k_new, cos, sin, rot).to(k_cache.dtype)
-        v_new = v_new.to(v_cache.dtype)
-        k_cache[rows, write_at] = torch.where(full, k_cache[rows, write_at], k_new.gather(1, src))
-        v_cache[rows, write_at] = torch.where(full, v_cache[rows, write_at], v_new.gather(1, src))
-
-        ctx = verify_attention(q, k_cache, v_cache, pos0).to(h.dtype)  # [B, W1, nh*hd]
-        h = h + reduce("decoder_attn", mm(ctx, lp["o_w"], "decoder_attn"))
-        h = _decoder_layer_mlp(h, lp, dec, mm, reduce)
-    return cache, _lm_logits(params, cfg, h)
+    return cache, _decode_layers(params, cfg, x, attend)
 
 
 # =====================================================================

@@ -37,7 +37,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-KERNELS = ("decode_attention", "log_mel", "int8_matmul", "int4_matmul")  # csrc/<name>.cu
+KERNELS = ("decode_attention", "log_mel", "int8_matmul", "int4_matmul",
+           "decode_glue")  # csrc/<name>.cu
 
 
 class _LaunchCounts(dict):
@@ -70,6 +71,7 @@ launch_counts: dict[str, int] = _LaunchCounts({
         "int4_matmul_w4a16_mma",  # the W4A16 launches (flat and stacked) on the tensor cores
         "int4_matmul_w4a8", "int4_matmul_w4a8_stacked",
         "int4_matmul_w4a8_mma",  # the W4A8 launches (flat and stacked) on the tensor cores
+        "add_rms_norm", "qkv_rope_kv_write", "silu_mul",  # csrc/decode_glue.cu
         "all_reduce",
     )
 })

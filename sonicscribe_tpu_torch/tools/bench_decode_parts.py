@@ -7,9 +7,10 @@ of K steps through ``engine/exec_store.py``'s ``GraphRouter`` (the serving
 path's capture), replayed once to warm, then REPS replays are timed with
 CUDA events; ms per step = total / (REPS x K):
 
-- ``mlp_chain``: every layer's RMSNorms and weight-bound products (qkv, o,
-  gate_up, down through ``ops/quant.py``'s ``matmul``), SiLU x up and the
-  residuals; no attention;
+- ``mlp_chain``: every layer's weight-bound products (qkv, o, gate_up,
+  down through ``ops/quant.py``'s ``matmul``), its residual adds with
+  their RMSNorms (``ops/decode_glue.py``'s ``add_rms_norm``) and SiLU x up
+  (``silu_mul``), as the step runs them; no attention, RoPE or K/V write;
 - ``attn_chain``: attention only, every layer against its cache, slot
   lengths drawn from MAX_LEN/2 .. MAX_LEN-2. Unlike the JAX chain (XLA
   einsums) it attends with the port's ``ops/decode_attention.py``
@@ -53,15 +54,9 @@ import torch
 
 from sonicscribe_tpu_torch.device import resolve_device
 from sonicscribe_tpu_torch.engine.exec_store import GraphRouter
-from sonicscribe_tpu_torch.models.glm_asr import (
-    _decoder_layer_mlp,
-    _layer,
-    _lm_logits,
-    _rms_norm,
-    decode_step,
-    init_cache,
-)
+from sonicscribe_tpu_torch.models.glm_asr import _layer, _lm_logits, decode_step, init_cache
 from sonicscribe_tpu_torch.ops.decode_attention import decode_attention
+from sonicscribe_tpu_torch.ops.decode_glue import add_rms_norm, silu_mul
 from sonicscribe_tpu_torch.ops.quant import matmul
 from sonicscribe_tpu_torch.tools import bench_hbm
 from sonicscribe_tpu_torch.tools.loadtest import bench_parser, device_fields, emit
@@ -77,6 +72,9 @@ PROFILE_TRIES = 20  # profiles at most, while kernel records are missing
 # kernel's name; the first group whose pattern a name holds takes it
 OP_GROUPS = (
     ("decode_attention", ("decode_attention_split_kernel", "decode_attention_merge_kernel")),
+    ("add_rms_norm", ("add_rms_norm_kernel",)),  # ops/decode_glue.py's kernels
+    ("qkv_rope_kv_write", ("qkv_rope_kv_write_kernel",)),
+    ("silu_mul", ("silu_mul_kernel",)),
     ("gemm", ("nvjet", "gemm", "gemv", "cutlass", "sm90_xmma", "splitKreduce", "cublas")),
     ("argmax", ("ArgMaxOps",)),
     ("reduction (RMSNorm mean)", ("MeanOps", "reduce_kernel")),
@@ -154,12 +152,16 @@ def mlp_chain(params, cfg, h: torch.Tensor, k: int) -> torch.Tensor:
     attention output that feeds o. h [S, D] -> [S, D]."""
     dec = cfg.decoder
     nq = dec.n_heads * dec.head_dim
+    eps = dec.rms_eps
     for _ in range(k):
+        delta = None
         for i in range(dec.n_layers):
             lp = _layer(params["decoder"]["layers"], i, whole_qtensors=True)
-            qkv = matmul(_rms_norm(h, lp["ln1_scale"], dec.rms_eps), lp["qkv_w"])
-            h = h + matmul(qkv[..., :nq], lp["o_w"])
-            h = _decoder_layer_mlp(h, lp, dec)
+            h, hn = add_rms_norm(h, delta, lp["ln1_scale"], eps)
+            qkv = matmul(hn, lp["qkv_w"])
+            h, hn = add_rms_norm(h, matmul(qkv[..., :nq], lp["o_w"]), lp["ln2_scale"], eps)
+            delta = matmul(silu_mul(matmul(hn, lp["gate_up_w"])), lp["down_w"])
+        h = h + delta
     return h
 
 

@@ -921,8 +921,9 @@ def test_dual_decode_graph_equals_the_eager_step(cuda):
     nano's width (two decoder layers, bf16 random weights, the pools' nano
     shapes: 65 rows of 83 positions and 33 of 803, lens mixed, some rows
     done): the same tokens, counts and status, K/V and lengths within one
-    bf16 step of the eager run's; decode attention recorded twice a layer
-    a step (one launch per pool)."""
+    bf16 step of the eager run's; decode attention and the K/V write
+    recorded twice a layer a step (one launch per pool), the glue's norms
+    and SiLU x up once for both pools."""
     from dataclasses import replace
 
     from sonicscribe_tpu_torch.engine.batcher import _decode_k_dual_program
@@ -964,6 +965,11 @@ def test_dual_decode_graph_equals_the_eager_step(cuda):
     torch.cuda.synchronize()
     assert entry.launches["decode_attention"] == 2 * dec.n_layers * k
     assert replay_launches["decode_attention"] == 2 * dec.n_layers * k
+    # the fused glue: two norms a layer and ln_f, SiLU x up a layer, a K/V write a layer and pool
+    for launches in (entry.launches, replay_launches):
+        assert launches["add_rms_norm"] == (2 * dec.n_layers + 1) * k
+        assert launches["qkv_rope_kv_write"] == 2 * dec.n_layers * k
+        assert launches["silu_mul"] == dec.n_layers * k
     for p in ("short", "long"):
         got, want = bufs[p], eager[p]
         for name in ("tok", "out", "n", "done", "status", "len"):
@@ -1020,3 +1026,158 @@ def test_deferred_capture_leaves_live_slots_as_they_are(cuda):
     finally:
         eng.shutdown()
         loop.close()
+
+
+# ---- the decode family's glue (csrc/decode_glue.cu) --------------------------------------
+
+from sonicscribe_tpu_torch.ops import decode_glue as dg  # noqa: E402
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 step at each value of x (8 bits of mantissa)."""
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def _assert_hn_close(got, want):
+    """The kernel's RMSNorm output against PyTorch's: its float32 sum of
+    squares is added in another order, so bf16 values may sit one step
+    apart, float32 ones a few float32 rounding steps."""
+    if got.dtype == torch.bfloat16:
+        assert bool(((got.float() - want.float()).abs() <= _bf16_ulp(want)).all())
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def _glue_inputs(device, dtype, R, nh, nkv, M=803, W1=1, seed=0):
+    """nano's width (D 2048, hd 128, rot 64, FFN 5504) at R rows: a decode
+    step's (W1 1) or a verify round's (R = B x W1) qkv, h, delta and
+    gate_up, and one layer of a [2, B + 3, M, nkv, hd] pool's [:, :B] view
+    with lens mixed (two rows at or near the end)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    B = R // W1
+    hd, half, D, Fh = 128, 32, 2048, 5504
+    n = (nh + 2 * nkv) * hd
+    pos = torch.randint(0, M - W1, (B,), generator=g, device=device, dtype=torch.int32)
+    pos[0], pos[-1] = M, M - 1  # dropped; the last position in range
+    qpos = pos.long()[:, None] + torch.arange(W1, device=device)[None]
+    inv = 1.0 / (10000.0 ** (torch.arange(0, 2 * half, 2, device=device, dtype=torch.float32)
+                             / (2 * half)))
+    ang = qpos.float()[..., None] * inv
+    lead = (B,) if W1 == 1 else (B, W1)
+    cos, sin = (t.reshape(*lead, half).contiguous() for t in (torch.cos(ang), torch.sin(ang)))
+
+    def rnd(*shape, s=1.0):
+        return (torch.randn(shape, generator=g, device=device) * s).to(dtype)
+
+    pool = {k: rnd(2, B + 3, M, nkv, hd) for k in "kv"}
+    return dict(qkv=rnd(*lead, n), bias=rnd(n, s=0.5), cos=cos, sin=sin, pos=pos, pool=pool,
+                h=rnd(*lead, D), delta=rnd(*lead, D), scale=rnd(D, s=0.1) + 1,
+                gate_up=rnd(*lead, 2 * Fh, s=3.0), rot=2 * half, B=B)
+
+
+def _cache_views(pool, B):
+    return pool["k"][:, :B][1], pool["v"][:, :B][1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R", [33, 65])
+@pytest.mark.parametrize("with_delta", [True, False], ids=["add", "layer0"])
+def test_add_rms_norm_kernel(cuda, dtype, R, with_delta):
+    """h_new bit-equal to PyTorch's `h + delta`, hn within one bf16 step
+    (float32: a few rounding steps) of `_rms_norm`; one launch counted."""
+    x = _glue_inputs(cuda, dtype, R, 16, 4)
+    delta = x["delta"] if with_delta else None
+    before = _build.launch_counts["add_rms_norm"]
+    h_new, hn = dg.add_rms_norm(x["h"], delta, x["scale"], 1e-5)
+    assert _build.launch_counts["add_rms_norm"] == before + 1
+    want_h, want_hn = dg.add_rms_norm_plain(x["h"], delta, x["scale"], 1e-5)
+    assert torch.equal(h_new, want_h) and (with_delta or h_new is x["h"])
+    _assert_hn_close(hn, want_hn)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,W1", [(33, 1), (65, 1), (36, 9)])
+@pytest.mark.parametrize("nh,nkv", [(16, 4), (8, 2)], ids=["whole", "tp2"])
+def test_qkv_rope_kv_write_kernel(cuda, dtype, R, W1, nh, nkv):
+    """q and both caches bit-equal to the plain version's (the glue it
+    replaces, run on the card) over the strided [:, :B] cache view, a
+    dropped row included; nothing written outside the view."""
+    x = _glue_inputs(cuda, dtype, R, nh, nkv, W1=W1)
+    B = x["B"]
+    pool_plain = {k: v.clone() for k, v in x["pool"].items()}
+    before = _build.launch_counts["qkv_rope_kv_write"]
+    q = dg.qkv_rope_kv_write(x["qkv"], x["bias"], x["cos"], x["sin"], x["rot"],
+                             *_cache_views(x["pool"], B), x["pos"])
+    assert _build.launch_counts["qkv_rope_kv_write"] == before + 1
+    want = dg.qkv_rope_kv_write_plain(x["qkv"], x["bias"], x["cos"], x["sin"], x["rot"],
+                                      *_cache_views(pool_plain, B), x["pos"])
+    assert torch.equal(q, want)
+    for k in "kv":
+        assert torch.equal(x["pool"][k], pool_plain[k]), k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R", [33, 65, 98])
+def test_silu_mul_kernel(cuda, dtype, R):
+    """Bit-equal to PyTorch's `F.silu(gate) * up`."""
+    x = _glue_inputs(cuda, dtype, R, 16, 4)
+    before = _build.launch_counts["silu_mul"]
+    act = dg.silu_mul(x["gate_up"])
+    assert _build.launch_counts["silu_mul"] == before + 1
+    assert torch.equal(act, dg.silu_mul_plain(x["gate_up"]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_glue_kernels_in_a_captured_graph(cuda, dtype):
+    """The three kernels captured in one CUDA graph and replayed on new
+    inputs give the eager launches' results on those inputs."""
+    x = _glue_inputs(cuda, dtype, 33, 16, 4)
+    B = x["B"]
+
+    def run(b):
+        h_new, hn = dg.add_rms_norm(b["h"], b["delta"], x["scale"], 1e-5)
+        q = dg.qkv_rope_kv_write(b["qkv"], x["bias"], x["cos"], x["sin"], x["rot"],
+                                 *_cache_views(b["pool"], B), x["pos"])
+        return h_new, hn, q, dg.silu_mul(b["gate_up"])
+
+    static = {k: x[k] for k in ("h", "delta", "qkv", "gate_up")}
+    static["pool"] = {k: v.clone() for k, v in x["pool"].items()}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run(static)  # warm on a side stream, as a capture wants
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run(static)
+    fresh = _glue_inputs(cuda, dtype, 33, 16, 4, seed=1)
+    for k in ("h", "delta", "qkv", "gate_up"):
+        static[k].copy_(fresh[k])
+    for k in "kv":
+        static["pool"][k].copy_(x["pool"][k])
+    graph.replay()
+    eager = {k: fresh[k] for k in ("h", "delta", "qkv", "gate_up")}
+    eager["pool"] = {k: v.clone() for k, v in x["pool"].items()}
+    want = run(eager)
+    torch.cuda.synchronize()
+    for got, w in zip(outs, want):
+        assert torch.equal(got, w)
+    for k in "kv":
+        assert torch.equal(static["pool"][k], eager["pool"][k])
+
+
+def test_decode_glue_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x = _glue_inputs(cuda, torch.bfloat16, 33, 16, 4)
+    views = _cache_views(x["pool"], x["B"])
+    with pytest.raises(TypeError):
+        dg.add_rms_norm(x["h"], x["delta"].float(), x["scale"], 1e-5)
+    with pytest.raises(ValueError):
+        dg.add_rms_norm(x["h"].t(), None, x["scale"], 1e-5)
+    with pytest.raises(ValueError):
+        dg.qkv_rope_kv_write(x["qkv"], x["bias"], x["cos"], x["sin"], 63, *views, x["pos"])
+    with pytest.raises(TypeError):
+        dg.qkv_rope_kv_write(x["qkv"], x["bias"], x["cos"], x["sin"], x["rot"], *views,
+                             x["pos"].long())
+    with pytest.raises(ValueError):
+        dg.silu_mul(x["gate_up"][:, 1:])

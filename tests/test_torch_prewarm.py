@@ -84,10 +84,10 @@ def test_build_and_load_count_built_and_prebuilt(dirs, fake_nvcc, monkeypatch):
     _build.load("decode_attention")
     assert _build.library_counts == {"built": 1, "loaded": 1}
     assert _build.library_path("decode_attention").read_text() == "built\n"
-    _build.build()  # the two others, at once
-    assert _build.library_counts == {"built": 3, "loaded": 1}
+    _build.build()  # the three others, at once
+    assert _build.library_counts == {"built": 4, "loaded": 1}
     assert sorted(Path(p).name for p in fake_nvcc.read_text().split()) == [
-        "decode_attention.cu", "int4_matmul.cu", "int8_matmul.cu"]
+        "decode_attention.cu", "decode_glue.cu", "int4_matmul.cu", "int8_matmul.cu"]
     src = deploy / "csrc"
     src.mkdir()
     for path in _build.sources("log_mel"):
@@ -97,7 +97,7 @@ def test_build_and_load_count_built_and_prebuilt(dirs, fake_nvcc, monkeypatch):
     assert not _build.library_path("log_mel").exists()
     monkeypatch.setattr(_build, "_libs", {})
     _build.load("log_mel")
-    assert _build.library_counts == {"built": 4, "loaded": 1}
+    assert _build.library_counts == {"built": 5, "loaded": 1}
 
 
 def test_stage_copies_what_the_checkout_built_and_builds_the_rest(dirs, fake_nvcc, monkeypatch):
@@ -112,14 +112,15 @@ def test_stage_copies_what_the_checkout_built_and_builds_the_rest(dirs, fake_nvc
     assert os.environ["SONIC_KERNEL_DIR"] == str(deploy)
     assert sorted(done["copied"]) == sorted([names["decode_attention"], names["int8_matmul"],
                                              native_name])
-    assert sorted(done["built"]) == sorted([names["log_mel"], names["int4_matmul"]])
+    assert sorted(done["built"]) == sorted([names["log_mel"], names["int4_matmul"],
+                                            names["decode_glue"]])
     assert done["kept"] == []
     for k, name in names.items():
         assert (deploy / "kernels" / name).exists(), k
     assert (deploy / "kernels" / names["int8_matmul"]).read_bytes().startswith(b"stand-in")
     assert (deploy / "native" / native_name).exists()
     again = prewarm.stage_libraries(str(deploy))
-    assert again["copied"] == again["built"] == [] and len(again["kept"]) == 5
+    assert again["copied"] == again["built"] == [] and len(again["kept"]) == 6
 
 
 def test_prewarm_main_prints_jaxs_two_lines(dirs, capsys, monkeypatch):
@@ -131,12 +132,12 @@ def test_prewarm_main_prints_jaxs_two_lines(dirs, capsys, monkeypatch):
     prewarm.main(["--model", "tiny-random", "--out", str(deploy), "--device", "cpu"])
     first, second = capsys.readouterr().out.strip().splitlines()
     assert re.fullmatch(r"prewarm done: model=tiny-random quant=native shape=server "
-                        r"build=\d+\.\ds warmup=\d+\.\ds saves=5 loads=0 store_files=5 -> "
+                        r"build=\d+\.\ds warmup=\d+\.\ds saves=6 loads=0 store_files=6 -> "
                         + re.escape(str(deploy)), first), first
     assert second.startswith("deploy: ship this directory") and "SONIC_KERNEL_DIR" in second
     prewarm.main(["--model", "tiny-random", "--out", str(deploy), "--device", "cpu",
                   "--engine-shape", "bench-stream"])
-    assert "saves=0 loads=0 store_files=5" in capsys.readouterr().out
+    assert "saves=0 loads=0 store_files=6" in capsys.readouterr().out
 
 
 _RESTART = r"""
