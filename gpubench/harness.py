@@ -1,12 +1,12 @@
 """One run of one cell: set-up, the measured window, the readings, the check.
 
-``run_cell`` builds the system from the cell's configuration and seed,
-drives the cell's traffic (``traffic/<kind>.py``), which opens and closes
-the window through the ``Window`` it is given, and then, in this order:
-reads the device's memory peak; reads the cell's metrics
-(``metrics/<name>.py``; a kernel's roofline times its probe, ``probes.py``,
-on the card in the traced run); frees
-the program; judges a sample of what the program served against the
+``run_cell`` builds the system from the cell's configuration, its model
+family (``families/<family>.py``) and the seed, drives the cell's traffic
+(``traffic/<kind>.py``), which opens and closes the window through the
+``Window`` it is given, and then, in this order: reads the device's memory
+peak; reads the cell's metrics (``metrics/<name>.py``; a kernel's roofline
+times its probe, ``probes.py``, on the card in the traced run); frees the
+program; judges a sample of what the program served against the family's
 reference (``reference/check.py``). The result is the line the benchmark
 prints.
 """
@@ -213,14 +213,15 @@ def materialize(cfg: dict, reqs: list) -> tuple[list, int]:
     return out, unmatched
 
 
-def judge(cell, seed: int, outcome: dict, device, control: bool = False):
+def judge(cell, family, seed: int, outcome: dict, device, control: bool = False):
     """-> (correct, {check: {"value", "limit"}}, the reference's readings)
-    of a sample of what the window served. `control`: also read the
-    control on the same sample (calibration only)."""
+    of a sample of what the window served, against model family `family`'s
+    reference. `control`: also read the control on the same sample
+    (calibration only)."""
     spec = cell.workload["check"]
     reqs = sample_requests(outcome["candidates"], spec["sample"], seed)
     mat, unmatched = materialize(cell.config, reqs)
-    g = check.gaps(cell.config, seed, mat, device, control=control)
+    g = check.gaps(family, cell.config, seed, mat, device, control=control)
     checks = {
         "served_gap_per_tie": {"value": g["gap_per_tie"], "limit": spec["gap_per_tie_limit"],
                                "le": True},
@@ -258,7 +259,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_process: fl
     readings of the sample and of the control under "calibration")."""
     import torch
 
-    engine, vad, conf, info = system.build(cell.config, seed, device)
+    family = cell.family()
+    engine, vad, conf, info = system.build(cell.config, family, seed, device)
     print(f"built in {time.perf_counter() - t_process:.1f} s (warmup "
           f"{info['warmup_s']:.1f} s)", file=sys.stderr, flush=True)
     window = Window(cell, seed, seconds, trace, engine, vad, conf)
@@ -298,7 +300,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_process: fl
     if cuda:
         torch.cuda.empty_cache()
     _stage("metrics", t_process)
-    correct, checks, readings = judge(cell, seed, outcome, device, control)
+    correct, checks, readings = judge(cell, family, seed, outcome, device, control)
     _stage("reference", t_process)
     result = {"correct": correct, "attempted": outcome["attempted"],
               "failed": outcome["failed"], "metrics": metrics}

@@ -3,12 +3,15 @@
 - the cell: its entry in ``workloads``, and ``workloads/<cell>.json``
   (what the harness needs beyond the manifest: the kernel probes' shapes,
   the correctness sample and limits);
-- its configuration: ``configs/<config>.json`` (the file the manifest names);
+- its configuration: ``configs/<config>.json`` (the file the manifest names),
+  whose ``family`` names the model family ``families/<family>.py``: the
+  program's config and width check, the weights handed to the program and
+  the plain reference that judges it;
 - its traffic mix: ``mixes/<traffic>.json``, whose ``kind`` names the
   generator ``traffic/<kind>.py``;
 - each metric: ``metrics/<name>.py``, a module with ``read(reading)``.
 
-A later cell, mix, kind or metric is added by adding files and entries.
+A later cell, mix, kind, family or metric is added by adding files and entries.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ def _load_json(path: Path) -> dict:
 
 def _module(path: Path, name: str):
     if not path.is_file():
-        raise FileNotFoundError(f"no {path.relative_to(ROOT)}")
+        raise FileNotFoundError(f"no {path}")
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
@@ -59,6 +62,9 @@ class Cell:
             raise ValueError(f"bad traffic kind {kind!r}")
         return _module(self.root / "gpubench" / "traffic" / f"{kind}.py",
                        f"gpubench_traffic_{kind}")
+
+    def family(self):
+        return family(self.config["family"], self.root)
 
 
 def reporting(metrics: list, cell: str) -> list:
@@ -99,3 +105,12 @@ def metric_reader(name: str, root: Path = ROOT):
         raise ValueError(f"bad metric name {name!r}")
     return _module(root / "gpubench" / "metrics" / f"{name}.py",
                    "gpubench_metric_" + name.replace(".", "_").replace("-", "_")).read
+
+
+def family(name: str, root: Path = ROOT):
+    """families/<name>.py: ``program_config``, ``check_widths``,
+    ``make_weights`` and ``reference``."""
+    if not NAME.match(name):
+        raise ValueError(f"bad family name {name!r}")
+    return _module(root / "gpubench" / "families" / f"{name}.py",
+                   "gpubench_family_" + name.replace(".", "_").replace("-", "_"))

@@ -1,7 +1,8 @@
 """The comparison that decides ``correct`` for a served model.
 
 For each sampled request the reference runs its prompt and served tokens
-once (``model.served_logits``) and reads, at every served position, the
+once (the configuration's model family's ``reference(...).served_logits``:
+``families/<family>.py``) and reads, at every served position, the
 gap by which the served token's logit lies below the reference's best
 there (nought where the served token is the reference's pick). The number
 compared is the gap per near tie: the summed gap over the count of
@@ -12,7 +13,8 @@ size of the logit error. (The widest gap and the mean gap do not separate
 the bf16 program from its control across seeds: PERF.md.)
 
 The control takes the program's place: the same prompts and tokens
-through the reference at the precision below the configuration's, whose
+through the family's reference at the precision below the configuration's
+(``reference(..., bits=control_bits(cfg))``), whose
 first-ranked token at each position is read against the reference's
 logits the same way.
 """
@@ -22,9 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gpubench.reference import frontend, model
-from gpubench.reference.quant import quantize_tree
-from gpubench.reference.weights import QUANT_LEAVES, make_weights
+from gpubench.reference import frontend
 
 
 def prompt_ids(cfg: dict) -> tuple[list, list]:
@@ -45,24 +45,10 @@ def request_mel(cfg: dict, req: dict, device) -> torch.Tensor:
     return frontend.file_mel(audio, fe)
 
 
-def reference_weights(cfg: dict, seed: int, device, bits=None) -> dict:
-    """The configuration's weights from the seed, made in its dtype as the
-    program's were, read as float32. Its quantized leaves stand for their
-    codes; `bits` below 16 (the control) quantizes to that many bits every
-    leaf the int8 mode quantizes (``QUANT_LEAVES``)."""
-    dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg["dtype"]]
-    W = _to_f32(make_weights(cfg["model"], seed, device, dtype))
-    if bits is not None:
-        return quantize_tree(W, bits, QUANT_LEAVES)
-    if cfg["weight_bits"] < 16:
-        W = quantize_tree(W, cfg["weight_bits"], tuple(cfg["quantized_leaves"]))
-    return W
-
-
-def _to_f32(node):
-    if isinstance(node, dict):
-        return {k: _to_f32(v) for k, v in node.items()}
-    return node.float()
+def strict_float32() -> None:
+    """TF32 off: float32 products run in float32 on the card too."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def control_bits(cfg: dict) -> int:
@@ -88,30 +74,31 @@ def _calibration(gap: torch.Tensor, margin: torch.Tensor) -> dict:
 
 
 @torch.no_grad()
-def gaps(cfg: dict, seed: int, requests: list, device, control: bool = False) -> dict:
+def gaps(family, cfg: dict, seed: int, requests: list, device, control: bool = False) -> dict:
     """-> the gap per near tie of the served tokens against the reference
-    (``_per_tie``), with "tokens" and "requests"; with `control`, the
-    widest and mean gap too (``_calibration``), the control's readings
-    under "control" and every position's (margin, served gap, control gap)
-    under "positions"."""
-    model.strict_float32()
+    of model family `family` (``_per_tie``), with "tokens" and "requests";
+    with `control`, the widest and mean gap too (``_calibration``), the
+    control's readings under "control" and every position's (margin,
+    served gap, control gap) under "positions"."""
+    strict_float32()
     prefix, suffix = prompt_ids(cfg)
-    W = reference_weights(cfg, seed, device)
-    Wc = reference_weights(cfg, seed, device, control_bits(cfg)) if control else None
+    ref_model = family.reference(cfg, seed, device)
+    control_model = (family.reference(cfg, seed, device, bits=control_bits(cfg)) if control
+                     else None)
     gaps_, margins, gaps_c = [], [], []
     for req in requests:
         toks = [int(t) for t in req["tokens"]]
         if not toks:
             continue
         mel = request_mel(cfg, req, device)
-        ref = model.served_logits(W, cfg["model"], mel, prefix, suffix, toks)
+        ref = ref_model.served_logits(mel, prefix, suffix, toks)
         top2 = ref.topk(2, dim=1).values
         best = top2[:, 0]
         margins.append((top2[:, 0] - top2[:, 1]).cpu())
         served = ref.gather(1, torch.as_tensor(toks, device=ref.device)[:, None])[:, 0]
         gaps_.append((best - served).cpu())
-        if Wc is not None:
-            pick = model.served_logits(Wc, cfg["model"], mel, prefix, suffix, toks).argmax(dim=1)
+        if control_model is not None:
+            pick = control_model.served_logits(mel, prefix, suffix, toks).argmax(dim=1)
             gaps_c.append((best - ref.gather(1, pick[:, None])[:, 0]).cpu())
         del ref
     cat = lambda xs: torch.cat(xs) if xs else torch.zeros(0)  # noqa: E731

@@ -15,7 +15,7 @@ served position come out at once.
 - decoder: RMSNorm, GQA with a QKV bias and NeoX rotary on the first
   half of each head's dims, SwiGLU, tied embeddings.
 
-The caller sets TF32 off (``strict_float32``): float32 products then run
+The caller sets TF32 off (``check.strict_float32``): float32 products then run
 in float32 on the card too.
 """
 
@@ -25,11 +25,6 @@ import math
 
 import torch
 import torch.nn.functional as F
-
-
-def strict_float32() -> None:
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 def _f(t) -> torch.Tensor:
@@ -97,43 +92,55 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, dec: dict) -> torch.Tensor:
     return torch.cat([a * cos - b * sin, b * cos + a * sin, x[..., rot:]], dim=-1)
 
 
-def decoder_logits(W: dict, m: dict, embeds: torch.Tensor, at: torch.Tensor) -> torch.Tensor:
+def _decoder_layer(x: torch.Tensor, Li: dict, dec: dict, pos: torch.Tensor,
+                   mask: torch.Tensor) -> torch.Tensor:
+    S = x.shape[0]
+    nh, nkv, hd, eps = dec["n_heads"], dec["n_kv_heads"], dec["head_dim"], dec["rms_eps"]
+    h = _rms(x, Li["ln1_scale"], eps)
+    qkv = h @ _f(Li["qkv_w"]) + _f(Li["qkv_b"])
+    q = _rope(qkv[:, : nh * hd].view(S, nh, hd), pos, dec)
+    k = _rope(qkv[:, nh * hd : (nh + nkv) * hd].view(S, nkv, hd), pos, dec)
+    v = qkv[:, (nh + nkv) * hd :].view(S, nkv, hd)
+    k = k.repeat_interleave(nh // nkv, dim=1).transpose(0, 1)
+    v = v.repeat_interleave(nh // nkv, dim=1).transpose(0, 1)
+    att = q.transpose(0, 1) @ k.transpose(1, 2) / math.sqrt(hd) + mask
+    ctx = (torch.softmax(att, dim=-1) @ v).transpose(0, 1).reshape(S, nh * hd)
+    x = x + ctx @ _f(Li["o_w"])
+    h = _rms(x, Li["ln2_scale"], eps)
+    gate, up = (h @ _f(Li["gate_up_w"])).chunk(2, dim=-1)
+    return x + (F.silu(gate) * up) @ _f(Li["down_w"])
+
+
+def decoder_logits(W: dict, m: dict, embeds: torch.Tensor, at: torch.Tensor,
+                   layers=None) -> torch.Tensor:
     """embeds [S, D] -> float32 logits [len(at), V] at positions `at`,
-    each from a causal pass over positions 0..at."""
+    each from a causal pass over positions 0..at. `layers`: the decoder's
+    layers in order, one dict of unstacked leaves at a time (default: W's
+    stack), for a caller that makes each layer's leaves only when it runs."""
     dec = m["decoder"]
     p = W["decoder"]
-    L = p["layers"]
     S = embeds.shape[0]
-    nh, nkv, hd, eps = dec["n_heads"], dec["n_kv_heads"], dec["head_dim"], dec["rms_eps"]
     pos = torch.arange(S, device=embeds.device)
     mask = torch.full((S, S), float("-inf"), device=embeds.device).triu(1)
     x = embeds.float()
-    for i in range(dec["n_layers"]):
-        h = _rms(x, L["ln1_scale"][i], eps)
-        qkv = h @ _f(L["qkv_w"][i]) + _f(L["qkv_b"][i])
-        q = _rope(qkv[:, : nh * hd].view(S, nh, hd), pos, dec)
-        k = _rope(qkv[:, nh * hd : (nh + nkv) * hd].view(S, nkv, hd), pos, dec)
-        v = qkv[:, (nh + nkv) * hd :].view(S, nkv, hd)
-        k = k.repeat_interleave(nh // nkv, dim=1).transpose(0, 1)
-        v = v.repeat_interleave(nh // nkv, dim=1).transpose(0, 1)
-        att = q.transpose(0, 1) @ k.transpose(1, 2) / math.sqrt(hd) + mask
-        ctx = (torch.softmax(att, dim=-1) @ v).transpose(0, 1).reshape(S, nh * hd)
-        x = x + ctx @ _f(L["o_w"][i])
-        h = _rms(x, L["ln2_scale"][i], eps)
-        gate, up = (h @ _f(L["gate_up_w"][i])).chunk(2, dim=-1)
-        x = x + (F.silu(gate) * up) @ _f(L["down_w"][i])
-    h = _rms(x[at], p["ln_f_scale"], eps)
+    if layers is None:
+        layers = ({k: v[i] for k, v in p["layers"].items()} for i in range(dec["n_layers"]))
+    for Li in layers:
+        x = _decoder_layer(x, Li, dec, pos, mask)
+    h = _rms(x[at], p["ln_f_scale"], dec["rms_eps"])
     return h @ _f(p["embed"]).T
 
 
 def served_logits(W: dict, m: dict, mel: torch.Tensor, prefix: list, suffix: list,
-                  tokens: list) -> torch.Tensor:
+                  tokens: list, layers=None) -> torch.Tensor:
     """The logits [len(tokens), V] that chose each served token: the
-    prompt (prefix, audio tokens, suffix) and tokens[:-1] in one pass."""
+    prompt (prefix, audio tokens, suffix) and tokens[:-1] in one pass
+    (`layers` as in ``decoder_logits``)."""
     emb = _f(W["decoder"]["embed"])
     dev = emb.device
     audio = encode(W, m, mel)
     ids = lambda xs: torch.as_tensor(list(xs), dtype=torch.long, device=dev)  # noqa: E731
     embeds = torch.cat([emb[ids(prefix)], audio, emb[ids(suffix)], emb[ids(tokens[:-1])]])
     first = len(prefix) + audio.shape[0] + len(suffix) - 1
-    return decoder_logits(W, m, embeds, torch.arange(first, first + len(tokens), device=dev))
+    return decoder_logits(W, m, embeds, torch.arange(first, first + len(tokens), device=dev),
+                          layers)

@@ -22,31 +22,19 @@ import time
 
 import torch
 
-from gpubench.reference.weights import make_weights
-
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-def check_widths(cfg: dict, program_cfg) -> None:
-    """Raise unless the configuration's model widths are those of the
-    program's config object for the same spec."""
-    m = cfg["model"]
-    enc, dec = program_cfg.encoder, program_cfg.decoder
-    pairs = [(m["encoder"][k], getattr(enc, k)) for k in m["encoder"]]
-    pairs += [(m["decoder"][k], getattr(dec, k)) for k in m["decoder"]]
-    pairs += [(m[k], getattr(program_cfg, k)) for k in ("adapter_stack", "adapter_hidden")]
-    bad = [(a, b) for a, b in pairs if a != b]
-    if bad:
-        raise ValueError(f"configuration {cfg['name']} differs from the program's "
-                         f"{cfg['spec']}: {bad}")
 
 
 @contextlib.contextmanager
 def _weights_for_build(runtime_module, params):
-    """While building, the runtime's random-weight maker returns `params`."""
+    """While building, the runtime's random-weight maker returns `params`.
+    Raises if the build never asked for them (a spec that loads or draws
+    its weights another way would run on weights the reference never sees)."""
     original = runtime_module.init_random
+    asked = []
 
     def given(mcfg, seed=0, dtype=None, device=None):
+        asked.append(True)
         return params
 
     runtime_module.init_random = given
@@ -54,6 +42,8 @@ def _weights_for_build(runtime_module, params):
         yield
     finally:
         runtime_module.init_random = original
+    if not asked:
+        raise RuntimeError("the program's build did not take the benchmark's weights")
 
 
 def app_config(cfg: dict):
@@ -72,18 +62,16 @@ def app_config(cfg: dict):
     return conf
 
 
-def build(cfg: dict, seed: int, device) -> tuple:
-    """-> (engine, vad, conf, info): the runtime with the seed's weights,
-    warmed as the server warms it."""
-    from sonicscribe_tpu_torch.models import config as model_configs
+def build(cfg: dict, family, seed: int, device) -> tuple:
+    """-> (engine, vad, conf, info): the runtime with model family
+    `family`'s weights from the seed, warmed as the server warms it."""
     from sonicscribe_tpu_torch.serve import runtime
 
-    spec = cfg["spec"]
-    check_widths(cfg, getattr(model_configs, spec.split("-")[0])())
+    family.check_widths(cfg, family.program_config(cfg))
     conf = app_config(cfg)
-    params = make_weights(cfg["model"], seed, device, _DTYPES[cfg["dtype"]])
+    params = family.make_weights(cfg["model"], seed, device, _DTYPES[cfg["dtype"]])
     with _weights_for_build(runtime, params):
-        engine, vad, info = runtime.build_runtime(spec, cfg["serving"]["vad"], conf,
+        engine, vad, info = runtime.build_runtime(cfg["spec"], cfg["serving"]["vad"], conf,
                                                   device=device, seed=seed)
     del params
     t0 = time.perf_counter()

@@ -58,12 +58,14 @@ def test_names_units_and_keys():
 
 
 def test_configs_keep_the_programs_widths():
-    from sonicscribe_tpu_torch.models.config import nano
-
-    from gpubench import system
-
     for w in manifest.manifest()["workloads"]:
-        system.check_widths(manifest.cell(w["name"]).config, nano())
+        cfg = manifest.cell(w["name"]).config
+        family = manifest.family(cfg["family"])
+        family.check_widths(cfg, family.program_config(cfg))
+    cfg = manifest.cell("nano-bf16.files-novad").config
+    cfg["model"]["decoder"] = dict(cfg["model"]["decoder"], ffn_hidden=5505)
+    with pytest.raises(ValueError, match="differs"):
+        family.check_widths(cfg, family.program_config(cfg))
 
 
 def test_a_new_cell_mix_kind_and_metric_are_found_by_adding_files(tmp_path):
@@ -95,3 +97,8 @@ def test_a_new_cell_mix_kind_and_metric_are_found_by_adding_files(tmp_path):
     assert manifest.metric_reader("burst_p99_ms", root=tmp_path)(None) == 42.0
     with pytest.raises(KeyError):
         manifest.cell("nano-missing.bursts", root=tmp_path)
+    assert cell.family().__name__ == "gpubench_family_glm_asr"
+    with pytest.raises(FileNotFoundError):
+        manifest.family("missing_family", root=tmp_path)
+    with pytest.raises(ValueError):
+        manifest.family("../glm_asr", root=tmp_path)

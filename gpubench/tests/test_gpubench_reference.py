@@ -14,6 +14,8 @@ from gpubench.reference.weights import QUANT_LEAVES, make_weights
 from gpubench.tests.tiny import tiny_config
 from gpubench.traffic import synth
 
+GLM_ASR = manifest.family("glm_asr")
+
 
 def _port(cfg: dict, seed: int):
     from sonicscribe_tpu_torch.engine.transcriber import Transcriber
@@ -39,7 +41,7 @@ def test_reference_logits_and_tokens_equal_the_ports(seconds):
     toks = [int(t) for t in result.tokens]
     assert len(toks) >= 1
 
-    W = check.reference_weights(cfg, seed, "cpu")
+    W = GLM_ASR.reference_weights(cfg, seed, "cpu")
     prefix, suffix = check.prompt_ids(cfg)
     prompt = build_prompt(tr.tokenizer, tr.cfg)
     assert prefix == list(prompt.prefix_ids) and suffix == list(prompt.suffix_ids)
@@ -108,10 +110,10 @@ def test_the_control_reads_far_above_the_program():
         pcm = synth.to_pcm16(synth.speech_tape(np.random.default_rng(20 + i), seconds))
         toks = tr.transcribe(pcm.astype(np.float32) / 32768.0, 16000, max_new_tokens=48).tokens
         reqs.append({"path": "file", "pcm": pcm, "tokens": list(toks)})
-    int8 = check.gaps(cfg, seed, reqs, "cpu", control=True)
+    int8 = check.gaps(GLM_ASR, cfg, seed, reqs, "cpu", control=True)
     assert int8["gap_max"] == 0.0 and int8["tokens"] == 144
     assert int8["control"]["gap_max"] > 0.01
     cfg8 = dict(cfg, weight_bits=8, quantized_leaves=list(QUANT_LEAVES))
     assert check.control_bits(cfg8) == 4
-    int4 = check.gaps(cfg8, seed, reqs, "cpu", control=True)
+    int4 = check.gaps(GLM_ASR, cfg8, seed, reqs, "cpu", control=True)
     assert int4["control"]["gap_max"] > 10 * int8["control"]["gap_max"]

@@ -102,3 +102,22 @@ def test_the_trace_starts_and_stops_with_the_engine_thread_parked():
     pending[0].result(timeout=5)
     executor.shutdown()
     assert log == ["profiler", "tick"]
+
+
+GLUE = "decode glue (add+RMSNorm, QKV+RoPE+K/V write, SiLU·up)"
+
+
+@pytest.mark.parametrize("kernel,group", [
+    ("void add_rms_norm_kernel<__nv_bfloat16>(__nv_bfloat16 const*, __nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, __nv_bfloat16*, __nv_bfloat16*, int, float, float)", GLUE),
+    ("void qkv_rope_kv_write_kernel<float>(float const*, float const*, float*)", GLUE),
+    ("void silu_mul_kernel<__nv_bfloat16>(__nv_bfloat16 const*, __nv_bfloat16*, long long, int)",
+     GLUE),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::silu_kernel", "silu"),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::CUDAFunctor_add<float>",
+     "add/sub"),
+])
+def test_the_breakdown_names_the_decode_glue_kernels(kernel, group):
+    from gpubench.trace import op_group
+
+    assert op_group(kernel) == group

@@ -16,19 +16,19 @@ TINY_MODEL = {
 }
 
 
-def tiny_config(base: str = "nano-bf16") -> dict:
+def tiny_config(base: str = "nano-bf16", root=manifest.ROOT) -> dict:
     """A configuration file's dict at tiny() in float32 (the port's
     'tiny-random' spec serves mel buckets 128 and 256 only)."""
-    cfg = manifest._load_json(manifest.HERE / "configs" / f"{base}.json")
+    cfg = manifest._load_json(root / "gpubench" / "configs" / f"{base}.json")
     cfg.update(spec="tiny-random", dtype="float32", model=copy.deepcopy(TINY_MODEL))
     cfg["serving"]["app"].update(prefill_buckets=[128, 256], decode_slots=4)
     return cfg
 
 
-def tiny_cell(name: str) -> manifest.Cell:
+def tiny_cell(name: str, root=manifest.ROOT) -> manifest.Cell:
     """Cell `name` at tiny size, with a mix short enough for a test."""
-    cell = manifest.cell(name)
-    cell.config = tiny_config(cell.entry["config"])
+    cell = manifest.cell(name, root)
+    cell.config = tiny_config(cell.entry["config"], root)
     if cell.mix["kind"] == "files":
         cell.mix.update(clients=2, file_s=[4.0, 8.0], settle_s=2.0, tape_s=10.0,
                         start_stagger_s=1.0,

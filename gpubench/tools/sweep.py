@@ -36,7 +36,7 @@ def main(argv=None) -> None:
 
     run._cache_dirs()
     cell = manifest.cell(args.workload)
-    engine, vad, conf, info = system.build(cell.config, args.seed, "cuda:0")
+    engine, vad, conf, info = system.build(cell.config, cell.family(), args.seed, "cuda:0")
     kind = cell.traffic()
     try:
         for n in args.streams:

@@ -26,6 +26,8 @@ OP_GROUPS = (
     ("argmax", ("ArgMaxOps",)),
     ("reduction (RMSNorm mean)", ("MeanOps", "reduce_kernel")),
     ("rsqrt", ("rsqrt",)),
+    ("decode glue (add+RMSNorm, QKV+RoPE+K/V write, SiLU·up)",
+     ("add_rms_norm_kernel", "qkv_rope_kv_write_kernel", "silu_mul_kernel")),
     ("silu", ("silu",)),
     ("where", ("where_kernel",)),
     ("index_put/scatter (K/V write)", ("index_put", "scatter")),
